@@ -10,7 +10,10 @@ Phases, in order; any failure exits non-zero:
 3. kernels: each kernel against its plain version on the card at the
    shapes the serving path gives it (and a few edge cases), one JSON line
    per case with its time, the plain version's, the bound and
-   scaled_dot_product_attention's time as a yardstick;
+   scaled_dot_product_attention's time as a yardstick; then the three
+   training kernels (forward with stats, dQ, dK/dV) the same way at the
+   training step's shapes (batch 128) and edge cases, with attention
+   dropout on and off, o, m, l, dq, dk and dv checked in f32 and bf16;
 4. serving: the flagship classification model (CLIP-style ViT-B/32,
    PhoBERT-style text encoder, MCAN, dense top-2 MoE, 1,000 answers) with
    seeded random weights behind VQAPredictor, answering batches of 8
@@ -19,7 +22,17 @@ Phases, in order; any failure exits non-zero:
    checked against the same weights on the CPU (the plain path); then
    one batch's forward eager, as one CUDA graph, and under torch.profiler
    (the device's busy time and idle share);
-5. the card line (nvidia-smi's name and power limit), the kernels line,
+5. training: the same model with bench.py's synthetic batch of 128,
+   loss and optimizer (cross-entropy + 0.01 x router aux loss, AdamW with
+   warmup-cosine, decay mask and global-norm clipping), dropout on; a few
+   warm-up steps, then timed steps (step ms, QA-pairs/s, loss and
+   grad_norm per step, peak memory); every attention call must go through
+   the three training kernels (36 launches of each per step, none of the
+   inference forward); one step under torch.profiler; then two steps of
+   the same weights at dropout 0 on a ragged batch of 4, on the card and
+   on the CPU (the plain versions), whose losses, grad norms and updated
+   parameters must agree;
+6. the card line (nvidia-smi's name and power limit), the kernels line,
    and the device line, which is the last line.
 
 The script imports nothing of JAX or of the JAX package. Without a CUDA
@@ -50,13 +63,21 @@ from vivqa_tpu_torch.models.config import (FusionConfig, MoEModelConfig,
 from vivqa_tpu_torch.models.vqa_model import create_vqa_model
 from vivqa_tpu_torch.ops import cuda_build
 from vivqa_tpu_torch.ops import flash_attention as fa
+from vivqa_tpu_torch.train.optimizers import (OptimizerConfig,
+                                              SchedulerConfig,
+                                              create_optimizer)
+from vivqa_tpu_torch.train.state import (TrainState, classification_loss_fn,
+                                         make_train_step)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense), at a 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
               torch.float32: 67e12}
 
-KERNEL_SOURCES = ("flash_attn_fwd",)
+KERNEL_SOURCES = ("flash_attn_fwd", "flash_attn_bwd_dq",
+                  "flash_attn_bwd_dkv")
+TRAIN_KERNELS = ("flash_attn_fwd_lse", "flash_attn_bwd_dq",
+                 "flash_attn_bwd_dkv")
 
 # kernel vs plain version on the same inputs. bf16: the plain version
 # rounds the probabilities to bf16 before P.V (as _xla_attention does),
@@ -81,6 +102,35 @@ ATTN_CASES = [
 ]
 
 ATTN_CALLS_PER_FORWARD = sum(c[-1] for c in ATTN_CASES)    # 36
+
+# The training kernels against their plain versions (the backward ones fed
+# the kernel forward's o, m, l). o, dq, dk and dv are held relative to
+# each tensor's largest value (at least 1): dropout scales o by 1/0.9 and
+# a row with few keys reaches |o| ~ 4, where a bf16 ulp is 2**-6; o as
+# ATTN_TOL, the gradients as GRAD_TOL (f32 differs by summation order
+# only; in bf16 both round their outputs once to bf16, 2**-8 relative).
+# m and l are f32 in both (1e-5, elementwise relative).
+STAT_TOL = 1e-5
+GRAD_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+TRAIN_BATCH = 128                     # bench.py's batch per chip
+DROPOUT = 0.1                 # text and MCAN (models/config.py:81,97)
+
+# (name, B, H, Lq, Lk, D, mask kind, causal, calls per flagship step, the
+# dropout rate those calls use); every case runs with dropout 0 and 0.1
+TRAIN_CASES = [
+    ("vit_self", 128, 12, 50, 50, 64, None, False, 12, 0.0),
+    ("text_self", 128, 12, 64, 64, 64, "query_key", False, 12, DROPOUT),
+    ("mcan_enc_self", 128, 8, 64, 64, 64, "query_key", False, 4, DROPOUT),
+    ("mcan_dec_self", 128, 8, 49, 49, 64, None, False, 4, DROPOUT),
+    ("mcan_cross", 128, 8, 49, 64, 64, "key", False, 4, DROPOUT),
+    ("causal_lq_eq_lk", 8, 8, 64, 64, 64, None, True, 0, None),
+    ("causal_lq_lt_lk", 8, 8, 24, 64, 64, None, True, 0, None),
+    ("causal_lq_gt_lk", 8, 8, 96, 24, 64, None, True, 0, None),
+    ("gen_fusion_113", 8, 8, 113, 113, 64, "key", False, 0, None),
+    ("long_1024", 2, 8, 1024, 1024, 64, None, False, 0, None),
+    ("head_dim_128", 8, 4, 64, 64, 128, "query_key", False, 0, None),
+]
+ATTN_CALLS_PER_STEP = sum(c[8] for c in TRAIN_CASES)        # 36
 
 
 def flagship_config() -> VQAModelConfig:
@@ -146,6 +196,36 @@ def device_ms(fn, calls: int = 20, replays: int = 20) -> float:
     graph.replay()
     torch.cuda.synchronize()
     return _events_ms(graph.replay, replays) / calls
+
+
+def profiled_ms(fn, calls: int = 10) -> float:
+    """Device time per call of ``fn``: the sum of the durations of the
+    kernels it launches, under torch.profiler, over ``calls`` calls (for
+    calls whose host side, as autograd's, would set an eager rate)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(t for _, t in device_kernels(prof).values()) / 1e3 / calls
+
+
+def device_kernels(prof) -> dict:
+    """{kernel name: [launches, device us]} of a torch.profiler run. User
+    annotations that the profiler also places on the device's timeline
+    (such as ``Optimizer.step#AdamW.step``) span kernels counted already
+    and are left out."""
+    kernels: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and not e.is_user_annotation:
+            k = kernels.setdefault(e.name, [0, 0.0])
+            k[0] += 1
+            k[1] += e.time_range.elapsed_us()
+    return kernels
 
 
 # -- phase 2: build ----------------------------------------------------------
@@ -248,6 +328,168 @@ def kernel_phase() -> dict:
         emit({"attention_case": row})
         rows[name] = row
     return rows
+
+
+# -- phase 3, training kernels ----------------------------------------------
+def train_attention_work(q, k, mask, causal) -> dict:
+    """Bytes (each input read once, each output written once) and flops of
+    each training kernel, for the (query, key) pairs the softmax takes (a
+    row with no allowed key takes all Lk): the forward reads q, k, v,
+    writes o, m, l, 4*D flops per pair; dQ reads q, k, v, o, dO, m, l,
+    writes dq and delta, 6*D per pair (s, dP, dQ) and 2*D per row for
+    delta; dK/dV reads q, k, v, dO, m, l, delta, writes dk, dv, 8*D per
+    pair (s, dP, dV, dK). The mask, where there is one, is read once."""
+    B, H, Lq, D = q.shape
+    nbytes, flops = attention_work(q, k, mask, causal)
+    pairs = flops // (4 * D)
+    e, nq, nk = q.element_size(), q.numel(), k.numel()
+    stats = B * H * Lq * 4
+    mask_b = 0 if mask is None else B * Lq * k.shape[2]
+    return {"flash_attn_fwd_lse": (nbytes + 2 * stats, 4 * D * pairs),
+            "flash_attn_bwd_dq": ((4 * nq + 2 * nk) * e + 3 * stats + mask_b,
+                                  6 * D * pairs + 2 * D * B * H * Lq),
+            "flash_attn_bwd_dkv": ((2 * nq + 4 * nk) * e + 3 * stats + mask_b,
+                                   8 * D * pairs)}
+
+
+def _grad_err(got, want) -> float:
+    """max |got - want| relative to want's largest value (at least 1)."""
+    want = want.float()
+    return float((got.float() - want).abs().max()) / max(
+        1.0, float(want.abs().max()))
+
+
+def _stat_err(got, want) -> float:
+    """max |got - want| / (1 + |want|), elementwise (m is -1e30 on fully
+    masked rows in both)."""
+    return float(((got - want).abs() / (1 + want.abs())).max())
+
+
+def train_kernels_once(q, k, v, do, mask, causal, rate, key):
+    o, m, l = fa.flash_attention_fwd_lse_cuda(q, k, v, mask, causal, rate,
+                                              key)
+    dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, o, m, l, do, mask,
+                                               causal, rate, key)
+    dk, dv = fa.flash_attention_bwd_dkv_cuda(q, k, v, m, l, do, delta, mask,
+                                             causal, rate, key)
+    return o, m, l, dq, dk, dv
+
+
+def check_train_kernels(q, k, v, do, mask, causal, rate, key) -> dict:
+    """Each training kernel against its plain version on the same inputs;
+    the backward ones get the kernel forward's o, m and l."""
+    dtype = q.dtype
+    o, m, l, dq, dk, dv = train_kernels_once(q, k, v, do, mask, causal,
+                                             rate, key)
+    o_r, m_r, l_r = fa.attention_forward_lse_reference(q, k, v, mask, causal,
+                                                       rate, key)
+    dq_r, delta_r = fa.attention_bwd_dq_reference(q, k, v, o, m, l, do, mask,
+                                                  causal, rate, key)
+    dk_r, dv_r = fa.attention_bwd_dkv_reference(q, k, v, m, l, do, delta_r,
+                                                mask, causal, rate, key)
+    torch.cuda.synchronize()
+    errs = {"o": _grad_err(o, o_r),
+            "m": _stat_err(m, m_r), "l": _stat_err(l, l_r),
+            "dq": _grad_err(dq, dq_r), "dk": _grad_err(dk, dk_r),
+            "dv": _grad_err(dv, dv_r)}
+    tols = {"o": ATTN_TOL[dtype], "m": STAT_TOL, "l": STAT_TOL,
+            "dq": GRAD_TOL[dtype], "dk": GRAD_TOL[dtype],
+            "dv": GRAD_TOL[dtype]}
+    for name, err in errs.items():
+        if not math.isfinite(err) or err > tols[name]:
+            raise AssertionError(f"{name} ({dtype}, dropout {rate}): kernel "
+                                 f"vs plain error {err} > {tols[name]}")
+    return errs
+
+
+def train_kernel_phase() -> dict:
+    """Rows keyed (case, dropout rate)."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = {}
+    for name, B, H, Lq, Lk, D, kind, causal, calls, path_rate in TRAIN_CASES:
+        for rate in (0.0, DROPOUT):
+            key = fa.dropout_key(2026, len(rows))
+            errs = {}
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v, mask = attention_inputs(B, H, Lq, Lk, D, kind,
+                                                 dtype, gen)
+                do = torch.randn(q.shape, generator=gen,
+                                 device="cuda").to(dtype)
+                errs[dtype] = check_train_kernels(q, k, v, do, mask, causal,
+                                                  rate, key)
+            row = {"case": name, "B": B, "H": H, "Lq": Lq, "Lk": Lk, "D": D,
+                   "mask": kind, "causal": causal, "dropout": rate,
+                   "calls_per_step": calls if rate == path_rate else 0,
+                   "max_err_bf16": errs[torch.bfloat16],
+                   "max_err_f32": errs[torch.float32],
+                   "tol": {"o_rel_bf16": ATTN_TOL[torch.bfloat16],
+                           "o_rel_f32": ATTN_TOL[torch.float32],
+                           "m_l_rel": STAT_TOL,
+                           "grad_rel_bf16": GRAD_TOL[torch.bfloat16],
+                           "grad_rel_f32": GRAD_TOL[torch.float32]},
+                   **time_train_kernels(q, k, v, do, mask, causal, rate, key)}
+            emit({"training_attention_case": row})
+            rows[(name, rate)] = row
+    return rows
+
+
+def time_train_kernels(q, k, v, do, mask, causal, rate, key) -> dict:
+    """At bf16, the main path's dtype: each kernel's device time (CUDA
+    graph of 20 calls, CUDA events), its plain version's (the same), the
+    bound, and scaled_dot_product_attention through autograd as the
+    yardstick, by its kernels' device time (``profiled_ms``): its forward
+    for the forward kernel, and its backward, which computes dq, dk and dv
+    in one call, for both backward kernels (the same number in both: it
+    is not to be added)."""
+    o, m, l = fa.flash_attention_fwd_lse_cuda(q, k, v, mask, causal, rate,
+                                              key)
+    _, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, o, m, l, do, mask,
+                                              causal, rate, key)
+    kernels = {
+        "flash_attn_fwd_lse": lambda: fa.flash_attention_fwd_lse_cuda(
+            q, k, v, mask, causal, rate, key),
+        "flash_attn_bwd_dq": lambda: fa.flash_attention_bwd_dq_cuda(
+            q, k, v, o, m, l, do, mask, causal, rate, key),
+        "flash_attn_bwd_dkv": lambda: fa.flash_attention_bwd_dkv_cuda(
+            q, k, v, m, l, do, delta, mask, causal, rate, key)}
+    plains = {
+        "flash_attn_fwd_lse": lambda: fa.attention_forward_lse_reference(
+            q, k, v, mask, causal, rate, key),
+        "flash_attn_bwd_dq": lambda: fa.attention_bwd_dq_reference(
+            q, k, v, o, m, l, do, mask, causal, rate, key),
+        "flash_attn_bwd_dkv": lambda: fa.attention_bwd_dkv_reference(
+            q, k, v, m, l, do, delta, mask, causal, rate, key)}
+    Lq, Lk = q.shape[2], k.shape[2]
+    sdpa_mask = mask
+    if causal:
+        tri = torch.ones(Lq, Lk, dtype=torch.bool, device="cuda").tril(Lk - Lq)
+        sdpa_mask = tri if mask is None else mask & tri
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qg, kg, vg, attn_mask=sdpa_mask,
+                                              dropout_p=rate)
+    lib_fwd = profiled_ms(sdpa)
+    lib_fwd_bwd = profiled_ms(
+        lambda: torch.autograd.grad(sdpa(), (qg, kg, vg), do))
+    library = {"flash_attn_fwd_lse": lib_fwd,
+               "flash_attn_bwd_dq": lib_fwd_bwd - lib_fwd,
+               "flash_attn_bwd_dkv": lib_fwd_bwd - lib_fwd}
+    work = train_attention_work(q, k, mask, causal)
+    times = {}
+    for name in TRAIN_KERNELS:
+        nbytes, flops = work[name]
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_flops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+        times[name] = {
+            "kernel_ms": device_ms(kernels[name]),
+            "plain_ms": device_ms(plains[name]),
+            "library_ms": library[name],
+            "bytes": nbytes, "flops": flops,
+            "bound_ms": max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
+    times["library_fwd_bwd_ms"] = lib_fwd_bwd
+    return times
 
 
 # -- phase 4: serving --------------------------------------------------------
@@ -393,12 +635,7 @@ def profile_phase(model, args, forwards: int = 3) -> dict:
             for _ in range(forwards):
                 forward()
             torch.cuda.synchronize()
-    kernels: dict = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            k = kernels.setdefault(e.name, [0, 0.0])
-            k[0] += 1
-            k[1] += e.time_range.elapsed_us()
+    kernels = device_kernels(prof)
     busy = sum(t for _, t in kernels.values()) / 1e3 / forwards
     attn = sum(t for n, (_, t) in kernels.items()
                if "flash_attn_fwd" in n) / 1e3 / forwards
@@ -414,10 +651,244 @@ def profile_phase(model, args, forwards: int = 3) -> dict:
                          "ms": t / 1e3 / forwards} for n, (c, t) in top]}
 
 
-def kernels_line(rows: dict, launches: int) -> dict:
-    """One entry per kernel. Its numbers are for one flagship forward at
-    batch 8: the 36 calls of the five serving shapes, each shape's time
-    times its calls per forward."""
+# -- phase 5: training ------------------------------------------------------
+def synthetic_batch(cfg: VQAModelConfig, batch: int, device) -> dict:
+    """bench.py:75-83: pixels uniform in [0, 1) (numpy seed 0), token ids
+    (seed 1), an all-ones attention mask, answer labels (seed 2)."""
+    S, L = cfg.visual.image_size, cfg.text.max_length
+    data = {
+        "pixel_values": np.random.RandomState(0).rand(batch, S, S, 3).astype(
+            np.float32),
+        "input_ids": np.random.RandomState(1).randint(
+            0, cfg.text.vocab_size - 1, (batch, L)),
+        "attention_mask": np.ones((batch, L), np.int64),
+        "labels": np.random.RandomState(2).randint(0, cfg.num_answers,
+                                                   (batch,))}
+    return {n: torch.from_numpy(a).to(device) for n, a in data.items()}
+
+
+def bench_optimizer(model, warmup_steps: int = 100):
+    """bench.py:89-96: AdamW at lr 1e-4, weight decay 0.01 under the
+    no-decay mask, global-norm clipping at 1.0, warmup-cosine over
+    10,000 steps."""
+    return create_optimizer(
+        OptimizerConfig(learning_rate=1e-4), model,
+        SchedulerConfig(name="warmup_cosine", warmup_steps=warmup_steps,
+                        total_steps=10000))
+
+
+def training_phase(cfg: VQAModelConfig, device: str = "cuda",
+                   steps: int = 10, warmup: int = 3,
+                   batch: int = TRAIN_BATCH, seed: int = 0) -> dict:
+    """``steps`` timed train steps on ``device`` after ``warmup``; every
+    step ends in a synchronize, so step_ms is what a training loop that
+    reads its loss pays. (On the CPU, a rehearsal at a tiny size: no
+    events, launches or profile.)"""
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t0 = time.perf_counter()
+    model = create_vqa_model(cfg, device=device,
+                             generator=torch.Generator().manual_seed(seed))
+    state = TrainState.create(model, bench_optimizer(model), seed=seed)
+    train_step = make_train_step(classification_loss_fn())
+    data = synthetic_batch(cfg, batch, device)
+    sync()
+    setup_s = time.perf_counter() - t0
+    for _ in range(warmup):
+        train_step(state, data)
+    sync()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    host_ms, event_ms, metrics = [], [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        if on_card:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        metrics.append(train_step(state, data)[1])
+        if on_card:
+            end.record()
+        sync()
+        host_ms.append((time.perf_counter() - t) * 1e3)
+        if on_card:
+            event_ms.append(start.elapsed_time(end))
+    launches = dict(fa.launch_counts)
+    calls = ATTN_CALLS_PER_STEP * steps if on_card else 0
+    want = {name: calls for name in TRAIN_KERNELS}
+    want["flash_attn_fwd"] = 0
+    if launches != want:
+        raise AssertionError(f"training launches {launches} != {want}")
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"non-finite loss {losses} or grad_norm {norms}")
+    step_ms = float(np.median(host_ms))
+    return {"params": sum(p.numel() for p in model.parameters()),
+            "batch": batch, "steps": steps, "warmup_steps": warmup,
+            "setup_s": setup_s, "step_ms": host_ms, "step_event_ms": event_ms,
+            "median_step_ms": step_ms,
+            "qa_pairs_per_s": batch * 1e3 / step_ms,
+            "loss": losses, "grad_norm": norms,
+            "max_memory_allocated_gib":
+                torch.cuda.max_memory_allocated() / 2 ** 30 if on_card
+                else None,
+            "launches": launches,
+            "launches_per_step": {n: launches[n] / steps
+                                  for n in TRAIN_KERNELS},
+            "profile": train_profile(state, train_step, data, step_ms)
+            if on_card else None}
+
+
+def train_profile(state, train_step, data, step_ms: float) -> dict:
+    """One train step under torch.profiler: the kernels' device time, so
+    the device's idle share of the eager step, and each attention
+    kernel's device ms."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        train_step(state, data)
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    busy = sum(t for _, t in kernels.values()) / 1e3
+    attention = {name: sum(t for n, (_, t) in kernels.items()
+                           if f"{name}_kernel" in n) / 1e3
+                 for name in ("flash_attn_fwd", "flash_attn_bwd_dq",
+                              "flash_attn_bwd_dkv")}
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:10]
+    return {"device_busy_ms": busy if kernels else None,
+            "device_idle_share": 1 - busy / step_ms if kernels else None,
+            "attention_device_ms": attention,
+            "kernels_per_step": sum(c for c, _ in kernels.values()),
+            "top_kernels": [{"name": n[:90], "calls": c, "ms": t / 1e3}
+                            for n, (c, t) in top]}
+
+
+def train_check(cfg: VQAModelConfig, device: str = "cuda", steps: int = 2,
+                seed: int = 0) -> dict:
+    """The same weights, dropout 0, on the card and on the CPU (the plain
+    versions): ``steps`` train steps on a batch of 4 with questions of
+    64, 40, 17 and 5 tokens, so padded query rows are fully masked and
+    their backward runs. bench.py's optimizer with a one-step warmup, so
+    the second step moves the weights at lr 1e-4.
+
+    Tolerances: the trunk is bf16 on both and rounds at other points, so
+    the loss and grad_norm of each step agree to 2% and 5%. An Adam step
+    moves each weight by about lr whatever the gradient's size, and a
+    gradient at bf16 noise may flip sign, so elementwise the updates
+    agree only to 3 lr; over all weights the two updates must point the
+    same way (cosine >= 0.9)."""
+    cfg0 = cfg.replace(text=cfg.text.replace(dropout=0.0),
+                       fusion=cfg.fusion.replace(dropout=0.0),
+                       head=cfg.head.replace(dropout=0.0))
+    S, L = cfg.visual.image_size, cfg.text.max_length
+    rs = np.random.RandomState(seed + 7)
+    lengths = np.array([L, 40, 17, 5])
+    mask = (np.arange(L)[None] < lengths[:, None]).astype(np.int64)
+    data = {"pixel_values": rs.rand(4, S, S, 3).astype(np.float32),
+            "input_ids": rs.randint(4, cfg.text.vocab_size - 1, (4, L)) * mask,
+            "attention_mask": mask,
+            "labels": rs.randint(0, cfg.num_answers, (4,))}
+    runs, before = {}, None
+    for dev in ("cpu", device):
+        t0 = time.perf_counter()
+        model = create_vqa_model(cfg0, device=dev,
+                                 generator=torch.Generator().manual_seed(seed))
+        model.moe.dropout = 0.0
+        if before is None:
+            before = {n: p.detach().clone() for n, p in
+                      model.named_parameters()}
+        state = TrainState.create(model, bench_optimizer(model, 1), seed=seed)
+        train_step = make_train_step(classification_loss_fn())
+        batch = {n: torch.from_numpy(a).to(dev) for n, a in data.items()}
+        fa.reset_launch_counts()
+        metrics = [train_step(state, batch)[1] for _ in range(steps)]
+        runs[dev] = {"loss": [float(m["loss"]) for m in metrics],
+                     "grad_norm": [float(m["grad_norm"]) for m in metrics],
+                     "launches": dict(fa.launch_counts),
+                     "seconds": time.perf_counter() - t0,
+                     "update": {n: p.detach().cpu() - before[n]
+                                for n, p in model.named_parameters()}}
+    cpu, card = runs["cpu"], runs[device]
+    lr_sum = sum(state.schedule(i) for i in range(steps))
+    dot = sum(float((card["update"][n] * u).sum())
+              for n, u in cpu["update"].items())
+    n_cpu = math.sqrt(sum(float(u.square().sum())
+                          for u in cpu["update"].values()))
+    n_card = math.sqrt(sum(float(u.square().sum())
+                           for u in card["update"].values()))
+    max_diff = max(float((card["update"][n] - u).abs().max())
+                   for n, u in cpu["update"].items())
+    out = {"batch": 4, "question_lengths": lengths.tolist(), "steps": steps,
+           "loss_cpu": cpu["loss"], "loss_card": card["loss"],
+           "grad_norm_cpu": cpu["grad_norm"],
+           "grad_norm_card": card["grad_norm"],
+           "update_cosine": dot / max(n_cpu * n_card, 1e-30),
+           "update_norm_cpu": n_cpu, "update_norm_card": n_card,
+           "max_abs_param_diff": max_diff, "lr_sum": lr_sum,
+           "card_launches": card["launches"],
+           "cpu_seconds": cpu["seconds"], "card_seconds": card["seconds"],
+           "tolerance": {"loss_rel": 2e-2, "grad_norm_rel": 5e-2,
+                         "param_abs": 3 * lr_sum, "update_cosine_min": 0.9}}
+    rel = lambda a, b: max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    per_step = ATTN_CALLS_PER_STEP * steps if device == "cuda" else 0
+    if (rel(card["loss"], cpu["loss"]) > 2e-2
+            or rel(card["grad_norm"], cpu["grad_norm"]) > 5e-2
+            or max_diff > 3 * lr_sum or out["update_cosine"] < 0.9
+            or any(card["launches"][n] != per_step for n in TRAIN_KERNELS)
+            or any(cpu["launches"].values())):
+        raise AssertionError(f"card vs CPU training disagree: {out}")
+    return out
+
+
+def kernels_line(rows: dict, launches: int, train_rows: dict,
+                 train_launches: dict) -> dict:
+    """One entry per kernel. The forward's numbers are for one flagship
+    forward at batch 8 (its 36 calls of the five serving shapes, each
+    shape's time times its calls); the training kernels' for one flagship
+    train step at batch 128 (36 calls each, at the dropout each call
+    uses)."""
+    entries = [forward_entry(rows, launches)]
+    main = [r for r in train_rows.values() if r["calls_per_step"]]
+    replaces = {
+        "flash_attn_fwd_lse": ("flash_attn_fwd.cu", ":142 (_flash_kernel_lse, "
+                               "pallas_call at :206)"),
+        "flash_attn_bwd_dq": ("flash_attn_bwd_dq.cu", ":285 "
+                              "(_flash_bwd_dq_kernel, pallas_call at :377)"),
+        "flash_attn_bwd_dkv": ("flash_attn_bwd_dkv.cu", ":230 "
+                               "(_flash_bwd_dkv_kernel, pallas_call at "
+                               ":351)")}
+    err_keys = {"flash_attn_fwd_lse": ("o", "m", "l"),
+                "flash_attn_bwd_dq": ("dq",),
+                "flash_attn_bwd_dkv": ("dk", "dv")}
+    for name in TRAIN_KERNELS:
+        def total(key):
+            return sum(r[name][key] * r["calls_per_step"] for r in main)
+        t_bytes = sum(r[name]["bytes"] * r["calls_per_step"] for r in main) \
+            / HBM_BYTES_PER_S * 1e3
+        t_flops = sum(r[name]["flops"] * r["calls_per_step"] for r in main) \
+            / PEAK_FLOPS[torch.bfloat16] * 1e3
+        source, where = replaces[name]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"vivqa_tpu_torch/csrc/{source}",
+            "replaces": f"vivqa_tpu/ops/flash_attention.py{where}",
+            "launches": train_launches[name],
+            "max_abs_err": max(r["max_err_bf16"][k] for r in main
+                               for k in err_keys[name]),
+            "ms": total("kernel_ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+            "library_ms": total("library_ms"),
+            "per": f"one flagship train step at batch {TRAIN_BATCH} "
+                   f"({ATTN_CALLS_PER_STEP} calls), bf16; max_abs_err is "
+                   f"relative to each tensor's largest value for dq/dk/dv "
+                   f"and m/l"})
+    return {"kernels": entries}
+
+
+def forward_entry(rows: dict, launches: int) -> dict:
     main = [r for r in rows.values() if r["calls_per_forward"]]
 
     def total(key):
@@ -426,7 +897,7 @@ def kernels_line(rows: dict, launches: int) -> dict:
         / HBM_BYTES_PER_S * 1e3
     t_flops = sum(r["flops"] * r["calls_per_forward"] for r in main) \
         / PEAK_FLOPS[torch.bfloat16] * 1e3
-    return {"kernels": [{
+    return {
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "vivqa_tpu_torch/csrc/flash_attn_fwd.cu",
         "replaces": "vivqa_tpu/ops/flash_attention.py:61 (_flash_kernel, "
@@ -438,7 +909,7 @@ def kernels_line(rows: dict, launches: int) -> dict:
         "bound_by": "bytes" if t_bytes >= t_flops else "operations",
         "library_ms": total("library_ms"),
         "per": f"one flagship forward at batch 8 "
-               f"({ATTN_CALLS_PER_FORWARD} calls), bf16"}]}
+               f"({ATTN_CALLS_PER_FORWARD} calls), bf16"}
 
 
 def main() -> int:
@@ -455,14 +926,27 @@ def main() -> int:
 
     build_phase()
     rows = kernel_phase()
-    serving = serving_phase(flagship_config(), "cuda")
+    train_rows = train_kernel_phase()
+    print(f"[kernels] {time.perf_counter() - t_start:.1f} s", flush=True)
+    cfg = flagship_config()
+    serving = serving_phase(cfg, "cuda")
     emit({"serving": serving, "card": card})
     print(f"[serving] {serving['batches']} batches of {serving['batch']}: "
           f"{serving['mean_batch_latency_ms']:.2f} ms per batch, "
-          f"{serving['answers_per_s']:.1f} answers/s on {card}")
+          f"{serving['answers_per_s']:.1f} answers/s on {card}", flush=True)
+    training = training_phase(cfg)
+    emit({"training": training, "card": card})
+    print(f"[training] batch {training['batch']}: median step "
+          f"{training['median_step_ms']:.1f} ms, "
+          f"{training['qa_pairs_per_s']:.1f} QA-pairs/s, peak "
+          f"{training['max_memory_allocated_gib']:.1f} GiB on {card}",
+          flush=True)
+    check = train_check(cfg)
+    emit({"train_check": check})
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
-    emit(kernels_line(rows, serving["launches"]["flash_attn_fwd"]))
+    emit(kernels_line(rows, serving["launches"]["flash_attn_fwd"],
+                      train_rows, training["launches"]))
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -142,3 +142,180 @@ def test_model_on_card_matches_cpu():
     assert fa.launch_counts["flash_attn_fwd"] == 2 + 2 + 2 + 2 * 2
     assert_close_bf16(got["logits"].cpu(), want["logits"], msg="logits")
     assert abs(float(got["aux_loss"]) - float(want["aux_loss"])) < 2e-3
+
+
+# -- the training kernels: forward with stats, dQ, dK/dV ---------------------
+# Kernel vs plain version on the same inputs (the backward kernels get the
+# kernel forward's o, m and l). Gradients are held relative to each
+# tensor's largest value: f32 differs by summation order only (1e-4); in
+# bf16 both round their outputs once to bf16 (2**-8 relative), so 1e-2.
+# m and l are f32 in both (1e-5 relative).
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+TRAIN_CASES = CASES + [
+    (3, 2, 96, 24, 64, None, True),         # a whole 32-row tile with no key
+    (1, 2, 300, 1024, 64, "key", False),
+]
+
+
+def _assert_rel(got, want, tol, what):
+    scale = max(1.0, float(want.float().abs().max()))
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol * scale, f"{what}: max |err| {err} > {tol} * {scale}"
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["no_dropout", "dropout"])
+@pytest.mark.parametrize("case", TRAIN_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_training_kernels_match_plain_versions(case, dtype, rate):
+    _need_card()
+    *shape, kind, causal = case
+    q, k, v, mask = _inputs(*shape, kind, dtype)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(9)
+                     ).to("cuda", dtype)
+    key = fa.dropout_key(1234, 5)
+    before = dict(fa.launch_counts)
+    o, m, l = fa.flash_attention_fwd_lse_cuda(q, k, v, mask, causal, rate, key)
+    grads = fa.flash_attention_bwd_cuda(q, k, v, o, m, l, do, mask, causal,
+                                        rate, key)
+    for name in ("flash_attn_fwd_lse", "flash_attn_bwd_dq",
+                 "flash_attn_bwd_dkv"):
+        assert fa.launch_counts[name] == before[name] + 1
+    o_ref, m_ref, l_ref = fa.attention_forward_lse_reference(
+        q, k, v, mask, causal, rate, key)
+    want = fa.attention_backward_reference(q, k, v, o, m, l, do, mask,
+                                           causal, rate, key)
+    torch.cuda.synchronize()
+    _assert_rel(o, o_ref, TOL[dtype], "o")      # dropout scales o up
+    torch.testing.assert_close(m, m_ref, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(l, l_ref, atol=1e-5, rtol=1e-5)
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, want):
+        assert got.dtype == dtype and got.shape == ref.shape
+        assert torch.isfinite(got).all(), name
+        _assert_rel(got, ref, GRAD_TOL[dtype], name)
+
+
+def test_dropout_mask_bit_equal_to_plain_version():
+    """q = k = 0 makes p = 1/Lk; v = the identity over the first Lk
+    columns then gives o[q, j] = p z(q, j): nonzero exactly where the
+    kernel kept key j. Every batch row and head gets the same mask."""
+    _need_card()
+    B, H, Lq, Lk, D, rate = 2, 3, 50, 64, 64, 0.3
+    q = torch.zeros(B, H, Lq, D, device="cuda")
+    v = torch.eye(Lk, D, device="cuda").expand(B, H, Lk, D).contiguous()
+    key = fa.dropout_key(99, 7)
+    o, _, _ = fa.flash_attention_fwd_lse_cuda(q, torch.zeros_like(v), v,
+                                              dropout_rate=rate,
+                                              dropout_key=key)
+    want = fa.dropout_keep_mask(Lq, Lk, rate, key, "cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(o[..., :Lk] > 0, want.expand(B, H, Lq, Lk))
+    torch.testing.assert_close(
+        o[..., :Lk], (want.float() / (Lk * (1 - rate))).expand(B, H, Lq, Lk))
+
+
+def test_training_kernels_reject_what_they_do_not_take():
+    _need_card()
+    q = torch.randn(1, 1, 4, 32, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_fwd_lse_cuda(q, q, q)
+    q64 = torch.randn(1, 1, 4, 64, device="cuda", dtype=torch.float64)
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_attention_fwd_lse_cuda(q64, q64, q64)
+    qc = torch.randn(1, 1, 4, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_fwd_lse_cuda(qc, qc, qc)
+    q = torch.randn(1, 1, 4, 64, device="cuda")
+    o, m, l = fa.flash_attention_fwd_lse_cuda(q, q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_bwd_cuda(q, q, q, o, m, l, torch.zeros(1, 1, 4, 64))
+    with pytest.raises(ValueError, match="m must be"):
+        fa.flash_attention_bwd_cuda(q, q, q, o, m.double(), l, o)
+    with pytest.raises(ValueError, match="dropout_key"):
+        fa.flash_attention_fwd_lse_cuda(q, q, q, dropout_rate=0.1)
+
+
+def test_autograd_function_on_card_matches_cpu():
+    """flash_attention with a gradient: the card's kernels against the
+    CPU's plain versions, from strided (B, L, H, D) views; dO arrives with
+    its own strides and the gradients come back as (B, L, H, D) storage."""
+    _need_card()
+    B, L, H, D = 3, 37, 4, 64
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn(B, L, 3 * H * D, generator=gen)
+    mask = (torch.arange(L)[None] < torch.tensor([37, 20, 5])[:, None])
+    mask = mask[:, None, None, :]
+    key = fa.dropout_key(5, 1)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        xd = x.to(dev).detach().requires_grad_(True)
+        q, k, v = (t.view(B, L, H, D).transpose(1, 2)
+                   for t in xd.split(H * D, dim=-1))
+        y = fa.flash_attention(q, k, v, mask.to(dev), dropout_rate=0.1,
+                               dropout_key=key)
+        (y.transpose(1, 2).reshape(B, L, H * D).square().sum()).backward()
+        grads[dev] = xd.grad
+    _assert_rel(grads["cuda"].cpu(), grads["cpu"], 1e-4, "d(qkv)")
+
+
+def test_train_step_on_card_matches_cpu():
+    """Two optimizer steps of a small flagship-shaped model (dropout 0) on
+    the card and on the CPU from the same weights: loss and grad_norm per
+    step within 2% (bf16 trunk, different rounding points), every
+    parameter within 3 learning rates of the CPU's (an Adam update moves
+    each element by at most ~lr per step, and where a gradient is bf16
+    noise its sign may differ)."""
+    _need_card()
+    from vivqa_tpu_torch.train.optimizers import (OptimizerConfig,
+                                                  SchedulerConfig,
+                                                  create_optimizer)
+    from vivqa_tpu_torch.train.state import (TrainState,
+                                             classification_loss_fn,
+                                             make_train_step)
+    cfg = PC.VQAModelConfig(
+        visual=PC.VisualEncoderConfig(image_size=64, patch_size=16,
+                                      hidden_dim=128, num_layers=2,
+                                      num_heads=2),
+        text=PC.TextEncoderConfig(vocab_size=100, hidden_dim=128,
+                                  num_layers=2, num_heads=2, max_length=16,
+                                  dropout=0.0),
+        fusion=PC.FusionConfig(fusion_type="mcan", hidden_dim=128,
+                               num_heads=2, num_layers=2, dropout=0.0),
+        moe=PC.MoEModelConfig(use_moe=True, num_experts=4, top_k=2,
+                              expert_hidden_dim=256),
+        head=PC.AnswerHeadConfig(dropout=0.0), num_answers=32)
+    rs = np.random.RandomState(0)
+    mask = torch.from_numpy(padding_mask(rs.randint(1, 17, 8), 16))
+    batch = {"pixel_values": torch.from_numpy(
+                 rs.standard_normal((8, 64, 64, 3)).astype(np.float32)),
+             "input_ids": torch.from_numpy(rs.randint(4, 100, (8, 16))) * mask,
+             "attention_mask": mask,
+             "labels": torch.from_numpy(rs.randint(0, 32, 8))}
+    lr = 1e-3
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        model = create_vqa_model(cfg, device=dev,
+                                 generator=torch.Generator().manual_seed(1))
+        model.moe.dropout = 0.0
+        opt = create_optimizer(OptimizerConfig(learning_rate=lr), model,
+                               SchedulerConfig(warmup_steps=1,
+                                               total_steps=10))
+        state = TrainState.create(model, opt, seed=0)
+        step = make_train_step(classification_loss_fn())
+        b = {n: t.to(dev) for n, t in batch.items()}
+        fa.reset_launch_counts()
+        metrics = [step(state, b)[1] for _ in range(2)]
+        runs[dev] = ([float(m["loss"]) for m in metrics],
+                     [float(m["grad_norm"]) for m in metrics],
+                     {n: p.detach().cpu()
+                      for n, p in model.named_parameters()})
+        if dev == "cuda":
+            assert fa.launch_counts["flash_attn_fwd"] == 0
+            for name in ("flash_attn_fwd_lse", "flash_attn_bwd_dq",
+                         "flash_attn_bwd_dkv"):
+                assert fa.launch_counts[name] == 2 * 10, fa.launch_counts
+    (cl, cn, cp), (gl, gn, gp) = runs["cpu"], runs["cuda"]
+    np.testing.assert_allclose(gl, cl, rtol=2e-2)
+    np.testing.assert_allclose(gn, cn, rtol=2e-2)
+    for name, p in cp.items():
+        assert float((gp[name] - p).abs().max()) <= 3 * lr, name

@@ -185,7 +185,7 @@ def test_port_imports_no_jax():
         f"for m in {modules!r} + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'vivqa_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'vivqa_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -1,12 +1,22 @@
 // Blocked (flash) attention forward for Hopper (sm_90a), plain C interface.
+// Two entry points, one kernel template:
 //
-// Replaces the Pallas TPU kernel vivqa_tpu/ops/flash_attention.py:
-// _flash_kernel (launched by _flash_forward through pl.pallas_call). It
-// computes the same function: softmax(Q K^T / sqrt(D) [causal]) V with the
-// 1/sqrt(D) scale applied to the query in f32, the causal diagonal anchored
-// at the END of the key axis (q_offset = Lk - Lq), an online softmax with
-// f32 running max m, running sum l and accumulator, and the output in the
-// input's dtype. Beyond the Pallas kernel it takes:
+// vivqa_flash_attn_fwd replaces the Pallas TPU kernel
+// vivqa_tpu/ops/flash_attention.py: _flash_kernel (launched by
+// _flash_forward through pl.pallas_call); it serves inference.
+// vivqa_flash_attn_fwd_lse replaces _flash_kernel_lse (launched by
+// _flash_forward_lse): the same forward, which also writes the per-row f32
+// softmax stats m (running max) and l (running sum), kept SEPARATE and not
+// folded into an lse (a fully masked row has m = -1e30, which would absorb
+// log l), and applies attention-probability dropout (flax's
+// broadcast_dropout: one keep mask per call, shared by every batch row and
+// head). It is the training forward; the backward kernels read m and l.
+//
+// Both compute softmax(Q K^T / sqrt(D) [causal]) V with the 1/sqrt(D)
+// scale applied to the query in f32, the causal diagonal anchored at the
+// END of the key axis (q_offset = Lk - Lq), an online softmax with f32
+// running max m, running sum l and accumulator, and the output in the
+// input's dtype. Beyond the Pallas kernels they take:
 //   - any Lq and Lk (the ragged last tiles are masked here);
 //   - an optional boolean mask given by element strides (b, q, k), so a
 //     (B, 1, Lq, Lk) mask, or one broadcast over q or k with stride 0,
@@ -18,13 +28,16 @@
 // causal rule removes is scored -1e30, as in flax and the Pallas kernel:
 // a row whose keys are all masked then comes out as the uniform average
 // over all Lk keys, never NaN. A key beyond Lk in the last tile gets
-// probability exactly 0 and is not counted at all.
+// probability exactly 0 and is not counted at all. Dropout multiplies the
+// normalised probability by keep / (1 - rate) before P.V; l sums the
+// probabilities before dropout, so o = sum_k (p_k z_k) v_k exactly.
 //
-// Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16): at the serving
-// shapes (batch 8, head dim 64, L <= 64) one call reads q, k, v and writes
-// o, 2.5-3.2 MB, and does 4*B*H*Lq*Lk*D flops, ~0.03 GFLOP: memory-bound,
-// ~1 us at the memory rate, so launch latency dominates. These bounds are
-// computed from shapes; chip_smoke.py measures the kernel against them.
+// Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16): at the model's
+// shapes (head dim 64, L <= 64) one call reads q, k, v and writes o (and
+// m, l), and does 4*B*H*Lq*Lk*D flops: at L <= 64 that is ~1 flop per byte
+// moved, far below the ~295 the card needs before the tensor cores bind,
+// so the bound is the bytes (0.7-10 us from batch 8 to batch 128).
+// chip_smoke.py measures the kernel against it.
 //
 // Design: simple and right first. One block of 4 warps per (batch*head,
 // 16-query tile); each warp owns 4 query rows. K/V tiles of 32 keys are
@@ -34,29 +47,29 @@
 // current one is used. In the score step lane j scores key j for
 // the warp's 4 rows; the warp's max and sum come from shuffles; in the PV
 // step each lane owns D/32 output columns and the probabilities are
-// broadcast by shuffles. All arithmetic is f32 FMA on the CUDA cores: no
-// tensor cores (mma/wgmma) and no TMA, which are later work.
+// broadcast by shuffles. The dropout keep bit costs one 32-bit hash per
+// score. All arithmetic is f32 FMA on the CUDA cores: no tensor cores
+// (mma/wgmma) and no TMA, which are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_attn_common.cuh"
 
 namespace {
 
+using namespace vivqa;
+
 constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerWarp = 4;
 constexpr int kBlockQ = kWarps * kRowsPerWarp;  // 16 query rows per block
 constexpr int kBlockK = 32;                     // one key per lane
-constexpr float kMasked = -1e30f;               // NEG_INF of the JAX kernel
-constexpr unsigned kFull = 0xffffffffu;
 
 struct Params {
   const void* q;
   const void* k;
   const void* v;
   void* o;
+  float* m_out;  // (B*H, Lq), training forward only
+  float* l_out;
   const uint8_t* mask;  // nullptr = no mask
   int B, H, Lq, Lk;
   long long q_sb, q_sh, q_sl;
@@ -67,72 +80,12 @@ struct Params {
   int causal;
   int vec;  // 1: every q/k/v row start is 16-byte aligned (vector loads)
   float scale;
+  Dropout drop;  // training forward only
 };
 
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <> __device__ __forceinline__ float to_f32<__half>(__half x) { return __half2float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <> __device__ __forceinline__ __half from_f32<__half>(float x) { return __float2half(x); }
-
-// A ROWS x D tile of a (L, D) matrix with row stride ld, staged through
-// registers: fetch() issues every global load of the tile at once (16-byte
-// vectors when p.vec, else one element at a time), store() converts to f32
-// into shared memory with row pitch PITCH. Rows at or past n_rows are 0.
-template <typename T, int D, int ROWS>
-struct Tile {
-  static constexpr int kThreads = kWarps * 32;
-  static constexpr int kVec = 16 / sizeof(T);  // elements per 16 bytes
-  static constexpr int kVecPerRow = D / kVec;
-  static constexpr int kVecs = ROWS * kVecPerRow;
-  static constexpr int kPerThread = (kVecs + kThreads - 1) / kThreads;
-  uint4 buf[kPerThread];
-
-  __device__ __forceinline__ void fetch(const T* src, long long ld, int row0, int n_rows,
-                                        int vec) {
-#pragma unroll
-    for (int i = 0; i < kPerThread; ++i) {
-      const int idx = threadIdx.x + i * kThreads;
-      const int r = idx / kVecPerRow, c = (idx % kVecPerRow) * kVec;
-      buf[i] = make_uint4(0u, 0u, 0u, 0u);
-      if (idx < kVecs && row0 + r < n_rows) {
-        const T* at = src + (row0 + r) * ld + c;
-        if (vec) {
-          buf[i] = __ldg(reinterpret_cast<const uint4*>(at));
-        } else {
-          T* e = reinterpret_cast<T*>(&buf[i]);
-#pragma unroll
-          for (int j = 0; j < kVec; ++j) e[j] = at[j];
-        }
-      }
-    }
-  }
-
-  template <int PITCH>
-  __device__ __forceinline__ void store(float* dst, float scale) const {
-#pragma unroll
-    for (int i = 0; i < kPerThread; ++i) {
-      const int idx = threadIdx.x + i * kThreads;
-      if (idx < kVecs) {
-        const int r = idx / kVecPerRow, c = (idx % kVecPerRow) * kVec;
-        const T* e = reinterpret_cast<const T*>(&buf[i]);
-#pragma unroll
-        for (int j = 0; j < kVec; ++j) dst[r * PITCH + c + j] = to_f32(e[j]) * scale;
-      }
-    }
-  }
-};
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kWarps * 32) flash_attn_fwd_kernel(Params p) {
+// kTrain: write m and l, apply dropout (vivqa_flash_attn_fwd_lse).
+template <typename T, int D, bool kTrain>
+__global__ void __launch_bounds__(kThreads) flash_attn_fwd_kernel(Params p) {
   constexpr int kColsPerLane = D / 32;
   __shared__ float sQ[kBlockQ][D];
   __shared__ float sK[kBlockK][D + 1];
@@ -165,8 +118,8 @@ __global__ void __launch_bounds__(kWarps * 32) flash_attn_fwd_kernel(Params p) {
   // Tiles go through registers: the Q tile and the first K/V tile are
   // requested together, and each next K/V tile is requested before the
   // current one's arithmetic, so load latency overlaps work.
-  Tile<T, D, kBlockQ> tq;
-  Tile<T, D, kBlockK> tk, tv;
+  Tile<T, D, kBlockQ, kThreads> tq;
+  Tile<T, D, kBlockK, kThreads> tk, tv;
   tq.fetch(q, p.q_sl, q0, p.Lq, p.vec);
   tk.fetch(k, p.k_sl, 0, p.Lk, p.vec);
   tv.fetch(v, p.v_sl, 0, p.Lk, p.vec);
@@ -175,10 +128,12 @@ __global__ void __launch_bounds__(kWarps * 32) flash_attn_fwd_kernel(Params p) {
   float acc[kRowsPerWarp][kColsPerLane];
   float m[kRowsPerWarp];
   float l[kRowsPerWarp];
+  uint32_t row_hash[kRowsPerWarp];
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) {
     m[r] = kMasked;
     l[r] = 0.f;
+    row_hash[r] = kTrain ? p.drop.row(q0 + warp * kRowsPerWarp + r) : 0u;
 #pragma unroll
     for (int c = 0; c < kColsPerLane; ++c) acc[r][c] = 0.f;
   }
@@ -220,7 +175,7 @@ __global__ void __launch_bounds__(kWarps * 32) flash_attn_fwd_kernel(Params p) {
 #pragma unroll
       for (int off = 16; off > 0; off /= 2) tile_max = fmaxf(tile_max, __shfl_xor_sync(kFull, tile_max, off));
       const float m_new = fmaxf(m[r], tile_max);
-      const float pr = in_range ? expf(sc - m_new) : 0.f;
+      float pr = in_range ? expf(sc - m_new) : 0.f;
       const float alpha = expf(m[r] - m_new);
       float tile_sum = pr;
 #pragma unroll
@@ -229,7 +184,8 @@ __global__ void __launch_bounds__(kWarps * 32) flash_attn_fwd_kernel(Params p) {
       m[r] = m_new;
 #pragma unroll
       for (int c = 0; c < kColsPerLane; ++c) acc[r][c] *= alpha;
-      s[r] = pr;  // lane j now holds p for key j
+      if (kTrain && p.drop.on && in_range) pr *= p.drop.scale(row_hash[r], kj);
+      s[r] = pr;  // lane j now holds p (times its dropout multiplier) for key j
     }
 
     const int nk = min(kBlockK, p.Lk - k0);
@@ -250,22 +206,27 @@ __global__ void __launch_bounds__(kWarps * 32) flash_attn_fwd_kernel(Params p) {
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int qi = q0 + warp * kRowsPerWarp + r;
     if (qi >= p.Lq) continue;
-    const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    const float lr = fmaxf(l[r], 1e-30f);
+    const float inv = 1.f / lr;
 #pragma unroll
     for (int c = 0; c < kColsPerLane; ++c) o[qi * p.o_sl + lane + 32 * c] = from_f32<T>(acc[r][c] * inv);
+    if (kTrain && lane == 0) {
+      p.m_out[static_cast<long long>(bh) * p.Lq + qi] = m[r];
+      p.l_out[static_cast<long long>(bh) * p.Lq + qi] = lr;
+    }
   }
 }
 
-template <typename T>
+template <typename T, bool kTrain>
 int launch(const Params& p, int head_dim, cudaStream_t stream) {
   const dim3 grid((p.Lq + kBlockQ - 1) / kBlockQ, p.B * p.H);
-  const dim3 block(kWarps * 32);
+  const dim3 block(kThreads);
   switch (head_dim) {
     case 64:
-      flash_attn_fwd_kernel<T, 64><<<grid, block, 0, stream>>>(p);
+      flash_attn_fwd_kernel<T, 64, kTrain><<<grid, block, 0, stream>>>(p);
       break;
     case 128:
-      flash_attn_fwd_kernel<T, 128><<<grid, block, 0, stream>>>(p);
+      flash_attn_fwd_kernel<T, 128, kTrain><<<grid, block, 0, stream>>>(p);
       break;
     default:
       return -1;
@@ -273,24 +234,16 @@ int launch(const Params& p, int head_dim, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16.
-// strides: 15 element strides, in order q (b, h, l), k (b, h, l),
-// v (b, h, l), o (b, h, l), mask (b, q, k); the mask's are ignored when
-// mask is null. vec = 1 promises that q, k and v and all their b/h/l
-// strides are 16-byte aligned, so tiles load as 16-byte vectors. Returns
-// cudaGetLastError() after the launch, or -1 for a head dim or dtype this
-// file was not built for.
-extern "C" int vivqa_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
-                                    const void* mask, int dtype, int head_dim, int B, int H,
-                                    int Lq, int Lk, const long long* strides, int causal,
-                                    int vec, float scale, void* stream) {
+Params make_params(const void* q, const void* k, const void* v, void* o, const void* mask,
+                   int B, int H, int Lq, int Lk, const long long* strides, int causal, int vec,
+                   float scale) {
   Params p;
   p.q = q;
   p.k = k;
   p.v = v;
   p.o = o;
+  p.m_out = nullptr;
+  p.l_out = nullptr;
   p.mask = static_cast<const uint8_t*>(mask);
   p.B = B;
   p.H = H;
@@ -314,15 +267,60 @@ extern "C" int vivqa_flash_attn_fwd(const void* q, const void* k, const void* v,
   p.causal = causal;
   p.vec = vec;
   p.scale = scale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  p.drop.on = 0;
+  p.drop.threshold = 0u;
+  p.drop.key = 0u;
+  p.drop.inv_keep = 1.f;
+  return p;
+}
+
+template <bool kTrain>
+int dispatch(const Params& p, int dtype, int head_dim, cudaStream_t s) {
   switch (dtype) {
     case 0:
-      return launch<float>(p, head_dim, s);
+      return launch<float, kTrain>(p, head_dim, s);
     case 1:
-      return launch<__nv_bfloat16>(p, head_dim, s);
+      return launch<__nv_bfloat16, kTrain>(p, head_dim, s);
     case 2:
-      return launch<__half>(p, head_dim, s);
+      return launch<__half, kTrain>(p, head_dim, s);
     default:
       return -1;
   }
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.
+// strides: 15 element strides, in order q (b, h, l), k (b, h, l),
+// v (b, h, l), o (b, h, l), mask (b, q, k); the mask's are ignored when
+// mask is null. vec = 1 promises that q, k and v and all their b/h/l
+// strides are 16-byte aligned, so tiles load as 16-byte vectors. Returns
+// cudaGetLastError() after the launch, or -1 for a head dim or dtype this
+// file was not built for.
+extern "C" int vivqa_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
+                                    const void* mask, int dtype, int head_dim, int B, int H,
+                                    int Lq, int Lk, const long long* strides, int causal,
+                                    int vec, float scale, void* stream) {
+  const Params p = make_params(q, k, v, o, mask, B, H, Lq, Lk, strides, causal, vec, scale);
+  return dispatch<false>(p, dtype, head_dim, static_cast<cudaStream_t>(stream));
+}
+
+// The training forward: as vivqa_flash_attn_fwd, and also writes m and l,
+// each (B*H, Lq) f32 contiguous, and applies dropout when dropout = 1:
+// key (q, k) is kept iff mix32(mix32(key ^ q) ^ k) >= threshold, and a
+// kept probability is multiplied by inv_keep.
+extern "C" int vivqa_flash_attn_fwd_lse(const void* q, const void* k, const void* v, void* o,
+                                        float* m, float* l, const void* mask, int dtype,
+                                        int head_dim, int B, int H, int Lq, int Lk,
+                                        const long long* strides, int causal, int vec,
+                                        float scale, int dropout, unsigned threshold,
+                                        unsigned key, float inv_keep, void* stream) {
+  Params p = make_params(q, k, v, o, mask, B, H, Lq, Lk, strides, causal, vec, scale);
+  p.m_out = m;
+  p.l_out = l;
+  p.drop.on = dropout;
+  p.drop.threshold = threshold;
+  p.drop.key = key;
+  p.drop.inv_keep = inv_keep;
+  return dispatch<true>(p, dtype, head_dim, static_cast<cudaStream_t>(stream));
 }

@@ -12,7 +12,8 @@ import torch
 from torch import nn
 
 from vivqa_tpu_torch.models.config import TextEncoderConfig
-from vivqa_tpu_torch.models.layers import (Dense, EncoderLayer, LayerNorm,
+from vivqa_tpu_torch.models.layers import (Dense, DropoutRNG, EncoderLayer,
+                                           LayerNorm, dropout,
                                            make_attention_mask,
                                            pool_sequence, to_dtype)
 from vivqa_tpu_torch.ops.embedding import Embed
@@ -33,7 +34,7 @@ class TextEncoder(nn.Module):
         self.layers = nn.ModuleList(
             EncoderLayer(D, cfg.num_heads, int(D * cfg.mlp_ratio),
                          dtype=self.dtype, norm_style=cfg.norm_style,
-                         activation=cfg.activation)
+                         activation=cfg.activation, dropout=cfg.dropout)
             for _ in range(cfg.num_layers))
         if cfg.norm_style == "pre":
             self.ln_final = LayerNorm(D, self.dtype)
@@ -42,7 +43,8 @@ class TextEncoder(nn.Module):
                                     dtype=self.dtype)
 
     def forward(self, input_ids: torch.Tensor,
-                attention_mask: torch.Tensor | None = None) -> dict:
+                attention_mask: torch.Tensor | None = None,
+                rng: DropoutRNG | None = None) -> dict:
         cfg = self.config
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
@@ -51,10 +53,10 @@ class TextEncoder(nn.Module):
         x = self.token_embed(input_ids) + self.pos_embed(pos_ids)
         if cfg.type_vocab_size > 1:
             x = x + self.type_embed(torch.zeros_like(input_ids))
-        x = self.ln_embed(x)
+        x = dropout(self.ln_embed(x), cfg.dropout, rng)
         attn_mask = make_attention_mask(attention_mask, attention_mask)
         for layer in self.layers:
-            x = layer(x, attn_mask)
+            x = layer(x, attn_mask, rng)
         if cfg.norm_style == "pre":
             x = self.ln_final(x)
         pooled = pool_sequence(x, attention_mask, cfg.pooling)

@@ -12,8 +12,8 @@ from torch import nn
 import torch.nn.functional as F
 
 from vivqa_tpu_torch.models.config import VisualEncoderConfig
-from vivqa_tpu_torch.models.layers import (Dense, EncoderLayer, LayerNorm,
-                                           to_dtype)
+from vivqa_tpu_torch.models.layers import (Dense, DropoutRNG, EncoderLayer,
+                                           LayerNorm, dropout, to_dtype)
 
 
 class ViTEncoder(nn.Module):
@@ -37,14 +37,16 @@ class ViTEncoder(nn.Module):
         self.layers = nn.ModuleList(
             EncoderLayer(D, cfg.num_heads, int(D * cfg.mlp_ratio),
                          dtype=self.dtype, activation=cfg.activation,
-                         layer_scale_init=cfg.layer_scale_init)
+                         layer_scale_init=cfg.layer_scale_init,
+                         dropout=cfg.dropout)
             for _ in range(cfg.num_layers))
         self.ln_final = LayerNorm(D, self.dtype)
         if cfg.output_dim:
             self.projection = Dense(D, cfg.output_dim, bias=False,
                                     dtype=self.dtype)
 
-    def forward(self, pixel_values: torch.Tensor) -> dict:
+    def forward(self, pixel_values: torch.Tensor,
+                rng: DropoutRNG | None = None) -> dict:
         """pixel_values: (B, H, W, 3) NHWC."""
         cfg, dtype = self.config, self.dtype
         B = pixel_values.shape[0]
@@ -57,8 +59,9 @@ class ViTEncoder(nn.Module):
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dtype)
         if cfg.vit_style == "clip":
             x = self.ln_pre(x)
+        x = dropout(x, cfg.dropout, rng)
         for layer in self.layers:
-            x = layer(x)
+            x = layer(x, rng=rng)
         if cfg.vit_style == "clip":
             # the final LN normalizes the pooled path only (HF CLIP parity)
             pooled, tokens = self.ln_final(x[:, 0]), x[:, 1:]

@@ -18,6 +18,12 @@ name by the module's type:
 
 A torch parameter without a flax leaf, a flax leaf that no parameter
 takes, or a shape that does not match raises.
+
+The inverse, ``flax_paths`` and ``to_flax``, names each torch parameter by
+its flax path and lays a tensor of its shape (a parameter, its gradient,
+its update) out as the flax leaf, so that tests compare the port with a
+``jax.grad`` tree leaf by leaf, and the optimizer's weight-decay mask
+matches the flax paths as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -63,31 +69,68 @@ def _convert(module: nn.Module, leaf: str, arr: np.ndarray,
     return arr
 
 
+def _to_flax_layout(module: nn.Module, leaf: str, arr: np.ndarray,
+                    flax_shape: tuple) -> np.ndarray:
+    """The inverse of ``_convert``: torch layout -> the flax leaf's."""
+    if isinstance(module, Dense) and leaf == "weight":
+        return arr.T.reshape(flax_shape)
+    if isinstance(module, nn.Conv2d) and leaf == "weight":
+        return arr.transpose(2, 3, 1, 0)
+    return arr.reshape(flax_shape)
+
+
+def _named_leaves(model: nn.Module):
+    """(torch name, flax path, module, torch leaf, parameter) for every
+    parameter of ``model``."""
+    for mod_name, module in model.named_modules():
+        for leaf, p in module.named_parameters(recurse=False):
+            flax_leaf = next((fl for (t, tl), fl in _LEAF.items()
+                              if isinstance(module, t) and tl == leaf), leaf)
+            flax_mod = re.sub(r"\.(\d+)(?=\.|$)", r"_\1", mod_name)
+            path = "/".join(s for s in (flax_mod.replace(".", "/"),
+                                        flax_leaf) if s)
+            name = f"{mod_name}.{leaf}" if mod_name else leaf
+            yield name, path, module, leaf, p
+
+
+def flax_paths(model: nn.Module) -> dict[str, str]:
+    """torch parameter name -> flax path ("text_encoder/layers_0/...")."""
+    return {name: path for name, path, *_ in _named_leaves(model)}
+
+
+def to_flax(model: nn.Module, tensors: Mapping[str, torch.Tensor],
+            flax_shapes: Mapping[str, tuple]) -> dict[str, np.ndarray]:
+    """Tensors keyed by torch parameter name (each of its parameter's
+    shape) -> f32 arrays keyed by flax path, in the flax layout.
+    ``flax_shapes`` (path -> shape, e.g. from ``flatten_params`` of the
+    reference tree) restores the (D, H, Dh) form of DenseGeneral kernels.
+    A name missing from ``tensors`` is left out."""
+    out = {}
+    for name, path, module, leaf, _ in _named_leaves(model):
+        if name in tensors:
+            arr = tensors[name].detach().float().cpu().numpy()
+            out[path] = _to_flax_layout(module, leaf, arr,
+                                        tuple(flax_shapes[path]))
+    return out
+
+
 def load_flax_params(model: nn.Module, params: Mapping) -> nn.Module:
     """Copy a Flax param tree into ``model`` in place; returns ``model``."""
     flat = flatten_params(params)
     used, missing = set(), []
-    modules = dict(model.named_modules())
     with torch.no_grad():
-        for mod_name, module in modules.items():
-            for leaf, p in module.named_parameters(recurse=False):
-                flax_leaf = next((fl for (t, tl), fl in _LEAF.items()
-                                  if isinstance(module, t) and tl == leaf),
-                                 leaf)
-                flax_mod = re.sub(r"\.(\d+)(?=\.|$)", r"_\1", mod_name)
-                path = "/".join(s for s in (flax_mod.replace(".", "/"),
-                                            flax_leaf) if s)
-                if path not in flat:
-                    missing.append(path)
-                    continue
-                arr = _convert(module, leaf, flat[path], p.shape)
-                if tuple(arr.shape) != tuple(p.shape):
-                    raise ValueError(
-                        f"{path}: flax shape {flat[path].shape} -> "
-                        f"{arr.shape}, port expects {tuple(p.shape)}")
-                p.copy_(torch.from_numpy(np.ascontiguousarray(
-                    arr, dtype=np.float32)))
-                used.add(path)
+        for _, path, module, leaf, p in _named_leaves(model):
+            if path not in flat:
+                missing.append(path)
+                continue
+            arr = _convert(module, leaf, flat[path], p.shape)
+            if tuple(arr.shape) != tuple(p.shape):
+                raise ValueError(
+                    f"{path}: flax shape {flat[path].shape} -> "
+                    f"{arr.shape}, port expects {tuple(p.shape)}")
+            p.copy_(torch.from_numpy(np.ascontiguousarray(
+                arr, dtype=np.float32)))
+            used.add(path)
     unused = sorted(set(flat) - used)
     if missing or unused:
         raise ValueError(f"flax params do not match the port: missing "

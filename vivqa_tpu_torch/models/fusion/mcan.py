@@ -14,8 +14,9 @@ from torch import nn
 
 from vivqa_tpu_torch.models.config import FusionConfig
 from vivqa_tpu_torch.models.layers import (CrossAttentionLayer, Dense,
-                                           EncoderLayer, LayerNorm,
-                                           gelu_tanh, make_attention_mask)
+                                           DropoutRNG, EncoderLayer,
+                                           LayerNorm, dropout, gelu_tanh,
+                                           make_attention_mask)
 
 _DTYPE = torch.bfloat16
 
@@ -24,16 +25,19 @@ class AttFlat(nn.Module):
     """MLP -> masked softmax over tokens -> weighted sum, g glimpses."""
 
     def __init__(self, dim: int, hidden_dim: int, glimpses: int = 1,
-                 mlp_dim: int = 512):
+                 mlp_dim: int = 512, dropout: float = 0.1):
         super().__init__()
         self.glimpses = glimpses
+        self.dropout = dropout
         self.att_fc1 = Dense(dim, mlp_dim, dtype=_DTYPE)
         self.att_fc2 = Dense(mlp_dim, glimpses, dtype=_DTYPE)
         self.merge = Dense(glimpses * dim, hidden_dim, dtype=_DTYPE)
 
     def forward(self, x: torch.Tensor,
-                mask: torch.Tensor | None = None) -> torch.Tensor:
-        att = self.att_fc2(gelu_tanh(self.att_fc1(x)))
+                mask: torch.Tensor | None = None,
+                rng: DropoutRNG | None = None) -> torch.Tensor:
+        att = dropout(gelu_tanh(self.att_fc1(x)), self.dropout, rng)
+        att = self.att_fc2(att)
         if mask is not None:
             att = torch.where(mask[..., None] > 0, att, -1e9)
         att = torch.softmax(att.float(), dim=1).to(x.dtype)
@@ -49,18 +53,21 @@ class MCANFusion(nn.Module):
         self.v_proj = Dense(visual_dim, D, dtype=_DTYPE)
         self.q_proj = Dense(text_dim, D, dtype=_DTYPE)
         self.enc = nn.ModuleList(
-            EncoderLayer(D, cfg.num_heads, 4 * D, dtype=_DTYPE)
+            EncoderLayer(D, cfg.num_heads, 4 * D, dtype=_DTYPE,
+                         dropout=cfg.dropout)
             for _ in range(cfg.num_layers))
         self.dec = nn.ModuleList(
-            CrossAttentionLayer(D, cfg.num_heads, 4 * D, dtype=_DTYPE)
+            CrossAttentionLayer(D, cfg.num_heads, 4 * D, dtype=_DTYPE,
+                                dropout=cfg.dropout)
             for _ in range(cfg.num_layers))
         self.q_flat = AttFlat(D, D, cfg.mcan_flat_glimpses,
-                              cfg.mcan_flat_mlp_dim)
+                              cfg.mcan_flat_mlp_dim, cfg.dropout)
         self.v_flat = AttFlat(D, D, cfg.mcan_flat_glimpses,
-                              cfg.mcan_flat_mlp_dim)
+                              cfg.mcan_flat_mlp_dim, cfg.dropout)
         self.ln = LayerNorm(D, _DTYPE)
 
-    def forward(self, visual: dict, text: dict) -> dict:
+    def forward(self, visual: dict, text: dict,
+                rng: DropoutRNG | None = None) -> dict:
         v = self.v_proj(visual["tokens"])
         q = self.q_proj(text["tokens"])
         t_mask = text.get("mask")
@@ -68,10 +75,11 @@ class MCANFusion(nn.Module):
         qq = make_attention_mask(t_mask, t_mask)
         v2q = make_attention_mask(v_ones, t_mask)
         for layer in self.enc:
-            q = layer(q, qq)
+            q = layer(q, qq, rng)
         for layer in self.dec:
-            v = layer(v, q, cross_mask=v2q)
-        pooled = self.ln(self.q_flat(q, t_mask) + self.v_flat(v, None))
+            v = layer(v, q, cross_mask=v2q, rng=rng)
+        pooled = self.ln(self.q_flat(q, t_mask, rng)
+                         + self.v_flat(v, None, rng))
         tokens = torch.cat([v, q], dim=1)
         if t_mask is None:
             t_mask = torch.ones(q.shape[:2], dtype=torch.int32,

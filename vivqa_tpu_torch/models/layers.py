@@ -13,7 +13,12 @@ Numerics follow flax, not torch's defaults:
 - ``nn.gelu`` in flax is the tanh form ("gelu_tanh").
 
 All attention goes through ``vivqa_tpu_torch.ops.flash_attention``: the
-plain version for CPU tensors, the CUDA kernel for tensors on the card.
+plain version for CPU tensors, the CUDA kernels for tensors on the card.
+
+Training mode is flax's ``deterministic=False``: every module takes an
+optional ``rng`` (a ``DropoutRNG``), and applies its dropouts only when
+it is given one. ``VietnameseVQAModel`` makes it from the caller's
+generator in ``train()`` mode and passes it down.
 """
 
 from __future__ import annotations
@@ -26,7 +31,9 @@ from torch import nn
 import torch.nn.functional as F
 
 from vivqa_tpu_torch.ops.embedding import Embed
-from vivqa_tpu_torch.ops.flash_attention import flash_attention
+from vivqa_tpu_torch.ops.flash_attention import dropout_key, flash_attention
+
+_SEED_MIX = 0x9E3779B97F4A7C15      # odd 64-bit constant (golden ratio)
 
 
 def to_dtype(name: str) -> torch.dtype:
@@ -44,6 +51,48 @@ def _gelu_exact(x):
 
 def _quick_gelu(x):
     return x * torch.sigmoid(1.702 * x)
+
+
+class DropoutRNG:
+    """The randomness of one training forward, from an explicit
+    ``torch.Generator`` on the activations' device (never the global RNG).
+
+    Elementwise dropout draws its keep masks from the generator. Attention
+    dropout draws nothing on the device: call n of the forward gets
+    ``dropout_key(seed, n)``, where the 64-bit ``seed`` is read from the
+    generator's host-side state when this object is made (a CPU
+    generator's next number; a CUDA generator's seed and Philox offset,
+    which is then advanced), so no attention call waits on the card.
+    """
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+        if generator.device.type == "cuda":
+            offset = generator.get_offset()
+            generator.set_offset(offset + 4)
+            self.seed = (generator.initial_seed() * _SEED_MIX + offset) \
+                % 2 ** 64
+        else:
+            self.seed = int(torch.randint(0, 2 ** 62, (1,),
+                                          generator=generator))
+        self.attention_calls = 0
+
+    def attention_key(self) -> int:
+        key = dropout_key(self.seed, self.attention_calls)
+        self.attention_calls += 1
+        return key
+
+
+def dropout(x: torch.Tensor, rate: float,
+            rng: Optional[DropoutRNG]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability 1 - rate, scale the kept
+    values by 1 / (1 - rate) in x's dtype; the identity without ``rng``."""
+    if rng is None or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=rng.generator,
+                      device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                           device=x.device))
 
 
 ACTIVATIONS = {"gelu_tanh": gelu_tanh, "gelu": _gelu_exact,
@@ -93,19 +142,21 @@ class LayerNorm(nn.Module):
 
 
 class MlpBlock(nn.Module):
-    """Transformer feed-forward block: wi -> act -> wo (dropout is
-    training-only and waits for the training slice)."""
+    """Transformer feed-forward block: wi -> act -> dropout -> wo."""
 
     def __init__(self, dim: int, d_ff: int, out_dim: int = 0,
                  activation: Callable = gelu_tanh,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, dropout: float = 0.0):
         super().__init__()
         self.activation = activation
+        self.dropout = dropout
         self.wi = Dense(dim, d_ff, dtype=dtype)
         self.wo = Dense(d_ff, out_dim or dim, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.wo(self.activation(self.wi(x)))
+    def forward(self, x: torch.Tensor,
+                rng: Optional[DropoutRNG] = None) -> torch.Tensor:
+        return self.wo(dropout(self.activation(self.wi(x)), self.dropout,
+                               rng))
 
 
 class MultiHeadDotProductAttention(nn.Module):
@@ -114,31 +165,38 @@ class MultiHeadDotProductAttention(nn.Module):
     (H, D/H), attention, ``out`` projection back to the query width.
 
     ``query``/``key``/``value`` hold the flattened DenseGeneral kernels
-    (H*Dh, D_in); ``out`` holds (D, H*Dh).
+    (H*Dh, D_in); ``out`` holds (D, H*Dh). With an ``rng`` the attention
+    probabilities drop at ``dropout_rate`` inside the kernel (flax's
+    ``broadcast_dropout``: one mask per call for all rows and heads).
     """
 
     def __init__(self, dim: int, num_heads: int, kv_dim: int = 0,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 dropout_rate: float = 0.0):
         super().__init__()
         if dim % num_heads:
             raise ValueError(f"hidden dim {dim} not divisible by "
                              f"{num_heads} heads")
         kv_dim = kv_dim or dim
         self.num_heads = num_heads
+        self.dropout_rate = dropout_rate
         self.query = Dense(dim, dim, dtype=dtype)
         self.key = Dense(kv_dim, dim, dtype=dtype)
         self.value = Dense(kv_dim, dim, dtype=dtype)
         self.out = Dense(dim, dim, dtype=dtype)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None,
+                rng: Optional[DropoutRNG] = None) -> torch.Tensor:
         B, Lq, D = x.shape
         Lk, H = context.shape[1], self.num_heads
         # (B, L, H, Dh) viewed as (B, H, L, Dh): the kernel reads it in place
         q = self.query(x).view(B, Lq, H, D // H).transpose(1, 2)
         k = self.key(context).view(B, Lk, H, D // H).transpose(1, 2)
         v = self.value(context).view(B, Lk, H, D // H).transpose(1, 2)
-        y = flash_attention(q, k, v, mask)
+        rate = self.dropout_rate if rng is not None else 0.0
+        y = flash_attention(q, k, v, mask, dropout_rate=rate,
+                            dropout_key=rng.attention_key() if rate else None)
         return self.out(y.transpose(1, 2).reshape(B, Lq, D))
 
 
@@ -154,13 +212,14 @@ class EncoderLayer(nn.Module):
     def __init__(self, dim: int, num_heads: int, d_ff: int,
                  dtype: torch.dtype = torch.bfloat16, norm_style: str = "pre",
                  activation: str = "gelu_tanh",
-                 layer_scale_init: float = 0.0):
+                 layer_scale_init: float = 0.0, dropout: float = 0.0):
         super().__init__()
         self.norm_style = norm_style
-        self.self_attn = MultiHeadDotProductAttention(dim, num_heads,
-                                                      dtype=dtype)
+        self.dropout = dropout
+        self.self_attn = MultiHeadDotProductAttention(
+            dim, num_heads, dtype=dtype, dropout_rate=dropout)
         self.mlp = MlpBlock(dim, d_ff, activation=to_activation(activation),
-                            dtype=dtype)
+                            dtype=dtype, dropout=dropout)
         self.ln1 = LayerNorm(dim, dtype)
         self.ln2 = LayerNorm(dim, dtype)
         self.ls1_scale = self.ls2_scale = None
@@ -169,19 +228,23 @@ class EncoderLayer(nn.Module):
             self.ls2_scale = nn.Parameter(torch.full((dim,), layer_scale_init))
 
     def forward(self, x: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None,
+                rng: Optional[DropoutRNG] = None) -> torch.Tensor:
+        rate = self.dropout
         if self.norm_style == "post":
-            x = self.ln1(x + self.self_attn(x, x, mask))
-            return self.ln2(x + self.mlp(x))
+            y = self.self_attn(x, x, mask, rng)
+            x = self.ln1(x + dropout(y, rate, rng))
+            y = self.mlp(x, rng)
+            return self.ln2(x + dropout(y, rate, rng))
         h = self.ln1(x)
-        y = self.self_attn(h, h, mask)
+        y = self.self_attn(h, h, mask, rng)
         if self.ls1_scale is not None:
             y = y * self.ls1_scale.to(y.dtype)
-        x = x + y
-        y = self.mlp(self.ln2(x))
+        x = x + dropout(y, rate, rng)
+        y = self.mlp(self.ln2(x), rng)
         if self.ls2_scale is not None:
             y = y * self.ls2_scale.to(y.dtype)
-        return x + y
+        return x + dropout(y, rate, rng)
 
 
 class CrossAttentionLayer(nn.Module):
@@ -189,25 +252,30 @@ class CrossAttentionLayer(nn.Module):
     (``decode=False`` form)."""
 
     def __init__(self, dim: int, num_heads: int, d_ff: int,
-                 context_dim: int = 0, dtype: torch.dtype = torch.bfloat16):
+                 context_dim: int = 0, dtype: torch.dtype = torch.bfloat16,
+                 dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.ln1 = LayerNorm(dim, dtype)
-        self.self_attn = MultiHeadDotProductAttention(dim, num_heads,
-                                                      dtype=dtype)
+        self.self_attn = MultiHeadDotProductAttention(
+            dim, num_heads, dtype=dtype, dropout_rate=dropout)
         self.ln_cross = LayerNorm(dim, dtype)
-        self.cross_attn = CachedCrossAttention(dim, num_heads,
-                                               kv_dim=context_dim or dim,
-                                               dtype=dtype)
+        self.cross_attn = CachedCrossAttention(
+            dim, num_heads, kv_dim=context_dim or dim, dtype=dtype,
+            dropout_rate=dropout)
         self.ln2 = LayerNorm(dim, dtype)
-        self.mlp = MlpBlock(dim, d_ff, dtype=dtype)
+        self.mlp = MlpBlock(dim, d_ff, dtype=dtype, dropout=dropout)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor,
                 self_mask: Optional[torch.Tensor] = None,
-                cross_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                cross_mask: Optional[torch.Tensor] = None,
+                rng: Optional[DropoutRNG] = None) -> torch.Tensor:
+        rate = self.dropout
         y = self.ln1(x)
-        x = x + self.self_attn(y, y, self_mask)
-        x = x + self.cross_attn(self.ln_cross(x), context, cross_mask)
-        return x + self.mlp(self.ln2(x))
+        x = x + dropout(self.self_attn(y, y, self_mask, rng), rate, rng)
+        y = self.cross_attn(self.ln_cross(x), context, cross_mask, rng)
+        x = x + dropout(y, rate, rng)
+        return x + dropout(self.mlp(self.ln2(x), rng), rate, rng)
 
 
 def pool_sequence(hidden: torch.Tensor, mask: Optional[torch.Tensor],

@@ -15,7 +15,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from vivqa_tpu_torch.models.layers import LayerNorm, gelu_tanh
+from vivqa_tpu_torch.models.layers import (DropoutRNG, LayerNorm, dropout,
+                                           gelu_tanh)
 from vivqa_tpu_torch.models.moe.config import MoEConfig
 from vivqa_tpu_torch.models.moe.routers import create_router
 
@@ -30,6 +31,7 @@ class MOELayer(nn.Module):
                 f"expert type '{cfg.expert.expert_type}' is not ported yet "
                 "(ROADMAP.md Queue A item 13)")
         self.config = cfg
+        self.dropout = cfg.expert.dropout       # on the experts' hidden units
         self.router = create_router(cfg.router, E, D)
         self.experts_w_in = nn.Parameter(torch.empty(E, D, H))
         self.experts_bias_in = nn.Parameter(torch.zeros(E, H))
@@ -38,12 +40,14 @@ class MOELayer(nn.Module):
         self.ln_out = LayerNorm(D, dtype=None)     # in x's dtype
 
     def forward(self, x: torch.Tensor,
-                expert_mask: Optional[torch.Tensor] = None):
+                expert_mask: Optional[torch.Tensor] = None,
+                rng: Optional[DropoutRNG] = None):
         rout = self.router(x, expert_mask)
         dt = x.dtype
         w = rout.combine_weights.to(dt)                          # (B, L, E)
         h = torch.einsum("bld,edh->bleh", x, self.experts_w_in.to(dt))
         h = gelu_tanh(h + self.experts_bias_in.to(dt))
+        h = dropout(h, self.dropout, rng)
         y = torch.einsum("bleh,ehd,ble->bld", h, self.experts_w_out.to(dt), w)
         y = y + torch.einsum("ble,ed->bld", w, self.experts_bias_out.to(dt))
         y = self.ln_out(y + x)

@@ -3,8 +3,12 @@ vivqa_tpu/models/vqa_model.py): visual encoder + text encoder + fusion +
 optional MoE + answer head.
 
 MoE runs over the fused token sequence; the pooled vector then gains the
-masked mean of the MoE output tokens. ``KnowledgeAttention`` (RAG) is not
-ported yet (ROADMAP.md Queue A item 7).
+masked mean of the MoE output tokens. Training mode is ``model.train()``
+with a ``torch.Generator`` on the model's device passed to each forward:
+it is the only source of the dropout randomness (flax's
+``deterministic=False`` with an explicit ``dropout`` rng).
+``KnowledgeAttention`` (RAG) is not ported yet (ROADMAP.md Queue A
+item 7).
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ from vivqa_tpu_torch.models.encoders import (create_text_encoder,
                                              create_visual_encoder)
 from vivqa_tpu_torch.models.fusion import create_fusion
 from vivqa_tpu_torch.models.heads import AnswerHead
-from vivqa_tpu_torch.models.layers import init_weights
+from vivqa_tpu_torch.models.layers import DropoutRNG, init_weights
 from vivqa_tpu_torch.models.moe.config import (ExpertConfig, MoEConfig,
                                                RouterConfig)
 from vivqa_tpu_torch.models.moe.layer import create_moe_layer
@@ -66,24 +70,32 @@ class VietnameseVQAModel(nn.Module):
 
     def forward(self, pixel_values: torch.Tensor, input_ids: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
-                expert_mask: Optional[torch.Tensor] = None) -> dict:
-        visual = self.visual_encoder(pixel_values)
-        text = self.text_encoder(input_ids, attention_mask)
-        fused = self.fusion(visual, text)
+                expert_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> dict:
+        rng = None
+        if self.training:
+            if generator is None:
+                raise ValueError(
+                    "a training forward needs a torch.Generator for its "
+                    "dropout (model.eval() for a deterministic forward)")
+            rng = DropoutRNG(generator)
+        visual = self.visual_encoder(pixel_values, rng)
+        text = self.text_encoder(input_ids, attention_mask, rng)
+        fused = self.fusion(visual, text, rng)
         pooled, tokens, mask = fused["pooled"], fused["tokens"], fused["mask"]
 
         aux_loss = torch.zeros((), dtype=torch.float32,
                                device=pooled.device)
         moe_metrics = {}
         if self.config.moe.use_moe:
-            tokens, aux = self.moe(tokens, expert_mask)
+            tokens, aux = self.moe(tokens, expert_mask, rng)
             aux_loss = aux_loss + aux["aux_loss"]
             moe_metrics = aux["metrics"]
             m = mask[..., None].to(tokens.dtype)
             pooled = pooled + (tokens * m).sum(dim=1) / torch.clamp(
                 m.sum(dim=1), min=1e-6)
 
-        logits = self.answer_head(pooled)
+        logits = self.answer_head(pooled, rng)
         return {"logits": logits, "features": pooled,
                 "aux_loss": aux_loss, "moe_metrics": moe_metrics}
 

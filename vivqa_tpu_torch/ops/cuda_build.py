@@ -57,10 +57,14 @@ def find_nvcc() -> str:
 
 
 def build(name: str) -> BuildResult:
-    """Compile ``csrc/<name>.cu`` unless its library is already built."""
+    """Compile ``csrc/<name>.cu`` unless its library is already built.
+
+    The library's name hashes the source, every shared header
+    (``csrc/*.cuh``) and the flags."""
     source = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    parts = [source.read_bytes(), " ".join(NVCC_FLAGS).encode()]
+    parts += [h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh"))]
+    digest = hashlib.sha256(b"\0".join(parts)).hexdigest()[:16]
     library = BUILD_DIR / f"lib{name}-{digest}.so"
     log = library.with_suffix(".log")
     if library.is_file():

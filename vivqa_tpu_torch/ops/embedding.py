@@ -1,8 +1,12 @@
 """Embedding lookup (counterpart of vivqa_tpu/ops/embedding.py).
 
 The JAX package gives its embedding a one-hot-matmul backward because
-scatters are slow on the TPU. The port's forward is the same gather; the
-backward belongs to the training slice (ROADMAP.md, Queue A).
+scatters are slow on the TPU. The port's forward is the same gather, and
+its gradient is ``F.embedding``'s own: the rows' gradients summed into
+the f32 table in f32. The JAX package casts the table to the compute
+dtype before the take, so its table gradient is rounded once to that
+dtype (bf16 on the main path); the two agree to that rounding
+(ROADMAP.md, Queue C).
 """
 
 from __future__ import annotations
