@@ -6,14 +6,16 @@ Phases, in order; any failure exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every CUDA source of the port with nvcc for sm_90a, all at once,
-   with ptxas' register and shared-memory report;
+   with ptxas' register, spill and shared-memory report;
 3. kernels: each kernel against its plain version on the card at the
-   shapes the serving path gives it (and a few edge cases), one JSON line
-   per case with its time, the plain version's, the bound and
-   scaled_dot_product_attention's time as a yardstick; then the three
-   training kernels (forward with stats, dQ, dK/dV) the same way at the
-   training step's shapes (batch 128) and edge cases, with attention
-   dropout on and off, o, m, l, dq, dk and dv checked in f32 and bf16;
+   shapes the serving path gives it (and a few edge cases), in f32, bf16
+   and f16, one JSON line per case with its time (CUDA-graph replay, and
+   the profiler's sum of kernel durations), the plain version's, the
+   bound and scaled_dot_product_attention's time as a yardstick; then the
+   three training kernels (forward with stats, dQ, dK/dV) the same way at
+   the training step's shapes (batch 128) and edge cases, with attention
+   dropout on and off, o, m, l, dq, dk and dv checked in f32, bf16 and
+   f16;
 4. serving: the flagship classification model (CLIP-style ViT-B/32,
    PhoBERT-style text encoder, MCAN, dense top-2 MoE, 1,000 answers) with
    seeded random weights behind VQAPredictor, answering batches of 8
@@ -44,6 +46,7 @@ from __future__ import annotations
 import copy
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -80,11 +83,26 @@ TRAIN_KERNELS = ("flash_attn_fwd_lse", "flash_attn_bwd_dq",
                  "flash_attn_bwd_dkv")
 
 # kernel vs plain version on the same inputs. bf16: the plain version
-# rounds the probabilities to bf16 before P.V (as _xla_attention does),
-# the kernel keeps them in f32; both round the output to bf16 (2**-8
-# relative), so a few bf16 ulps of outputs of size <= ~2. f32: the same
-# arithmetic in another order, f32 rounding only.
-ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+# rounds the normalised probabilities to bf16 before P.V (as
+# _xla_attention does); the serving kernel keeps them in f32, the training
+# forward rounds the unnormalised ones; both round the output to bf16
+# (2**-8 relative), so a few bf16 ulps of outputs of size <= ~2. f16 has
+# 3 more bits and takes the same bound. f32: the same arithmetic in
+# another order, f32 rounding only.
+ATTN_TOL = {torch.bfloat16: 2e-2, torch.float16: 2e-2, torch.float32: 2e-5}
+
+# What each launch count's kernels are called on the device (torch.profiler)
+KERNEL_NAMES = {"flash_attn_fwd": "flash_attn_fwd_kernel",
+                "flash_attn_fwd_lse": "flash_attn_fwd_lse",
+                "flash_attn_bwd_dq": "flash_attn_bwd_dq",
+                "flash_attn_bwd_dkv": "flash_attn_bwd_dkv"}
+# The template each kernel runs on the main path (bf16, head dim 64), as
+# ptxas names it
+MAIN_TEMPLATES = {
+    "flash_attn_fwd": "flash_attn_fwd_kernelI13__nv_bfloat16Li64ELb0E",
+    "flash_attn_fwd_lse": "flash_attn_fwd_lse_mma_kernelI13__nv_bfloat16Li64E",
+    "flash_attn_bwd_dq": "flash_attn_bwd_dq_mma_kernelI13__nv_bfloat16Li64E",
+    "flash_attn_bwd_dkv": "flash_attn_bwd_dkv_kernelI13__nv_bfloat16Li64E"}
 
 # (name, B, H, Lq, Lk, D, mask kind, causal, calls per flagship forward)
 ATTN_CASES = [
@@ -109,9 +127,11 @@ ATTN_CALLS_PER_FORWARD = sum(c[-1] for c in ATTN_CASES)    # 36
 # a row with few keys reaches |o| ~ 4, where a bf16 ulp is 2**-6; o as
 # ATTN_TOL, the gradients as GRAD_TOL (f32 differs by summation order
 # only; in bf16 both round their outputs once to bf16, 2**-8 relative).
-# m and l are f32 in both (1e-5, elementwise relative).
+# m and l are f32 in both (1e-5, elementwise relative). In bf16 and f16
+# the dQ kernel also rounds dS to the input dtype before dS.K, which the
+# plain version does not (ROADMAP.md, Queue C); the bound holds it.
 STAT_TOL = 1e-5
-GRAD_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+GRAD_TOL = {torch.bfloat16: 1e-2, torch.float16: 1e-2, torch.float32: 1e-4}
 TRAIN_BATCH = 128                     # bench.py's batch per chip
 DROPOUT = 0.1                 # text and MCAN (models/config.py:81,97)
 
@@ -198,19 +218,24 @@ def device_ms(fn, calls: int = 20, replays: int = 20) -> float:
     return _events_ms(graph.replay, replays) / calls
 
 
-def profiled_ms(fn, calls: int = 10) -> float:
+def profiled_ms(fn, calls: int = 10, tries: int = 3) -> float:
     """Device time per call of ``fn``: the sum of the durations of the
     kernels it launches, under torch.profiler, over ``calls`` calls (for
-    calls whose host side, as autograd's, would set an eager rate)."""
+    calls whose host side, as autograd's, would set an eager rate). A
+    profile that recorded no kernel at all is taken again."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sum(t for _, t in device_kernels(prof).values()) / 1e3 / calls
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kernels = device_kernels(prof)
+        if kernels:
+            return sum(t for _, t in kernels.values()) / 1e3 / calls
+    raise AssertionError(f"torch.profiler recorded no kernel in {tries} tries")
 
 
 def device_kernels(prof) -> dict:
@@ -229,15 +254,54 @@ def device_kernels(prof) -> dict:
 
 
 # -- phase 2: build ----------------------------------------------------------
-def build_phase() -> None:
+def ptxas_usage(report: str) -> dict:
+    """{mangled kernel name: {registers, spill_store_bytes,
+    spill_load_bytes}} from nvcc's ``-Xptxas -v`` report."""
+    usage, current = {}, None
+    for line in report.splitlines():
+        name = re.search(r"(?:Compiling entry function '|Function properties "
+                         r"for )([^' ]+)", line)
+        if name:
+            current = usage.setdefault(name.group(1), {})
+            continue
+        if current is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+        if spill:
+            current["spill_store_bytes"] = int(spill.group(1))
+            current["spill_load_bytes"] = int(spill.group(2))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            current["registers"] = int(regs.group(1))
+    return usage
+
+
+def build_phase() -> dict:
+    """Build every source at once; return, for each kernel of the main
+    path, ptxas' usage of the template that path runs."""
     with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
         results = list(pool.map(cuda_build.build, KERNEL_SOURCES))
+    usage = {}
     for name, res in zip(KERNEL_SOURCES, results):
         print(f"[build] {name}: {res.seconds:.1f} s -> {res.library.name}")
         for line in res.report.splitlines():
             if "ptxas" in line and ("registers" in line or "Compiling" in line
-                                    or "spill" in line or "smem" in line):
+                                    or "smem" in line) or "spill" in line:
                 print(f"[build]   {line.strip()}")
+        usage.update(ptxas_usage(res.report))
+    out = {}
+    for kernel, template in MAIN_TEMPLATES.items():
+        found = [u for n, u in usage.items() if template in n]
+        if len(found) != 1 or "registers" not in found[0]:
+            raise AssertionError(f"ptxas report has {len(found)} entries for "
+                                 f"{template}")
+        out[kernel] = {"template": template,
+                       "registers": found[0]["registers"],
+                       "spill_store_bytes": found[0].get("spill_store_bytes"),
+                       "spill_load_bytes": found[0].get("spill_load_bytes")}
+    emit({"ptxas": out})
+    return out
 
 
 # -- phase 3: kernels --------------------------------------------------------
@@ -282,7 +346,7 @@ def kernel_phase() -> dict:
     rows = {}
     for name, B, H, Lq, Lk, D, kind, causal, calls in ATTN_CASES:
         errs = {}
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32, torch.float16, torch.bfloat16):
             q, k, v, mask = attention_inputs(B, H, Lq, Lk, D, kind, dtype,
                                              gen)
             out = fa.flash_attention_cuda(q, k, v, mask, causal)
@@ -313,14 +377,17 @@ def kernel_phase() -> dict:
                  (("kernel", kernel), ("plain", plain), ("library", library))}
         times.update({f"{label}_eager_ms": eager_ms(fn) for label, fn in
                       (("kernel", kernel), ("library", library))})
+        times["kernel_profiled_ms"] = profiled_ms(kernel)
         nbytes, flops = attention_work(q, k, mask, causal)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_flops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
         row = {"case": name, "B": B, "H": H, "Lq": Lq, "Lk": Lk, "D": D,
                "mask": kind, "causal": causal, "calls_per_forward": calls,
                "max_abs_err_bf16": errs[torch.bfloat16],
+               "max_abs_err_f16": errs[torch.float16],
                "max_abs_err_f32": errs[torch.float32],
                "tol_bf16": ATTN_TOL[torch.bfloat16],
+               "tol_f16": ATTN_TOL[torch.float16],
                "tol_f32": ATTN_TOL[torch.float32],
                **times, "bytes": nbytes, "flops": flops,
                "bound_us": max(t_bytes, t_flops) * 1e3,
@@ -410,7 +477,7 @@ def train_kernel_phase() -> dict:
         for rate in (0.0, DROPOUT):
             key = fa.dropout_key(2026, len(rows))
             errs = {}
-            for dtype in (torch.float32, torch.bfloat16):
+            for dtype in (torch.float32, torch.float16, torch.bfloat16):
                 q, k, v, mask = attention_inputs(B, H, Lq, Lk, D, kind,
                                                  dtype, gen)
                 do = torch.randn(q.shape, generator=gen,
@@ -421,11 +488,12 @@ def train_kernel_phase() -> dict:
                    "mask": kind, "causal": causal, "dropout": rate,
                    "calls_per_step": calls if rate == path_rate else 0,
                    "max_err_bf16": errs[torch.bfloat16],
+                   "max_err_f16": errs[torch.float16],
                    "max_err_f32": errs[torch.float32],
-                   "tol": {"o_rel_bf16": ATTN_TOL[torch.bfloat16],
+                   "tol": {"o_rel_16bit": ATTN_TOL[torch.bfloat16],
                            "o_rel_f32": ATTN_TOL[torch.float32],
                            "m_l_rel": STAT_TOL,
-                           "grad_rel_bf16": GRAD_TOL[torch.bfloat16],
+                           "grad_rel_16bit": GRAD_TOL[torch.bfloat16],
                            "grad_rel_f32": GRAD_TOL[torch.float32]},
                    **time_train_kernels(q, k, v, do, mask, causal, rate, key)}
             emit({"training_attention_case": row})
@@ -435,12 +503,13 @@ def train_kernel_phase() -> dict:
 
 def time_train_kernels(q, k, v, do, mask, causal, rate, key) -> dict:
     """At bf16, the main path's dtype: each kernel's device time (CUDA
-    graph of 20 calls, CUDA events), its plain version's (the same), the
-    bound, and scaled_dot_product_attention through autograd as the
-    yardstick, by its kernels' device time (``profiled_ms``): its forward
-    for the forward kernel, and its backward, which computes dq, dk and dv
-    in one call, for both backward kernels (the same number in both: it
-    is not to be added)."""
+    graph of 20 calls, CUDA events; and ``profiled_ms``, the sum of its
+    kernel durations, as the yardstick is timed), its plain version's
+    (graph), the bound, and scaled_dot_product_attention through autograd
+    as the yardstick, by its kernels' device time (``profiled_ms``): its
+    forward for the forward kernel, and its backward, which computes dq,
+    dk and dv in one call, for both backward kernels (the same number in
+    both: it is not to be added)."""
     o, m, l = fa.flash_attention_fwd_lse_cuda(q, k, v, mask, causal, rate,
                                               key)
     _, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, o, m, l, do, mask,
@@ -483,6 +552,7 @@ def time_train_kernels(q, k, v, do, mask, causal, rate, key) -> dict:
         t_flops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
         times[name] = {
             "kernel_ms": device_ms(kernels[name]),
+            "profiled_ms": profiled_ms(kernels[name]),
             "plain_ms": device_ms(plains[name]),
             "library_ms": library[name],
             "bytes": nbytes, "flops": flops,
@@ -638,7 +708,7 @@ def profile_phase(model, args, forwards: int = 3) -> dict:
     kernels = device_kernels(prof)
     busy = sum(t for _, t in kernels.values()) / 1e3 / forwards
     attn = sum(t for n, (_, t) in kernels.items()
-               if "flash_attn_fwd" in n) / 1e3 / forwards
+               if KERNEL_NAMES["flash_attn_fwd"] in n) / 1e3 / forwards
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
     return {
         "eager_forward_ms": eager, "graph_forward_ms": graphed,
@@ -753,9 +823,8 @@ def train_profile(state, train_step, data, step_ms: float) -> dict:
     kernels = device_kernels(prof)
     busy = sum(t for _, t in kernels.values()) / 1e3
     attention = {name: sum(t for n, (_, t) in kernels.items()
-                           if f"{name}_kernel" in n) / 1e3
-                 for name in ("flash_attn_fwd", "flash_attn_bwd_dq",
-                              "flash_attn_bwd_dkv")}
+                           if KERNEL_NAMES[name] in n) / 1e3
+                 for name in ("flash_attn_fwd",) + TRAIN_KERNELS}
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:10]
     return {"device_busy_ms": busy if kernels else None,
             "device_idle_share": 1 - busy / step_ms if kernels else None,
@@ -843,13 +912,15 @@ def train_check(cfg: VQAModelConfig, device: str = "cuda", steps: int = 2,
 
 
 def kernels_line(rows: dict, launches: int, train_rows: dict,
-                 train_launches: dict) -> dict:
+                 train_launches: dict, ptxas: dict) -> dict:
     """One entry per kernel. The forward's numbers are for one flagship
     forward at batch 8 (its 36 calls of the five serving shapes, each
     shape's time times its calls); the training kernels' for one flagship
     train step at batch 128 (36 calls each, at the dropout each call
-    uses)."""
-    entries = [forward_entry(rows, launches)]
+    uses). ``ms`` is CUDA-graph replay, ``profiled_ms`` the profiler's sum
+    of kernel durations (as ``library_ms`` is timed); registers and spills
+    are ptxas' for the template the main path runs."""
+    entries = [forward_entry(rows, launches, ptxas["flash_attn_fwd"])]
     main = [r for r in train_rows.values() if r["calls_per_step"]]
     replaces = {
         "flash_attn_fwd_lse": ("flash_attn_fwd.cu", ":142 (_flash_kernel_lse, "
@@ -877,10 +948,11 @@ def kernels_line(rows: dict, launches: int, train_rows: dict,
             "launches": train_launches[name],
             "max_abs_err": max(r["max_err_bf16"][k] for r in main
                                for k in err_keys[name]),
-            "ms": total("kernel_ms"), "plain_ms": total("plain_ms"),
+            "ms": total("kernel_ms"), "profiled_ms": total("profiled_ms"),
+            "plain_ms": total("plain_ms"),
             "bound_ms": max(t_bytes, t_flops),
             "bound_by": "bytes" if t_bytes >= t_flops else "operations",
-            "library_ms": total("library_ms"),
+            "library_ms": total("library_ms"), **ptxas[name],
             "per": f"one flagship train step at batch {TRAIN_BATCH} "
                    f"({ATTN_CALLS_PER_STEP} calls), bf16; max_abs_err is "
                    f"relative to each tensor's largest value for dq/dk/dv "
@@ -888,7 +960,7 @@ def kernels_line(rows: dict, launches: int, train_rows: dict,
     return {"kernels": entries}
 
 
-def forward_entry(rows: dict, launches: int) -> dict:
+def forward_entry(rows: dict, launches: int, ptxas: dict) -> dict:
     main = [r for r in rows.values() if r["calls_per_forward"]]
 
     def total(key):
@@ -904,10 +976,11 @@ def forward_entry(rows: dict, launches: int) -> dict:
                     "pallas_call at :127)",
         "launches": launches,
         "max_abs_err": max(r["max_abs_err_bf16"] for r in main),
-        "ms": total("kernel_ms"), "plain_ms": total("plain_ms"),
+        "ms": total("kernel_ms"), "profiled_ms": total("kernel_profiled_ms"),
+        "plain_ms": total("plain_ms"),
         "bound_ms": max(t_bytes, t_flops),
         "bound_by": "bytes" if t_bytes >= t_flops else "operations",
-        "library_ms": total("library_ms"),
+        "library_ms": total("library_ms"), **ptxas,
         "per": f"one flagship forward at batch 8 "
                f"({ATTN_CALLS_PER_FORWARD} calls), bf16"}
 
@@ -924,7 +997,7 @@ def main() -> int:
     print(f"[device] {kind} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | nvidia-smi: {card}", flush=True)
 
-    build_phase()
+    ptxas = build_phase()
     rows = kernel_phase()
     train_rows = train_kernel_phase()
     print(f"[kernels] {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -946,7 +1019,7 @@ def main() -> int:
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     emit(kernels_line(rows, serving["launches"]["flash_attn_fwd"],
-                      train_rows, training["launches"]))
+                      train_rows, training["launches"], ptxas))
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -13,6 +13,7 @@ only on the card (tests/test_torch_gpu.py).
 from __future__ import annotations
 
 import importlib
+import math
 
 import jax
 import jax.numpy as jnp
@@ -258,3 +259,72 @@ def test_dropout_forward_and_backward_share_the_mask():
     keep = fa.dropout_keep_mask(Lq, Lk, rate, key).float()
     want_dv = keep.sum(0)[:, None] / (Lk * (1 - rate))    # rows of dV
     torch.testing.assert_close(v.grad[0, 0], want_dv.expand(Lk, Lk))
+
+
+# -- the tensor-core kernels' rounding ---------------------------------------
+# In bf16 and f16 the card's training forward rounds p z (p = exp(s - m),
+# before the division by l) to the input dtype as the operand of P.V, and
+# the dQ kernel rounds dS to it before dS.K; the plain versions round the
+# normalised probabilities and keep dS in f32. These emulate the kernels'
+# rounding on the CPU (with the row's final max, which is the kernels' own
+# at L <= 64), so the card's tolerances (chip_smoke.py ATTN_TOL and
+# GRAD_TOL, relative to each tensor's largest value) are grounded here.
+ATTN_TOL_BF16, GRAD_TOL_BF16 = 2e-2, 1e-2
+
+ROUNDING_CASES = [  # (H, Lq, Lk, mask kind): the flagship's five shapes
+    (12, 50, 50, None),
+    (12, 64, 64, "query_key"),
+    (8, 64, 64, "query_key"),
+    (8, 49, 49, None),
+    (8, 49, 64, "key"),
+    (8, 113, 113, "key"),
+]
+
+
+def _kernel_rounded_forward(q, k, v, mask, rate, key):
+    logits = fa._masked_logits(q, k, mask, False)
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    l = e.sum(-1, keepdim=True)
+    if rate:
+        e = e * fa.dropout_multiplier(q.shape[2], k.shape[2], rate, key,
+                                      e.dtype)
+    pv = torch.einsum("bhqk,bhkd->bhqd", e.to(v.dtype).float(), v.float())
+    return (pv / l).to(v.dtype)
+
+
+def _kernel_rounded_dq(q, k, v, o, m, l, do, mask, rate, key):
+    p, allowed = fa._bwd_probs(q, k, m, l, mask, False)
+    delta = (do.float() * o.float()).sum(-1)
+    ds = fa._bwd_ds(p, allowed, v, do, delta,
+                    fa._bwd_z(q, k, rate, key, torch.float32))
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds.to(q.dtype).float(), k.float())
+    return (dq / math.sqrt(q.shape[-1])).to(q.dtype)
+
+
+def _rel_err(got, want) -> float:
+    want = want.float()
+    return float((got.float() - want).abs().max()) / max(
+        1.0, float(want.abs().max()))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["no_dropout", "dropout"])
+@pytest.mark.parametrize("case", ROUNDING_CASES, ids=str)
+def test_kernel_rounding_within_card_tolerances(case, rate):
+    """bf16 inputs from a numpy seed, batch 2: o with P rounded to bf16,
+    and dq with dS rounded to bf16, against the f32-internal plain
+    versions, within the card's bf16 tolerances."""
+    H, Lq, Lk, kind = case
+    q, k, v, g = (torch.from_numpy(a).to(torch.bfloat16)
+                  for a in _arrays(2, H, Lq, Lk, 64, seed=7))
+    mask = _mask(kind, 2, Lq, Lk)
+    mask = None if mask is None else torch.from_numpy(mask)
+    key = fa.dropout_key(7, 1)
+    o, m, l = fa.attention_forward_lse_reference(q, k, v, mask, False, rate,
+                                                 key)
+    o_err = _rel_err(_kernel_rounded_forward(q, k, v, mask, rate, key), o)
+    dq, _ = fa.attention_bwd_dq_reference(q, k, v, o, m, l, g, mask, False,
+                                          rate, key)
+    dq_err = _rel_err(
+        _kernel_rounded_dq(q, k, v, o, m, l, g, mask, rate, key), dq)
+    assert o_err <= ATTN_TOL_BF16, o_err
+    assert dq_err <= GRAD_TOL_BF16, dq_err

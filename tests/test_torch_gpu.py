@@ -22,9 +22,12 @@ from vivqa_tpu_torch.ops import flash_attention as fa
 pytestmark = pytest.mark.gpu
 
 # kernel vs plain version on the same inputs: f32 differs by summation
-# order only; in bf16 the plain version also rounds the probabilities to
-# bf16 before P.V, the kernel does not (a few bf16 ulps of outputs ~1)
-TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# order only; in bf16 the plain version rounds the normalised
+# probabilities to bf16 before P.V, the serving kernel does not and the
+# training forward rounds the unnormalised ones (a few bf16 ulps of
+# outputs ~1); f16 keeps 3 more bits and takes the same bound
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2, torch.float16: 2e-2}
+DTYPES = [torch.float32, torch.bfloat16, torch.float16]
 
 CASES = [  # (B, H, Lq, Lk, D, mask kind, causal)
     (8, 12, 50, 50, 64, None, False),
@@ -60,7 +63,7 @@ def _inputs(B, H, Lq, Lk, D, kind, dtype, seed=0):
 
 
 @pytest.mark.parametrize("case", CASES, ids=str)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
 def test_kernel_matches_plain_version(case, dtype):
     _need_card()
     *shape, kind, causal = case
@@ -148,13 +151,16 @@ def test_model_on_card_matches_cpu():
 # Kernel vs plain version on the same inputs (the backward kernels get the
 # kernel forward's o, m and l). Gradients are held relative to each
 # tensor's largest value: f32 differs by summation order only (1e-4); in
-# bf16 both round their outputs once to bf16 (2**-8 relative), so 1e-2.
+# bf16 and f16 both round their outputs once (2**-8 relative in bf16),
+# and the dQ kernel rounds dS to the input dtype before dS.K, so 1e-2.
 # m and l are f32 in both (1e-5 relative).
-GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2, torch.float16: 1e-2}
 
 TRAIN_CASES = CASES + [
-    (3, 2, 96, 24, 64, None, True),         # a whole 32-row tile with no key
+    (3, 2, 96, 24, 64, None, True),         # a tile with no key, one mixed
     (1, 2, 300, 1024, 64, "key", False),
+    (2, 2, 100, 200, 64, None, True),       # causal skip over 64-key tiles
+    (1, 2, 130, 130, 128, "query_key", False),  # D 128, two K/V buffers
 ]
 
 
@@ -166,7 +172,7 @@ def _assert_rel(got, want, tol, what):
 
 @pytest.mark.parametrize("rate", [0.0, 0.1], ids=["no_dropout", "dropout"])
 @pytest.mark.parametrize("case", TRAIN_CASES, ids=str)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
 def test_training_kernels_match_plain_versions(case, dtype, rate):
     _need_card()
     *shape, kind, causal = case
@@ -195,14 +201,17 @@ def test_training_kernels_match_plain_versions(case, dtype, rate):
         _assert_rel(got, ref, GRAD_TOL[dtype], name)
 
 
-def test_dropout_mask_bit_equal_to_plain_version():
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_dropout_mask_bit_equal_to_plain_version(dtype):
     """q = k = 0 makes p = 1/Lk; v = the identity over the first Lk
     columns then gives o[q, j] = p z(q, j): nonzero exactly where the
-    kernel kept key j. Every batch row and head gets the same mask."""
+    kernel kept key j. Every batch row and head gets the same mask. f32
+    takes the SIMT template, bf16 and f16 the tensor-core one."""
     _need_card()
     B, H, Lq, Lk, D, rate = 2, 3, 50, 64, 64, 0.3
-    q = torch.zeros(B, H, Lq, D, device="cuda")
-    v = torch.eye(Lk, D, device="cuda").expand(B, H, Lk, D).contiguous()
+    q = torch.zeros(B, H, Lq, D, device="cuda", dtype=dtype)
+    v = torch.eye(Lk, D, device="cuda", dtype=dtype).expand(
+        B, H, Lk, D).contiguous()
     key = fa.dropout_key(99, 7)
     o, _, _ = fa.flash_attention_fwd_lse_cuda(q, torch.zeros_like(v), v,
                                               dropout_rate=rate,
@@ -211,7 +220,50 @@ def test_dropout_mask_bit_equal_to_plain_version():
     torch.cuda.synchronize()
     assert torch.equal(o[..., :Lk] > 0, want.expand(B, H, Lq, Lk))
     torch.testing.assert_close(
-        o[..., :Lk], (want.float() / (Lk * (1 - rate))).expand(B, H, Lq, Lk))
+        o[..., :Lk], (want.float() / (Lk * (1 - rate))).expand(
+            B, H, Lq, Lk).to(dtype))
+
+
+def _shifted(t, offset):
+    """t as the (B, H, L, D) view of (B, L, H, D) storage that starts
+    ``offset`` elements into its buffer: rows off 16 bytes when offset is
+    odd."""
+    B, H, L, D = t.shape
+    buf = torch.empty(B, L, H * D + offset, dtype=t.dtype, device=t.device)
+    view = buf[..., offset:].view(B, L, H, D)
+    view.copy_(t.transpose(1, 2))
+    return view.transpose(1, 2)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "misaligned"])
+def test_training_kernels_read_strided_views(offset, dtype):
+    """The training forward, dQ and dK/dV on (B, L, H, D) views, with
+    dropout, a key mask and two key tiles; at offset 1 no row of q, k, v,
+    dO or o starts on 16 bytes, so every tile takes the element loads."""
+    _need_card()
+    B, L, H, D = 3, 70, 4, 64
+    gen = torch.Generator().manual_seed(6)
+    q, k, v, do = (_shifted(torch.randn(B, H, L, D, generator=gen).to(
+        "cuda", dtype), offset) for _ in range(4))
+    mask = (torch.arange(L)[None] < torch.tensor([70, 33, 1])[:, None])
+    mask = mask[:, None, None, :].cuda()                 # (B, 1, 1, L)
+    key = fa.dropout_key(3, 4)
+    o, m, l = fa.flash_attention_fwd_lse_cuda(q, k, v, mask, False, 0.1, key)
+    grads = fa.flash_attention_bwd_cuda(q, k, v, _shifted(o, offset), m, l,
+                                        do, mask, False, 0.1, key)
+    c = [t.contiguous() for t in (q, k, v, do)]
+    o_ref, m_ref, l_ref = fa.attention_forward_lse_reference(
+        *c[:3], mask, False, 0.1, key)
+    want = fa.attention_backward_reference(*c[:3], o, m, l, c[3], mask,
+                                           False, 0.1, key)
+    torch.cuda.synchronize()
+    _assert_rel(o, o_ref, TOL[dtype], "o")
+    torch.testing.assert_close(m, m_ref, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(l, l_ref, atol=1e-5, rtol=1e-5)
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, want):
+        assert torch.isfinite(got).all(), name
+        _assert_rel(got, ref, GRAD_TOL[dtype], name)
 
 
 def test_training_kernels_reject_what_they_do_not_take():

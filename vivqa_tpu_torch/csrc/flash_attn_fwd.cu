@@ -1,5 +1,5 @@
 // Blocked (flash) attention forward for Hopper (sm_90a), plain C interface.
-// Two entry points, one kernel template:
+// Two entry points and two kernel templates (see below):
 //
 // vivqa_flash_attn_fwd replaces the Pallas TPU kernel
 // vivqa_tpu/ops/flash_attention.py: _flash_kernel (launched by
@@ -13,7 +13,8 @@
 // head). It is the training forward; the backward kernels read m and l.
 //
 // Both compute softmax(Q K^T / sqrt(D) [causal]) V with the 1/sqrt(D)
-// scale applied to the query in f32, the causal diagonal anchored at the
+// scale applied in f32 (to the query in the SIMT template, to the scores
+// in the tensor-core one), the causal diagonal anchored at the
 // END of the key axis (q_offset = Lk - Lq), an online softmax with f32
 // running max m, running sum l and accumulator, and the output in the
 // input's dtype. Beyond the Pallas kernels they take:
@@ -29,29 +30,61 @@
 // a row whose keys are all masked then comes out as the uniform average
 // over all Lk keys, never NaN. A key beyond Lk in the last tile gets
 // probability exactly 0 and is not counted at all. Dropout multiplies the
-// normalised probability by keep / (1 - rate) before P.V; l sums the
-// probabilities before dropout, so o = sum_k (p_k z_k) v_k exactly.
+// probability by keep / (1 - rate) before P.V; l sums the probabilities
+// before dropout, so o = sum_k (p_k z_k) v_k.
 //
-// Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16): at the model's
-// shapes (head dim 64, L <= 64) one call reads q, k, v and writes o (and
-// m, l), and does 4*B*H*Lq*Lk*D flops: at L <= 64 that is ~1 flop per byte
-// moved, far below the ~295 the card needs before the tensor cores bind,
-// so the bound is the bytes (0.7-10 us from batch 8 to batch 128).
-// chip_smoke.py measures the kernel against it.
+// Two templates. The SIMT template (flash_attn_fwd_kernel) serves both
+// entries in f32, and the serving entry in every dtype. The training
+// entry in bf16 and f16 takes the tensor-core template
+// (flash_attn_fwd_lse_mma_kernel): f32 inputs would round to TF32 on the
+// tensor cores, outside the f32 tolerances, and f32 is not on the model's
+// path. The choice is by dtype only; a failed build or launch raises.
 //
-// Design: simple and right first. One block of 4 warps per (batch*head,
+// Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense, 132 SMs, 227
+// KB of shared memory a block, 64K registers an SM): at the model's shapes
+// (head dim 64, L <= 64) one call reads q, k, v and writes o (and m, l),
+// and does 4*B*H*Lq*Lk*D flops, 1-2 flops per byte moved, far below the
+// ~295 at which the tensor cores bind, so the bytes bind: 0.437 ms for the
+// 36 training calls of bench.py's step at batch 128 (chip_smoke.py).
+//
+// SIMT design (serving, f32): one block of 4 warps per (batch*head,
 // 16-query tile); each warp owns 4 query rows. K/V tiles of 32 keys are
-// staged in shared memory as f32 (K rows padded by one word so the lanes
-// of a warp hit distinct banks); each tile is loaded with all its 16-byte
-// loads in flight at once, and the next K/V tile is requested before the
-// current one is used. In the score step lane j scores key j for
-// the warp's 4 rows; the warp's max and sum come from shuffles; in the PV
-// step each lane owns D/32 output columns and the probabilities are
-// broadcast by shuffles. The dropout keep bit costs one 32-bit hash per
-// score. All arithmetic is f32 FMA on the CUDA cores: no tensor cores
-// (mma/wgmma) and no TMA, which are later work.
+// staged in shared memory as f32 (K rows padded by one word); each tile is
+// loaded with all its 16-byte loads in flight at once, and the next K/V
+// tile is requested before the current one is used. Lane j scores key j
+// for the warp's 4 rows; the warp's max and sum come from shuffles; in the
+// PV step each lane owns D/32 output columns and the probabilities are
+// broadcast by shuffles. All arithmetic is f32 FMA on the CUDA cores.
+//
+// Tensor-core design (training, bf16/f16), from the SIMT template's
+// measured faults (4.28 ms per step at batch 128 against SDPA's 1.91 ms,
+// chip_smoke.py): one shared-memory load per FMA in the score loop, one
+// shuffle per 2 FMAs in P.V, tiles staged as f32 (twice the bytes and
+// stores), and 16-row blocks that re-read a head's K and V four times.
+//   - One block of 4 warps per (batch*head, 64 query rows); each warp owns
+//     16 rows. At L <= 64 a block holds a whole head, so K and V leave
+//     device memory once per (b, h): 1,536 blocks for the 12-head calls
+//     at batch 128. Longer keys loop over 64-key tiles with the online
+//     softmax, the next K/V tile copied while this one is used.
+//   - q, k, v are copied into shared memory by 16-byte cp.async in their
+//     own dtype, rows padded to D + 8 elements so ldmatrix is conflict
+//     free (element loads into the same layout for views whose rows do not
+//     start on 16 bytes).
+//   - S = Q K^T by mma.sync m16n8k16 into f32, then scaled in f32 (exact
+//     at D = 64: 1/8). Masks, causal and ragged rules apply on the
+//     fragment's (row, key) coordinates. Row max and sum take 2 shuffles
+//     across the quad that holds a row.
+//   - p = exp(s - m) times the dropout multiplier is rounded to the input
+//     dtype as the A operand of P.V in registers (no shared-memory round
+//     trip), as the plain version rounds its probabilities before P.V;
+//     l sums the f32 p. O += P V by mma with V through ldmatrix.trans.
+//   - o is written through the warp's own Q rows with 16-byte stores; m
+//     and l in f32.
+// The products are no longer the cost: at 2.4x its bound on the H100 what
+// is left is the chain of elementwise steps per score (rules, exp, dropout
+// hash, row max and sum), more than the copies (PERF.md, Findings).
 
-#include "flash_attn_common.cuh"
+#include "flash_attn_mma.cuh"
 
 namespace {
 
@@ -217,6 +250,129 @@ __global__ void __launch_bounds__(kThreads) flash_attn_fwd_kernel(Params p) {
   }
 }
 
+// The training forward on the tensor cores (bf16 / f16). o_vec: o's rows
+// start on 16 bytes. At D = 64 ptxas fits it in 128 registers, 4 blocks
+// an SM; D = 128 takes 2 blocks, without spills.
+template <typename T, int D>
+__global__ void __launch_bounds__(mma::kThreads, D == 64 ? 4 : 2)
+    flash_attn_fwd_lse_mma_kernel(Params p, int o_vec) {
+  using namespace mma;
+  constexpr int P = pitch<D>();
+  constexpr int TE = tile_elems<D>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sQ = reinterpret_cast<T*>(smem_raw);  // then K, V of buffer 0, then of buffer 1
+
+  const int bh = blockIdx.y;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int q0 = blockIdx.x * kTileRows;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+
+  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  T* o = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const KeyRule rule{p.mask ? p.mask + b * p.m_sb : nullptr, p.m_sq, p.m_sk, p.Lq, p.Lk,
+                     p.Lk - p.Lq, p.causal};
+  const int k_end = causal_key_end(rule, q0);
+  const int n_tiles = (k_end + kTileRows - 1) / kTileRows;
+
+  load_tile<T, D>(sQ, q, p.q_sl, q0, p.Lq, p.vec);
+  load_tile<T, D>(sQ + TE, k, p.k_sl, 0, p.Lk, p.vec);
+  load_tile<T, D>(sQ + 2 * TE, v, p.v_sl, 0, p.Lk, p.vec);
+  cp_async_commit();
+
+  const T* sQw = sQ + warp * 16 * P;  // the warp's 16 rows
+  const int qi[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  const uint32_t row_hash[2] = {p.drop.row(qi[0]), p.drop.row(qi[1])};
+  float m[2] = {kMasked, kMasked};
+  float l[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    cp_async_wait_all();
+    __syncthreads();  // tile kt is in; every warp is done with tile kt - 1
+    if (kt + 1 < n_tiles) {
+      T* nxt = sQ + (1 + 2 * ((kt + 1) & 1)) * TE;
+      load_tile<T, D>(nxt, k, p.k_sl, (kt + 1) * kTileRows, p.Lk, p.vec);
+      load_tile<T, D>(nxt + TE, v, p.v_sl, (kt + 1) * kTileRows, p.Lk, p.vec);
+      cp_async_commit();
+    }
+    const T* sK = sQ + (1 + 2 * (kt & 1)) * TE;
+    const T* sV = sK + TE;
+    const int k0 = kt * kTileRows;
+
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    gemm_abt<T, D, 8>(s, sQw, sK, lane);
+
+    // element (j, e): row qi[e / 2], key k0 + 8j + 2t + e % 2
+    float tile_max[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const KeyState st = rule(qi[e / 2], k0 + 8 * j + 2 * t + (e & 1));
+        float sc = s[j][e] * p.scale;
+        if (st == kPastEnd) sc = -INFINITY;
+        if (st == kRemoved) sc = kMasked;
+        s[j][e] = sc;
+        tile_max[e / 2] = fmaxf(tile_max[e / 2], sc);
+      }
+    float alpha[2], tile_sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(tile_max[r]));
+      alpha[r] = expf(m[r] - m_new);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float pr = expf(s[j][e] - m[e / 2]);  // exactly 0 past Lk (-inf)
+        tile_sum[e / 2] += pr;
+        if (p.drop.on) pr *= p.drop.scale(row_hash[e / 2], k0 + 8 * j + 2 * t + (e & 1));
+        s[j][e] = pr;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + quad_sum(tile_sum[r]);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+
+    uint32_t a[4][4];
+    to_a_frags<T, 8>(a, s);  // p z rounded to T: the operand of P.V
+    gemm_ab<T, D, 4>(acc, a, sV, lane);
+  }
+
+  const float lr[2] = {fmaxf(l[0], 1e-30f), fmaxf(l[1], 1e-30f)};
+  store_rows<T, D>(sQ + warp * 16 * P, acc, 1.f / lr[0], 1.f / lr[1], o, p.o_sl,
+                   q0 + warp * 16, p.Lq, lane, o_vec);
+  if (t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (qi[r] < p.Lq) {
+        p.m_out[static_cast<long long>(bh) * p.Lq + qi[r]] = m[r];
+        p.l_out[static_cast<long long>(bh) * p.Lq + qi[r]] = lr[r];
+      }
+    }
+  }
+}
+
 template <typename T, bool kTrain>
 int launch(const Params& p, int head_dim, cudaStream_t stream) {
   const dim3 grid((p.Lq + kBlockQ - 1) / kBlockQ, p.B * p.H);
@@ -232,6 +388,29 @@ int launch(const Params& p, int head_dim, cudaStream_t stream) {
       return -1;
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int launch_mma_d(const Params& p, cudaStream_t stream) {
+  const int bytes = mma::smem_bytes<T, D>(1, p.Lk);
+  const int err = allow_smem(flash_attn_fwd_lse_mma_kernel<T, D>, bytes);
+  if (err != 0) return err;
+  const dim3 grid((p.Lq + mma::kTileRows - 1) / mma::kTileRows, p.B * p.H);
+  const int o_vec = mma::rows_aligned16(p.o, p.o_sb, p.o_sh, p.o_sl);
+  flash_attn_fwd_lse_mma_kernel<T, D><<<grid, mma::kThreads, bytes, stream>>>(p, o_vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_mma(const Params& p, int head_dim, cudaStream_t stream) {
+  switch (head_dim) {
+    case 64:
+      return launch_mma_d<T, 64>(p, stream);
+    case 128:
+      return launch_mma_d<T, 128>(p, stream);
+    default:
+      return -1;
+  }
 }
 
 Params make_params(const void* q, const void* k, const void* v, void* o, const void* mask,
@@ -274,19 +453,6 @@ Params make_params(const void* q, const void* k, const void* v, void* o, const v
   return p;
 }
 
-template <bool kTrain>
-int dispatch(const Params& p, int dtype, int head_dim, cudaStream_t s) {
-  switch (dtype) {
-    case 0:
-      return launch<float, kTrain>(p, head_dim, s);
-    case 1:
-      return launch<__nv_bfloat16, kTrain>(p, head_dim, s);
-    case 2:
-      return launch<__half, kTrain>(p, head_dim, s);
-    default:
-      return -1;
-  }
-}
 
 }  // namespace
 
@@ -302,7 +468,17 @@ extern "C" int vivqa_flash_attn_fwd(const void* q, const void* k, const void* v,
                                     int Lq, int Lk, const long long* strides, int causal,
                                     int vec, float scale, void* stream) {
   const Params p = make_params(q, k, v, o, mask, B, H, Lq, Lk, strides, causal, vec, scale);
-  return dispatch<false>(p, dtype, head_dim, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return launch<float, false>(p, head_dim, s);
+    case 1:
+      return launch<__nv_bfloat16, false>(p, head_dim, s);
+    case 2:
+      return launch<__half, false>(p, head_dim, s);
+    default:
+      return -1;
+  }
 }
 
 // The training forward: as vivqa_flash_attn_fwd, and also writes m and l,
@@ -322,5 +498,15 @@ extern "C" int vivqa_flash_attn_fwd_lse(const void* q, const void* k, const void
   p.drop.threshold = threshold;
   p.drop.key = key;
   p.drop.inv_keep = inv_keep;
-  return dispatch<true>(p, dtype, head_dim, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return launch<float, true>(p, head_dim, s);  // SIMT: no TF32 rounding
+    case 1:
+      return launch_mma<__nv_bfloat16>(p, head_dim, s);
+    case 2:
+      return launch_mma<__half>(p, head_dim, s);
+    default:
+      return -1;
+  }
 }
