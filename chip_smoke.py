@@ -9,9 +9,12 @@ Phases, in order; any failure exits non-zero:
    with ptxas' register, spill and shared-memory report;
 3. kernels: each kernel against its plain version on the card at the
    shapes the serving path gives it (and a few edge cases), in f32, bf16
-   and f16, one JSON line per case with its time (CUDA-graph replay, and
-   the profiler's sum of kernel durations), the plain version's, the
-   bound and scaled_dot_product_attention's time as a yardstick; then the
+   and f16 (the serving forward's tensor-core template at each of its
+   three tile sizes), one JSON line per case with its time (CUDA-graph
+   replay, and the profiler's sum of kernel durations; the serving
+   forward at each tile size), the plain version's, the bound and
+   scaled_dot_product_attention's time as a yardstick, and a line with
+   the serving forward's time per flagship forward at each tile size; then the
    three training kernels (forward with stats, dQ, dK/dV) the same way at
    the training step's shapes (batch 128) and edge cases, with attention
    dropout on and off, o, m, l, dq, dk and dv checked in f32, bf16 and
@@ -84,25 +87,31 @@ TRAIN_KERNELS = ("flash_attn_fwd_lse", "flash_attn_bwd_dq",
 
 # kernel vs plain version on the same inputs. bf16: the plain version
 # rounds the normalised probabilities to bf16 before P.V (as
-# _xla_attention does); the serving kernel keeps them in f32, the training
-# forward rounds the unnormalised ones; both round the output to bf16
+# _xla_attention does); the kernels' tensor-core templates (serving and
+# training) round the unnormalised ones; both round the output to bf16
 # (2**-8 relative), so a few bf16 ulps of outputs of size <= ~2. f16 has
-# 3 more bits and takes the same bound. f32: the same arithmetic in
-# another order, f32 rounding only.
+# 3 more bits and takes the same bound. f32 (the SIMT templates): the same
+# arithmetic in another order, f32 rounding only.
 ATTN_TOL = {torch.bfloat16: 2e-2, torch.float16: 2e-2, torch.float32: 2e-5}
 
 # What each launch count's kernels are called on the device (torch.profiler)
-KERNEL_NAMES = {"flash_attn_fwd": "flash_attn_fwd_kernel",
+KERNEL_NAMES = {"flash_attn_fwd": "flash_attn_fwd_mma_kernel",
                 "flash_attn_fwd_lse": "flash_attn_fwd_lse",
                 "flash_attn_bwd_dq": "flash_attn_bwd_dq",
                 "flash_attn_bwd_dkv": "flash_attn_bwd_dkv"}
-# The template each kernel runs on the main path (bf16, head dim 64), as
-# ptxas names it
+# The templates each kernel runs on the main path (bf16, head dim 64; the
+# serving forward at the serving path's tile size; the calls with a mask
+# and those without take separate instantiations), as ptxas names them
+_BF16_64 = "I13__nv_bfloat16Li64E"
 MAIN_TEMPLATES = {
-    "flash_attn_fwd": "flash_attn_fwd_kernelI13__nv_bfloat16Li64ELb0E",
-    "flash_attn_fwd_lse": "flash_attn_fwd_lse_mma_kernelI13__nv_bfloat16Li64E",
-    "flash_attn_bwd_dq": "flash_attn_bwd_dq_mma_kernelI13__nv_bfloat16Li64E",
-    "flash_attn_bwd_dkv": "flash_attn_bwd_dkv_kernelI13__nv_bfloat16Li64E"}
+    "flash_attn_fwd": [
+        f"flash_attn_fwd_mma_kernel{_BF16_64}Li{fa.SERVING_TILE_ROWS}ELb{m}EE"
+        for m in (0, 1)],
+    "flash_attn_fwd_lse": [f"flash_attn_fwd_lse_mma_kernel{_BF16_64}Lb{m}EE"
+                           for m in (0, 1)],
+    "flash_attn_bwd_dq": [f"flash_attn_bwd_dq_mma_kernel{_BF16_64}"],
+    "flash_attn_bwd_dkv": [f"flash_attn_bwd_dkv_mma_kernel{_BF16_64}Lb{m}EE"
+                           for m in (0, 1)]}
 
 # (name, B, H, Lq, Lk, D, mask kind, causal, calls per flagship forward)
 ATTN_CASES = [
@@ -291,15 +300,19 @@ def build_phase() -> dict:
                 print(f"[build]   {line.strip()}")
         usage.update(ptxas_usage(res.report))
     out = {}
-    for kernel, template in MAIN_TEMPLATES.items():
-        found = [u for n, u in usage.items() if template in n]
-        if len(found) != 1 or "registers" not in found[0]:
-            raise AssertionError(f"ptxas report has {len(found)} entries for "
-                                 f"{template}")
-        out[kernel] = {"template": template,
-                       "registers": found[0]["registers"],
-                       "spill_store_bytes": found[0].get("spill_store_bytes"),
-                       "spill_load_bytes": found[0].get("spill_load_bytes")}
+    for kernel, templates in MAIN_TEMPLATES.items():
+        each = {}
+        for template in templates:
+            found = [u for n, u in usage.items() if template in n]
+            if len(found) != 1 or "registers" not in found[0]:
+                raise AssertionError(f"ptxas report has {len(found)} entries "
+                                     f"for {template}")
+            each[template] = found[0]
+        out[kernel] = {
+            "templates": each,
+            **{key: max(u.get(key, 0) for u in each.values())
+               for key in ("registers", "spill_store_bytes",
+                           "spill_load_bytes")}}
     emit({"ptxas": out})
     return out
 
@@ -342,6 +355,9 @@ def attention_work(q, k, mask, causal):
 
 
 def kernel_phase() -> dict:
+    """Rows keyed by case. In bf16 and f16 the serving forward is checked
+    at each of its tile sizes (``fa.TILE_ROWS``) and timed at each in
+    bf16; ``kernel_ms`` is the serving path's own (``SERVING_TILE_ROWS``)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
     for name, B, H, Lq, Lk, D, kind, causal, calls in ATTN_CASES:
@@ -349,15 +365,20 @@ def kernel_phase() -> dict:
         for dtype in (torch.float32, torch.float16, torch.bfloat16):
             q, k, v, mask = attention_inputs(B, H, Lq, Lk, D, kind, dtype,
                                              gen)
-            out = fa.flash_attention_cuda(q, k, v, mask, causal)
             ref = fa.attention_reference(q, k, v, mask, causal)
-            torch.cuda.synchronize()
-            err = float((out.float() - ref.float()).abs().max())
-            if not math.isfinite(err) or err > ATTN_TOL[dtype]:
-                raise AssertionError(
-                    f"{name} {dtype}: kernel vs plain max |err| {err} > "
-                    f"{ATTN_TOL[dtype]}")
-            errs[dtype] = err
+            tiles = (fa.SERVING_TILE_ROWS,) if dtype == torch.float32 \
+                else fa.TILE_ROWS
+            errs[dtype] = 0.0
+            for tile_rows in tiles:
+                out = fa.flash_attention_cuda(q, k, v, mask, causal,
+                                              tile_rows)
+                torch.cuda.synchronize()
+                err = float((out.float() - ref.float()).abs().max())
+                if not math.isfinite(err) or err > ATTN_TOL[dtype]:
+                    raise AssertionError(
+                        f"{name} {dtype} tile_rows {tile_rows}: kernel vs "
+                        f"plain max |err| {err} > {ATTN_TOL[dtype]}")
+                errs[dtype] = max(errs[dtype], err)
         # timing and bounds at the main path's dtype, bf16
         sdpa_mask = mask
         if causal:
@@ -374,10 +395,18 @@ def kernel_phase() -> dict:
             return F.scaled_dot_product_attention(q, k, v,
                                                   attn_mask=sdpa_mask)
         times = {f"{label}_ms": device_ms(fn) for label, fn in
-                 (("kernel", kernel), ("plain", plain), ("library", library))}
+                 (("plain", plain), ("library", library))}
         times.update({f"{label}_eager_ms": eager_ms(fn) for label, fn in
                       (("kernel", kernel), ("library", library))})
-        times["kernel_profiled_ms"] = profiled_ms(kernel)
+        for label, timer in (("kernel_ms", device_ms),
+                             ("kernel_profiled_ms", profiled_ms)):
+            by_tile = {
+                tile_rows: timer(lambda tile_rows=tile_rows:
+                                 fa.flash_attention_cuda(q, k, v, mask,
+                                                         causal, tile_rows))
+                for tile_rows in fa.TILE_ROWS}
+            times[f"{label}_by_tile_rows"] = by_tile
+            times[label] = by_tile[fa.SERVING_TILE_ROWS]
         nbytes, flops = attention_work(q, k, mask, causal)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_flops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
@@ -395,6 +424,21 @@ def kernel_phase() -> dict:
         emit({"attention_case": row})
         rows[name] = row
     return rows
+
+
+def tile_rows_line(rows: dict) -> dict:
+    """The serving forward's bf16 time per flagship forward (its 36 calls
+    at the five serving shapes) at each tile size, graph and profiler."""
+    main = [r for r in rows.values() if r["calls_per_forward"]]
+    out = {}
+    for label in ("kernel_ms_by_tile_rows",
+                  "kernel_profiled_ms_by_tile_rows"):
+        out[label] = {t: sum(r[label][t] * r["calls_per_forward"]
+                             for r in main) for t in fa.TILE_ROWS}
+    ms = out["kernel_ms_by_tile_rows"]
+    out["fastest"] = min(ms, key=ms.get)
+    out["used"] = fa.SERVING_TILE_ROWS
+    return {"serving_tile_rows": out}
 
 
 # -- phase 3, training kernels ----------------------------------------------
@@ -981,6 +1025,10 @@ def forward_entry(rows: dict, launches: int, ptxas: dict) -> dict:
         "bound_ms": max(t_bytes, t_flops),
         "bound_by": "bytes" if t_bytes >= t_flops else "operations",
         "library_ms": total("library_ms"), **ptxas,
+        "tile_rows": fa.SERVING_TILE_ROWS,
+        "ms_by_tile_rows": {t: sum(r["kernel_ms_by_tile_rows"][t]
+                                   * r["calls_per_forward"] for r in main)
+                            for t in fa.TILE_ROWS},
         "per": f"one flagship forward at batch 8 "
                f"({ATTN_CALLS_PER_FORWARD} calls), bf16"}
 
@@ -999,6 +1047,13 @@ def main() -> int:
 
     ptxas = build_phase()
     rows = kernel_phase()
+    tiles = tile_rows_line(rows)
+    emit(tiles)
+    print("[kernels] serving forward per flagship forward (bf16): "
+          + ", ".join(f"{t} rows {ms:.4f} ms" for t, ms in
+                      tiles["serving_tile_rows"]["kernel_ms_by_tile_rows"]
+                      .items())
+          + f"; the serving path uses {fa.SERVING_TILE_ROWS}", flush=True)
     train_rows = train_kernel_phase()
     print(f"[kernels] {time.perf_counter() - t_start:.1f} s", flush=True)
     cfg = flagship_config()

@@ -262,13 +262,15 @@ def test_dropout_forward_and_backward_share_the_mask():
 
 
 # -- the tensor-core kernels' rounding ---------------------------------------
-# In bf16 and f16 the card's training forward rounds p z (p = exp(s - m),
-# before the division by l) to the input dtype as the operand of P.V, and
-# the dQ kernel rounds dS to it before dS.K; the plain versions round the
-# normalised probabilities and keep dS in f32. These emulate the kernels'
-# rounding on the CPU (with the row's final max, which is the kernels' own
-# at L <= 64), so the card's tolerances (chip_smoke.py ATTN_TOL and
-# GRAD_TOL, relative to each tensor's largest value) are grounded here.
+# In bf16 and f16 the card's forwards (serving and training) round p z
+# (p = exp(s - m), before the division by l; z = 1 when serving) to the
+# input dtype as the operand of P.V, the dQ kernel rounds dS to it before
+# dS.K, and the dK/dV kernel rounds p z and dS to it before (p z)^T dO and
+# dS^T Q; the plain versions round the normalised probabilities and keep
+# p z and dS in f32. These emulate the kernels' rounding on the CPU (with
+# the row's final max, which is the kernels' own at L <= 64), so the
+# card's tolerances (chip_smoke.py ATTN_TOL and GRAD_TOL, relative to each
+# tensor's largest value) are grounded here.
 ATTN_TOL_BF16, GRAD_TOL_BF16 = 2e-2, 1e-2
 
 ROUNDING_CASES = [  # (H, Lq, Lk, mask kind): the flagship's five shapes
@@ -301,6 +303,25 @@ def _kernel_rounded_dq(q, k, v, o, m, l, do, mask, rate, key):
     return (dq / math.sqrt(q.shape[-1])).to(q.dtype)
 
 
+def _kernel_rounded_dkv(q, k, v, m, l, do, delta, mask, rate, key):
+    p, allowed = fa._bwd_probs(q, k, m, l, mask, False)
+    z = fa._bwd_z(q, k, rate, key, torch.float32)
+    pz = p if z is None else p * z
+    dv = torch.einsum("bhqk,bhqd->bhkd", pz.to(v.dtype).float(), do.float())
+    ds = fa._bwd_ds(p, allowed, v, do, delta, z)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).float(), q.float())
+    return (dk / math.sqrt(q.shape[-1])).to(k.dtype), dv.to(v.dtype)
+
+
+def _rounding_inputs(case, rate):
+    H, Lq, Lk, kind = case
+    q, k, v, g = (torch.from_numpy(a).to(torch.bfloat16)
+                  for a in _arrays(2, H, Lq, Lk, 64, seed=7))
+    mask = _mask(kind, 2, Lq, Lk)
+    mask = None if mask is None else torch.from_numpy(mask)
+    return q, k, v, g, mask, fa.dropout_key(7, 1)
+
+
 def _rel_err(got, want) -> float:
     want = want.float()
     return float((got.float() - want).abs().max()) / max(
@@ -310,21 +331,43 @@ def _rel_err(got, want) -> float:
 @pytest.mark.parametrize("rate", [0.0, 0.1], ids=["no_dropout", "dropout"])
 @pytest.mark.parametrize("case", ROUNDING_CASES, ids=str)
 def test_kernel_rounding_within_card_tolerances(case, rate):
-    """bf16 inputs from a numpy seed, batch 2: o with P rounded to bf16,
-    and dq with dS rounded to bf16, against the f32-internal plain
-    versions, within the card's bf16 tolerances."""
-    H, Lq, Lk, kind = case
-    q, k, v, g = (torch.from_numpy(a).to(torch.bfloat16)
-                  for a in _arrays(2, H, Lq, Lk, 64, seed=7))
-    mask = _mask(kind, 2, Lq, Lk)
-    mask = None if mask is None else torch.from_numpy(mask)
-    key = fa.dropout_key(7, 1)
+    """bf16 inputs from a numpy seed, batch 2: the training forward's o
+    with P rounded to bf16, the serving forward's o (no dropout) with P
+    rounded to bf16, and dq with dS rounded to bf16, against the
+    f32-internal plain versions, within the card's bf16 tolerances."""
+    q, k, v, g, mask, key = _rounding_inputs(case, rate)
     o, m, l = fa.attention_forward_lse_reference(q, k, v, mask, False, rate,
                                                  key)
     o_err = _rel_err(_kernel_rounded_forward(q, k, v, mask, rate, key), o)
+    serve_err = _rel_err(_kernel_rounded_forward(q, k, v, mask, 0.0, key),
+                         fa.attention_reference(q, k, v, mask))
     dq, _ = fa.attention_bwd_dq_reference(q, k, v, o, m, l, g, mask, False,
                                           rate, key)
     dq_err = _rel_err(
         _kernel_rounded_dq(q, k, v, o, m, l, g, mask, rate, key), dq)
     assert o_err <= ATTN_TOL_BF16, o_err
+    assert serve_err <= ATTN_TOL_BF16, serve_err
     assert dq_err <= GRAD_TOL_BF16, dq_err
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["no_dropout", "dropout"])
+@pytest.mark.parametrize("case", ROUNDING_CASES, ids=str)
+def test_dkv_kernel_rounding_within_card_tolerances(case, rate):
+    """The same inputs: dk and dv with p z and dS rounded to bf16 before
+    the two products (f32 sums, each output rounded once), against the
+    f32-internal plain version fed the same m, l and delta, within the
+    card's bf16 gradient tolerance; a fully masked row (query_key cases)
+    still feeds dv its 1/Lk share in both."""
+    q, k, v, g, mask, key = _rounding_inputs(case, rate)
+    o, m, l = fa.attention_forward_lse_reference(q, k, v, mask, False, rate,
+                                                 key)
+    _, delta = fa.attention_bwd_dq_reference(q, k, v, o, m, l, g, mask,
+                                             False, rate, key)
+    dk, dv = fa.attention_bwd_dkv_reference(q, k, v, m, l, g, delta, mask,
+                                            False, rate, key)
+    got_dk, got_dv = _kernel_rounded_dkv(q, k, v, m, l, g, delta, mask, rate,
+                                         key)
+    assert got_dk.dtype == dk.dtype and got_dv.dtype == dv.dtype
+    dk_err, dv_err = _rel_err(got_dk, dk), _rel_err(got_dv, dv)
+    assert dk_err <= GRAD_TOL_BF16, dk_err
+    assert dv_err <= GRAD_TOL_BF16, dv_err

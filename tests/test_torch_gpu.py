@@ -23,8 +23,8 @@ pytestmark = pytest.mark.gpu
 
 # kernel vs plain version on the same inputs: f32 differs by summation
 # order only; in bf16 the plain version rounds the normalised
-# probabilities to bf16 before P.V, the serving kernel does not and the
-# training forward rounds the unnormalised ones (a few bf16 ulps of
+# probabilities to bf16 before P.V, the kernels' tensor-core templates
+# (serving and training) round the unnormalised ones (a few bf16 ulps of
 # outputs ~1); f16 keeps 3 more bits and takes the same bound
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2, torch.float16: 2e-2}
 DTYPES = [torch.float32, torch.bfloat16, torch.float16]
@@ -74,6 +74,32 @@ def test_kernel_matches_plain_version(case, dtype):
     want = fa.attention_reference(q, k, v, mask, causal)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+# The serving forward's tensor-core template at each tile size, with
+# query counts that leave a last tile of 1, 1 and 17 rows at 16 rows a
+# block: a query-key mask (fully masked rows), causal with Lq = Lk, and
+# causal with Lq > Lk (a tile that mixes rows with and without keys).
+SERVE_TILE_CASES = [  # (B, H, Lq, Lk, D, mask kind, causal)
+    (3, 2, 17, 40, 64, "query_key", False),
+    (3, 2, 33, 33, 64, None, True),
+    (3, 2, 49, 24, 64, None, True),
+]
+
+
+@pytest.mark.parametrize("tile_rows", fa.TILE_ROWS)
+@pytest.mark.parametrize("case", SERVE_TILE_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_serving_kernel_tile_rows(case, dtype, tile_rows):
+    _need_card()
+    *shape, kind, causal = case
+    q, k, v, mask = _inputs(*shape, kind, dtype)
+    got = fa.flash_attention_cuda(q, k, v, mask, causal, tile_rows)
+    want = fa.attention_reference(q, k, v, mask, causal)
+    torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
                                rtol=TOL[dtype])
@@ -196,6 +222,44 @@ def test_training_kernels_match_plain_versions(case, dtype, rate):
     torch.testing.assert_close(m, m_ref, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(l, l_ref, atol=1e-5, rtol=1e-5)
     for name, got, ref in zip(("dq", "dk", "dv"), grads, want):
+        assert got.dtype == dtype and got.shape == ref.shape
+        assert torch.isfinite(got).all(), name
+        _assert_rel(got, ref, GRAD_TOL[dtype], name)
+
+
+# dK/dV alone, fed the plain delta: keys that span two 64-key blocks of
+# the tensor-core template (Lk = 65, 113), and the causal 96 x 24 case,
+# whose first query tile mixes rows with and without keys; f32 takes the
+# SIMT template, bf16 and f16 the tensor-core one.
+DKV_CASES = [  # (B, H, Lq, Lk, D, mask kind, causal)
+    (2, 2, 40, 65, 64, "key", False),
+    (2, 2, 113, 113, 64, "query_key", False),
+    (3, 2, 96, 24, 64, None, True),
+]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["no_dropout", "dropout"])
+@pytest.mark.parametrize("case", DKV_CASES, ids=str)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_dkv_kernel_matches_plain_version(case, dtype, rate):
+    _need_card()
+    *shape, kind, causal = case
+    q, k, v, mask = _inputs(*shape, kind, dtype, seed=3)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(8)
+                     ).to("cuda", dtype)
+    key = fa.dropout_key(77, 2)
+    o, m, l = fa.attention_forward_lse_reference(q, k, v, mask, causal, rate,
+                                                 key)
+    m, l = m.float().contiguous(), l.float().contiguous()
+    delta = (do.float() * o.float()).sum(-1).contiguous()
+    before = fa.launch_counts["flash_attn_bwd_dkv"]
+    dk, dv = fa.flash_attention_bwd_dkv_cuda(q, k, v, m, l, do, delta, mask,
+                                             causal, rate, key)
+    assert fa.launch_counts["flash_attn_bwd_dkv"] == before + 1
+    want = fa.attention_bwd_dkv_reference(q, k, v, m, l, do, delta, mask,
+                                          causal, rate, key)
+    torch.cuda.synchronize()
+    for name, got, ref in zip(("dk", "dv"), (dk, dv), want):
         assert got.dtype == dtype and got.shape == ref.shape
         assert torch.isfinite(got).all(), name
         _assert_rel(got, ref, GRAD_TOL[dtype], name)

@@ -9,6 +9,8 @@ interpret mode. The CUDA kernel itself runs only on the card
 from __future__ import annotations
 
 import importlib
+import importlib.util
+from pathlib import Path
 
 import flax.linen as nn
 import jax.numpy as jnp
@@ -139,6 +141,35 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     q, k, v = (torch.from_numpy(t) for t in _qkv(1, 2, 5, 7, 64))
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_cuda(q, k, v)
+
+
+def test_cuda_wrapper_refuses_unknown_tile_rows():
+    """The serving kernel's tile size is one of the three it was built
+    for; any other raises before anything is launched."""
+    q, k, v = (torch.from_numpy(t) for t in _qkv(1, 2, 5, 7, 64))
+    with pytest.raises(ValueError, match="tile_rows"):
+        flash_attention_cuda(q, k, v, tile_rows=24)
+
+
+def _attention_variants():
+    spec = importlib.util.spec_from_file_location(
+        "attention_variants",
+        Path(__file__).resolve().parents[1] / "tools" / "attention_variants.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("name", [v[0] for v in _attention_variants().VARIANTS])
+def test_attention_variants_apply_to_the_kernel_sources(name):
+    """tools/attention_variants.py rewrites the kernels by text: every
+    substitution still matches its source exactly once, so the variants
+    PERF.md cites stay buildable as the kernels change."""
+    tool = _attention_variants()
+    _, source, subs, _ = next(v for v in tool.VARIANTS if v[0] == name)
+    text = tool.variant_source(name)
+    original = (tool.cuda_build.CSRC_DIR / f"{source}.cu").read_text()
+    assert (text == original) == (not subs)
 
 
 def test_embedding_matches_matmul_grad_embed():

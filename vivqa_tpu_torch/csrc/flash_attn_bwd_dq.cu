@@ -383,7 +383,7 @@ int launch_d(const BwdParams& p, cudaStream_t stream) {
 
 template <typename T, int D>
 int launch_mma_d(const BwdParams& p, cudaStream_t stream) {
-  const int bytes = mma::smem_bytes<T, D>(2, p.Lk);
+  const int bytes = mma::smem_bytes<T, D>(2 * mma::kTileRows, p.Lk);
   const int err = allow_smem(flash_attn_bwd_dq_mma_kernel<T, D>, bytes);
   if (err != 0) return err;
   const dim3 grid((p.Lq + mma::kTileRows - 1) / mma::kTileRows, p.B * p.H);

@@ -34,38 +34,51 @@
 // before dropout, so o = sum_k (p_k z_k) v_k.
 //
 // Two templates. The SIMT template (flash_attn_fwd_kernel) serves both
-// entries in f32, and the serving entry in every dtype. The training
-// entry in bf16 and f16 takes the tensor-core template
-// (flash_attn_fwd_lse_mma_kernel): f32 inputs would round to TF32 on the
+// entries in f32. In bf16 and f16 both entries take the tensor-core
+// template (fwd_mma_body): the training entry through
+// flash_attn_fwd_lse_mma_kernel (64 query rows a block), the serving
+// entry through flash_attn_fwd_mma_kernel (16, 32 or 64 query rows a
+// block, chosen by the caller). f32 inputs would round to TF32 on the
 // tensor cores, outside the f32 tolerances, and f32 is not on the model's
-// path. The choice is by dtype only; a failed build or launch raises.
+// path. The choice of template is by dtype only; a failed build or launch
+// raises.
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense, 132 SMs, 227
 // KB of shared memory a block, 64K registers an SM): at the model's shapes
 // (head dim 64, L <= 64) one call reads q, k, v and writes o (and m, l),
 // and does 4*B*H*Lq*Lk*D flops, 1-2 flops per byte moved, far below the
 // ~295 at which the tensor cores bind, so the bytes bind: 0.437 ms for the
-// 36 training calls of bench.py's step at batch 128 (chip_smoke.py).
+// 36 training calls of bench.py's step at batch 128, 0.027 ms for the 36
+// serving calls of a forward at batch 8 (chip_smoke.py). A serving call at
+// batch 8 moves ~2.5 MB, under a microsecond of memory time: there the
+// latency of one block's load-compute-store chain and the number of blocks
+// in flight set the time, not the bytes.
 //
-// SIMT design (serving, f32): one block of 4 warps per (batch*head,
-// 16-query tile); each warp owns 4 query rows. K/V tiles of 32 keys are
-// staged in shared memory as f32 (K rows padded by one word); each tile is
-// loaded with all its 16-byte loads in flight at once, and the next K/V
-// tile is requested before the current one is used. Lane j scores key j
-// for the warp's 4 rows; the warp's max and sum come from shuffles; in the
-// PV step each lane owns D/32 output columns and the probabilities are
-// broadcast by shuffles. All arithmetic is f32 FMA on the CUDA cores.
+// SIMT design (f32): one block of 4 warps per (batch*head, 16-query
+// tile); each warp owns 4 query rows. K/V tiles of 32 keys are staged in
+// shared memory as f32 (K rows padded by one word); each tile is loaded
+// with all its 16-byte loads in flight at once, and the next K/V tile is
+// requested before the current one is used. Lane j scores key j for the
+// warp's 4 rows; the warp's max and sum come from shuffles; in the PV step
+// each lane owns D/32 output columns and the probabilities are broadcast
+// by shuffles. All arithmetic is f32 FMA on the CUDA cores.
 //
-// Tensor-core design (training, bf16/f16), from the SIMT template's
-// measured faults (4.28 ms per step at batch 128 against SDPA's 1.91 ms,
-// chip_smoke.py): one shared-memory load per FMA in the score loop, one
-// shuffle per 2 FMAs in P.V, tiles staged as f32 (twice the bytes and
-// stores), and 16-row blocks that re-read a head's K and V four times.
-//   - One block of 4 warps per (batch*head, 64 query rows); each warp owns
-//     16 rows. At L <= 64 a block holds a whole head, so K and V leave
-//     device memory once per (b, h): 1,536 blocks for the 12-head calls
-//     at batch 128. Longer keys loop over 64-key tiles with the online
-//     softmax, the next K/V tile copied while this one is used.
+// Tensor-core design (bf16/f16), from the SIMT template's measured faults
+// (4.28 ms per training step at batch 128 against SDPA's 1.91 ms; 0.378 ms
+// per serving forward at batch 8 against SDPA's 0.352; chip_smoke.py): one
+// shared-memory load per FMA in the score loop, one shuffle per 2 FMAs in
+// P.V, tiles staged as f32 (twice the bytes and stores), and 16-row
+// blocks that re-read a head's K and V four times.
+//   - One block of ROWS / 16 warps per (batch*head, ROWS query rows); each
+//     warp owns 16 rows. The training forward takes ROWS = 64: at L <= 64
+//     a block holds a whole head, so K and V leave device memory once per
+//     (b, h): 1,536 blocks for the 12-head calls at batch 128. At batch 8
+//     that gives only 96 or 64 blocks for 132 SMs, so the serving forward
+//     takes ROWS = 16, 32 or 64 (ops/flash_attention.py picks the one
+//     chip_smoke.py measured fastest); each block then stages its head's
+//     whole K and V, which the other blocks of the head find in L2. Longer
+//     keys loop over 64-key tiles with the online softmax, the next K/V
+//     tile copied while this one is used.
 //   - q, k, v are copied into shared memory by 16-byte cp.async in their
 //     own dtype, rows padded to D + 8 elements so ldmatrix is conflict
 //     free (element loads into the same layout for views whose rows do not
@@ -74,15 +87,17 @@
 //     at D = 64: 1/8). Masks, causal and ragged rules apply on the
 //     fragment's (row, key) coordinates. Row max and sum take 2 shuffles
 //     across the quad that holds a row.
-//   - p = exp(s - m) times the dropout multiplier is rounded to the input
-//     dtype as the A operand of P.V in registers (no shared-memory round
-//     trip), as the plain version rounds its probabilities before P.V;
-//     l sums the f32 p. O += P V by mma with V through ldmatrix.trans.
-//   - o is written through the warp's own Q rows with 16-byte stores; m
-//     and l in f32.
-// The products are no longer the cost: at 2.4x its bound on the H100 what
-// is left is the chain of elementwise steps per score (rules, exp, dropout
-// hash, row max and sum), more than the copies (PERF.md, Findings).
+//   - p = exp(s - m) (times the dropout multiplier, training only) is
+//     rounded to the input dtype as the A operand of P.V in registers (no
+//     shared-memory round trip); the plain version rounds the normalised
+//     probabilities instead (ROADMAP.md, Queue C). l sums the f32 p.
+//     O += P V by mma with V through ldmatrix.trans.
+//   - o is written through the warp's own Q rows with 16-byte stores; the
+//     training forward also writes m and l in f32.
+// The products are no longer the cost: at 2.4x its bound on the H100 the
+// training forward is held by the chain of elementwise steps per score
+// (rules, exp, dropout hash, row max and sum), more than by the copies
+// (PERF.md, Findings).
 
 #include "flash_attn_mma.cuh"
 
@@ -250,22 +265,30 @@ __global__ void __launch_bounds__(kThreads) flash_attn_fwd_kernel(Params p) {
   }
 }
 
-// The training forward on the tensor cores (bf16 / f16). o_vec: o's rows
-// start on 16 bytes. At D = 64 ptxas fits it in 128 registers, 4 blocks
-// an SM; D = 128 takes 2 blocks, without spills.
-template <typename T, int D>
-__global__ void __launch_bounds__(mma::kThreads, D == 64 ? 4 : 2)
-    flash_attn_fwd_lse_mma_kernel(Params p, int o_vec) {
+// The forward on the tensor cores (bf16 / f16): ROWS query rows a block,
+// one warp per 16. kTrain: write m and l and apply dropout (the training
+// forward); else neither (the serving forward). kMask: the call has a
+// mask, whose (ROWS x 64)-byte tile for each key tile is staged in shared
+// memory with the K/V tile (16-byte copies when mask_vec); without one
+// the mask code is not compiled in. o_vec: o's rows start on 16 bytes.
+// smem: ROWS staged Q rows, K and V of buffer 0 (and of buffer 1 when
+// Lk > 64), then the mask tile of each buffer.
+template <typename T, int D, int ROWS, bool kTrain, bool kMask>
+__device__ __forceinline__ void fwd_mma_body(const Params& p, int o_vec, int mask_vec,
+                                             unsigned char* smem) {
   using namespace mma;
+  constexpr int THREADS = ROWS * 2;
   constexpr int P = pitch<D>();
-  constexpr int TE = tile_elems<D>();
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sQ = reinterpret_cast<T*>(smem_raw);  // then K, V of buffer 0, then of buffer 1
+  constexpr int TE = tile_elems<D>();  // one 64-key K or V tile
+  T* sQ = reinterpret_cast<T*>(smem);
+  T* sKV = sQ + ROWS * P;
+  const int nbuf = p.Lk > kTileRows ? 2 : 1;
+  uint8_t* sMask = reinterpret_cast<uint8_t*>(sKV + 2 * nbuf * TE);
 
   const int bh = blockIdx.y;
   const int b = bh / p.H;
   const int h = bh % p.H;
-  const int q0 = blockIdx.x * kTileRows;
+  const int q0 = blockIdx.x * ROWS;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
@@ -274,19 +297,26 @@ __global__ void __launch_bounds__(mma::kThreads, D == 64 ? 4 : 2)
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
   const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
   T* o = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
-  const KeyRule rule{p.mask ? p.mask + b * p.m_sb : nullptr, p.m_sq, p.m_sk, p.Lq, p.Lk,
+  const KeyRule rule{kMask ? p.mask + b * p.m_sb : nullptr, p.m_sq, p.m_sk, p.Lq, p.Lk,
                      p.Lk - p.Lq, p.causal};
-  const int k_end = causal_key_end(rule, q0);
+  const int k_end = causal_key_end(rule, q0, ROWS);
   const int n_tiles = (k_end + kTileRows - 1) / kTileRows;
 
-  load_tile<T, D>(sQ, q, p.q_sl, q0, p.Lq, p.vec);
-  load_tile<T, D>(sQ + TE, k, p.k_sl, 0, p.Lk, p.vec);
-  load_tile<T, D>(sQ + 2 * TE, v, p.v_sl, 0, p.Lk, p.vec);
+  load_tile<T, D, ROWS, THREADS>(sQ, q, p.q_sl, q0, p.Lq, p.vec);
+  load_tile<T, D, kTileRows, THREADS>(sKV, k, p.k_sl, 0, p.Lk, p.vec);
+  load_tile<T, D, kTileRows, THREADS>(sKV + TE, v, p.v_sl, 0, p.Lk, p.vec);
+  if (kMask)
+    load_mask_tile<ROWS, THREADS>(sMask, rule.mask, rule.sq, rule.sk, q0, p.Lq, 0, p.Lk,
+                                  mask_vec);
   cp_async_commit();
 
   const T* sQw = sQ + warp * 16 * P;  // the warp's 16 rows
   const int qi[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  const uint32_t row_hash[2] = {p.drop.row(qi[0]), p.drop.row(qi[1])};
+  uint32_t row_hash[2] = {0u, 0u};
+  if (kTrain) {
+    row_hash[0] = p.drop.row(qi[0]);
+    row_hash[1] = p.drop.row(qi[1]);
+  }
   float m[2] = {kMasked, kMasked};
   float l[2] = {0.f, 0.f};
   float acc[D / 8][4];
@@ -299,13 +329,19 @@ __global__ void __launch_bounds__(mma::kThreads, D == 64 ? 4 : 2)
     cp_async_wait_all();
     __syncthreads();  // tile kt is in; every warp is done with tile kt - 1
     if (kt + 1 < n_tiles) {
-      T* nxt = sQ + (1 + 2 * ((kt + 1) & 1)) * TE;
-      load_tile<T, D>(nxt, k, p.k_sl, (kt + 1) * kTileRows, p.Lk, p.vec);
-      load_tile<T, D>(nxt + TE, v, p.v_sl, (kt + 1) * kTileRows, p.Lk, p.vec);
+      T* nxt = sKV + 2 * ((kt + 1) & 1) * TE;
+      load_tile<T, D, kTileRows, THREADS>(nxt, k, p.k_sl, (kt + 1) * kTileRows, p.Lk, p.vec);
+      load_tile<T, D, kTileRows, THREADS>(nxt + TE, v, p.v_sl, (kt + 1) * kTileRows, p.Lk,
+                                          p.vec);
+      if (kMask)
+        load_mask_tile<ROWS, THREADS>(sMask + ((kt + 1) & 1) * ROWS * kMaskPitch, rule.mask,
+                                      rule.sq, rule.sk, q0, p.Lq, (kt + 1) * kTileRows, p.Lk,
+                                      mask_vec);
       cp_async_commit();
     }
-    const T* sK = sQ + (1 + 2 * (kt & 1)) * TE;
+    const T* sK = sKV + 2 * (kt & 1) * TE;
     const T* sV = sK + TE;
+    const uint8_t* sM = sMask + (kt & 1) * ROWS * kMaskPitch + warp * 16 * kMaskPitch;
     const int k0 = kt * kTileRows;
 
     float s[8][4];
@@ -321,7 +357,9 @@ __global__ void __launch_bounds__(mma::kThreads, D == 64 ? 4 : 2)
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const KeyState st = rule(qi[e / 2], k0 + 8 * j + 2 * t + (e & 1));
+        const int kc = 8 * j + 2 * t + (e & 1);  // the key within the tile
+        const KeyState st = rule.state(
+            qi[e / 2], k0 + kc, !kMask || sM[(g + 8 * (e / 2)) * kMaskPitch + kc] != 0);
         float sc = s[j][e] * p.scale;
         if (st == kPastEnd) sc = -INFINITY;
         if (st == kRemoved) sc = kMasked;
@@ -341,7 +379,8 @@ __global__ void __launch_bounds__(mma::kThreads, D == 64 ? 4 : 2)
       for (int e = 0; e < 4; ++e) {
         float pr = expf(s[j][e] - m[e / 2]);  // exactly 0 past Lk (-inf)
         tile_sum[e / 2] += pr;
-        if (p.drop.on) pr *= p.drop.scale(row_hash[e / 2], k0 + 8 * j + 2 * t + (e & 1));
+        if (kTrain && p.drop.on)
+          pr *= p.drop.scale(row_hash[e / 2], k0 + 8 * j + 2 * t + (e & 1));
         s[j][e] = pr;
       }
 #pragma unroll
@@ -355,14 +394,14 @@ __global__ void __launch_bounds__(mma::kThreads, D == 64 ? 4 : 2)
     }
 
     uint32_t a[4][4];
-    to_a_frags<T, 8>(a, s);  // p z rounded to T: the operand of P.V
+    to_a_frags<T, 8>(a, s);  // p (z) rounded to T: the operand of P.V
     gemm_ab<T, D, 4>(acc, a, sV, lane);
   }
 
   const float lr[2] = {fmaxf(l[0], 1e-30f), fmaxf(l[1], 1e-30f)};
   store_rows<T, D>(sQ + warp * 16 * P, acc, 1.f / lr[0], 1.f / lr[1], o, p.o_sl,
                    q0 + warp * 16, p.Lq, lane, o_vec);
-  if (t == 0) {
+  if (kTrain && t == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       if (qi[r] < p.Lq) {
@@ -371,6 +410,26 @@ __global__ void __launch_bounds__(mma::kThreads, D == 64 ? 4 : 2)
       }
     }
   }
+}
+
+// The training forward on the tensor cores. At D = 64 ptxas fits it in 128
+// registers, 4 blocks an SM; D = 128 takes 2 blocks, without spills.
+template <typename T, int D, bool kMask>
+__global__ void __launch_bounds__(mma::kThreads, D == 64 ? 4 : 2)
+    flash_attn_fwd_lse_mma_kernel(Params p, int o_vec, int mask_vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  fwd_mma_body<T, D, mma::kTileRows, true, kMask>(p, o_vec, mask_vec, smem_raw);
+}
+
+// The serving forward on the tensor cores, ROWS = 16, 32 or 64 query rows
+// a block, held to 168 registers a thread at D = 64 (3 blocks of 64 rows
+// an SM; at 128 it spilled, and ran no faster on the H100), 255 at
+// D = 128. Serving grids at batch 8 fill one wave either way.
+template <typename T, int D, int ROWS, bool kMask>
+__global__ void __launch_bounds__(2 * ROWS, (D == 64 ? 3 : 2) * mma::kTileRows / ROWS)
+    flash_attn_fwd_mma_kernel(Params p, int o_vec, int mask_vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  fwd_mma_body<T, D, ROWS, false, kMask>(p, o_vec, mask_vec, smem_raw);
 }
 
 template <typename T, bool kTrain>
@@ -390,15 +449,29 @@ int launch(const Params& p, int head_dim, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// Launch a tensor-core forward kernel of ROWS query rows a block: its
+// shared memory (the staged rows, the K/V tiles, and the mask tiles when
+// there is a mask), grid and alignment flags.
+template <typename T, int D, int ROWS, typename Kernel>
+int launch_fwd_mma(Kernel kernel, const Params& p, cudaStream_t stream) {
+  const int nbuf = p.Lk > mma::kTileRows ? 2 : 1;
+  const int bytes = mma::smem_bytes<T, D>(ROWS, p.Lk) +
+                    (p.mask != nullptr ? nbuf * ROWS * mma::kMaskPitch : 0);
+  const int err = allow_smem(kernel, bytes);
+  if (err != 0) return err;
+  const dim3 grid((p.Lq + ROWS - 1) / ROWS, p.B * p.H);
+  const int o_vec = mma::rows_aligned16(p.o, p.o_sb, p.o_sh, p.o_sl);
+  const int mask_vec = mma::mask_rows_aligned16(p.mask, p.m_sb, p.m_sq, p.m_sk);
+  kernel<<<grid, 2 * ROWS, bytes, stream>>>(p, o_vec, mask_vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int D>
 int launch_mma_d(const Params& p, cudaStream_t stream) {
-  const int bytes = mma::smem_bytes<T, D>(1, p.Lk);
-  const int err = allow_smem(flash_attn_fwd_lse_mma_kernel<T, D>, bytes);
-  if (err != 0) return err;
-  const dim3 grid((p.Lq + mma::kTileRows - 1) / mma::kTileRows, p.B * p.H);
-  const int o_vec = mma::rows_aligned16(p.o, p.o_sb, p.o_sh, p.o_sl);
-  flash_attn_fwd_lse_mma_kernel<T, D><<<grid, mma::kThreads, bytes, stream>>>(p, o_vec);
-  return static_cast<int>(cudaGetLastError());
+  constexpr int R = mma::kTileRows;
+  return p.mask != nullptr
+             ? launch_fwd_mma<T, D, R>(flash_attn_fwd_lse_mma_kernel<T, D, true>, p, stream)
+             : launch_fwd_mma<T, D, R>(flash_attn_fwd_lse_mma_kernel<T, D, false>, p, stream);
 }
 
 template <typename T>
@@ -408,6 +481,40 @@ int launch_mma(const Params& p, int head_dim, cudaStream_t stream) {
       return launch_mma_d<T, 64>(p, stream);
     case 128:
       return launch_mma_d<T, 128>(p, stream);
+    default:
+      return -1;
+  }
+}
+
+template <typename T, int D, int ROWS>
+int launch_serve_rows(const Params& p, cudaStream_t stream) {
+  return p.mask != nullptr
+             ? launch_fwd_mma<T, D, ROWS>(flash_attn_fwd_mma_kernel<T, D, ROWS, true>, p, stream)
+             : launch_fwd_mma<T, D, ROWS>(flash_attn_fwd_mma_kernel<T, D, ROWS, false>, p,
+                                          stream);
+}
+
+template <typename T, int D>
+int launch_serve_d(const Params& p, int tile_rows, cudaStream_t stream) {
+  switch (tile_rows) {
+    case 16:
+      return launch_serve_rows<T, D, 16>(p, stream);
+    case 32:
+      return launch_serve_rows<T, D, 32>(p, stream);
+    case 64:
+      return launch_serve_rows<T, D, 64>(p, stream);
+    default:
+      return -1;
+  }
+}
+
+template <typename T>
+int launch_serve(const Params& p, int head_dim, int tile_rows, cudaStream_t stream) {
+  switch (head_dim) {
+    case 64:
+      return launch_serve_d<T, 64>(p, tile_rows, stream);
+    case 128:
+      return launch_serve_d<T, 128>(p, tile_rows, stream);
     default:
       return -1;
   }
@@ -460,22 +567,24 @@ Params make_params(const void* q, const void* k, const void* v, void* o, const v
 // strides: 15 element strides, in order q (b, h, l), k (b, h, l),
 // v (b, h, l), o (b, h, l), mask (b, q, k); the mask's are ignored when
 // mask is null. vec = 1 promises that q, k and v and all their b/h/l
-// strides are 16-byte aligned, so tiles load as 16-byte vectors. Returns
-// cudaGetLastError() after the launch, or -1 for a head dim or dtype this
-// file was not built for.
+// strides are 16-byte aligned, so tiles load as 16-byte vectors.
+// tile_rows: query rows a block of the tensor-core template (bf16, f16)
+// takes, 16, 32 or 64; f32 takes the SIMT template and ignores it.
+// Returns cudaGetLastError() after the launch, or -1 for a head dim,
+// dtype or tile_rows this file was not built for.
 extern "C" int vivqa_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
                                     const void* mask, int dtype, int head_dim, int B, int H,
                                     int Lq, int Lk, const long long* strides, int causal,
-                                    int vec, float scale, void* stream) {
+                                    int vec, float scale, int tile_rows, void* stream) {
   const Params p = make_params(q, k, v, o, mask, B, H, Lq, Lk, strides, causal, vec, scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch<float, false>(p, head_dim, s);
+      return launch<float, false>(p, head_dim, s);  // SIMT: no TF32 rounding
     case 1:
-      return launch<__nv_bfloat16, false>(p, head_dim, s);
+      return launch_serve<__nv_bfloat16>(p, head_dim, tile_rows, s);
     case 2:
-      return launch<__half, false>(p, head_dim, s);
+      return launch_serve<__half>(p, head_dim, tile_rows, s);
     default:
       return -1;
   }

@@ -1,15 +1,16 @@
 // Tensor-core pieces shared by the port's bf16/f16 attention kernels (the
-// training forward in flash_attn_fwd.cu, the dQ pass in
-// flash_attn_bwd_dq.cu): inline-PTX wrappers for ldmatrix,
-// mma.sync.m16n8k16 (bf16 or f16 operands, f32 accumulators) and
-// cp.async; the 64-row tile loader into padded shared memory; the two
-// warp-level products over a tile of keys (or a step of 16 or 32 keys of
-// it); the accumulator-to-operand repack; the key rules (ragged end,
-// causal, boolean mask) and the causal skip; and the epilogue that writes
-// a warp's 16 rows with 16-byte stores.
+// serving and training forwards in flash_attn_fwd.cu, the dQ pass in
+// flash_attn_bwd_dq.cu, the dK/dV pass in flash_attn_bwd_dkv.cu):
+// inline-PTX wrappers for ldmatrix, mma.sync.m16n8k16 (bf16 or f16
+// operands, f32 accumulators) and cp.async; the tile loader into padded
+// shared memory; the two warp-level products over a tile (or a step of 16
+// or 32 rows of it); the accumulator-to-operand repack; the key rules
+// (ragged end, causal, boolean mask) and the causal skip; and the epilogue
+// that writes a warp's 16 rows with 16-byte stores.
 //
-// Shapes: a block of 4 warps owns 64 query rows, 16 per warp; keys come in
-// tiles of 64. A tile of rows is staged in its own dtype with a row pitch
+// Shapes: each warp owns 16 rows of the operand it keeps (query rows in
+// the forwards and dQ, keys in dK/dV); the streamed operand comes in tiles
+// of 64 rows. A tile of rows is staged in its own dtype with a row pitch
 // of D + 8 elements, so the 8 row addresses of one ldmatrix fall 16 bytes
 // apart along the banks and never conflict.
 //
@@ -28,8 +29,8 @@
 namespace vivqa {
 namespace mma {
 
-constexpr int kTileRows = 64;  // query rows per block, keys per tile
-constexpr int kWarps = 4;      // 16 query rows each
+constexpr int kTileRows = 64;  // rows of a streamed tile, and of a 4-warp block
+constexpr int kWarps = 4;      // 16 rows each
 constexpr int kThreads = kWarps * 32;
 
 template <int D> __host__ __device__ constexpr int pitch() { return D + 8; }
@@ -98,19 +99,21 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Stage rows [row0, row0 + 64) of an (n_rows, D) matrix with row stride ld
-// into dst (pitch D + 8) in its own dtype; rows at or past n_rows are 0.
-// vec: 16-byte cp.async copies, which the caller commits and waits for;
-// else element loads (rows that do not start on 16 bytes).
-template <typename T, int D>
+// Stage rows [row0, row0 + ROWS) of an (n_rows, D) matrix with row stride
+// ld into dst (pitch D + 8) in its own dtype, by a block of THREADS
+// threads; rows at or past n_rows are 0. vec: 16-byte cp.async copies,
+// which the caller commits and waits for; else element loads (rows that
+// do not start on 16 bytes).
+template <typename T, int D, int ROWS = kTileRows, int THREADS = kThreads>
 __device__ __forceinline__ void load_tile(T* dst, const T* src, long long ld, int row0,
                                           int n_rows, int vec) {
   static_assert(sizeof(T) == 2, "tensor-core tiles are 16-bit");
   constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  constexpr int kPerThread = kTileRows * kChunks / kThreads;
+  static_assert(ROWS * kChunks % THREADS == 0, "whole chunks per thread");
+  constexpr int kPerThread = ROWS * kChunks / THREADS;
 #pragma unroll
   for (int i = 0; i < kPerThread; ++i) {
-    const int idx = threadIdx.x + i * kThreads;
+    const int idx = threadIdx.x + i * THREADS;
     const int r = idx / kChunks, c = (idx % kChunks) * 8;
     T* d = dst + r * pitch<D>() + c;
     if (row0 + r < n_rows) {
@@ -131,9 +134,11 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, long long ld, in
 }
 
 // acc[j] += A . B^T for a warp's 16 rows of sA against the first 8 NT
-// rows of sB, over D: S = Q K^T, dP = dO V^T. acc[j] covers columns
+// rows of sB, over D: S = Q K^T, dP = dO V^T (and, with the roles
+// swapped in dK/dV, S^T = K Q^T, dP^T = V dO^T). acc[j] covers columns
 // 8j .. 8j + 7. The forward and the dQ pass compute S through this one
-// function, so they get the same f32 scores bit for bit.
+// function with the same operands, so they get the same f32 scores bit
+// for bit.
 template <typename T, int D, int NT>
 __device__ __forceinline__ void gemm_abt(float (&acc)[NT][4], const T* sA, const T* sB,
                                          int lane) {
@@ -153,9 +158,10 @@ __device__ __forceinline__ void gemm_abt(float (&acc)[NT][4], const T* sA, const
   }
 }
 
-// acc[n] += A . B for A = a warp's 16 x 16 KC operand (KC chunks of 16
-// keys, from to_a_frags) and B = the first 16 KC rows of sB by D columns:
-// O += P V, dQ += dS K. acc[n] covers columns 8n .. 8n + 7.
+// acc[n] += A . B for A = a warp's 16 x 16 KC operand (KC chunks of 16,
+// from to_a_frags) and B = the first 16 KC rows of sB by D columns:
+// O += P V, dQ += dS K, dV += (P z)^T dO, dK += dS^T Q. acc[n] covers
+// columns 8n .. 8n + 7.
 template <typename T, int D, int KC>
 __device__ __forceinline__ void gemm_ab(float (&acc)[D / 8][4], const uint32_t (&a)[KC][4],
                                         const T* sB, int lane) {
@@ -206,22 +212,81 @@ struct KeyRule {
   long long sq, sk;     // its (q, k) element strides
   int Lq, Lk, q_offset, causal;
 
-  __device__ __forceinline__ KeyState operator()(int qi, int kj) const {
+  // the key's state when the mask keeps it (mask_keeps) or not
+  __device__ __forceinline__ KeyState state(int qi, int kj, bool mask_keeps) const {
     if (kj >= Lk) return kPastEnd;
-    bool keep = !causal || q_offset + qi >= kj;
-    if (mask != nullptr && qi < Lq) keep = keep && __ldg(mask + qi * sq + kj * sk) != 0;
-    return keep ? kKept : kRemoved;
+    return mask_keeps && (!causal || q_offset + qi >= kj) ? kKept : kRemoved;
+  }
+  // reading the mask byte from device memory
+  __device__ __forceinline__ KeyState operator()(int qi, int kj) const {
+    return state(qi, kj, mask == nullptr || qi >= Lq || __ldg(mask + qi * sq + kj * sk) != 0);
   }
 };
 
-// The end of the keys an item of 64 rows from q0 takes. Causal without a
-// mask: keys past the item's last diagonal carry weight exactly 0 and are
-// skipped -- unless its first row has no key (Lq > Lk), which must average
-// over all Lk keys; such an item may also hold rows with keys, and the
-// rule gives each row its own.
-__device__ __forceinline__ int causal_key_end(const KeyRule& rule, int q0) {
+// A mask tile staged in shared memory: rows of 64 key bytes at a pitch of
+// 80 bytes (rows start on 16 bytes for cp.async, and the 8 rows that a
+// warp's lanes read at once fall on distinct banks).
+constexpr int kMaskPitch = 80;
+
+// Stage the mask bytes of rows [row0, row0 + ROWS) and keys [col0,
+// col0 + 64) into dst, by a block of THREADS threads; rows at or past
+// n_rows and keys at or past n_cols are 0. vec: the mask's rows start on
+// 16 bytes and its keys have unit stride, so whole 16-byte chunks go by
+// cp.async (which the caller commits and waits for); else byte loads.
+// kRolled: the byte loads as a rolled loop along a pointer, for a caller
+// whose key window is the same in every iteration of its own loop (dK/dV):
+// unrolled, the 16 byte offsets are loop-invariant there and were held in
+// registers across that loop.
+template <int ROWS, int THREADS, bool kRolled = false>
+__device__ __forceinline__ void load_mask_tile(uint8_t* dst, const uint8_t* mask, long long sq,
+                                               long long sk, int row0, int n_rows, int col0,
+                                               int n_cols, int vec) {
+  constexpr int kChunks = kTileRows / 16;  // 16-byte chunks per row
+  static_assert(ROWS * kChunks % THREADS == 0, "whole chunks per thread");
+#pragma unroll
+  for (int i = 0; i < ROWS * kChunks / THREADS; ++i) {
+    const int idx = threadIdx.x + i * THREADS;
+    const int r = idx / kChunks, c = (idx % kChunks) * 16;
+    const int row = row0 + r, col = col0 + c;
+    uint8_t* d = dst + r * kMaskPitch + c;
+    if (vec && row < n_rows && col + 16 <= n_cols) {
+      cp_async16(d, mask + row * sq + col);
+    } else if (kRolled) {
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+      if (row < n_rows) {
+        const uint8_t* src = mask + row * sq + col * sk;
+        const int n = min(16, n_cols - col);
+#pragma unroll 1
+        for (int j = 0; j < n; ++j, src += sk) d[j] = __ldg(src);
+      }
+    } else {
+      uint4 buf = make_uint4(0u, 0u, 0u, 0u);
+      uint8_t* e = reinterpret_cast<uint8_t*>(&buf);
+      if (row < n_rows) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          if (col + j < n_cols) e[j] = __ldg(mask + row * sq + (col + j) * sk);
+      }
+      *reinterpret_cast<uint4*>(d) = buf;
+    }
+  }
+}
+
+// 1 when a (b, q, k)-strided byte mask at ptr takes 16-byte copies
+inline int mask_rows_aligned16(const void* ptr, long long sb, long long sq, long long sk) {
+  return ptr != nullptr && reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && sb % 16 == 0 &&
+         sq % 16 == 0 && sk == 1;
+}
+
+// The end of the keys an item of `rows` rows from q0 takes. Causal without
+// a mask: keys past the item's last diagonal carry weight exactly 0 and
+// are skipped -- unless its first row has no key (Lq > Lk), which must
+// average over all Lk keys; such an item may also hold rows with keys, and
+// the rule gives each row its own.
+__device__ __forceinline__ int causal_key_end(const KeyRule& rule, int q0,
+                                              int rows = kTileRows) {
   if (!rule.causal || rule.mask != nullptr || rule.q_offset + q0 < 0) return rule.Lk;
-  return min(rule.Lk, rule.q_offset + min(q0 + kTileRows, rule.Lq));
+  return min(rule.Lk, rule.q_offset + min(q0 + rows, rule.Lq));
 }
 
 // Write a warp's 16 x D accumulators, row g scaled by f0 and row g + 8 by
@@ -268,13 +333,13 @@ inline int rows_aligned16(const void* ptr, long long sb, long long sh, long long
          sl % 8 == 0;
 }
 
-// Dynamic shared memory of a block: nbuf K/V tile pairs (two when the keys
-// span more than one tile, so the next tile loads while this one is used)
-// behind `fixed` staged row tiles.
+// Dynamic shared memory of a block: nbuf pairs of streamed 64-row tiles
+// (K and V; two pairs when the stream spans more than one tile, so the
+// next tile loads while this one is used) behind `fixed_rows` staged rows.
 template <typename T, int D>
-inline int smem_bytes(int fixed, int Lk) {
-  const int nbuf = Lk > kTileRows ? 2 : 1;
-  return (fixed + 2 * nbuf) * tile_elems<D>() * static_cast<int>(sizeof(T));
+inline int smem_bytes(int fixed_rows, int stream_len) {
+  const int nbuf = stream_len > kTileRows ? 2 : 1;
+  return (fixed_rows + 2 * nbuf * kTileRows) * pitch<D>() * static_cast<int>(sizeof(T));
 }
 
 }  // namespace mma

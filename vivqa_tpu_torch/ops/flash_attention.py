@@ -53,6 +53,13 @@ launch_counts = {"flash_attn_fwd": 0, "flash_attn_fwd_lse": 0,
 HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
+# Query rows a block of the serving forward's tensor-core template (bf16,
+# f16) takes, and the one the serving path uses: the fastest of the three
+# at the flagship's five shapes at batch 8 on the H100 (chip_smoke.py's
+# kernel phase times them all; PERF.md, Findings).
+TILE_ROWS = (16, 32, 64)
+SERVING_TILE_ROWS = 64
+
 
 def reset_launch_counts() -> None:
     for name in launch_counts:
@@ -332,7 +339,7 @@ def _dropout_args(rate: float, key: Optional[int]):
 
 _FWD_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
              + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
-                ctypes.c_float, ctypes.c_void_p])
+                ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _FWD_LSE_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                  + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
                     ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_uint,
@@ -358,13 +365,18 @@ def _stream(t):
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          mask: Optional[torch.Tensor] = None,
-                         causal: bool = False) -> torch.Tensor:
+                         causal: bool = False,
+                         tile_rows: int = SERVING_TILE_ROWS) -> torch.Tensor:
     """Launch the Hopper forward kernel; raise on what it does not take.
 
     Inputs need a unit stride over D only, so views of (B, L, H, D)
     projections are read in place. The output is allocated as
-    (B, Lq, H, D) and returned as its (B, H, Lq, D) view.
+    (B, Lq, H, D) and returned as its (B, H, Lq, D) view. ``tile_rows``
+    (one of ``TILE_ROWS``) is the query rows a block of the bf16/f16
+    template takes; f32 runs the SIMT template, which ignores it.
     """
+    if tile_rows not in TILE_ROWS:
+        raise ValueError(f"tile_rows {tile_rows} not in {TILE_ROWS}")
     m_strides = _check_cuda_inputs(q, k, v, mask)
     B, H, Lq, D = q.shape
     Lk = k.shape[2]
@@ -377,7 +389,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  None if mask is None else mask.data_ptr(),
                  _DTYPE_CODES[q.dtype], D, B, H, Lq, Lk, strides,
                  int(causal), int(_aligned(q, k, v)), 1.0 / math.sqrt(D),
-                 _stream(q))
+                 tile_rows, _stream(q))
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed: error {err}")
     launch_counts["flash_attn_fwd"] += 1
