@@ -8,17 +8,19 @@ Phases, in order; any failure exits non-zero:
 2. build: every CUDA source of the port with nvcc for sm_90a, all at once,
    with ptxas' register, spill and shared-memory report;
 3. kernels: each kernel against its plain version on the card at the
-   shapes the serving path gives it (and a few edge cases), in f32, bf16
-   and f16 (the serving forward's tensor-core template at each of its
-   three tile sizes), one JSON line per case with its time (CUDA-graph
-   replay, and the profiler's sum of kernel durations; the serving
-   forward at each tile size), the plain version's, the bound and
-   scaled_dot_product_attention's time as a yardstick, and a line with
-   the serving forward's time per flagship forward at each tile size; then the
-   three training kernels (forward with stats, dQ, dK/dV) the same way at
-   the training step's shapes (batch 128) and edge cases, with attention
-   dropout on and off, o, m, l, dq, dk and dv checked in f32, bf16 and
-   f16;
+   shapes the serving paths give it (the classification forward's, the
+   generative path's: encoders and fusion at batch 16, the single-query
+   decode calls over the KV cache at several steps and over the encoder
+   memory; and a few edge cases), in f32, bf16 and f16 (the serving
+   forward's tensor-core template at each of its three tile sizes), one
+   JSON line per case with its time (CUDA-graph replay, and the
+   profiler's sum of kernel durations; at each tile size), the plain
+   version's, the bound and scaled_dot_product_attention's time as a
+   yardstick, and a line with the serving forward's time per flagship
+   forward and per generate at each tile size; then the three training
+   kernels (forward with stats, dQ, dK/dV) the same way at the training
+   step's shapes (batch 128) and edge cases, with attention dropout on
+   and off, o, m, l, dq, dk and dv checked in f32, bf16 and f16;
 4. serving: the flagship classification model (CLIP-style ViT-B/32,
    PhoBERT-style text encoder, MCAN, dense top-2 MoE, 1,000 answers) with
    seeded random weights behind VQAPredictor, answering batches of 8
@@ -27,19 +29,30 @@ Phases, in order; any failure exits non-zero:
    checked against the same weights on the CPU (the plain path); then
    one batch's forward eager, as one CUDA graph, and under torch.profiler
    (the device's busy time and idle share);
-5. training: the same model with bench.py's synthetic batch of 128,
-   loss and optimizer (cross-entropy + 0.01 x router aux loss, AdamW with
-   warmup-cosine, decay mask and global-norm clipping), dropout on; a few
-   warm-up steps, then timed steps (step ms, QA-pairs/s, loss and
-   grad_norm per step, peak memory); every attention call must go through
-   the three training kernels (36 launches of each per step, none of the
-   inference forward); one step under torch.profiler; then two steps of
-   the same weights at dropout 0 on a ragged batch of 4, on the card and
-   on the CPU (the plain versions), whose losses, grad norms and updated
-   parameters must agree;
-6. the card line (nvidia-smi's name and power limit), the kernels line,
+5. generative serving: bench_serving's model (12 + 12 encoder layers, 3
+   fusion layers, 6 decoder layers, 64,001-token vocab) with seeded
+   random weights, greedy and beam (4 beams) generates of 32 tokens at
+   batch 16 and 64 through build_generate_fn, timed with the port's
+   bench_serving functions (answers/s, p50/p95); every attention call
+   goes through the forward kernel (411 launches per generate, none of
+   the training kernels); the greedy sequences against the card's own
+   teacher forcing, card against CPU at batch 2, one greedy and one beam
+   generate under torch.profiler;
+6. training: the same classification model with bench.py's synthetic
+   batch of 128, loss and optimizer (cross-entropy + 0.01 x router aux
+   loss, AdamW with warmup-cosine, decay mask and global-norm clipping),
+   dropout on; a few warm-up steps, then timed steps (step ms, QA-pairs/s,
+   loss and grad_norm per step, peak memory); every attention call must
+   go through the three training kernels (36 launches of each per step,
+   none of the inference forward); one step under torch.profiler; then
+   two steps of the same weights at dropout 0 on a ragged batch of 4, on
+   the card and on the CPU (the plain versions), whose losses, grad norms
+   and updated parameters must agree;
+7. the card line (nvidia-smi's name and power limit), the kernels line,
    and the device line, which is the last line.
 
+Each path's launch counts are set to 0 just before it runs and read just
+after.
 The script imports nothing of JAX or of the JAX package. Without a CUDA
 device it prints no result and exits 2.
 """
@@ -50,7 +63,6 @@ import copy
 import json
 import math
 import re
-import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -59,19 +71,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from vivqa_tpu_torch import bench, bench_serving
+from vivqa_tpu_torch.bench import (bench_optimizer, flagship_config,
+                                   synthetic_batch)
 from vivqa_tpu_torch.data.tokenizer import WhitespaceTokenizer
-from vivqa_tpu_torch.device import resolve_device
+from vivqa_tpu_torch.device import card_line, resolve_device
 from vivqa_tpu_torch.eval.predictor import VQAPredictor
-from vivqa_tpu_torch.models.config import (FusionConfig, MoEModelConfig,
-                                           TextEncoderConfig,
-                                           VisualEncoderConfig,
-                                           VQAModelConfig)
+from vivqa_tpu_torch.models.config import GenerativeVQAConfig, VQAModelConfig
+from vivqa_tpu_torch.models.decoding import build_generate_fn
+from vivqa_tpu_torch.models.generative import create_generative_vqa_model
 from vivqa_tpu_torch.models.vqa_model import create_vqa_model
 from vivqa_tpu_torch.ops import cuda_build
 from vivqa_tpu_torch.ops import flash_attention as fa
-from vivqa_tpu_torch.train.optimizers import (OptimizerConfig,
-                                              SchedulerConfig,
-                                              create_optimizer)
 from vivqa_tpu_torch.train.state import (TrainState, classification_loss_fn,
                                          make_train_step)
 
@@ -82,8 +93,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
 
 KERNEL_SOURCES = ("flash_attn_fwd", "flash_attn_bwd_dq",
                   "flash_attn_bwd_dkv")
-TRAIN_KERNELS = ("flash_attn_fwd_lse", "flash_attn_bwd_dq",
-                 "flash_attn_bwd_dkv")
+TRAIN_KERNELS = bench.TRAIN_KERNELS
 
 # kernel vs plain version on the same inputs. bf16: the plain version
 # rounds the normalised probabilities to bf16 before P.V (as
@@ -99,14 +109,16 @@ KERNEL_NAMES = {"flash_attn_fwd": "flash_attn_fwd_mma_kernel",
                 "flash_attn_fwd_lse": "flash_attn_fwd_lse",
                 "flash_attn_bwd_dq": "flash_attn_bwd_dq",
                 "flash_attn_bwd_dkv": "flash_attn_bwd_dkv"}
-# The templates each kernel runs on the main path (bf16, head dim 64; the
-# serving forward at the serving path's tile size; the calls with a mask
-# and those without take separate instantiations), as ptxas names them
+# The templates each kernel runs on the main paths (bf16, head dim 64; the
+# serving forward at the serving paths' tile sizes, the decoder's masked
+# single-query calls at DECODE_TILE_ROWS; the calls with a mask and those
+# without take separate instantiations), as ptxas names them
 _BF16_64 = "I13__nv_bfloat16Li64E"
 MAIN_TEMPLATES = {
     "flash_attn_fwd": [
-        f"flash_attn_fwd_mma_kernel{_BF16_64}Li{fa.SERVING_TILE_ROWS}ELb{m}EE"
-        for m in (0, 1)],
+        f"flash_attn_fwd_mma_kernel{_BF16_64}Li{rows}ELb{m}EE"
+        for rows, m in ((fa.SERVING_TILE_ROWS, 0), (fa.SERVING_TILE_ROWS, 1),
+                        (fa.DECODE_TILE_ROWS, 1))],
     "flash_attn_fwd_lse": [f"flash_attn_fwd_lse_mma_kernel{_BF16_64}Lb{m}EE"
                            for m in (0, 1)],
     "flash_attn_bwd_dq": [f"flash_attn_bwd_dq_mma_kernel{_BF16_64}"],
@@ -129,6 +141,36 @@ ATTN_CASES = [
 ]
 
 ATTN_CALLS_PER_FORWARD = sum(c[-1] for c in ATTN_CASES)    # 36
+
+# The generative path's attention at bench_serving's config
+# (vivqa_tpu_torch/bench_serving.py): (name, B, H, Lq, Lk, D, the path's
+# mask kind, a padded mask kind checked as well, calls per beam generate
+# at batch 16). That generate runs the encoders and the fusion at batch
+# 16 and 32 decode steps at 16 x 4 beams = 64 rows; each step makes, per
+# decoder layer, one self call over the 32-position cache (keys at
+# positions <= the step: "cache_pos") and one cross call over the
+# 113-token memory under its key mask. Greedy runs the steps at the
+# batch, beam at batch 64 at 256 rows. bench_serving's questions have no
+# padding, so the text, fusion and memory masks the path builds allow
+# every key ("full_*"); each case is timed with the path's mask, and
+# checked with it and with random padding. A cache_pos case is checked at
+# each of CACHE_INDICES and timed at the middle one; its bytes and flops
+# are the mean over a generate's steps (cur_index 0 .. Lk - 1).
+GEN_CASES = [
+    ("gen_vit_self", 16, 12, 50, 50, 64, None, None, 12),
+    ("gen_text_self", 16, 12, 64, 64, 64, "full_query_key", "query_key",
+     12),
+    ("gen_fusion_self", 16, 8, 113, 113, 64, "full_query_key", "query_key",
+     3),
+    ("dec_self_16", 16, 8, 1, 32, 64, "cache_pos", None, 0),
+    ("dec_self_64", 64, 8, 1, 32, 64, "cache_pos", None, 192),
+    ("dec_self_256", 256, 8, 1, 32, 64, "cache_pos", None, 0),
+    ("dec_cross_16", 16, 8, 1, 113, 64, "full_key", "key", 0),
+    ("dec_cross_64", 64, 8, 1, 113, 64, "full_key", "key", 192),
+    ("dec_cross_256", 256, 8, 1, 113, 64, "full_key", "key", 0),
+]
+CACHE_INDICES = (0, 15, 31)
+GEN_HEAD = "beam_b16"          # the generate GEN_CASES' calls describe
 
 # The training kernels against their plain versions (the backward ones fed
 # the kernel forward's o, m, l). o, dq, dk and dv are held relative to
@@ -162,32 +204,8 @@ TRAIN_CASES = [
 ATTN_CALLS_PER_STEP = sum(c[8] for c in TRAIN_CASES)        # 36
 
 
-def flagship_config() -> VQAModelConfig:
-    """The model of bench.py:53-64 and __graft_entry__._flagship_config."""
-    return VQAModelConfig(
-        visual=VisualEncoderConfig(backbone="clip", image_size=224,
-                                   patch_size=32, hidden_dim=768,
-                                   num_layers=12, num_heads=12),
-        text=TextEncoderConfig(backbone="phobert", vocab_size=64001,
-                               hidden_dim=768, num_layers=12, num_heads=12,
-                               max_length=64),
-        fusion=FusionConfig(fusion_type="mcan", hidden_dim=512, num_heads=8,
-                            num_layers=4),
-        moe=MoEModelConfig(use_moe=True, num_experts=4, top_k=2,
-                           expert_hidden_dim=1024),
-        num_answers=1000)
-
-
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def card_line() -> str:
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    return res.stdout.strip().splitlines()[0]
 
 
 def _events_ms(run, reps: int) -> float:
@@ -318,12 +336,23 @@ def build_phase() -> dict:
 
 
 # -- phase 3: kernels --------------------------------------------------------
-def attention_inputs(B, H, Lq, Lk, D, kind, dtype, gen):
+def cache_pos_mask(Lk: int, cur_index: int) -> torch.Tensor:
+    """The decoder's cache at step ``cur_index``: keys <= the step."""
+    return (torch.arange(Lk, device="cuda") <= cur_index).view(1, 1, 1, Lk)
+
+
+def attention_inputs(B, H, Lq, Lk, D, kind, dtype, gen, cur_index=None):
     def rand(*shape):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
     q, k, v = rand(B, H, Lq, D), rand(B, H, Lk, D), rand(B, H, Lk, D)
     mask = None
-    if kind is not None:
+    if kind == "cache_pos":
+        mask = cache_pos_mask(Lk, cur_index)
+    elif kind == "full_key":    # make_attention_mask(None, no padding)
+        mask = torch.ones(B, 1, 1, Lk, dtype=torch.bool, device="cuda")
+    elif kind == "full_query_key":      # make_attention_mask(ones, ones)
+        mask = torch.ones(B, 1, Lq, Lk, dtype=torch.bool, device="cuda")
+    elif kind is not None:
         klen = torch.randint(1, Lk + 1, (B,), generator=gen, device="cuda")
         kv = torch.arange(Lk, device="cuda")[None] < klen[:, None]
         if kind == "key":
@@ -335,9 +364,11 @@ def attention_inputs(B, H, Lq, Lk, D, kind, dtype, gen):
 
 
 def attention_work(q, k, mask, causal):
-    """Bytes moved (q, k, v, o once, the mask once) and flops needed:
-    4*D per (query, key) pair that enters the softmax; a row with no
-    allowed key averages all Lk keys."""
+    """(bytes moved, flops needed, key rows needed) of the call's data:
+    q and o once; of k and v only the key rows that some query of the same
+    (batch, head) takes (a row no query takes need not be read); the mask
+    once; 4*D flops per (query, key) pair that enters the softmax. A query
+    row with no allowed key averages all Lk keys, so it takes every key."""
     B, H, Lq, D = q.shape
     Lk = k.shape[2]
     allowed = torch.ones(B, 1, Lq, Lk, dtype=torch.bool, device=q.device)
@@ -346,29 +377,36 @@ def attention_work(q, k, mask, causal):
                                        device=q.device).tril(Lk - Lq)
     if mask is not None:
         allowed = allowed & mask
-    per_row = allowed.sum(-1)
-    pairs = int(torch.where(per_row > 0, per_row, Lk).sum()) * H
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    allowed = allowed | ~allowed.any(-1, keepdim=True)
+    pairs = int(allowed.sum()) * H
+    key_rows = int(allowed.any(2).sum()) * H
+    nbytes = (2 * q.numel() + 2 * key_rows * D) * q.element_size()
     if mask is not None:
-        nbytes += B * Lq * Lk
-    return nbytes, 4 * D * pairs
+        nbytes += mask.numel()
+    return nbytes, 4 * D * pairs, key_rows
 
 
-def kernel_phase() -> dict:
-    """Rows keyed by case. In bf16 and f16 the serving forward is checked
-    at each of its tile sizes (``fa.TILE_ROWS``) and timed at each in
-    bf16; ``kernel_ms`` is the serving path's own (``SERVING_TILE_ROWS``)."""
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = {}
-    for name, B, H, Lq, Lk, D, kind, causal, calls in ATTN_CASES:
-        errs = {}
-        for dtype in (torch.float32, torch.float16, torch.bfloat16):
-            q, k, v, mask = attention_inputs(B, H, Lq, Lk, D, kind, dtype,
-                                             gen)
+def attention_case(name, B, H, Lq, Lk, D, kind, causal, gen,
+                   calls_per_forward=0, calls_per_generate=0,
+                   check_kind=None) -> dict:
+    """One case: the forward kernel against its plain version in f32, f16
+    and bf16 (bf16 and f16 at each tile size; a cache_pos case at each of
+    CACHE_INDICES; with ``kind``'s mask and ``check_kind``'s), then, in
+    bf16 with ``kind``'s mask, its time (graph and profiler, at each tile
+    size), the plain version's, the bound and SDPA's."""
+    errs = {}
+    variants = [(kind, cur) for cur in
+                (CACHE_INDICES if kind == "cache_pos" else (None,))]
+    if check_kind is not None:
+        variants.append((check_kind, None))
+    for dtype in (torch.float32, torch.float16, torch.bfloat16):
+        errs[dtype] = 0.0
+        for mask_kind, cur in variants:
+            q, k, v, mask = attention_inputs(B, H, Lq, Lk, D, mask_kind,
+                                             dtype, gen, cur)
             ref = fa.attention_reference(q, k, v, mask, causal)
-            tiles = (fa.SERVING_TILE_ROWS,) if dtype == torch.float32 \
-                else fa.TILE_ROWS
-            errs[dtype] = 0.0
+            tiles = (fa.serving_tile_rows(Lq),) \
+                if dtype == torch.float32 else fa.TILE_ROWS
             for tile_rows in tiles:
                 out = fa.flash_attention_cuda(q, k, v, mask, causal,
                                               tile_rows)
@@ -376,68 +414,142 @@ def kernel_phase() -> dict:
                 err = float((out.float() - ref.float()).abs().max())
                 if not math.isfinite(err) or err > ATTN_TOL[dtype]:
                     raise AssertionError(
-                        f"{name} {dtype} tile_rows {tile_rows}: kernel vs "
-                        f"plain max |err| {err} > {ATTN_TOL[dtype]}")
+                        f"{name} {dtype} mask {mask_kind} tile_rows "
+                        f"{tile_rows} cur_index {cur}: kernel vs plain max "
+                        f"|err| {err} > {ATTN_TOL[dtype]}")
                 errs[dtype] = max(errs[dtype], err)
-        # timing and bounds at the main path's dtype, bf16
-        sdpa_mask = mask
-        if causal:
-            tri = torch.ones(Lq, Lk, dtype=torch.bool,
-                             device="cuda").tril(Lk - Lq)
-            sdpa_mask = tri if mask is None else mask & tri
-        def kernel():
-            return fa.flash_attention_cuda(q, k, v, mask, causal)
+    # timing and bounds at the main path's dtype and mask, bf16 (a
+    # cache_pos case at the middle index, whose mask keeps half the keys)
+    q, k, v, mask = attention_inputs(
+        B, H, Lq, Lk, D, kind, torch.bfloat16, gen,
+        CACHE_INDICES[1] if kind == "cache_pos" else None)
+    sdpa_mask = mask
+    if causal:
+        tri = torch.ones(Lq, Lk, dtype=torch.bool,
+                         device="cuda").tril(Lk - Lq)
+        sdpa_mask = tri if mask is None else mask & tri
 
-        def plain():
-            return fa.attention_reference(q, k, v, mask, causal)
+    def kernel():
+        return fa.flash_attention_cuda(q, k, v, mask, causal)
 
-        def library():
-            return F.scaled_dot_product_attention(q, k, v,
-                                                  attn_mask=sdpa_mask)
-        times = {f"{label}_ms": device_ms(fn) for label, fn in
-                 (("plain", plain), ("library", library))}
-        times.update({f"{label}_eager_ms": eager_ms(fn) for label, fn in
-                      (("kernel", kernel), ("library", library))})
-        for label, timer in (("kernel_ms", device_ms),
-                             ("kernel_profiled_ms", profiled_ms)):
-            by_tile = {
-                tile_rows: timer(lambda tile_rows=tile_rows:
-                                 fa.flash_attention_cuda(q, k, v, mask,
-                                                         causal, tile_rows))
-                for tile_rows in fa.TILE_ROWS}
-            times[f"{label}_by_tile_rows"] = by_tile
-            times[label] = by_tile[fa.SERVING_TILE_ROWS]
-        nbytes, flops = attention_work(q, k, mask, causal)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_flops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
-        row = {"case": name, "B": B, "H": H, "Lq": Lq, "Lk": Lk, "D": D,
-               "mask": kind, "causal": causal, "calls_per_forward": calls,
-               "max_abs_err_bf16": errs[torch.bfloat16],
-               "max_abs_err_f16": errs[torch.float16],
-               "max_abs_err_f32": errs[torch.float32],
-               "tol_bf16": ATTN_TOL[torch.bfloat16],
-               "tol_f16": ATTN_TOL[torch.float16],
-               "tol_f32": ATTN_TOL[torch.float32],
-               **times, "bytes": nbytes, "flops": flops,
-               "bound_us": max(t_bytes, t_flops) * 1e3,
-               "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
-        emit({"attention_case": row})
-        rows[name] = row
+    def plain():
+        return fa.attention_reference(q, k, v, mask, causal)
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask)
+    times = {f"{label}_ms": device_ms(fn) for label, fn in
+             (("plain", plain), ("library", library))}
+    times.update({f"{label}_eager_ms": eager_ms(fn) for label, fn in
+                  (("kernel", kernel), ("library", library))})
+    for label, timer in (("kernel_ms", device_ms),
+                         ("kernel_profiled_ms", profiled_ms)):
+        by_tile = {
+            tile_rows: timer(lambda tile_rows=tile_rows:
+                             fa.flash_attention_cuda(q, k, v, mask, causal,
+                                                     tile_rows))
+            for tile_rows in fa.TILE_ROWS}
+        times[f"{label}_by_tile_rows"] = by_tile
+        times[label] = by_tile[fa.serving_tile_rows(Lq)]
+    if kind == "cache_pos":     # the mean over a generate's steps
+        works = [attention_work(q, k, cache_pos_mask(Lk, cur), causal)
+                 for cur in range(Lk)]
+        nbytes, flops = (sum(w[i] for w in works) / Lk for i in (0, 1))
+    else:
+        nbytes, flops, _ = attention_work(q, k, mask, causal)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+    row = {"case": name, "B": B, "H": H, "Lq": Lq, "Lk": Lk, "D": D,
+           "mask": kind, "mask_checked_also": check_kind, "causal": causal,
+           "calls_per_forward": calls_per_forward,
+           "calls_per_generate": calls_per_generate,
+           "max_abs_err_bf16": errs[torch.bfloat16],
+           "max_abs_err_f16": errs[torch.float16],
+           "max_abs_err_f32": errs[torch.float32],
+           "tol_bf16": ATTN_TOL[torch.bfloat16],
+           "tol_f16": ATTN_TOL[torch.float16],
+           "tol_f32": ATTN_TOL[torch.float32],
+           **times, "bytes": nbytes, "flops": flops,
+           "bound_us": max(t_bytes, t_flops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
+    if kind == "cache_pos":
+        row["cur_indices_checked"] = list(CACHE_INDICES)
+        row["cur_index_timed"] = CACHE_INDICES[1]
+        row["work_over_cur_indices"] = [0, Lk - 1]
+    emit({"attention_case": row})
+    return row
+
+
+def kernel_phase() -> dict:
+    """Rows keyed by case: the classification serving forward's cases
+    (ATTN_CASES) and the generative path's (GEN_CASES). ``kernel_ms`` is
+    the time at the tile size the paths use (``serving_tile_rows``)."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = {}
+    for name, B, H, Lq, Lk, D, kind, causal, calls in ATTN_CASES:
+        rows[name] = attention_case(name, B, H, Lq, Lk, D, kind, causal, gen,
+                                    calls_per_forward=calls)
+    for name, B, H, Lq, Lk, D, kind, check_kind, calls in GEN_CASES:
+        rows[name] = attention_case(name, B, H, Lq, Lk, D, kind, False, gen,
+                                    calls_per_generate=calls,
+                                    check_kind=check_kind)
     return rows
 
 
-def tile_rows_line(rows: dict) -> dict:
-    """The serving forward's bf16 time per flagship forward (its 36 calls
-    at the five serving shapes) at each tile size, graph and profiler."""
-    main = [r for r in rows.values() if r["calls_per_forward"]]
+def _by_tile_sums(rows: dict, calls_key: str) -> dict:
+    main = [r for r in rows.values() if r[calls_key]]
     out = {}
     for label in ("kernel_ms_by_tile_rows",
                   "kernel_profiled_ms_by_tile_rows"):
-        out[label] = {t: sum(r[label][t] * r["calls_per_forward"]
-                             for r in main) for t in fa.TILE_ROWS}
+        out[label] = {t: sum(r[label][t] * r[calls_key] for r in main)
+                      for t in fa.TILE_ROWS}
     ms = out["kernel_ms_by_tile_rows"]
     out["fastest"] = min(ms, key=ms.get)
-    out["used"] = fa.SERVING_TILE_ROWS
+    out["used_ms"] = sum(r["kernel_ms"] * r[calls_key] for r in main)
+    out["used"] = sorted({fa.serving_tile_rows(r["Lq"]) for r in main})
+    return out
+
+
+def decode_tile_rule(rows: dict) -> dict:
+    """The decode calls of one generate in each of bench_serving's four
+    configurations (new tokens x decoder layers self calls over the
+    cache and as many cross calls over the memory, at B rows for greedy
+    and B x beams for beam) at each tile size, graph replay; their sum
+    over the four, from which DECODE_TILE_ROWS is chosen; and what the
+    tile used gives up in each against that configuration's fastest."""
+    cfg = bench_serving.serving_config()
+    calls = bench_serving.NEW_TOKENS * cfg.decoder_layers
+    beams = bench_serving.decode_config("beam").num_beams
+    by_config = {}
+    for strategy in GEN_STRATEGIES:
+        for B in GEN_BATCHES:
+            R = B * (beams if strategy == "beam" else 1)
+            self_ms, cross_ms = (
+                rows[f"dec_{kind}_{R}"]["kernel_ms_by_tile_rows"]
+                for kind in ("self", "cross"))
+            by_config[f"{strategy}_b{B}"] = {
+                t: calls * (self_ms[t] + cross_ms[t]) for t in fa.TILE_ROWS}
+    total = {t: sum(c[t] for c in by_config.values()) for t in fa.TILE_ROWS}
+    used = fa.DECODE_TILE_ROWS
+    return {"calls_per_generate": 2 * calls,
+            "ms_per_generate_by_tile_rows": by_config,
+            "ms_all_configs_by_tile_rows": total,
+            "fastest_all_configs": min(total, key=total.get), "used": used,
+            "given_up_ms_per_generate": {
+                k: c[used] - min(c.values()) for k, c in by_config.items()}}
+
+
+def tile_rows_line(rows: dict) -> dict:
+    """The serving forward's bf16 time at each tile size, graph and
+    profiler: per flagship forward (its 36 calls at the five serving
+    shapes), per beam generate at batch 16 (its 411 calls), per call at
+    each single-query decode shape, and the decode tile rule's sums."""
+    out = _by_tile_sums(rows, "calls_per_forward")
+    out["generate"] = _by_tile_sums(rows, "calls_per_generate")
+    out["decode_cases"] = {
+        r["case"]: {"kernel_ms_by_tile_rows": r["kernel_ms_by_tile_rows"],
+                    "library_ms": r["library_ms"]}
+        for r in rows.values() if r["Lq"] == 1}
+    out["decode_rule"] = decode_tile_rule(rows)
     return {"serving_tile_rows": out}
 
 
@@ -449,18 +561,21 @@ def train_attention_work(q, k, mask, causal) -> dict:
     writes o, m, l, 4*D flops per pair; dQ reads q, k, v, o, dO, m, l,
     writes dq and delta, 6*D per pair (s, dP, dQ) and 2*D per row for
     delta; dK/dV reads q, k, v, dO, m, l, delta, writes dk, dv, 8*D per
-    pair (s, dP, dV, dK). The mask, where there is one, is read once."""
+    pair (s, dP, dV, dK). Of k and v each reads only the key rows some
+    query takes (``attention_work``); dk and dv are written whole. The
+    mask, where there is one, is read once."""
     B, H, Lq, D = q.shape
-    nbytes, flops = attention_work(q, k, mask, causal)
+    nbytes, flops, key_rows = attention_work(q, k, mask, causal)
     pairs = flops // (4 * D)
-    e, nq, nk = q.element_size(), q.numel(), k.numel()
+    e, nq, nk, nk_read = q.element_size(), q.numel(), k.numel(), key_rows * D
     stats = B * H * Lq * 4
     mask_b = 0 if mask is None else B * Lq * k.shape[2]
     return {"flash_attn_fwd_lse": (nbytes + 2 * stats, 4 * D * pairs),
-            "flash_attn_bwd_dq": ((4 * nq + 2 * nk) * e + 3 * stats + mask_b,
+            "flash_attn_bwd_dq": ((4 * nq + 2 * nk_read) * e + 3 * stats
+                                  + mask_b,
                                   6 * D * pairs + 2 * D * B * H * Lq),
-            "flash_attn_bwd_dkv": ((2 * nq + 4 * nk) * e + 3 * stats + mask_b,
-                                   8 * D * pairs)}
+            "flash_attn_bwd_dkv": ((2 * nq + 2 * nk_read + 2 * nk) * e
+                                   + 3 * stats + mask_b, 8 * D * pairs)}
 
 
 def _grad_err(got, want) -> float:
@@ -765,32 +880,7 @@ def profile_phase(model, args, forwards: int = 3) -> dict:
                          "ms": t / 1e3 / forwards} for n, (c, t) in top]}
 
 
-# -- phase 5: training ------------------------------------------------------
-def synthetic_batch(cfg: VQAModelConfig, batch: int, device) -> dict:
-    """bench.py:75-83: pixels uniform in [0, 1) (numpy seed 0), token ids
-    (seed 1), an all-ones attention mask, answer labels (seed 2)."""
-    S, L = cfg.visual.image_size, cfg.text.max_length
-    data = {
-        "pixel_values": np.random.RandomState(0).rand(batch, S, S, 3).astype(
-            np.float32),
-        "input_ids": np.random.RandomState(1).randint(
-            0, cfg.text.vocab_size - 1, (batch, L)),
-        "attention_mask": np.ones((batch, L), np.int64),
-        "labels": np.random.RandomState(2).randint(0, cfg.num_answers,
-                                                   (batch,))}
-    return {n: torch.from_numpy(a).to(device) for n, a in data.items()}
-
-
-def bench_optimizer(model, warmup_steps: int = 100):
-    """bench.py:89-96: AdamW at lr 1e-4, weight decay 0.01 under the
-    no-decay mask, global-norm clipping at 1.0, warmup-cosine over
-    10,000 steps."""
-    return create_optimizer(
-        OptimizerConfig(learning_rate=1e-4), model,
-        SchedulerConfig(name="warmup_cosine", warmup_steps=warmup_steps,
-                        total_steps=10000))
-
-
+# -- phase 6: training ------------------------------------------------------
 def training_phase(cfg: VQAModelConfig, device: str = "cuda",
                    steps: int = 10, warmup: int = 3,
                    batch: int = TRAIN_BATCH, seed: int = 0) -> dict:
@@ -814,20 +904,8 @@ def training_phase(cfg: VQAModelConfig, device: str = "cuda",
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
-    host_ms, event_ms, metrics = [], [], []
-    for _ in range(steps):
-        t = time.perf_counter()
-        if on_card:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-        metrics.append(train_step(state, data)[1])
-        if on_card:
-            end.record()
-        sync()
-        host_ms.append((time.perf_counter() - t) * 1e3)
-        if on_card:
-            event_ms.append(start.elapsed_time(end))
+    host_ms, event_ms, metrics = bench.time_train_steps(state, train_step,
+                                                        data, steps)
     launches = dict(fa.launch_counts)
     calls = ATTN_CALLS_PER_STEP * steps if on_card else 0
     want = {name: calls for name in TRAIN_KERNELS}
@@ -955,16 +1033,184 @@ def train_check(cfg: VQAModelConfig, device: str = "cuda", steps: int = 2,
     return out
 
 
-def kernels_line(rows: dict, launches: int, train_rows: dict,
-                 train_launches: dict, ptxas: dict) -> dict:
+# -- phase 5: generative serving ---------------------------------------------
+GEN_BATCHES = (16, 64)
+GEN_STRATEGIES = ("greedy", "beam")
+# card vs card and card vs CPU, as compare_logits: teacher-forced tokens
+# must equal the cached decode's wherever the teacher-forced top-1/top-2
+# margin exceeds twice CACHE_TOL x max |logit|. Both run the same bf16
+# trunk on the card; they differ in the shapes of their products (one
+# query a step against 32), whose sums cuBLAS may order differently, so a
+# few bf16 ulps of the logits' scale (2**-8 relative each).
+CACHE_TOL = 0.02
+
+
+def attention_calls_per_generate(cfg: GenerativeVQAConfig,
+                                 new_tokens: int) -> int:
+    """ViT and text self-attention, fusion, then per step one self and
+    one cross call per decoder layer: 12 + 12 + 3 + 32 x 6 x 2 = 411 at
+    bench_serving's config."""
+    return (cfg.visual.num_layers + cfg.text.num_layers + cfg.fusion_layers
+            + new_tokens * cfg.decoder_layers * 2)
+
+
+def _first_eos_mask(seqs: torch.Tensor, eos: int) -> torch.Tensor:
+    """True up to and including each row's first EOS: the positions whose
+    token the decode chose (later ones hold pad)."""
+    after = torch.cumsum((seqs == eos).long(), dim=1) - (seqs == eos).long()
+    return after == 0
+
+
+def cache_consistency(model, args, seqs, decode_cfg) -> dict:
+    """The card's greedy sequences against its own teacher-forced argmax
+    on the same tokens (BOS, then each sequence but its last token)."""
+    bos = torch.full_like(seqs[:, :1], decode_cfg.bos_token_id)
+    with torch.inference_mode():
+        logits = model(*args, torch.cat([bos, seqs[:, :-1]], dim=1))[
+            "logits"].float()
+    top2 = logits.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    tol = CACHE_TOL * float(logits.abs().max())
+    chosen = _first_eos_mask(seqs, decode_cfg.eos_token_id)
+    decided = chosen & (margin > 2 * tol)
+    agree = logits.argmax(-1) == seqs
+    out = {"positions": int(chosen.sum()), "decided": int(decided.sum()),
+           "decided_agree": int((agree & decided).sum()),
+           "agree": int((agree & chosen).sum()), "tolerance": tol}
+    if out["decided"] == 0 or out["decided_agree"] != out["decided"]:
+        raise AssertionError(f"cached decode vs teacher forcing: {out}")
+    return out
+
+
+def generate_profile(generate, args, reps: int = 3) -> dict:
+    """One generate eager (host clock to a synchronize, median of
+    ``reps``) and under torch.profiler: device busy time, idle share, the
+    forward attention kernel's device time, kernels per generate."""
+    from torch.profiler import ProfilerActivity, profile
+    eager = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        generate(*args)
+        torch.cuda.synchronize()
+        eager.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        generate(*args)
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    busy = sum(t for _, t in kernels.values()) / 1e3
+    eager_median = float(np.median(eager))
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
+    return {"eager_generate_ms": eager_median,
+            "device_busy_ms": busy if kernels else None,
+            "device_idle_share": 1 - busy / eager_median if kernels else None,
+            "attention_device_ms": sum(
+                t for n, (_, t) in kernels.items()
+                if KERNEL_NAMES["flash_attn_fwd"] in n) / 1e3,
+            "attention_launches": sum(
+                c for n, (c, _) in kernels.items()
+                if KERNEL_NAMES["flash_attn_fwd"] in n),
+            "kernels_per_generate": sum(c for c, _ in kernels.values()),
+            "top_kernels": [{"name": n[:90], "calls": c, "ms": t / 1e3}
+                            for n, (c, t) in top]}
+
+
+def generative_phase(cfg: GenerativeVQAConfig, device: str = "cuda",
+                     batches=GEN_BATCHES, new_tokens: int = 32,
+                     windows: int = 3, iters: int = 5, lat_calls: int = 5,
+                     seed: int = 0) -> dict:
+    """bench_serving's model with seeded weights on ``device``: greedy and
+    beam at each batch through ``build_generate_fn``, timed with the
+    port's bench_serving functions (every forward-kernel launch counted,
+    none of the training kernels); each call's sequences (B, new_tokens)
+    and finite scores; the greedy sequences against teacher forcing on the
+    card; card against CPU at batch 2; one greedy and one beam generate
+    profiled. (On the CPU, a rehearsal at a tiny size.)"""
+    on_card = device == "cuda"
+    t0 = time.perf_counter()
+    cpu_model = create_generative_vqa_model(
+        cfg, device="cpu", generator=torch.Generator().manual_seed(seed))
+    model = copy.deepcopy(cpu_model).to(device)
+    px, q = (torch.from_numpy(a).to(device) for a in
+             bench_serving.synthetic_requests(cfg, max(batches)))
+    setup_s = time.perf_counter() - t0
+    per_generate = attention_calls_per_generate(cfg, new_tokens)
+    gens = {s: build_generate_fn(model, bench_serving.decode_config(
+        s, new_tokens)) for s in GEN_STRATEGIES}
+
+    results, outputs, n_generates = {}, {}, 0
+    fa.reset_launch_counts()
+    for B in batches:
+        for strategy in GEN_STRATEGIES:
+            key = f"{strategy}_b{B}"
+            results[key], (seqs, scores) = bench_serving.bench_one(
+                gens[strategy], (px[:B], q[:B]), B, windows, iters,
+                lat_calls)
+            n_generates += 1 + windows * iters + lat_calls
+            if seqs.shape != (B, new_tokens) \
+                    or not bool(torch.isfinite(scores).all()):
+                raise AssertionError(f"{key}: sequences {tuple(seqs.shape)}"
+                                     f", scores {scores}")
+            outputs[key] = seqs
+            print(f"[generative] {key}: {results[key]}", flush=True)
+    launches = dict(fa.launch_counts)
+    want = {name: 0 for name in launches}
+    want["flash_attn_fwd"] = per_generate * n_generates if on_card else 0
+    if launches != want:
+        raise AssertionError(f"generative launches {launches} != {want} "
+                             f"({per_generate} x {n_generates} generates)")
+
+    B0 = batches[0]
+    decode_cfg = bench_serving.decode_config("greedy", new_tokens)
+    consistency = cache_consistency(model, (px[:B0], q[:B0]),
+                                    outputs[f"greedy_b{B0}"], decode_cfg)
+    # card against CPU at batch 2, teacher-forced on the card's greedy
+    # sequences: compare_logits' rule (5% of max |logit|)
+    seqs2, _ = gens["greedy"](px[:2], q[:2])
+    bos = torch.full_like(seqs2[:, :1], decode_cfg.bos_token_id)
+    dec_in = torch.cat([bos, seqs2[:, :-1]], dim=1)
+    with torch.inference_mode():
+        card = model(px[:2], q[:2], dec_in)["logits"].float().cpu()
+        t = time.perf_counter()
+        cpu = cpu_model(px[:2].cpu(), q[:2].cpu(), dec_in.cpu())[
+            "logits"].float()
+        cpu_s = time.perf_counter() - t
+    V = cpu.shape[-1]
+    cpu_check = compare_logits(card.reshape(-1, V).numpy(),
+                               cpu.reshape(-1, V).numpy())
+    cpu_check["cpu_forward_s"] = cpu_s
+    profiles = {key: generate_profile(gens[key.split("_b")[0]],
+                                      (px[:B0], q[:B0]))
+                for key in (f"greedy_b{B0}", f"beam_b{B0}")} \
+        if on_card else None
+    return {"params": sum(p.numel() for p in model.parameters()),
+            "setup_s": setup_s, "new_tokens": new_tokens,
+            "windows": windows, "window_iters": iters,
+            "latency_calls": lat_calls, "results": results,
+            "generates": n_generates, "launches": launches,
+            "launches_per_generate": launches["flash_attn_fwd"]
+            / n_generates,
+            "attention_calls_per_generate": per_generate,
+            "first_sequences": {k: v[:2].tolist() for k, v in
+                                outputs.items()},
+            "cache_consistency": consistency, "cpu_check": cpu_check,
+            "profile": profiles}
+
+
+def kernels_line(rows: dict, launches: int, generative: dict,
+                 train_rows: dict, train_launches: dict,
+                 ptxas: dict) -> dict:
     """One entry per kernel. The forward's numbers are for one flagship
     forward at batch 8 (its 36 calls of the five serving shapes, each
-    shape's time times its calls); the training kernels' for one flagship
-    train step at batch 128 (36 calls each, at the dropout each call
-    uses). ``ms`` is CUDA-graph replay, ``profiled_ms`` the profiler's sum
-    of kernel durations (as ``library_ms`` is timed); registers and spills
-    are ptxas' for the template the main path runs."""
+    shape's time times its calls), and, under ``generate``, for one beam
+    generate at batch 16 (its 411 calls); the training kernels' for one
+    flagship train step at batch 128 (36 calls each, at the dropout each
+    call uses). ``ms`` is CUDA-graph replay, ``profiled_ms`` the
+    profiler's sum of kernel durations (as ``library_ms`` is timed);
+    registers and spills are ptxas' for the template the main path
+    runs."""
     entries = [forward_entry(rows, launches, ptxas["flash_attn_fwd"])]
+    entries[0]["generate"] = generate_entry(rows, generative)
     main = [r for r in train_rows.values() if r["calls_per_step"]]
     replaces = {
         "flash_attn_fwd_lse": ("flash_attn_fwd.cu", ":142 (_flash_kernel_lse, "
@@ -1004,31 +1250,54 @@ def kernels_line(rows: dict, launches: int, train_rows: dict,
     return {"kernels": entries}
 
 
-def forward_entry(rows: dict, launches: int, ptxas: dict) -> dict:
-    main = [r for r in rows.values() if r["calls_per_forward"]]
+def _path_totals(rows: dict, calls_key: str) -> dict:
+    """The rows' times, bound and largest bf16 error over one pass of a
+    path (each shape's number times its calls)."""
+    main = [r for r in rows.values() if r[calls_key]]
 
     def total(key):
-        return sum(r[key] * r["calls_per_forward"] for r in main)
-    t_bytes = sum(r["bytes"] * r["calls_per_forward"] for r in main) \
-        / HBM_BYTES_PER_S * 1e3
-    t_flops = sum(r["flops"] * r["calls_per_forward"] for r in main) \
-        / PEAK_FLOPS[torch.bfloat16] * 1e3
+        return sum(r[key] * r[calls_key] for r in main)
+    t_bytes = total("bytes") / HBM_BYTES_PER_S * 1e3
+    t_flops = total("flops") / PEAK_FLOPS[torch.bfloat16] * 1e3
+    return {"max_abs_err": max(r["max_abs_err_bf16"] for r in main),
+            "ms": total("kernel_ms"),
+            "profiled_ms": total("kernel_profiled_ms"),
+            "plain_ms": total("plain_ms"),
+            "bound_ms": max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+            "library_ms": total("library_ms"),
+            "ms_by_tile_rows": {t: sum(r["kernel_ms_by_tile_rows"][t]
+                                       * r[calls_key] for r in main)
+                                for t in fa.TILE_ROWS}}
+
+
+def generate_entry(rows: dict, generative: dict) -> dict:
+    """The forward kernel per generate: the launches counted per generate
+    in the generative phase, and the kernel-phase times of the calls of
+    one beam generate at batch 16, with the profiler's attention time of
+    that generate."""
+    profile = (generative["profile"] or {}).get(GEN_HEAD) or {}
+    return {"launches_per_generate": generative["launches_per_generate"],
+            "launches": generative["launches"]["flash_attn_fwd"],
+            "generates": generative["generates"],
+            **_path_totals(rows, "calls_per_generate"),
+            "profiled_in_generate_ms": profile.get("attention_device_ms"),
+            "per": f"one {GEN_HEAD.replace('_b', ' generate at batch ')} "
+                   f"at bench_serving's config "
+                   f"({generative['attention_calls_per_generate']} calls),"
+                   f" bf16"}
+
+
+def forward_entry(rows: dict, launches: int, ptxas: dict) -> dict:
+    totals = _path_totals(rows, "calls_per_forward")
     return {
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "vivqa_tpu_torch/csrc/flash_attn_fwd.cu",
         "replaces": "vivqa_tpu/ops/flash_attention.py:61 (_flash_kernel, "
                     "pallas_call at :127)",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err_bf16"] for r in main),
-        "ms": total("kernel_ms"), "profiled_ms": total("kernel_profiled_ms"),
-        "plain_ms": total("plain_ms"),
-        "bound_ms": max(t_bytes, t_flops),
-        "bound_by": "bytes" if t_bytes >= t_flops else "operations",
-        "library_ms": total("library_ms"), **ptxas,
-        "tile_rows": fa.SERVING_TILE_ROWS,
-        "ms_by_tile_rows": {t: sum(r["kernel_ms_by_tile_rows"][t]
-                                   * r["calls_per_forward"] for r in main)
-                            for t in fa.TILE_ROWS},
+        "launches": launches, **totals, **ptxas,
+        "tile_rows": {"Lq > 16": fa.SERVING_TILE_ROWS,
+                      "Lq <= 16": fa.DECODE_TILE_ROWS},
         "per": f"one flagship forward at batch 8 "
                f"({ATTN_CALLS_PER_FORWARD} calls), bf16"}
 
@@ -1053,7 +1322,18 @@ def main() -> int:
           + ", ".join(f"{t} rows {ms:.4f} ms" for t, ms in
                       tiles["serving_tile_rows"]["kernel_ms_by_tile_rows"]
                       .items())
-          + f"; the serving path uses {fa.SERVING_TILE_ROWS}", flush=True)
+          + f"; the serving path uses {fa.SERVING_TILE_ROWS}; per beam "
+          f"generate at batch 16: " + ", ".join(
+              f"{t} rows {ms:.4f} ms" for t, ms in
+              tiles["serving_tile_rows"]["generate"]["kernel_ms_by_tile_rows"]
+              .items())
+          + f"; the decoder's single-query calls use {fa.DECODE_TILE_ROWS}"
+          f" (decode calls of the four bench_serving configurations "
+          f"together: " + ", ".join(
+              f"{t} rows {ms:.4f} ms" for t, ms in
+              tiles["serving_tile_rows"]["decode_rule"]
+              ["ms_all_configs_by_tile_rows"].items()) + ")",
+          flush=True)
     train_rows = train_kernel_phase()
     print(f"[kernels] {time.perf_counter() - t_start:.1f} s", flush=True)
     cfg = flagship_config()
@@ -1062,6 +1342,15 @@ def main() -> int:
     print(f"[serving] {serving['batches']} batches of {serving['batch']}: "
           f"{serving['mean_batch_latency_ms']:.2f} ms per batch, "
           f"{serving['answers_per_s']:.1f} answers/s on {card}", flush=True)
+    generative = generative_phase(bench_serving.serving_config())
+    emit({"generative": generative, "card": card})
+    print("[generative] " + ", ".join(
+        f"{k} {r['answers_per_sec']:.1f} answers/s p50 "
+        f"{r['latency_ms_p50']:.1f} ms" for k, r in
+        generative["results"].items())
+        + f"; {generative['launches_per_generate']:.0f} attention launches "
+          f"per generate on {card} ({time.perf_counter() - t_start:.1f} s)",
+        flush=True)
     training = training_phase(cfg)
     emit({"training": training, "card": card})
     print(f"[training] batch {training['batch']}: median step "
@@ -1074,7 +1363,7 @@ def main() -> int:
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     emit(kernels_line(rows, serving["launches"]["flash_attn_fwd"],
-                      train_rows, training["launches"], ptxas))
+                      generative, train_rows, training["launches"], ptxas))
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -435,3 +435,123 @@ def test_train_step_on_card_matches_cpu():
     np.testing.assert_allclose(gn, cn, rtol=2e-2)
     for name, p in cp.items():
         assert float((gp[name] - p).abs().max()) <= 3 * lr, name
+
+
+# -- the generative path: decode and fusion shapes, generate -----------------
+# bench_serving's single-query calls (Lq = 1) over the 32-position cache
+# under its position mask (checked at three steps) and over the 113-token
+# memory under a key mask, and the fusion's 113 x 113 query-key call; the
+# rows of the beam calls are the 16 and 64 requests times 4 beams. Masks
+# with random padding, and the ones bench_serving's unpadded questions
+# give ("full_*": every key allowed, broadcast as the path builds them).
+DECODE_CASES = [  # (B, H, Lq, Lk, D, mask kind)
+    (16, 8, 1, 32, 64, "cache_pos"),
+    (64, 8, 1, 32, 64, "cache_pos"),
+    (64, 8, 1, 113, 64, "key"),
+    (256, 8, 1, 113, 64, "key"),
+    (64, 8, 1, 113, 64, "full_key"),
+    (16, 8, 113, 113, 64, "query_key"),
+    (16, 8, 113, 113, 64, "full_query_key"),
+]
+
+
+def _decode_inputs(B, H, Lq, Lk, D, kind, dtype, cur_index):
+    gen = torch.Generator().manual_seed(cur_index)
+    q, k, v = (torch.randn(B, H, L, D, generator=gen).to("cuda", dtype)
+               for L in (Lq, Lk, Lk))
+    if kind == "cache_pos":
+        mask = (torch.arange(Lk) <= cur_index).view(1, 1, 1, Lk)
+    elif kind == "full_key":
+        mask = torch.ones(B, 1, 1, Lk, dtype=torch.bool)
+    elif kind == "full_query_key":
+        mask = torch.ones(B, 1, Lq, Lk, dtype=torch.bool)
+    else:
+        lens = torch.randint(1, Lk + 1, (B,), generator=gen).numpy()
+        kv = torch.from_numpy(padding_mask(lens, Lk)) != 0
+        qv = (torch.from_numpy(padding_mask(lens, Lq)) != 0
+              if kind == "query_key" else torch.ones(B, Lq, dtype=torch.bool))
+        mask = qv[:, None, :, None] & kv[:, None, None, :]
+    return q, k, v, mask.cuda()
+
+
+@pytest.mark.parametrize("tile_rows", fa.TILE_ROWS)
+@pytest.mark.parametrize("case", DECODE_CASES, ids=str)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_decode_and_fusion_shapes_match_plain_version(case, dtype,
+                                                      tile_rows):
+    _need_card()
+    *shape, kind = case
+    for cur_index in ((0, 15, 31) if kind == "cache_pos" else (7,)):
+        q, k, v, mask = _decode_inputs(*shape, kind, dtype, cur_index)
+        got = fa.flash_attention_cuda(q, k, v, mask, False, tile_rows)
+        want = fa.attention_reference(q, k, v, mask)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def _card_gen_config(dtype: str) -> PC.GenerativeVQAConfig:
+    """The generative model's structure at head dim 64, small widths."""
+    return PC.GenerativeVQAConfig(
+        visual=PC.VisualEncoderConfig(image_size=64, patch_size=16,
+                                      hidden_dim=128, num_layers=2,
+                                      num_heads=2, dtype=dtype),
+        text=PC.TextEncoderConfig(vocab_size=100, hidden_dim=128,
+                                  num_layers=2, num_heads=2, max_length=16,
+                                  dtype=dtype),
+        fusion_dim=128, fusion_layers=2, fusion_heads=2, vocab_size=100,
+        decoder_layers=2, decoder_heads=2, decoder_dim=128,
+        decoder_ff_dim=256, max_answer_length=8, dropout=0.0, dtype=dtype)
+
+
+def _card_and_cpu_generate(dtype: str, strategy: str):
+    from vivqa_tpu_torch.models.decoding import DecodeConfig, build_generate_fn
+    from vivqa_tpu_torch.models.generative import create_generative_vqa_model
+    cfg = _card_gen_config(dtype)
+    rs = np.random.RandomState(1)
+    px = torch.from_numpy(rs.rand(4, 64, 64, 3).astype(np.float32))
+    qmask = torch.from_numpy(padding_mask([16, 9, 3, 1], 16))
+    q = torch.from_numpy(rs.randint(4, 100, (4, 16))) * qmask
+    dc = DecodeConfig(max_length=8, strategy=strategy, eos_token_id=2,
+                      early_exit=False)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = create_generative_vqa_model(
+            cfg, device=dev, generator=torch.Generator().manual_seed(2))
+        fa.reset_launch_counts()
+        seqs, scores = build_generate_fn(model, dc)(px.to(dev), q.to(dev),
+                                                    qmask.to(dev))
+        out[dev] = (model, seqs.cpu(), scores.cpu(),
+                    dict(fa.launch_counts))
+    # ViT 2 + text 2 + fusion 2, then 8 steps x 2 layers x (self + cross)
+    assert out["cuda"][3]["flash_attn_fwd"] == 2 + 2 + 2 + 8 * 2 * 2
+    assert out["cpu"][3]["flash_attn_fwd"] == 0
+    return out, (px, q, qmask)
+
+
+@pytest.mark.parametrize("strategy", ["greedy", "beam"])
+def test_generate_on_card_matches_cpu_f32(strategy):
+    """In f32 the card (SIMT attention template, TF32 off) and the CPU
+    give the same tokens; scores agree to f32 summation order."""
+    _need_card()
+    out, _ = _card_and_cpu_generate("float32", strategy)
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+    torch.testing.assert_close(out["cuda"][2], out["cpu"][2], atol=1e-4,
+                               rtol=1e-4)
+
+
+def test_generate_on_card_matches_cpu_bf16():
+    """In bf16 the two may pick different tokens where logits are within
+    rounding, so the card's greedy sequences are teacher-forced on both
+    and the logits compared."""
+    _need_card()
+    out, (px, q, qmask) = _card_and_cpu_generate("bfloat16", "greedy")
+    seqs = out["cuda"][1]
+    dec_in = torch.cat([torch.zeros_like(seqs[:, :1]), seqs[:, :-1]], 1)
+    with torch.inference_mode():
+        got = out["cuda"][0](px.cuda(), q.cuda(), dec_in.cuda(),
+                             qmask.cuda())["logits"].cpu()
+        want = out["cpu"][0](px, q, dec_in, qmask)["logits"]
+    assert_close_bf16(got, want, msg="teacher-forced logits")
+    assert torch.isfinite(out["cuda"][2]).all()

@@ -151,6 +151,16 @@ def test_cuda_wrapper_refuses_unknown_tile_rows():
         flash_attention_cuda(q, k, v, tile_rows=24)
 
 
+def test_serving_tile_rows_by_query_count():
+    """Single-query decode calls (and any call of at most 16 queries)
+    take the decode tile, longer calls the encoders' tile."""
+    from vivqa_tpu_torch.ops import flash_attention as fa
+    assert [fa.serving_tile_rows(Lq) for Lq in (1, 16, 17, 113)] == [
+        fa.DECODE_TILE_ROWS, fa.DECODE_TILE_ROWS, fa.SERVING_TILE_ROWS,
+        fa.SERVING_TILE_ROWS]
+    assert {fa.DECODE_TILE_ROWS, fa.SERVING_TILE_ROWS} <= set(fa.TILE_ROWS)
+
+
 def _attention_variants():
     spec = importlib.util.spec_from_file_location(
         "attention_variants",

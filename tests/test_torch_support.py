@@ -75,6 +75,69 @@ def padding_mask(lengths, L: int) -> np.ndarray:
         np.int32)
 
 
+# the generative tests' tiny model: batch, question length, answer
+# length, vocab
+B, LQ, LA, V = 3, 8, 6, 50
+
+
+def gen_config(mod, dtype: str = "float32", **overrides):
+    """tests/test_decoding.py's tiny config in ``mod``'s config classes."""
+    cfg = mod.GenerativeVQAConfig(
+        visual=mod.VisualEncoderConfig(image_size=32, patch_size=8,
+                                       hidden_dim=32, num_layers=1,
+                                       num_heads=2, dtype=dtype),
+        text=mod.TextEncoderConfig(vocab_size=V, hidden_dim=32, num_layers=1,
+                                   num_heads=2, max_length=LQ, dtype=dtype),
+        fusion_dim=32, fusion_layers=1, fusion_heads=2,
+        vocab_size=V, decoder_layers=2, decoder_heads=2, decoder_dim=32,
+        decoder_ff_dim=64, max_answer_length=LA, dropout=0.0,
+        bos_token_id=0, eos_token_id=49, pad_token_id=1, dtype=dtype)
+    return cfg.replace(**overrides) if overrides else cfg
+
+
+def moe(position: str, mod):
+    return mod.MoEModelConfig(use_moe=True, num_experts=2, top_k=1,
+                              expert_hidden_dim=32, moe_position=position)
+
+
+def gen_inputs(seed: int = 0):
+    rs = np.random.RandomState(seed)
+    px = rs.standard_normal((B, 32, 32, 3)).astype(np.float32)
+    qmask = padding_mask([LQ, 5, 2], LQ)
+    q = (rs.randint(4, V, (B, LQ)) * qmask).astype(np.int32)
+    dec = rs.randint(3, V, (B, LA)).astype(np.int32)
+    dec[:, 0] = 0                                          # BOS
+    dmask = padding_mask([LA, 4, 1], LA)
+    return px, q, qmask, dec, dmask
+
+
+def t(a):
+    """numpy -> torch, integers as int64 (token ids, masks)."""
+    a = np.array(a)
+    return torch.from_numpy(a).long() if a.dtype.kind == "i" \
+        else torch.from_numpy(a)
+
+
+def gen_model_pair(dtype: str = "float32", moe_position: str | None = None):
+    """(JAX GenerativeVQAModel, its perturbed params, the port's model with
+    those params) at ``gen_config``."""
+    import jax
+    from vivqa_tpu.models import config as JC
+    from vivqa_tpu.models.generative import GenerativeVQAModel as JModel
+    from vivqa_tpu_torch.models import config as PC
+    from vivqa_tpu_torch.models.generative import GenerativeVQAModel
+
+    def config(mod):
+        cfg = gen_config(mod, dtype)
+        return cfg if moe_position is None else cfg.replace(
+            moe=moe(moe_position, mod))
+    px, q, _, dec, _ = gen_inputs()
+    jm = JModel(config(JC))
+    key = jax.random.PRNGKey(0)
+    params = jax_params(jm, px, q, dec, rngs={"params": key, "router": key})
+    return jm, params, port_with(GenerativeVQAModel(config(PC)), params)
+
+
 def test_flatten_params_paths():
     tree = {"a": {"b": {"kernel": np.zeros((2, 3))}}, "c": np.ones(4)}
     flat = flatten_params(tree)

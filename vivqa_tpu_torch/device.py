@@ -7,6 +7,8 @@ behind the caller's back.
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -24,3 +26,13 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` prints them (first card)."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return res.stdout.strip().splitlines()[0]

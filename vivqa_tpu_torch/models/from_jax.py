@@ -17,7 +17,10 @@ name by the module's type:
   the stacked ``experts_*`` of ``MOELayer``) keeps its name and layout.
 
 A torch parameter without a flax leaf, a flax leaf that no parameter
-takes, or a shape that does not match raises.
+takes, or a shape that does not match raises. Only the ``params``
+collection maps: buffers (the decoder's sinusoidal ``pos_table``) are
+not parameters, and flax's ``cache`` collection has its counterpart in
+``models/decoder.py:DecodeCache``, built at run time.
 
 The inverse, ``flax_paths`` and ``to_flax``, names each torch parameter by
 its flax path and lays a tensor of its shape (a parameter, its gradient,

@@ -19,6 +19,11 @@ Training mode is flax's ``deterministic=False``: every module takes an
 optional ``rng`` (a ``DropoutRNG``), and applies its dropouts only when
 it is given one. ``VietnameseVQAModel`` makes it from the caller's
 generator in ``train()`` mode and passes it down.
+
+flax's ``decode=True`` (the generative decoder's cached steps) is a
+method of its own, ``decode``, on the self-attention and the decoder
+layer: the cache is not module state but buffers the caller owns
+(``models/decoder.py:DecodeCache``) and passes in.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from __future__ import annotations
 import math
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 from torch import nn
 import torch.nn.functional as F
@@ -106,6 +112,16 @@ def to_activation(name: str) -> Callable:
     return ACTIVATIONS[name]
 
 
+def sinusoidal_positions(length: int, dim: int) -> np.ndarray:
+    """Sinusoidal position table (length, dim), float32."""
+    pos = np.arange(length)[:, None]
+    div = np.exp(np.arange(0, dim, 2) * (-np.log(10000.0) / dim))
+    table = np.zeros((length, dim), np.float32)
+    table[:, 0::2] = np.sin(pos * div)
+    table[:, 1::2] = np.cos(pos * div[: (dim + 1) // 2])
+    return table
+
+
 class Dense(nn.Linear):
     """``nn.Dense``/``nn.DenseGeneral`` counterpart: f32 params, the
     product in ``dtype``."""
@@ -160,9 +176,9 @@ class MlpBlock(nn.Module):
 
 
 class MultiHeadDotProductAttention(nn.Module):
-    """flax ``nn.MultiHeadDotProductAttention`` (and the ``decode=False``
-    form of ``CachedCrossAttention``): query/key/value projections to
-    (H, D/H), attention, ``out`` projection back to the query width.
+    """flax ``nn.MultiHeadDotProductAttention``: query/key/value
+    projections to (H, D/H), attention, ``out`` projection back to the
+    query width.
 
     ``query``/``key``/``value`` hold the flattened DenseGeneral kernels
     (H*Dh, D_in); ``out`` holds (D, H*Dh). With an ``rng`` the attention
@@ -185,24 +201,62 @@ class MultiHeadDotProductAttention(nn.Module):
         self.value = Dense(kv_dim, dim, dtype=dtype)
         self.out = Dense(dim, dim, dtype=dtype)
 
+    def _heads(self, dense: Dense, x: torch.Tensor) -> torch.Tensor:
+        """(B, L, D_in) -> (B, L, H, Dh)."""
+        B, L, _ = x.shape
+        return dense(x).view(B, L, self.num_heads, -1)
+
+    def _attend(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                mask: Optional[torch.Tensor] = None,
+                rng: Optional[DropoutRNG] = None) -> torch.Tensor:
+        """Projected queries (B, Lq, H, Dh) over keys and values
+        (B, Lk, H, Dh), which the kernel reads in place as (B, H, L, Dh)
+        views, then the out projection."""
+        B, Lq, H, Dh = q.shape
+        rate = self.dropout_rate if rng is not None else 0.0
+        y = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), mask, dropout_rate=rate,
+                            dropout_key=rng.attention_key() if rate else None)
+        return self.out(y.transpose(1, 2).reshape(B, Lq, H * Dh))
+
     def forward(self, x: torch.Tensor, context: torch.Tensor,
                 mask: Optional[torch.Tensor] = None,
                 rng: Optional[DropoutRNG] = None) -> torch.Tensor:
-        B, Lq, D = x.shape
-        Lk, H = context.shape[1], self.num_heads
-        # (B, L, H, Dh) viewed as (B, H, L, Dh): the kernel reads it in place
-        q = self.query(x).view(B, Lq, H, D // H).transpose(1, 2)
-        k = self.key(context).view(B, Lk, H, D // H).transpose(1, 2)
-        v = self.value(context).view(B, Lk, H, D // H).transpose(1, 2)
-        rate = self.dropout_rate if rng is not None else 0.0
-        y = flash_attention(q, k, v, mask, dropout_rate=rate,
-                            dropout_key=rng.attention_key() if rate else None)
-        return self.out(y.transpose(1, 2).reshape(B, Lq, D))
+        # q before k and v: autograd sums the gradients of a shared input
+        # in the order the uses were recorded
+        q = self._heads(self.query, x)
+        return self._attend(q, self._heads(self.key, context),
+                            self._heads(self.value, context), mask, rng)
+
+    def decode(self, x: torch.Tensor, cached_key: torch.Tensor,
+               cached_value: torch.Tensor, index: int,
+               position_mask: torch.Tensor) -> torch.Tensor:
+        """flax's ``decode=True`` step: x (B, 1, D). Writes this token's
+        K/V at ``index`` of the (B, max_len, H, Dh) caches, in place, then
+        attends over the whole cache with ``position_mask`` (keys at
+        positions <= index; (1, 1, 1, max_len) or broadcastable)."""
+        q = self._heads(self.query, x)
+        cached_key[:, index] = self._heads(self.key, x)[:, 0]
+        cached_value[:, index] = self._heads(self.value, x)[:, 0]
+        return self._attend(q, cached_key, cached_value, position_mask)
 
 
-# decode=False form: the same module (the K/V cache waits for the
-# generative slice, ROADMAP.md Queue A item 11)
-CachedCrossAttention = MultiHeadDotProductAttention
+class CachedCrossAttention(MultiHeadDotProductAttention):
+    """Cross-attention whose context K/V a decoder projects once per
+    generation (``project_context``, at cache init) and attends over at
+    every step (``attend_context``); the params are flax MHDPA's."""
+
+    def project_context(self, context: torch.Tensor):
+        """(B, Lm, D_ctx) -> K, V, each (B, Lm, H, Dh)."""
+        return self._heads(self.key, context), self._heads(self.value,
+                                                           context)
+
+    def attend_context(self, x: torch.Tensor, context_key: torch.Tensor,
+                       context_value: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x (B, Lq, D) over the projected context."""
+        return self._attend(self._heads(self.query, x), context_key,
+                            context_value, mask)
 
 
 class EncoderLayer(nn.Module):
@@ -248,8 +302,8 @@ class EncoderLayer(nn.Module):
 
 
 class CrossAttentionLayer(nn.Module):
-    """Pre-LN layer: self-attention, cross-attention to a context, MLP
-    (``decode=False`` form)."""
+    """Pre-LN layer: self-attention, cross-attention to a context, MLP;
+    ``decode`` is the cached single-token form."""
 
     def __init__(self, dim: int, num_heads: int, d_ff: int,
                  context_dim: int = 0, dtype: torch.dtype = torch.bfloat16,
@@ -276,6 +330,21 @@ class CrossAttentionLayer(nn.Module):
         y = self.cross_attn(self.ln_cross(x), context, cross_mask, rng)
         x = x + dropout(y, rate, rng)
         return x + dropout(self.mlp(self.ln2(x), rng), rate, rng)
+
+    def decode(self, x: torch.Tensor, cached_key: torch.Tensor,
+               cached_value: torch.Tensor, index: int,
+               position_mask: torch.Tensor, context_key: torch.Tensor,
+               context_value: torch.Tensor,
+               cross_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One cached step (flax ``decode=True``, no dropout): x (B, 1, D);
+        the self-attention caches are written at ``index`` in place, the
+        context K/V come from ``cross_attn.project_context``."""
+        y = self.ln1(x)
+        x = x + self.self_attn.decode(y, cached_key, cached_value, index,
+                                      position_mask)
+        x = x + self.cross_attn.attend_context(self.ln_cross(x), context_key,
+                                               context_value, cross_mask)
+        return x + self.mlp(self.ln2(x))
 
 
 def pool_sequence(hidden: torch.Tensor, mask: Optional[torch.Tensor],
@@ -311,6 +380,15 @@ def make_attention_mask(query_mask: Optional[torch.Tensor],
                               dtype=query_mask.dtype,
                               device=query_mask.device)
     return (query_mask[:, None, :, None] * key_mask[:, None, None, :]) != 0
+
+
+def make_causal_mask(ids: torch.Tensor) -> torch.Tensor:
+    """(1, 1, L, L) boolean causal mask for (B, L) ids (flax's
+    ``make_causal_mask``, broadcast over the batch): query i keeps keys
+    j <= i."""
+    L = ids.shape[-1]
+    return torch.ones(L, L, dtype=torch.bool, device=ids.device).tril()[
+        None, None]
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:

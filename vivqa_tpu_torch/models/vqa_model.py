@@ -45,7 +45,7 @@ def moe_config_from_model(cfg: VQAModelConfig, input_dim: int) -> MoEConfig:
                      router=router, moe_type=m.moe_type)
 
 
-def _out_dim(enc_cfg) -> int:
+def encoder_out_dim(enc_cfg) -> int:
     return enc_cfg.output_dim or enc_cfg.hidden_dim
 
 
@@ -60,8 +60,8 @@ class VietnameseVQAModel(nn.Module):
         self.config = cfg
         self.visual_encoder = create_visual_encoder(cfg.visual)
         self.text_encoder = create_text_encoder(cfg.text)
-        self.fusion = create_fusion(cfg.fusion, _out_dim(cfg.visual),
-                                    _out_dim(cfg.text))
+        self.fusion = create_fusion(cfg.fusion, encoder_out_dim(cfg.visual),
+                                    encoder_out_dim(cfg.text))
         if cfg.moe.use_moe:
             self.moe = create_moe_layer(
                 moe_config_from_model(cfg, cfg.fusion.hidden_dim))

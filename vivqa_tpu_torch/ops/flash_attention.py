@@ -54,11 +54,23 @@ HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 # Query rows a block of the serving forward's tensor-core template (bf16,
-# f16) takes, and the one the serving path uses: the fastest of the three
-# at the flagship's five shapes at batch 8 on the H100 (chip_smoke.py's
-# kernel phase times them all; PERF.md, Findings).
+# f16) takes, and the ones the serving paths use (chip_smoke.py's kernel
+# phase times all three at every path shape on the H100; PERF.md,
+# Findings): 64 for calls of more than 16 queries, the fastest at the
+# classification forward's five shapes at batch 8; 32 for the decoder's
+# single-query calls, the fastest for the decode calls of bench_serving's
+# four configurations together (at 64 and 256 rows of batch, 64-row
+# blocks, 63 of their rows empty, take up to 1.6x as long; greedy at
+# batch 16, 16 rows of batch, alone is faster at 64 rows, and gives that
+# up).
 TILE_ROWS = (16, 32, 64)
 SERVING_TILE_ROWS = 64
+DECODE_TILE_ROWS = 32
+
+
+def serving_tile_rows(Lq: int) -> int:
+    """The tile size a serving call of ``Lq`` queries takes."""
+    return DECODE_TILE_ROWS if Lq <= 16 else SERVING_TILE_ROWS
 
 
 def reset_launch_counts() -> None:
@@ -366,15 +378,18 @@ def _stream(t):
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          mask: Optional[torch.Tensor] = None,
                          causal: bool = False,
-                         tile_rows: int = SERVING_TILE_ROWS) -> torch.Tensor:
+                         tile_rows: Optional[int] = None) -> torch.Tensor:
     """Launch the Hopper forward kernel; raise on what it does not take.
 
     Inputs need a unit stride over D only, so views of (B, L, H, D)
     projections are read in place. The output is allocated as
     (B, Lq, H, D) and returned as its (B, H, Lq, D) view. ``tile_rows``
-    (one of ``TILE_ROWS``) is the query rows a block of the bf16/f16
-    template takes; f32 runs the SIMT template, which ignores it.
+    (one of ``TILE_ROWS``; None: ``serving_tile_rows(Lq)``) is the query
+    rows a block of the bf16/f16 template takes; f32 runs the SIMT
+    template, which ignores it.
     """
+    if tile_rows is None:
+        tile_rows = serving_tile_rows(q.shape[2])
     if tile_rows not in TILE_ROWS:
         raise ValueError(f"tile_rows {tile_rows} not in {TILE_ROWS}")
     m_strides = _check_cuda_inputs(q, k, v, mask)
