@@ -48,7 +48,22 @@ Phases, in order; any failure exits non-zero:
    two steps of the same weights at dropout 0 on a ragged batch of 4, on
    the card and on the CPU (the plain versions), whose losses, grad norms
    and updated parameters must agree;
-7. the card line (nvidia-smi's name and power limit), the kernels line,
+7. generative training (bench_convergence_gen.py's flagship mode:
+   bench_serving's model, dropout 0.05, batch 32, questions of 3-60
+   tokens, answers of 1-6 tokens through the port's GenerativeVQADataset
+   targets, AdamW at lr 1e-3 with warmup-cosine): the three training
+   kernels at the step's five shapes under its masks (the decoder's
+   causal AND padding self-attention, whose rows are mostly keyless, the
+   cross-attention's stride-0 query mask, the fusion's 113 x 113 q/k
+   mask) against their plain versions in f32, f16 and bf16 with and
+   without dropout, timed beside SDPA, and their totals per step; the
+   train step timed (step ms, answer tokens/s, QA-pairs/s, peak memory;
+   39 launches of each training kernel per step, none of the forward)
+   and profiled; two steps card against CPU at batch 4; one short
+   GenerativeTrainingPipeline.run (an epoch of 3 steps, a one-batch
+   greedy validation at batch 16 through the forward kernel, a
+   checkpoint that restore_best gives back bit for bit);
+8. the card line (nvidia-smi's name and power limit), the kernels line,
    and the device line, which is the last line.
 
 Each path's launch counts are set to 0 just before it runs and read just
@@ -64,6 +79,7 @@ import json
 import math
 import re
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -74,17 +90,30 @@ import torch.nn.functional as F
 from vivqa_tpu_torch import bench, bench_serving
 from vivqa_tpu_torch.bench import (bench_optimizer, flagship_config,
                                    synthetic_batch)
+from vivqa_tpu_torch.data.augmentation import ImageAugmentation
+from vivqa_tpu_torch.data.dataset import (IGNORE_INDEX, GenerativeVQADataset,
+                                          generative_collate)
+from vivqa_tpu_torch.data.schema import OneSample
 from vivqa_tpu_torch.data.tokenizer import WhitespaceTokenizer
 from vivqa_tpu_torch.device import card_line, resolve_device
 from vivqa_tpu_torch.eval.predictor import VQAPredictor
 from vivqa_tpu_torch.models.config import GenerativeVQAConfig, VQAModelConfig
-from vivqa_tpu_torch.models.decoding import build_generate_fn
+from vivqa_tpu_torch.models.decoding import DecodeConfig, build_generate_fn
 from vivqa_tpu_torch.models.generative import create_generative_vqa_model
+from vivqa_tpu_torch.models.layers import (make_attention_mask,
+                                           make_causal_mask)
 from vivqa_tpu_torch.models.vqa_model import create_vqa_model
 from vivqa_tpu_torch.ops import cuda_build
 from vivqa_tpu_torch.ops import flash_attention as fa
+from vivqa_tpu_torch.pipelines.generative_training_pipeline import (
+    GenerativeTrainingConfig, GenerativeTrainingPipeline, batch_to_device)
+from vivqa_tpu_torch.train.checkpoint import (CheckpointConfig,
+                                              CheckpointManager)
+from vivqa_tpu_torch.train.optimizers import (OptimizerConfig,
+                                              SchedulerConfig,
+                                              create_optimizer)
 from vivqa_tpu_torch.train.state import (TrainState, classification_loss_fn,
-                                         make_train_step)
+                                         generative_loss_fn, make_train_step)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense), at a 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -203,6 +232,17 @@ TRAIN_CASES = [
 ]
 ATTN_CALLS_PER_STEP = sum(c[8] for c in TRAIN_CASES)        # 36
 
+# The generative train step (bench_convergence_gen.py:83-130's flagship
+# mode): batch 32, dropout 0.05 in the fusion and the decoder (the text
+# encoder keeps its config's 0.1, the ViT its 0.0), questions of 3-60
+# tokens padded to 64, answers of 1-6 tokens (2-7 of the decoder's 32
+# positions, BOS first).
+GEN_TRAIN_BATCH = 32
+GEN_DROPOUT = 0.05
+# the pipeline run's validation batch: the batch at which GEN_CASES hold
+# the forward kernel's encoder, fusion and decode calls, padded masks too
+GEN_VAL_BATCH = GEN_CASES[0][1]
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -245,24 +285,42 @@ def device_ms(fn, calls: int = 20, replays: int = 20) -> float:
     return _events_ms(graph.replay, replays) / calls
 
 
-def profiled_ms(fn, calls: int = 10, tries: int = 3) -> float:
+def profiled(fn, calls: int = 10, tries: int = 5) -> dict:
     """Device time per call of ``fn``: the sum of the durations of the
     kernels it launches, under torch.profiler, over ``calls`` calls (for
-    calls whose host side, as autograd's, would set an eager rate). A
-    profile that recorded no kernel at all is taken again."""
+    calls whose host side, as autograd's, would set an eager rate). The
+    profiler at times drops kernels, so profiles are taken until two of
+    them hold the most kernels any has held (at most ``tries``); the time
+    is the mean of those that hold the most. Returns ``ms``,
+    ``kernels_per_call`` and ``complete`` (False when no two profiles
+    agreed: the time may then be short)."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    seen = []
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        kernels = device_kernels(prof)
-        if kernels:
-            return sum(t for _, t in kernels.values()) / 1e3 / calls
-    raise AssertionError(f"torch.profiler recorded no kernel in {tries} tries")
+        kernels = device_kernels(prof).values()
+        seen.append((sum(c for c, _ in kernels), sum(t for _, t in kernels)))
+        most = max(c for c, _ in seen)
+        fullest = [t for c, t in seen if c == most]
+        if most and len(fullest) >= 2:
+            break
+    if not most:
+        raise AssertionError(f"torch.profiler recorded no kernel in "
+                             f"{tries} tries")
+    return {"ms": sum(fullest) / len(fullest) / 1e3 / calls,
+            "kernels_per_call": most / calls,
+            "complete": len(fullest) >= 2}
+
+
+def profiled_ms(fn, calls: int = 10, tries: int = 5) -> float:
+    """``profiled``'s time alone."""
+    return profiled(fn, calls, tries)["ms"]
 
 
 def device_kernels(prof) -> dict:
@@ -563,13 +621,15 @@ def train_attention_work(q, k, mask, causal) -> dict:
     delta; dK/dV reads q, k, v, dO, m, l, delta, writes dk, dv, 8*D per
     pair (s, dP, dV, dK). Of k and v each reads only the key rows some
     query takes (``attention_work``); dk and dv are written whole. The
-    mask, where there is one, is read once."""
+    mask, where there is one, is read once as it is stored (a (B, 1, 1,
+    Lk) key mask is B * Lk bytes: the kernels read its query axis with
+    stride 0)."""
     B, H, Lq, D = q.shape
     nbytes, flops, key_rows = attention_work(q, k, mask, causal)
     pairs = flops // (4 * D)
     e, nq, nk, nk_read = q.element_size(), q.numel(), k.numel(), key_rows * D
     stats = B * H * Lq * 4
-    mask_b = 0 if mask is None else B * Lq * k.shape[2]
+    mask_b = 0 if mask is None else mask.numel()
     return {"flash_attn_fwd_lse": (nbytes + 2 * stats, 4 * D * pairs),
             "flash_attn_bwd_dq": ((4 * nq + 2 * nk_read) * e + 3 * stats
                                   + mask_b,
@@ -697,9 +757,9 @@ def time_train_kernels(q, k, v, do, mask, causal, rate, key) -> dict:
     def sdpa():
         return F.scaled_dot_product_attention(qg, kg, vg, attn_mask=sdpa_mask,
                                               dropout_p=rate)
-    lib_fwd = profiled_ms(sdpa)
-    lib_fwd_bwd = profiled_ms(
-        lambda: torch.autograd.grad(sdpa(), (qg, kg, vg), do))
+    lib_profiles = {"fwd": profiled(sdpa), "fwd_bwd": profiled(
+        lambda: torch.autograd.grad(sdpa(), (qg, kg, vg), do))}
+    lib_fwd, lib_fwd_bwd = (lib_profiles[k]["ms"] for k in ("fwd", "fwd_bwd"))
     library = {"flash_attn_fwd_lse": lib_fwd,
                "flash_attn_bwd_dq": lib_fwd_bwd - lib_fwd,
                "flash_attn_bwd_dkv": lib_fwd_bwd - lib_fwd}
@@ -718,7 +778,126 @@ def time_train_kernels(q, k, v, do, mask, causal, rate, key) -> dict:
             "bound_ms": max(t_bytes, t_flops),
             "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
     times["library_fwd_bwd_ms"] = lib_fwd_bwd
+    times["library_profiles"] = {
+        k: {"kernels_per_call": p["kernels_per_call"],
+            "complete": p["complete"]} for k, p in lib_profiles.items()}
     return times
+
+
+# -- phase 3, the generative step's training kernels -------------------------
+def gen_train_cases(cfg: GenerativeVQAConfig, batch: int) -> list:
+    """(name, B, H, Lq, Lk, mask kind, calls per step, the dropout rate
+    of those calls) of the generative train step's attention: the ViT and
+    text self-attention, the fusion over [49 patch tokens; 64 question
+    tokens] under the query-AND-key mask, and per decoder layer one
+    self-attention call under causal AND answer padding and one
+    cross-attention call over the memory under its key mask."""
+    vis = cfg.visual
+    n_vis = (vis.image_size // vis.patch_size) ** 2
+    Lq, La = cfg.text.max_length, cfg.max_answer_length
+    return [
+        ("gen_vit_self", batch, vis.num_heads, n_vis + 1, n_vis + 1, None,
+         vis.num_layers, vis.dropout),
+        ("gen_text_self", batch, cfg.text.num_heads, Lq, Lq, "text",
+         cfg.text.num_layers, cfg.text.dropout),
+        ("gen_fusion_self", batch, cfg.fusion_heads, n_vis + Lq, n_vis + Lq,
+         "fusion", cfg.fusion_layers, cfg.dropout),
+        ("gen_dec_self", batch, cfg.decoder_heads, La, La, "dec_self",
+         cfg.decoder_layers, cfg.dropout),
+        ("gen_dec_cross", batch, cfg.decoder_heads, La, n_vis + Lq, "cross",
+         cfg.decoder_layers, cfg.dropout)]
+
+
+def gen_train_masks(cfg: GenerativeVQAConfig, batch: int, gen) -> dict:
+    """The masks the generative model builds for a batch of questions of
+    3-60 tokens and answers of 1-6 tokens, by the model's own functions:
+    (B, 1, Lq, Lk) bool, the cross mask (B, 1, 1, Lk), whose query axis
+    the kernels read with stride 0."""
+    vis = cfg.visual
+    n_vis = (vis.image_size // vis.patch_size) ** 2
+    Lq, La = cfg.text.max_length, cfg.max_answer_length
+    dev = gen.device
+    q_len = torch.randint(3, 61, (batch,), generator=gen, device=dev)
+    a_len = torch.randint(1, 7, (batch,), generator=gen, device=dev) + 1
+    q_mask = (torch.arange(Lq, device=dev)[None] < q_len[:, None]).int()
+    d_mask = (torch.arange(La, device=dev)[None] < a_len[:, None]).int()
+    memory = torch.cat([torch.ones(batch, n_vis, dtype=torch.int32,
+                                   device=dev), q_mask], dim=1)
+    return {"text": make_attention_mask(q_mask, q_mask),
+            "fusion": make_attention_mask(memory, memory),
+            "dec_self": make_causal_mask(d_mask)
+            & make_attention_mask(d_mask, d_mask),
+            "cross": make_attention_mask(None, memory)}
+
+
+def gen_train_kernel_phase(cfg: GenerativeVQAConfig,
+                           batch: int = GEN_TRAIN_BATCH) -> dict:
+    """Rows keyed (case, dropout rate): each of the three training kernels
+    at the generative step's shapes and masks, against its plain version
+    in f32, f16 and bf16, with attention dropout at 0 and at GEN_DROPOUT
+    (and at the path's rate where that is another), then timed in bf16
+    as ``time_train_kernels`` times the classification cases."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = {}
+    for name, B, H, Lq, Lk, kind, calls, path_rate in gen_train_cases(cfg,
+                                                                      batch):
+        masks = gen_train_masks(cfg, B, gen)
+        mask = None if kind is None else masks[kind]
+        for rate in sorted({0.0, GEN_DROPOUT, path_rate}):
+            key = fa.dropout_key(2027, len(rows))
+            errs = {}
+            for dtype in (torch.float32, torch.float16, torch.bfloat16):
+                q, k, v, do = (torch.randn(B, H, L, 64, generator=gen,
+                                           device="cuda").to(dtype)
+                               for L in (Lq, Lk, Lk, Lq))
+                errs[dtype] = check_train_kernels(q, k, v, do, mask, False,
+                                                  rate, key)
+            row = {"case": name, "B": B, "H": H, "Lq": Lq, "Lk": Lk, "D": 64,
+                   "mask": kind,
+                   "mask_shape": None if mask is None else list(mask.shape),
+                   "keyless_rows": 0 if mask is None else int(
+                       (~mask.expand(B, 1, Lq, Lk).any(-1)).sum()),
+                   "dropout": rate,
+                   "calls_per_step": calls if rate == path_rate else 0,
+                   "max_err_bf16": errs[torch.bfloat16],
+                   "max_err_f16": errs[torch.float16],
+                   "max_err_f32": errs[torch.float32],
+                   **time_train_kernels(q, k, v, do, mask, False, rate, key)}
+            emit({"gen_training_attention_case": row})
+            rows[(name, rate)] = row
+    return rows
+
+
+def step_totals(rows: dict) -> dict:
+    """Per training kernel, the rows' numbers over one step's calls (each
+    shape's number times its calls at the dropout those calls use): ms,
+    profiler ms, plain ms, the bound from the summed bytes and flops, and
+    SDPA's time (its backward under both backward kernels)."""
+    main = [r for r in rows.values() if r["calls_per_step"]]
+    err_keys = {"flash_attn_fwd_lse": ("o", "m", "l"),
+                "flash_attn_bwd_dq": ("dq",),
+                "flash_attn_bwd_dkv": ("dk", "dv")}
+    out = {}
+    for name in TRAIN_KERNELS:
+        def total(key):
+            return sum(r[name][key] * r["calls_per_step"] for r in main)
+        t_bytes = total("bytes") / HBM_BYTES_PER_S * 1e3
+        t_flops = total("flops") / PEAK_FLOPS[torch.bfloat16] * 1e3
+        out[name] = {
+            "calls_per_step": sum(r["calls_per_step"] for r in main),
+            "max_abs_err": max(r["max_err_bf16"][k] for r in main
+                               for k in err_keys[name]),
+            "ms": total("kernel_ms"), "profiled_ms": total("profiled_ms"),
+            "plain_ms": total("plain_ms"),
+            "bound_ms": max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+            "library_ms": total("library_ms"),
+            "library_profiles_complete": all(
+                p["complete"] for r in main
+                for p in r["library_profiles"].values()),
+            "by_case_ms": {r["case"]: r[name]["kernel_ms"] * r["calls_per_step"]
+                           for r in main}}
+    return out
 
 
 # -- phase 4: serving --------------------------------------------------------
@@ -935,8 +1114,9 @@ def training_phase(cfg: VQAModelConfig, device: str = "cuda",
 
 def train_profile(state, train_step, data, step_ms: float) -> dict:
     """One train step under torch.profiler: the kernels' device time, so
-    the device's idle share of the eager step, and each attention
-    kernel's device ms."""
+    the device's idle share of the eager step, each attention kernel's
+    device ms, and the f32 GEMMs' (cuBLAS' f32 kernels, the generative
+    step's tied logits forward and backward)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -947,10 +1127,14 @@ def train_profile(state, train_step, data, step_ms: float) -> dict:
     attention = {name: sum(t for n, (_, t) in kernels.items()
                            if KERNEL_NAMES[name] in n) / 1e3
                  for name in ("flash_attn_fwd",) + TRAIN_KERNELS}
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:10]
+    f32_gemms = [(c, t) for n, (c, t) in kernels.items()
+                 if "f32f32" in n or "sgemm" in n]
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:12]
     return {"device_busy_ms": busy if kernels else None,
             "device_idle_share": 1 - busy / step_ms if kernels else None,
             "attention_device_ms": attention,
+            "f32_gemm_device_ms": sum(t for _, t in f32_gemms) / 1e3,
+            "f32_gemm_launches": sum(c for c, _ in f32_gemms),
             "kernels_per_step": sum(c for c, _ in kernels.values()),
             "top_kernels": [{"name": n[:90], "calls": c, "ms": t / 1e3}
                             for n, (c, t) in top]}
@@ -981,18 +1165,33 @@ def train_check(cfg: VQAModelConfig, device: str = "cuda", steps: int = 2,
             "input_ids": rs.randint(4, cfg.text.vocab_size - 1, (4, L)) * mask,
             "attention_mask": mask,
             "labels": rs.randint(0, cfg.num_answers, (4,))}
-    runs, before = {}, None
-    for dev in ("cpu", device):
-        t0 = time.perf_counter()
+
+    def build(dev):
         model = create_vqa_model(cfg0, device=dev,
                                  generator=torch.Generator().manual_seed(seed))
         model.moe.dropout = 0.0
+        return TrainState.create(model, bench_optimizer(model, 1), seed=seed)
+    out = card_vs_cpu_steps(build, classification_loss_fn(), data, device,
+                            steps, ATTN_CALLS_PER_STEP)
+    return {"batch": 4, "question_lengths": lengths.tolist(), **out}
+
+
+def card_vs_cpu_steps(build, loss_fn, data: dict, device: str, steps: int,
+                      calls_per_step: int) -> dict:
+    """``steps`` train steps of the same weights (``build(device)`` gives
+    a TrainState) on the CPU and on ``device`` over ``data`` (numpy
+    arrays), held to ``train_check``'s tolerances; every attention call
+    on the card goes through the training kernels, none on the CPU."""
+    runs, before = {}, None
+    for dev in ("cpu", device):
+        t0 = time.perf_counter()
+        state = build(dev)
+        model = state.model
         if before is None:
             before = {n: p.detach().clone() for n, p in
                       model.named_parameters()}
-        state = TrainState.create(model, bench_optimizer(model, 1), seed=seed)
-        train_step = make_train_step(classification_loss_fn())
-        batch = {n: torch.from_numpy(a).to(dev) for n, a in data.items()}
+        train_step = make_train_step(loss_fn)
+        batch = batch_to_device(data, torch.device(dev))
         fa.reset_launch_counts()
         metrics = [train_step(state, batch)[1] for _ in range(steps)]
         runs[dev] = {"loss": [float(m["loss"]) for m in metrics],
@@ -1011,7 +1210,7 @@ def train_check(cfg: VQAModelConfig, device: str = "cuda", steps: int = 2,
                            for u in card["update"].values()))
     max_diff = max(float((card["update"][n] - u).abs().max())
                    for n, u in cpu["update"].items())
-    out = {"batch": 4, "question_lengths": lengths.tolist(), "steps": steps,
+    out = {"steps": steps,
            "loss_cpu": cpu["loss"], "loss_card": card["loss"],
            "grad_norm_cpu": cpu["grad_norm"],
            "grad_norm_card": card["grad_norm"],
@@ -1023,7 +1222,7 @@ def train_check(cfg: VQAModelConfig, device: str = "cuda", steps: int = 2,
            "tolerance": {"loss_rel": 2e-2, "grad_norm_rel": 5e-2,
                          "param_abs": 3 * lr_sum, "update_cosine_min": 0.9}}
     rel = lambda a, b: max(abs(x - y) / abs(y) for x, y in zip(a, b))
-    per_step = ATTN_CALLS_PER_STEP * steps if device == "cuda" else 0
+    per_step = calls_per_step * steps if device == "cuda" else 0
     if (rel(card["loss"], cpu["loss"]) > 2e-2
             or rel(card["grad_norm"], cpu["grad_norm"]) > 5e-2
             or max_diff > 3 * lr_sum or out["update_cosine"] < 0.9
@@ -1197,21 +1396,237 @@ def generative_phase(cfg: GenerativeVQAConfig, device: str = "cuda",
             "profile": profiles}
 
 
+# -- phase 7: generative training --------------------------------------------
+def gen_training_config(tok: WhitespaceTokenizer) -> GenerativeVQAConfig:
+    """bench_convergence_gen.py:83-96's flagship mode (bench_serving's
+    model, dropout 0.05, label smoothing 0), with the tokenizer's special
+    ids."""
+    return bench_serving.serving_config().replace(
+        dropout=GEN_DROPOUT, label_smoothing=0.0,
+        bos_token_id=tok.bos_token_id, eos_token_id=tok.eos_token_id,
+        pad_token_id=tok.pad_token_id)
+
+
+def gen_optimizer(model, total_steps: int = 1000):
+    """bench_convergence_gen.py:120-125: AdamW at lr 1e-3, weight decay
+    0.01 under the no-decay mask, global-norm clipping at 1.0,
+    warmup_cosine with a warmup ratio of 0.05 (of a 1,000-step run)."""
+    return create_optimizer(
+        OptimizerConfig(learning_rate=1e-3, weight_decay=0.01), model,
+        SchedulerConfig(name="warmup_cosine", warmup_ratio=0.05,
+                        total_steps=total_steps))
+
+
+def gen_tokenizer() -> WhitespaceTokenizer:
+    tok = WhitespaceTokenizer(max_length=64)
+    tok.build_vocab(WORDS)
+    return tok
+
+
+def gen_train_batch(cfg: GenerativeVQAConfig, tok: WhitespaceTokenizer,
+                    n: int, seed: int) -> dict:
+    """``n`` seeded requests (questions of 3-60 words) with answers of 1-6
+    words, through the port's GenerativeVQADataset (eval pixels,
+    teacher-forcing targets) and generative_collate: numpy arrays."""
+    images, questions = make_requests(n, seed)
+    rs = np.random.RandomState(seed + 1000)
+    answers = [" ".join(rs.choice(WORDS, size=L))
+               for L in rs.randint(1, 7, n)]
+    ds = GenerativeVQADataset(
+        [OneSample(im, q, [a]) for im, q, a in zip(images, questions,
+                                                    answers)],
+        tok, ImageAugmentation(cfg.visual.image_size),
+        max_question_length=cfg.text.max_length,
+        max_answer_length=cfg.max_answer_length)
+    return generative_collate([ds[i] for i in range(n)])
+
+
+def gen_calls_per_step(cfg: GenerativeVQAConfig) -> int:
+    """12 ViT + 12 text + 3 fusion + 6 decoder self + 6 cross = 39."""
+    return (cfg.visual.num_layers + cfg.text.num_layers + cfg.fusion_layers
+            + 2 * cfg.decoder_layers)
+
+
+def gen_training_phase(cfg: GenerativeVQAConfig, tok: WhitespaceTokenizer,
+                       device: str = "cuda", steps: int = 10,
+                       warmup: int = 3, batch: int = GEN_TRAIN_BATCH,
+                       seed: int = 0) -> dict:
+    """The generative train step at ``cfg`` on ``device``: ``steps`` timed
+    steps after ``warmup`` on one batch (step ms by host clock and CUDA
+    events, answer tokens/s and QA-pairs/s, peak memory, launches per
+    step: every attention call through the three training kernels, none
+    through the forward), then one step under torch.profiler. (On the
+    CPU, a rehearsal at a tiny size.)"""
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t0 = time.perf_counter()
+    model = create_generative_vqa_model(
+        cfg, device=device, generator=torch.Generator().manual_seed(seed))
+    state = TrainState.create(model, gen_optimizer(model), seed=seed)
+    train_step = make_train_step(generative_loss_fn(label_smoothing=0.0))
+    host = gen_train_batch(cfg, tok, batch, seed)
+    data = batch_to_device(host, torch.device(device))
+    n_tokens = int((host["labels"] != IGNORE_INDEX).sum())
+    sync()
+    setup_s = time.perf_counter() - t0
+    for _ in range(warmup):
+        train_step(state, data)
+    sync()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    host_ms, event_ms, metrics = bench.time_train_steps(state, train_step,
+                                                        data, steps)
+    launches = dict(fa.launch_counts)
+    per_step = gen_calls_per_step(cfg)
+    want = {name: per_step * steps if on_card else 0
+            for name in TRAIN_KERNELS}
+    want["flash_attn_fwd"] = 0
+    if launches != want:
+        raise AssertionError(f"generative training launches {launches} != "
+                             f"{want}")
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    if not all(math.isfinite(x) for x in losses + norms) \
+            or int(metrics[0]["n_tokens"]) != n_tokens:
+        raise AssertionError(f"loss {losses}, grad_norm {norms}, n_tokens "
+                             f"{int(metrics[0]['n_tokens'])} != {n_tokens}")
+    step_ms = float(np.median(host_ms))
+    return {"params": sum(p.numel() for p in model.parameters()),
+            "batch": batch, "steps": steps, "warmup_steps": warmup,
+            "setup_s": setup_s,
+            "question_tokens": host["question_mask"].sum(1).tolist(),
+            "answer_positions": host["decoder_mask"].sum(1).tolist(),
+            "answer_tokens_per_batch": n_tokens,
+            "step_ms": host_ms, "step_event_ms": event_ms,
+            "median_step_ms": step_ms,
+            "median_step_event_ms": float(np.median(event_ms))
+            if event_ms else None,
+            "answer_tokens_per_s": n_tokens * 1e3 / step_ms,
+            "qa_pairs_per_s": batch * 1e3 / step_ms,
+            "loss": losses, "grad_norm": norms,
+            "max_memory_allocated_gib":
+                torch.cuda.max_memory_allocated() / 2 ** 30 if on_card
+                else None,
+            "launches": launches,
+            "launches_per_step": {n: launches[n] / steps
+                                  for n in TRAIN_KERNELS},
+            "profile": train_profile(state, train_step, data, step_ms)
+            if on_card else None}
+
+
+def gen_train_check(cfg: GenerativeVQAConfig, tok: WhitespaceTokenizer,
+                    device: str = "cuda", steps: int = 2,
+                    seed: int = 0) -> dict:
+    """The generative step card against CPU: the same weights at dropout
+    0 (the text encoder's too), two steps on a batch of 4 (questions and
+    answers of mixed lengths, so padded query rows and the decoder's
+    keyless rows run their backward), with ``gen_optimizer``'s AdamW at a
+    one-step warmup, so the second step moves the weights at lr 1e-3.
+    ``train_check``'s tolerances, for the same reasons (a bf16 trunk on
+    both sides, rounded at other points)."""
+    cfg0 = cfg.replace(dropout=0.0, text=cfg.text.replace(dropout=0.0))
+    data = gen_train_batch(cfg0, tok, 4, seed + 7)
+
+    def build(dev):
+        model = create_generative_vqa_model(
+            cfg0, device=dev, generator=torch.Generator().manual_seed(seed))
+        return TrainState.create(model, gen_optimizer(model, 20), seed=seed)
+    out = card_vs_cpu_steps(build, generative_loss_fn(label_smoothing=0.0),
+                            data, device, steps, gen_calls_per_step(cfg))
+    return {"batch": 4,
+            "question_tokens": data["question_mask"].sum(1).tolist(),
+            "answer_positions": data["decoder_mask"].sum(1).tolist(), **out}
+
+
+def decode_steps_taken(seqs: torch.Tensor, eos: int) -> int:
+    """Steps an early-exit greedy decode took to give ``seqs`` (B, L):
+    up to the one at which its last row emitted EOS, else all L."""
+    ended = seqs == eos
+    if not bool(ended.any(1).all()):
+        return seqs.shape[1]
+    return int(ended.int().argmax(1).max()) + 1
+
+
+def pipeline_phase(cfg: GenerativeVQAConfig, tok: WhitespaceTokenizer,
+                   device: str = "cuda", steps: int = 3,
+                   batch: int = GEN_TRAIN_BATCH,
+                   val_batch: int = GEN_VAL_BATCH, seed: int = 0) -> dict:
+    """One short ``GenerativeTrainingPipeline.run`` on ``device``: one
+    epoch of ``steps`` steps under its default onecycle schedule, a
+    one-batch greedy validation (every attention call of the generate
+    through the forward kernel), a checkpoint in a temporary directory
+    whose restore_best gives back the model's parameters bit for bit."""
+    model = create_generative_vqa_model(
+        cfg, device=device, generator=torch.Generator().manual_seed(seed))
+    train = [gen_train_batch(cfg, tok, batch, seed + 10 + i)
+             for i in range(steps)]
+    val = [gen_train_batch(cfg, tok, val_batch, seed + 20)]
+    with tempfile.TemporaryDirectory() as directory:
+        pcfg = GenerativeTrainingConfig(
+            num_epochs=1, label_smoothing=0.0, checkpoint_dir=directory,
+            optimizer=OptimizerConfig(learning_rate=1e-3, weight_decay=0.01),
+            log_every=1, max_eval_batches=1)
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = GenerativeTrainingPipeline(pcfg).run(model, train, val, tok)
+        seconds = time.perf_counter() - t0
+        launches = dict(fa.launch_counts)
+        ckpt = CheckpointManager(CheckpointConfig(directory=directory,
+                                                  best_metric="bleu"))
+        saved, meta = ckpt.restore_best()
+        steps_saved = ckpt.all_steps()
+    on_card = device == "cuda"
+    same = all(torch.equal(saved["params"][n], p.detach().cpu())
+               for n, p in model.named_parameters())
+    # the validation generate runs the encoders' calls, then 2 x
+    # decoder_layers calls a step until every row has emitted EOS (the
+    # pipeline's DecodeConfig keeps early_exit); the same greedy generate
+    # on the saved (so the validated) parameters says how many steps that
+    # took, from its sequences
+    vb = batch_to_device(val[0], torch.device(device))
+    seqs, _ = build_generate_fn(model, DecodeConfig(
+        max_length=cfg.max_answer_length, bos_token_id=cfg.bos_token_id,
+        eos_token_id=cfg.eos_token_id, pad_token_id=cfg.pad_token_id))(
+        vb["pixel_values"], vb["question_ids"], vb["question_mask"])
+    decode_steps = decode_steps_taken(seqs.cpu(), cfg.eos_token_id)
+    want = {name: gen_calls_per_step(cfg) * steps if on_card else 0
+            for name in TRAIN_KERNELS}
+    want["flash_attn_fwd"] = (attention_calls_per_generate(cfg, 0)
+                              + 2 * cfg.decoder_layers * decode_steps
+                              if on_card else 0)
+    history = out.history
+    if launches != want or len(history) != 1 \
+            or not all(math.isfinite(v) for v in history[0].values()) \
+            or steps_saved != [steps] or not same:
+        raise AssertionError(
+            f"pipeline run: launches {launches} (want {want}), history "
+            f"{history}, checkpoints {steps_saved}, restore_best equal "
+            f"{same}")
+    return {"steps": steps, "batch": batch, "val_batch": val_batch,
+            "seconds": seconds, "history": history, "launches": launches,
+            "validation_decode_steps": decode_steps,
+            "checkpoint_steps": steps_saved, "checkpoint_epoch":
+                meta["epoch"], "restore_best_bit_equal": same}
+
+
 def kernels_line(rows: dict, launches: int, generative: dict,
                  train_rows: dict, train_launches: dict,
-                 ptxas: dict) -> dict:
+                 ptxas: dict, gen_rows: dict, gen_training: dict) -> dict:
     """One entry per kernel. The forward's numbers are for one flagship
     forward at batch 8 (its 36 calls of the five serving shapes, each
     shape's time times its calls), and, under ``generate``, for one beam
     generate at batch 16 (its 411 calls); the training kernels' for one
     flagship train step at batch 128 (36 calls each, at the dropout each
-    call uses). ``ms`` is CUDA-graph replay, ``profiled_ms`` the
-    profiler's sum of kernel durations (as ``library_ms`` is timed);
-    registers and spills are ptxas' for the template the main path
-    runs."""
+    call uses), and, under ``generative_step``, for one generative train
+    step at batch 32 (39 calls each). ``ms`` is CUDA-graph replay,
+    ``profiled_ms`` the profiler's sum of kernel durations (as
+    ``library_ms`` is timed); registers and spills are ptxas' for the
+    template the main path runs."""
     entries = [forward_entry(rows, launches, ptxas["flash_attn_fwd"])]
     entries[0]["generate"] = generate_entry(rows, generative)
-    main = [r for r in train_rows.values() if r["calls_per_step"]]
+    totals = step_totals(train_rows)
+    gen_totals = step_totals(gen_rows)
     replaces = {
         "flash_attn_fwd_lse": ("flash_attn_fwd.cu", ":142 (_flash_kernel_lse, "
                                "pallas_call at :206)"),
@@ -1220,33 +1635,26 @@ def kernels_line(rows: dict, launches: int, generative: dict,
         "flash_attn_bwd_dkv": ("flash_attn_bwd_dkv.cu", ":230 "
                                "(_flash_bwd_dkv_kernel, pallas_call at "
                                ":351)")}
-    err_keys = {"flash_attn_fwd_lse": ("o", "m", "l"),
-                "flash_attn_bwd_dq": ("dq",),
-                "flash_attn_bwd_dkv": ("dk", "dv")}
     for name in TRAIN_KERNELS:
-        def total(key):
-            return sum(r[name][key] * r["calls_per_step"] for r in main)
-        t_bytes = sum(r[name]["bytes"] * r["calls_per_step"] for r in main) \
-            / HBM_BYTES_PER_S * 1e3
-        t_flops = sum(r[name]["flops"] * r["calls_per_step"] for r in main) \
-            / PEAK_FLOPS[torch.bfloat16] * 1e3
         source, where = replaces[name]
+        step = {k: v for k, v in totals[name].items()
+                if k not in ("calls_per_step", "by_case_ms")}
         entries.append({
             "name": name, "route": "cuda",
             "source": f"vivqa_tpu_torch/csrc/{source}",
             "replaces": f"vivqa_tpu/ops/flash_attention.py{where}",
-            "launches": train_launches[name],
-            "max_abs_err": max(r["max_err_bf16"][k] for r in main
-                               for k in err_keys[name]),
-            "ms": total("kernel_ms"), "profiled_ms": total("profiled_ms"),
-            "plain_ms": total("plain_ms"),
-            "bound_ms": max(t_bytes, t_flops),
-            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
-            "library_ms": total("library_ms"), **ptxas[name],
+            "launches": train_launches[name], **step, **ptxas[name],
             "per": f"one flagship train step at batch {TRAIN_BATCH} "
                    f"({ATTN_CALLS_PER_STEP} calls), bf16; max_abs_err is "
                    f"relative to each tensor's largest value for dq/dk/dv "
-                   f"and m/l"})
+                   f"and m/l",
+            "generative_step": {
+                **gen_totals[name],
+                "launches": gen_training["launches"][name],
+                "launches_per_step":
+                    gen_training["launches_per_step"][name],
+                "per": f"one generative train step at batch "
+                       f"{gen_training['batch']}, bf16"}})
     return {"kernels": entries}
 
 
@@ -1360,10 +1768,36 @@ def main() -> int:
           flush=True)
     check = train_check(cfg)
     emit({"train_check": check})
+    print(f"[training] {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    tok = gen_tokenizer()
+    gen_cfg = gen_training_config(tok)
+    gen_rows = gen_train_kernel_phase(gen_cfg)
+    gen_totals = step_totals(gen_rows)
+    emit({"gen_training_attention_per_step": gen_totals, "card": card})
+    gen_training = gen_training_phase(gen_cfg, tok)
+    emit({"gen_training": gen_training, "card": card})
+    print(f"[gen_training] batch {gen_training['batch']}: median step "
+          f"{gen_training['median_step_ms']:.1f} ms (events "
+          f"{gen_training['median_step_event_ms']:.1f}), "
+          f"{gen_training['answer_tokens_per_s']:.1f} answer tokens/s, "
+          f"{gen_training['qa_pairs_per_s']:.1f} QA-pairs/s, peak "
+          f"{gen_training['max_memory_allocated_gib']:.1f} GiB; attention "
+          f"per step " + ", ".join(f"{n} {t['ms']:.3f} ms" for n, t in
+                                   gen_totals.items())
+          + f" on {card}", flush=True)
+    gen_check = gen_train_check(gen_cfg, tok)
+    emit({"gen_train_check": gen_check})
+    pipeline = pipeline_phase(gen_cfg, tok)
+    emit({"gen_pipeline": pipeline})
+    print(f"[gen_pipeline] {pipeline['steps']} steps and a validation in "
+          f"{pipeline['seconds']:.1f} s: {pipeline['history'][0]}",
+          flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     emit(kernels_line(rows, serving["launches"]["flash_attn_fwd"],
-                      generative, train_rows, training["launches"], ptxas))
+                      generative, train_rows, training["launches"], ptxas,
+                      gen_rows, gen_training))
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

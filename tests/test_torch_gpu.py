@@ -555,3 +555,132 @@ def test_generate_on_card_matches_cpu_bf16():
         want = out["cpu"][0](px, q, dec_in, qmask)["logits"]
     assert_close_bf16(got, want, msg="teacher-forced logits")
     assert torch.isfinite(out["cuda"][2]).all()
+
+
+# -- the generative train step -----------------------------------------------
+# The three training kernels at the generative step's new shapes, under the
+# masks the model builds: the decoder's self-attention under causal AND
+# answer padding (answers of 1-6 tokens: most of its 32 rows have no key),
+# its cross-attention over the 113-token memory under the memory's key
+# mask (B, 1, 1, 113), read with a stride-0 query axis, and the fusion's
+# 113 x 113 call under the query-AND-key mask (49 patch tokens, then
+# questions of 3-60 of 64 tokens; a ragged 49-key tail in dK/dV).
+GEN_TRAIN_CASES = [  # (B, H, Lq, Lk, D, mask kind)
+    (8, 8, 32, 32, 64, "dec_self"),
+    (8, 8, 32, 113, 64, "cross"),
+    (8, 8, 113, 113, 64, "fusion"),
+]
+
+
+def _gen_mask(kind, B, Lq, seed=0):
+    from vivqa_tpu_torch.models.layers import (make_attention_mask,
+                                               make_causal_mask)
+    rs = np.random.RandomState(seed)
+    q_mask = torch.from_numpy(padding_mask(rs.randint(3, 61, B), 64))
+    d_mask = torch.from_numpy(padding_mask(rs.randint(2, 8, B), Lq))
+    memory = torch.cat([torch.ones(B, 49, dtype=torch.int32), q_mask], 1)
+    if kind == "dec_self":
+        mask = make_causal_mask(d_mask) & make_attention_mask(d_mask, d_mask)
+    elif kind == "cross":
+        mask = make_attention_mask(None, memory)
+    else:
+        mask = make_attention_mask(memory, memory)
+    return mask.cuda()
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.05], ids=["no_dropout", "dropout"])
+@pytest.mark.parametrize("case", GEN_TRAIN_CASES, ids=str)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_generative_training_kernels_match_plain_versions(case, dtype, rate):
+    _need_card()
+    B, H, Lq, Lk, D, kind = case
+    gen = torch.Generator().manual_seed(11)
+    q, k, v, do = (torch.randn(B, H, L, D, generator=gen).to("cuda", dtype)
+                   for L in (Lq, Lk, Lk, Lq))
+    mask = _gen_mask(kind, B, Lq)
+    keyless = int((~mask.expand(B, 1, Lq, Lk).any(-1)).sum())
+    if kind == "cross":
+        assert mask.shape == (B, 1, 1, Lk) and keyless == 0
+    else:
+        assert keyless > 0
+    key = fa.dropout_key(4321, 6)
+    o, m, l = fa.flash_attention_fwd_lse_cuda(q, k, v, mask, False, rate, key)
+    grads = fa.flash_attention_bwd_cuda(q, k, v, o, m, l, do, mask, False,
+                                        rate, key)
+    o_ref, m_ref, l_ref = fa.attention_forward_lse_reference(
+        q, k, v, mask, False, rate, key)
+    want = fa.attention_backward_reference(q, k, v, o, m, l, do, mask,
+                                           False, rate, key)
+    torch.cuda.synchronize()
+    _assert_rel(o, o_ref, TOL[dtype], "o")
+    torch.testing.assert_close(m, m_ref, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(l, l_ref, atol=1e-5, rtol=1e-5)
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, want):
+        assert got.dtype == dtype and got.shape == ref.shape
+        assert torch.isfinite(got).all(), name
+        _assert_rel(got, ref, GRAD_TOL[dtype], name)
+
+
+def test_generative_train_step_on_card_matches_cpu():
+    """Two steps of the generative loss on a small generative model
+    (dropout 0) on the card and on the CPU from the same weights, at batch
+    4 with padded questions and answers of 1-5 tokens: loss and grad_norm
+    per step within 2%, every parameter within 3 x the sum of the two
+    steps' learning rates (as test_train_step_on_card_matches_cpu, for the
+    same reasons); every
+    attention call on the card through the training kernels."""
+    _need_card()
+    from vivqa_tpu_torch.data.dataset import IGNORE_INDEX
+    from vivqa_tpu_torch.models.generative import create_generative_vqa_model
+    from vivqa_tpu_torch.train.optimizers import (OptimizerConfig,
+                                                  SchedulerConfig,
+                                                  create_optimizer)
+    from vivqa_tpu_torch.train.state import (TrainState, generative_loss_fn,
+                                             make_train_step)
+    cfg = _card_gen_config("bfloat16")
+    cfg = cfg.replace(text=cfg.text.replace(dropout=0.0))
+    rs = np.random.RandomState(3)
+    qmask = torch.from_numpy(padding_mask([16, 9, 3, 1], 16))
+    lengths = [6, 4, 2, 1]                  # decoder positions, BOS first
+    dmask = torch.from_numpy(padding_mask(lengths, 8))
+    dec = torch.from_numpy(rs.randint(4, 100, (4, 8))) * dmask
+    dec[:, 0] = 0
+    labels = torch.full((4, 8), IGNORE_INDEX, dtype=torch.int64)
+    for b, n in enumerate(lengths):
+        labels[b, :n - 1] = dec[b, 1:n]
+        labels[b, n - 1] = 2                # EOS
+    batch = {"pixel_values": torch.from_numpy(
+                 rs.rand(4, 64, 64, 3).astype(np.float32)),
+             "question_ids": torch.from_numpy(rs.randint(4, 100, (4, 16)))
+             * qmask, "question_mask": qmask, "decoder_input_ids": dec,
+             "decoder_mask": dmask, "labels": labels}
+    lr = 1e-3
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        model = create_generative_vqa_model(
+            cfg, device=dev, generator=torch.Generator().manual_seed(1))
+        opt = create_optimizer(OptimizerConfig(learning_rate=lr), model,
+                               SchedulerConfig(name="onecycle",
+                                               total_steps=10))
+        state = TrainState.create(model, opt, seed=0)
+        step = make_train_step(generative_loss_fn(label_smoothing=0.1))
+        b = {n: t.to(dev) for n, t in batch.items()}
+        fa.reset_launch_counts()
+        metrics = [step(state, b)[1] for _ in range(2)]
+        runs[dev] = ([float(m["loss"]) for m in metrics],
+                     [float(m["grad_norm"]) for m in metrics],
+                     {n: p.detach().cpu()
+                      for n, p in model.named_parameters()})
+        assert int(metrics[0]["n_tokens"]) == sum(lengths)
+        if dev == "cuda":
+            # ViT 2 + text 2 + fusion 2 + 2 decoder layers x (self + cross)
+            assert fa.launch_counts["flash_attn_fwd"] == 0
+            for name in ("flash_attn_fwd_lse", "flash_attn_bwd_dq",
+                         "flash_attn_bwd_dkv"):
+                assert fa.launch_counts[name] == 2 * 10, fa.launch_counts
+    lr_sum = sum(state.schedule(i) for i in range(2))
+    (cl, cn, cp), (gl, gn, gp) = runs["cpu"], runs["cuda"]
+    np.testing.assert_allclose(gl, cl, rtol=2e-2)
+    np.testing.assert_allclose(gn, cn, rtol=2e-2)
+    for name, p in cp.items():
+        assert float((gp[name] - p).abs().max()) <= 3 * lr_sum, name

@@ -325,8 +325,8 @@ def test_optimizer_refuses_what_is_not_ported():
         PO.create_optimizer(PO.OptimizerConfig(name="sgd"), lin)
     with pytest.raises(NotImplementedError, match="lookahead"):
         PO.create_optimizer(PO.OptimizerConfig(lookahead=True), lin)
-    with pytest.raises(NotImplementedError, match="onecycle"):
-        PO.create_schedule(PO.SchedulerConfig(name="onecycle"), 1e-3)
+    with pytest.raises(NotImplementedError, match="mu_dtype"):
+        PO.create_optimizer(PO.OptimizerConfig(mu_dtype="bfloat16"), lin)
 
 
 # -- training mode -----------------------------------------------------------

@@ -11,6 +11,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+# label of a position the loss leaves out (answer padding); data/dataset.py
+# builds its teacher-forcing targets with it
+IGNORE_INDEX = -100
+
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        label_smoothing: float = 0.0,

@@ -98,6 +98,26 @@ def _join(first, second, boundary: int):
         else second(count - boundary)
 
 
+def _cosine_onecycle(total: int, peak: float, pct_start: float,
+                     div_factor: float = 25.0,
+                     final_div_factor: float = 1e4):
+    """optax.cosine_onecycle_schedule: cosine from peak / div_factor up
+    to peak over the first ``int(pct_start * total)`` steps, then down to
+    peak / (div_factor * final_div_factor) at ``total``, flat after."""
+    bounds = (0, int(pct_start * total), int(total))
+    values = (peak / div_factor, peak,
+              peak / (div_factor * final_div_factor))
+
+    def schedule(count):
+        if count >= bounds[2]:
+            return values[2]
+        i = 0 if count < bounds[1] else 1
+        pct = (count - bounds[i]) / (bounds[i + 1] - bounds[i])
+        return values[i + 1] + (values[i] - values[i + 1]) / 2.0 * (
+            math.cos(math.pi * pct) + 1)
+    return schedule
+
+
 def create_schedule(sched: SchedulerConfig,
                     base_lr: float) -> Callable[[int], float]:
     """Step count -> learning rate, as the JAX package's optax schedules
@@ -127,9 +147,11 @@ def create_schedule(sched: SchedulerConfig,
         return lambda count: base_lr * sched.gamma ** sum(
             count >= b for b in bounds)
     if sched.name == "onecycle":
-        raise NotImplementedError(
-            "the onecycle schedule is not ported yet (ROADMAP.md, Queue A "
-            "item 12)")
+        # optax NaNs on zero-width ramp intervals: need total >= 2 and
+        # pct_start strictly inside (0, 1)
+        total = max(sched.total_steps, 2)
+        pct = min(max(warmup / total, 1.0 / total), 1.0 - 1.0 / total)
+        return _cosine_onecycle(total, base_lr, pct)
     raise ValueError(f"unknown scheduler '{sched.name}'")
 
 

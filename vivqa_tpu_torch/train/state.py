@@ -13,12 +13,12 @@ defenses of the JAX package's TPU runtime have no counterpart on one card.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 from torch import nn
 
-from vivqa_tpu_torch.train.losses import cross_entropy_loss
+from vivqa_tpu_torch.train.losses import IGNORE_INDEX, cross_entropy_loss
 from vivqa_tpu_torch.train.optimizers import Optimizer
 
 _M64 = 2 ** 64 - 1
@@ -72,6 +72,32 @@ def classification_loss_fn(aux_weight: float = 0.01,
         loss = cross_entropy_loss(out["logits"], batch["labels"],
                                   label_smoothing)
         return loss + aux_weight * out["aux_loss"], {}
+    return loss_fn
+
+
+def generative_loss_fn(label_smoothing: float = 0.1,
+                       moe_aux_weight: float = 0.01,
+                       expert_mask: Optional[torch.Tensor] = None
+                       ) -> Callable:
+    """The generative pipeline's teacher-forcing loss
+    (generative_training_pipeline.py:87-107): cross-entropy of the logits
+    against ``labels`` with ``IGNORE_INDEX`` positions left out, plus
+    ``moe_aux_weight`` times the MoE aux loss. batch: dict of
+    pixel_values, question_ids, question_mask, decoder_input_ids,
+    decoder_mask, labels on the model's device. The metrics ``ce``,
+    ``aux_loss`` and ``n_tokens`` (labels that count) are 0-d tensors on
+    the device."""
+    def loss_fn(model: nn.Module, batch: dict, generator: torch.Generator):
+        out = model(batch["pixel_values"], batch["question_ids"],
+                    batch["decoder_input_ids"], batch["question_mask"],
+                    batch["decoder_mask"], expert_mask=expert_mask,
+                    generator=generator)
+        ce = cross_entropy_loss(out["logits"], batch["labels"],
+                                label_smoothing, ignore_index=IGNORE_INDEX)
+        n_tokens = (batch["labels"] != IGNORE_INDEX).sum()
+        return ce + moe_aux_weight * out["aux_loss"], {
+            "ce": ce.detach(), "aux_loss": out["aux_loss"].detach(),
+            "n_tokens": n_tokens}
     return loss_fn
 
 
