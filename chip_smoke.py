@@ -63,7 +63,25 @@ Phases, in order; any failure exits non-zero:
    GenerativeTrainingPipeline.run (an epoch of 3 steps, a one-batch
    greedy validation at batch 16 through the forward kernel, a
    checkpoint that restore_best gives back bit for bit);
-8. the card line (nvidia-smi's name and power limit), the kernels line,
+8. the classification CLI pipeline (VQAPipeline, as ``python -m
+   vivqa_tpu_torch.pipelines.vqa_pipeline`` runs it) at the flagship's
+   width and depth on a learnable synthetic corpus of 320 images at 224
+   px (vocab and answer count follow the corpus): train (2 epochs of 8
+   steps at batch 32, medium augmentation, validation and
+   best-checkpointing), evaluate and inference from the checkpoint, with
+   each run's launches checked; the best checkpoint reloaded through
+   ModelPipeline.load_checkpoint validates to the final evaluation's
+   metrics; the loader's host time, the pipeline's own steps (timed
+   inside TrainingPipeline.run) against the bare step, one step and one
+   validation under the profiler (36 launches of each training kernel,
+   36 of the forward, no library attention);
+9. path shapes: each wrapper call of phases 4-8 is recorded by its
+   kernel, dtype, shapes, mask layout, causal, dropout rate and tile
+   rows; each such launch the kernel phases did not hold against the
+   plain version (the classification pipeline's batches of 32, 2 and 1,
+   say) is held now on random inputs of that kind, and the script fails
+   if any launch of a main path stays unchecked;
+10. the card line (nvidia-smi's name and power limit), the kernels line,
    and the device line, which is the last line.
 
 Each path's launch counts are set to 0 just before it runs and read just
@@ -74,7 +92,9 @@ device it prints no result and exits 2.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import inspect
 import json
 import math
 import re
@@ -90,9 +110,11 @@ import torch.nn.functional as F
 from vivqa_tpu_torch import bench, bench_serving
 from vivqa_tpu_torch.bench import (bench_optimizer, flagship_config,
                                    synthetic_batch)
+from vivqa_tpu_torch.data import fastloader
 from vivqa_tpu_torch.data.augmentation import ImageAugmentation
 from vivqa_tpu_torch.data.dataset import (IGNORE_INDEX, GenerativeVQADataset,
                                           generative_collate)
+from vivqa_tpu_torch.data.synthetic import generate_synthetic_vivqa
 from vivqa_tpu_torch.data.schema import OneSample
 from vivqa_tpu_torch.data.tokenizer import WhitespaceTokenizer
 from vivqa_tpu_torch.device import card_line, resolve_device
@@ -105,8 +127,16 @@ from vivqa_tpu_torch.models.layers import (make_attention_mask,
 from vivqa_tpu_torch.models.vqa_model import create_vqa_model
 from vivqa_tpu_torch.ops import cuda_build
 from vivqa_tpu_torch.ops import flash_attention as fa
+from vivqa_tpu_torch.pipelines.data_pipeline import (DataPipeline,
+                                                     DataPipelineConfig)
 from vivqa_tpu_torch.pipelines.generative_training_pipeline import (
     GenerativeTrainingConfig, GenerativeTrainingPipeline, batch_to_device)
+from vivqa_tpu_torch.pipelines.model_pipeline import (ModelPipeline,
+                                                      ModelPipelineConfig)
+from vivqa_tpu_torch.pipelines.training_pipeline import (
+    TrainingPipeline, TrainingPipelineConfig)
+from vivqa_tpu_torch.pipelines.vqa_pipeline import (VQAPipeline,
+                                                    VQAPipelineConfig)
 from vivqa_tpu_torch.train.checkpoint import (CheckpointConfig,
                                               CheckpointManager)
 from vivqa_tpu_torch.train.optimizers import (OptimizerConfig,
@@ -133,11 +163,6 @@ TRAIN_KERNELS = bench.TRAIN_KERNELS
 # arithmetic in another order, f32 rounding only.
 ATTN_TOL = {torch.bfloat16: 2e-2, torch.float16: 2e-2, torch.float32: 2e-5}
 
-# What each launch count's kernels are called on the device (torch.profiler)
-KERNEL_NAMES = {"flash_attn_fwd": "flash_attn_fwd_mma_kernel",
-                "flash_attn_fwd_lse": "flash_attn_fwd_lse",
-                "flash_attn_bwd_dq": "flash_attn_bwd_dq",
-                "flash_attn_bwd_dkv": "flash_attn_bwd_dkv"}
 # The templates each kernel runs on the main paths (bf16, head dim 64; the
 # serving forward at the serving paths' tile sizes, the decoder's masked
 # single-query calls at DECODE_TILE_ROWS; the calls with a mask and those
@@ -338,6 +363,57 @@ def device_kernels(prof) -> dict:
     return kernels
 
 
+# -- what the main paths launch, against what the checks held ----------------
+# The four wrappers, by launch count name
+WRAPPERS = {"flash_attn_fwd": "flash_attention_cuda",
+            "flash_attn_fwd_lse": "flash_attention_fwd_lse_cuda",
+            "flash_attn_bwd_dq": "flash_attention_bwd_dq_cuda",
+            "flash_attn_bwd_dkv": "flash_attention_bwd_dkv_cuda"}
+# the launch keys of the calls held against the plain versions
+CHECKED: set = set()
+
+
+def launch_key(name, q, k, mask, causal, rate, tile_rows) -> tuple:
+    """What a kernel's check depends on: the kernel, the dtype, q's shape,
+    the key count, the mask's stored shape (broadcast dims as 1), causal,
+    the dropout rate and, for the forward, the tile rows."""
+    return (name, str(q.dtype).removeprefix("torch."), tuple(q.shape),
+            k.shape[2], None if mask is None else tuple(mask.shape),
+            bool(causal), float(rate), tile_rows)
+
+
+@contextlib.contextmanager
+def recording_launches(keys: set):
+    """Adds to ``keys`` the ``launch_key`` of every call of the four
+    wrappers made inside (the model and the ops module reach them through
+    the module's names); calls and launch counts are otherwise as they
+    were."""
+    originals = {name: getattr(fa, w) for name, w in WRAPPERS.items()}
+
+    def recorder(name, fn):
+        params = inspect.signature(fn).parameters
+        names = list(params)
+        defaults = {n: p.default for n, p in params.items()}
+
+        def wrapped(*args, **kwargs):
+            a = {**defaults, **dict(zip(names, args)), **kwargs}
+            tile = None
+            if name == "flash_attn_fwd":
+                tile = a["tile_rows"] or fa.serving_tile_rows(
+                    a["q"].shape[2])
+            keys.add(launch_key(name, a["q"], a["k"], a["mask"], a["causal"],
+                                a.get("dropout_rate", 0.0), tile))
+            return fn(*args, **kwargs)
+        return wrapped
+    for name, fn in originals.items():
+        setattr(fa, WRAPPERS[name], recorder(name, fn))
+    try:
+        yield keys
+    finally:
+        for name, fn in originals.items():
+            setattr(fa, WRAPPERS[name], fn)
+
+
 # -- phase 2: build ----------------------------------------------------------
 def ptxas_usage(report: str) -> dict:
     """{mangled kernel name: {registers, spill_store_bytes,
@@ -466,8 +542,9 @@ def attention_case(name, B, H, Lq, Lk, D, kind, causal, gen,
             tiles = (fa.serving_tile_rows(Lq),) \
                 if dtype == torch.float32 else fa.TILE_ROWS
             for tile_rows in tiles:
-                out = fa.flash_attention_cuda(q, k, v, mask, causal,
-                                              tile_rows)
+                with recording_launches(CHECKED):
+                    out = fa.flash_attention_cuda(q, k, v, mask, causal,
+                                                  tile_rows)
                 torch.cuda.synchronize()
                 err = float((out.float() - ref.float()).abs().max())
                 if not math.isfinite(err) or err > ATTN_TOL[dtype]:
@@ -665,8 +742,9 @@ def check_train_kernels(q, k, v, do, mask, causal, rate, key) -> dict:
     """Each training kernel against its plain version on the same inputs;
     the backward ones get the kernel forward's o, m and l."""
     dtype = q.dtype
-    o, m, l, dq, dk, dv = train_kernels_once(q, k, v, do, mask, causal,
-                                             rate, key)
+    with recording_launches(CHECKED):
+        o, m, l, dq, dk, dv = train_kernels_once(q, k, v, do, mask, causal,
+                                                 rate, key)
     o_r, m_r, l_r = fa.attention_forward_lse_reference(q, k, v, mask, causal,
                                                        rate, key)
     dq_r, delta_r = fa.attention_bwd_dq_reference(q, k, v, o, m, l, do, mask,
@@ -1045,8 +1123,9 @@ def profile_phase(model, args, forwards: int = 3) -> dict:
             torch.cuda.synchronize()
     kernels = device_kernels(prof)
     busy = sum(t for _, t in kernels.values()) / 1e3 / forwards
+    fwd = fa.DEVICE_KERNEL_NAMES["flash_attn_fwd"]
     attn = sum(t for n, (_, t) in kernels.items()
-               if KERNEL_NAMES["flash_attn_fwd"] in n) / 1e3 / forwards
+               if fwd in n) / 1e3 / forwards
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
     return {
         "eager_forward_ms": eager, "graph_forward_ms": graphed,
@@ -1125,7 +1204,7 @@ def train_profile(state, train_step, data, step_ms: float) -> dict:
     kernels = device_kernels(prof)
     busy = sum(t for _, t in kernels.values()) / 1e3
     attention = {name: sum(t for n, (_, t) in kernels.items()
-                           if KERNEL_NAMES[name] in n) / 1e3
+                           if fa.DEVICE_KERNEL_NAMES[name] in n) / 1e3
                  for name in ("flash_attn_fwd",) + TRAIN_KERNELS}
     f32_gemms = [(c, t) for n, (c, t) in kernels.items()
                  if "f32f32" in n or "sgemm" in n]
@@ -1299,16 +1378,15 @@ def generate_profile(generate, args, reps: int = 3) -> dict:
     kernels = device_kernels(prof)
     busy = sum(t for _, t in kernels.values()) / 1e3
     eager_median = float(np.median(eager))
+    fwd = fa.DEVICE_KERNEL_NAMES["flash_attn_fwd"]
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
     return {"eager_generate_ms": eager_median,
             "device_busy_ms": busy if kernels else None,
             "device_idle_share": 1 - busy / eager_median if kernels else None,
             "attention_device_ms": sum(
-                t for n, (_, t) in kernels.items()
-                if KERNEL_NAMES["flash_attn_fwd"] in n) / 1e3,
+                t for n, (_, t) in kernels.items() if fwd in n) / 1e3,
             "attention_launches": sum(
-                c for n, (c, _) in kernels.items()
-                if KERNEL_NAMES["flash_attn_fwd"] in n),
+                c for n, (c, _) in kernels.items() if fwd in n),
             "kernels_per_generate": sum(c for c, _ in kernels.values()),
             "top_kernels": [{"name": n[:90], "calls": c, "ms": t / 1e3}
                             for n, (c, t) in top]}
@@ -1435,7 +1513,7 @@ def gen_train_batch(cfg: GenerativeVQAConfig, tok: WhitespaceTokenizer,
     ds = GenerativeVQADataset(
         [OneSample(im, q, [a]) for im, q, a in zip(images, questions,
                                                     answers)],
-        tok, ImageAugmentation(cfg.visual.image_size),
+        tok, ImageAugmentation(cfg.visual.image_size, mode="eval"),
         max_question_length=cfg.text.max_length,
         max_answer_length=cfg.max_answer_length)
     return generative_collate([ds[i] for i in range(n)])
@@ -1610,9 +1688,283 @@ def pipeline_phase(cfg: GenerativeVQAConfig, tok: WhitespaceTokenizer,
                 meta["epoch"], "restore_best_bit_equal": same}
 
 
+# -- phase 8: the classification CLI pipeline --------------------------------
+CLS_CORPUS = 320            # 256 / 32 / 32 samples after the 0.8 / 0.1 split
+CLS_EPOCHS = 2
+CLS_BATCH = 32
+
+
+def cls_profile(fn) -> dict:
+    """``fn`` once under torch.profiler (device activity only): its
+    attention kernels by name (``fa.attention_kernel_counts``), the
+    device's busy time, and the host time of the same call to a
+    synchronize, of which the busy time gives the device's idle share
+    (the profiler's own host cost included)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    kernels = device_kernels(prof)
+    busy = sum(t for _, t in kernels.values()) / 1e3
+    return {"kernels": fa.attention_kernel_counts(
+                {n: c for n, (c, _) in kernels.items()}),
+            "kernels_total": sum(c for c, _ in kernels.values()),
+            "device_busy_ms": busy, "host_ms": host_ms,
+            "device_idle_share": 1 - busy / host_ms if kernels else None}
+
+
+def cls_pipeline_phase(cfg: VQAModelConfig, device: str = "cuda",
+                       n: int = CLS_CORPUS, image_size: int = 224,
+                       epochs: int = CLS_EPOCHS, batch: int = CLS_BATCH,
+                       seed: int = 0) -> dict:
+    """The classification CLI pipeline as a user drives it
+    (``VQAPipeline``, as ``python -m vivqa_tpu_torch.pipelines.vqa_pipeline``
+    runs it) on the learnable synthetic corpus of ``n`` images: train
+    (``epochs`` epochs, medium augmentation, validation each epoch,
+    best-checkpointing, the final evaluation on the best checkpoint),
+    evaluate and inference from the checkpoint, each with the launch
+    counts set to 0 just before and read just after. Then, through the
+    same pipeline objects: the best checkpoint restored by
+    ``ModelPipeline.load_checkpoint`` and validated again (its metrics
+    must equal the final evaluation's); the loader's host time per batch;
+    the bare step on one resident batch, against the train run's own
+    steps as ``TrainingPipeline.run`` timed them; one step and one
+    validation under the profiler (kernel counts by name, idle share)."""
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    calls = {"vit": cfg.visual.num_layers, "text": cfg.text.num_layers,
+             "fusion": 3 * cfg.fusion.num_layers}
+    per_forward = sum(calls.values()) if on_card else 0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        csv, imgs = generate_synthetic_vivqa(f"{tmp}/data", n=n,
+                                             image_size=image_size,
+                                             learnable=True, seed=seed)
+        corpus_s = time.perf_counter() - t0
+        ckpt_dir, out_dir = f"{tmp}/ckpt", f"{tmp}/out"
+        vcfg = VQAPipelineConfig(
+            mode="train",
+            data=DataPipelineConfig(
+                csv_path=str(csv), image_dir=str(imgs),
+                image_size=image_size, max_question_length=cfg.text.max_length,
+                batch_size=batch, augmentation_strength="medium", seed=seed),
+            model=ModelPipelineConfig(model=cfg, device=device, seed=seed),
+            training=TrainingPipelineConfig(
+                num_epochs=epochs, checkpoint_dir=ckpt_dir, log_every=4,
+                seed=seed),
+            output_dir=out_dir, seed=seed)
+
+        runs = {}
+        for mode in ("train", "evaluate", "inference"):
+            run_cfg = vcfg.replace(mode=mode,
+                                   resume="" if mode == "train" else ckpt_dir)
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            fa.reset_launch_counts()
+            t0 = time.perf_counter()
+            summary = VQAPipeline(run_cfg).run()
+            sync()
+            with open(f"{out_dir}/run_stats.json") as f:
+                stages = json.load(f)["stages"]
+            runs[mode] = {"seconds": time.perf_counter() - t0,
+                          "launches": dict(fa.launch_counts),
+                          "summary": summary, "stages": stages,
+                          "max_memory_allocated_gib":
+                              torch.cuda.max_memory_allocated() / 2 ** 30
+                              if on_card else None}
+        with open(f"{out_dir}/inference_results.json") as f:
+            predictions = json.load(f)
+
+        # the same data and model objects the pipeline builds
+        data = DataPipeline(vcfg.data).run()
+        steps = len(data.train_loader)
+        n_val = len(data.val_loader.dataset)
+        n_test = len(data.test_loader.dataset)
+        synced = cfg.replace(
+            visual=cfg.visual.replace(image_size=image_size),
+            text=cfg.text.replace(vocab_size=data.tokenizer.vocab_size))
+        model_out, meta = ModelPipeline(
+            vcfg.model.replace(model=synced)).load_checkpoint(ckpt_dir)
+        model = model_out.model
+        tp = TrainingPipeline(vcfg.training)
+        reload_metrics = tp.validate(model, data.val_loader, data.id2answer)
+
+        t0 = time.perf_counter()
+        for batches, host_batch in enumerate(data.train_loader, 1):
+            pass
+        loader_ms = (time.perf_counter() - t0) * 1e3 / batches
+
+        state = tp._build_state(model, steps)
+        train_step = make_train_step(classification_loss_fn(
+            vcfg.training.moe_aux_weight, vcfg.training.label_smoothing))
+        resident = batch_to_device(host_batch, model_out.device)
+        bare_host, bare_event, bare_metrics = bench.time_train_steps(
+            state, train_step, resident, steps)
+        losses = [float(m["loss"]) for m in bare_metrics]
+        profiles = None
+        if on_card:
+            profiles = {
+                "step": cls_profile(lambda: train_step(state, resident)),
+                "validation": cls_profile(
+                    lambda: tp.validate(model, data.val_loader,
+                                        data.id2answer))}
+
+    train, evaluate, infer = (runs[m]["summary"] for m in
+                              ("train", "evaluate", "inference"))
+    history, final = train["history"], train["final_metrics"]
+    step_ms = float(np.median([t * 1e3 for epoch in train["step_seconds"]
+                               for t in epoch]))
+    val_batches = math.ceil(n_val / batch)
+    test_batches = math.ceil(n_test / batch)
+    zero = {name: 0 for name in TRAIN_KERNELS}
+    want = {
+        # the dummy forward of ModelPipeline, a validation per epoch and
+        # the final one on the best checkpoint
+        "train": {**{name: per_forward * steps * epochs
+                     for name in TRAIN_KERNELS},
+                  "flash_attn_fwd": per_forward
+                  * (1 + (epochs + 1) * val_batches)},
+        "evaluate": {**zero,
+                     "flash_attn_fwd": per_forward * (1 + test_batches)},
+        "inference": {**zero,
+                      "flash_attn_fwd": per_forward * (1 + n_test)}}
+    problems = []
+    for mode, w in want.items():
+        if runs[mode]["launches"] != w:
+            problems.append(f"{mode} launches {runs[mode]['launches']} != "
+                            f"{w}")
+    finite = [h["train_loss"] for h in history] + \
+        [h["val_loss"] for h in history] + [final["val_loss"]] + losses
+    if len(history) != epochs or not all(math.isfinite(x) for x in finite):
+        problems.append(f"history {history}, losses {losses}")
+    for k, v in final.items():
+        same = v == reload_metrics[k] if k != "val_loss" else \
+            abs(v - reload_metrics[k]) <= 1e-3 * abs(v)
+        if not same:
+            problems.append(f"reloaded checkpoint {k} {reload_metrics[k]} "
+                            f"!= final evaluation {v}")
+    if meta["num_answers"] != train["num_answers"] \
+            or model.config.num_answers != train["num_answers"]:
+        problems.append(f"checkpoint num_answers {meta['num_answers']}")
+    if len(predictions) != n_test or infer["num_predictions"] != n_test:
+        problems.append(f"{len(predictions)} predictions for {n_test} test "
+                        f"samples")
+    if sorted(evaluate["metrics"]) != sorted(final) or not all(
+            math.isfinite(v) for v in evaluate["metrics"].values()):
+        problems.append(f"evaluate metrics {evaluate['metrics']}")
+    if profiles is not None:
+        step_want = {**{name: per_forward for name in TRAIN_KERNELS},
+                     "flash_attn_fwd": 0, "library": []}
+        val_want = {**zero, "flash_attn_fwd": per_forward * val_batches,
+                    "library": []}
+        if profiles["step"]["kernels"] != step_want:
+            problems.append(f"profiled step {profiles['step']['kernels']} "
+                            f"!= {step_want}")
+        if profiles["validation"]["kernels"] != val_want:
+            problems.append(f"profiled validation "
+                            f"{profiles['validation']['kernels']} != "
+                            f"{val_want}")
+    if problems:
+        raise AssertionError("cls_pipeline: " + "; ".join(problems))
+    return {
+        "corpus": {"n": n, "image_size": image_size,
+                   "split": [len(data.train_loader.dataset), n_val, n_test],
+                   "answers": train["num_answers"],
+                   "text_vocab": data.tokenizer.vocab_size,
+                   "seconds": corpus_s},
+        "params": sum(p.numel() for p in model.parameters()),
+        "batch": batch, "epochs": epochs, "steps_per_epoch": steps,
+        "image_path": "native" if fastloader.is_available() else "pil",
+        "loader_host_ms_per_batch": loader_ms,
+        "run_seconds": {m: runs[m]["seconds"] for m in runs},
+        "stage_seconds": {m: runs[m]["stages"] for m in runs},
+        "train_stage_s_per_epoch":
+            runs["train"]["stages"]["training_pipeline"]["seconds"] / epochs,
+        "history": history, "final_metrics": final,
+        "reload_metrics": reload_metrics,
+        "evaluate_metrics": evaluate["metrics"],
+        "predictions": len(predictions),
+        "qa_pairs_per_sec_history": [h["qa_pairs_per_sec"] for h in history],
+        "launches": {m: runs[m]["launches"] for m in runs},
+        # by the profiler's names, in one profiled step and one validation
+        "launches_per_step": None if profiles is None else {
+            name: profiles["step"]["kernels"][name]
+            for name in TRAIN_KERNELS},
+        "launches_per_validation_forward": None if profiles is None else
+            profiles["validation"]["kernels"]["flash_attn_fwd"]
+            / val_batches,
+        # the train run's own steps, as TrainingPipeline.run timed them
+        "pipeline_step_ms": [[t * 1e3 for t in epoch]
+                             for epoch in train["step_seconds"]],
+        "median_pipeline_step_ms": step_ms,
+        "pipeline_loop_s": train["loop_seconds"],
+        "pipeline_loop_ms_per_step": [t * 1e3 / steps
+                                      for t in train["loop_seconds"]],
+        "pipeline_qa_pairs_per_s": batch * 1e3 / step_ms,
+        "bare_step_ms": bare_host, "bare_step_event_ms": bare_event,
+        "median_bare_step_ms": float(np.median(bare_host)),
+        "median_bare_step_event_ms":
+            float(np.median(bare_event)) if bare_event else None,
+        "max_memory_allocated_gib": runs["train"]["max_memory_allocated_gib"],
+        "run_max_memory_allocated_gib":
+            {m: runs[m]["max_memory_allocated_gib"] for m in runs},
+        "profile": profiles}
+
+
+# -- phase 9: every launch shape of the main paths held ---------------------
+def path_check_phase(launched: dict) -> dict:
+    """``launched``: {path: the launch keys its run recorded}. Each key no
+    kernel check held yet is held now against the plain version on inputs
+    of that key (normal q, k, v and dO; a mask of the key's stored shape,
+    each element kept with probability 0.8; the key's dropout rate): the
+    forward at the key's tile rows to ATTN_TOL, a training kernel's key by
+    the three kernels' forward and backward (``check_train_kernels``).
+    Fails if a path launched a key that stays unchecked."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    every = set().union(*launched.values())
+    held_before = every & CHECKED
+    rows = []
+    for key in sorted(every - CHECKED, key=str):
+        if key in CHECKED:      # held with the training kernels of its call
+            continue
+        name, dtype, (B, H, Lq, D), Lk, mask_shape, causal, rate, tile = key
+        dt = getattr(torch, dtype)
+        q, k, v, do = (torch.randn(B, H, L, D, generator=gen,
+                                   device="cuda").to(dt)
+                       for L in (Lq, Lk, Lk, Lq))
+        mask = None if mask_shape is None else torch.rand(
+            mask_shape, generator=gen, device="cuda") < 0.8
+        if name == "flash_attn_fwd":
+            with recording_launches(CHECKED):
+                out = fa.flash_attention_cuda(q, k, v, mask, causal, tile)
+            ref = fa.attention_reference(q, k, v, mask, causal)
+            torch.cuda.synchronize()
+            errs = {"o": float((out.float() - ref.float()).abs().max())}
+            if not math.isfinite(errs["o"]) or errs["o"] > ATTN_TOL[dt]:
+                raise AssertionError(f"path launch {key}: kernel vs plain "
+                                     f"max |err| {errs['o']} > "
+                                     f"{ATTN_TOL[dt]}")
+        else:
+            errs = check_train_kernels(q, k, v, do, mask, causal, rate,
+                                       fa.dropout_key(2028, len(rows)))
+        rows.append({"key": key, "max_err": errs})
+    unchecked = every - CHECKED
+    if unchecked:
+        raise AssertionError(f"launches of the main paths no check held: "
+                             f"{sorted(unchecked, key=str)}")
+    return {"launch_keys": {p: len(keys) for p, keys in launched.items()},
+            "held_by_kernel_phases": len(held_before),
+            "held_here": rows,
+            "key": ["kernel", "dtype", "q shape", "Lk", "mask shape",
+                    "causal", "dropout", "tile rows"]}
+
+
 def kernels_line(rows: dict, launches: int, generative: dict,
                  train_rows: dict, train_launches: dict,
-                 ptxas: dict, gen_rows: dict, gen_training: dict) -> dict:
+                 ptxas: dict, gen_rows: dict, gen_training: dict,
+                 cls_pipeline: dict) -> dict:
     """One entry per kernel. The forward's numbers are for one flagship
     forward at batch 8 (its 36 calls of the five serving shapes, each
     shape's time times its calls), and, under ``generate``, for one beam
@@ -1622,9 +1974,20 @@ def kernels_line(rows: dict, launches: int, generative: dict,
     step at batch 32 (39 calls each). ``ms`` is CUDA-graph replay,
     ``profiled_ms`` the profiler's sum of kernel durations (as
     ``library_ms`` is timed); registers and spills are ptxas' for the
-    template the main path runs."""
+    template the main path runs. ``cls_pipeline`` holds each kernel's
+    launches in the classification CLI pipeline's runs (train, evaluate,
+    inference), per train step and per validation forward."""
     entries = [forward_entry(rows, launches, ptxas["flash_attn_fwd"])]
     entries[0]["generate"] = generate_entry(rows, generative)
+    cls_launches = cls_pipeline["launches"]
+    entries[0]["cls_pipeline"] = {
+        "launches": {m: cls_launches[m]["flash_attn_fwd"]
+                     for m in cls_launches},
+        "launches_per_validation_forward":
+            cls_pipeline["launches_per_validation_forward"],
+        "per": f"VQAPipeline train ({cls_pipeline['epochs']} epochs of "
+               f"{cls_pipeline['steps_per_epoch']} steps at batch "
+               f"{cls_pipeline['batch']}), evaluate and inference runs"}
     totals = step_totals(train_rows)
     gen_totals = step_totals(gen_rows)
     replaces = {
@@ -1654,7 +2017,15 @@ def kernels_line(rows: dict, launches: int, generative: dict,
                 "launches_per_step":
                     gen_training["launches_per_step"][name],
                 "per": f"one generative train step at batch "
-                       f"{gen_training['batch']}, bf16"}})
+                       f"{gen_training['batch']}, bf16"},
+            "cls_pipeline": {
+                "launches": cls_launches["train"][name],
+                "launches_per_step":
+                    cls_pipeline["launches_per_step"][name],
+                "per": f"VQAPipeline train run, "
+                       f"{cls_pipeline['epochs']} epochs of "
+                       f"{cls_pipeline['steps_per_epoch']} steps at batch "
+                       f"{cls_pipeline['batch']}"}})
     return {"kernels": entries}
 
 
@@ -1745,12 +2116,15 @@ def main() -> int:
     train_rows = train_kernel_phase()
     print(f"[kernels] {time.perf_counter() - t_start:.1f} s", flush=True)
     cfg = flagship_config()
-    serving = serving_phase(cfg, "cuda")
+    launched = {}           # path: its launch keys (path_check_phase)
+    with recording_launches(launched.setdefault("serving", set())):
+        serving = serving_phase(cfg, "cuda")
     emit({"serving": serving, "card": card})
     print(f"[serving] {serving['batches']} batches of {serving['batch']}: "
           f"{serving['mean_batch_latency_ms']:.2f} ms per batch, "
           f"{serving['answers_per_s']:.1f} answers/s on {card}", flush=True)
-    generative = generative_phase(bench_serving.serving_config())
+    with recording_launches(launched.setdefault("generative", set())):
+        generative = generative_phase(bench_serving.serving_config())
     emit({"generative": generative, "card": card})
     print("[generative] " + ", ".join(
         f"{k} {r['answers_per_sec']:.1f} answers/s p50 "
@@ -1759,14 +2133,16 @@ def main() -> int:
         + f"; {generative['launches_per_generate']:.0f} attention launches "
           f"per generate on {card} ({time.perf_counter() - t_start:.1f} s)",
         flush=True)
-    training = training_phase(cfg)
+    with recording_launches(launched.setdefault("training", set())):
+        training = training_phase(cfg)
     emit({"training": training, "card": card})
     print(f"[training] batch {training['batch']}: median step "
           f"{training['median_step_ms']:.1f} ms, "
           f"{training['qa_pairs_per_s']:.1f} QA-pairs/s, peak "
           f"{training['max_memory_allocated_gib']:.1f} GiB on {card}",
           flush=True)
-    check = train_check(cfg)
+    with recording_launches(launched["training"]):
+        check = train_check(cfg)
     emit({"train_check": check})
     print(f"[training] {time.perf_counter() - t_start:.1f} s", flush=True)
 
@@ -1775,7 +2151,8 @@ def main() -> int:
     gen_rows = gen_train_kernel_phase(gen_cfg)
     gen_totals = step_totals(gen_rows)
     emit({"gen_training_attention_per_step": gen_totals, "card": card})
-    gen_training = gen_training_phase(gen_cfg, tok)
+    with recording_launches(launched.setdefault("gen_training", set())):
+        gen_training = gen_training_phase(gen_cfg, tok)
     emit({"gen_training": gen_training, "card": card})
     print(f"[gen_training] batch {gen_training['batch']}: median step "
           f"{gen_training['median_step_ms']:.1f} ms (events "
@@ -1786,18 +2163,48 @@ def main() -> int:
           f"per step " + ", ".join(f"{n} {t['ms']:.3f} ms" for n, t in
                                    gen_totals.items())
           + f" on {card}", flush=True)
-    gen_check = gen_train_check(gen_cfg, tok)
+    with recording_launches(launched["gen_training"]):
+        gen_check = gen_train_check(gen_cfg, tok)
     emit({"gen_train_check": gen_check})
-    pipeline = pipeline_phase(gen_cfg, tok)
+    with recording_launches(launched.setdefault("gen_pipeline", set())):
+        pipeline = pipeline_phase(gen_cfg, tok)
     emit({"gen_pipeline": pipeline})
     print(f"[gen_pipeline] {pipeline['steps']} steps and a validation in "
           f"{pipeline['seconds']:.1f} s: {pipeline['history'][0]}",
           flush=True)
+    with recording_launches(launched.setdefault("cls_pipeline", set())):
+        cls = cls_pipeline_phase(cfg)
+    emit({"cls_pipeline": cls, "card": card})
+    prof = cls["profile"]
+    print(f"[cls_pipeline] train {cls['run_seconds']['train']:.1f} s "
+          f"({cls['train_stage_s_per_epoch']:.1f} s per epoch of training "
+          f"stage), evaluate {cls['run_seconds']['evaluate']:.1f} s, "
+          f"inference {cls['run_seconds']['inference']:.1f} s; the "
+          f"pipeline's own loop: "
+          + ", ".join(f"{s:.2f} s" for s in cls["pipeline_loop_s"])
+          + f" an epoch, median step {cls['median_pipeline_step_ms']:.1f} "
+          f"ms by host clock, against the bare step's "
+          f"{cls['median_bare_step_ms']:.1f} ms (events "
+          f"{cls['median_bare_step_event_ms']:.1f}) at batch "
+          f"{cls['batch']}; qa_pairs_per_sec in the history "
+          f"{cls['qa_pairs_per_sec_history']}; loader "
+          f"{cls['loader_host_ms_per_batch']:.1f} host ms per batch on the "
+          f"{cls['image_path']} image path; idle "
+          f"{prof['step']['device_idle_share']:.3f} of a profiled step "
+          f"({prof['step']['host_ms']:.1f} ms), "
+          f"{prof['validation']['device_idle_share']:.3f} of a profiled "
+          f"validation; peak {cls['max_memory_allocated_gib']:.2f} GiB on "
+          f"{card}", flush=True)
+    paths = path_check_phase(launched)
+    emit({"path_check": paths})
+    print(f"[path_check] launch keys by path {paths['launch_keys']}: "
+          f"{paths['held_by_kernel_phases']} held by the kernel phases, "
+          f"{len(paths['held_here'])} held here", flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     emit(kernels_line(rows, serving["launches"]["flash_attn_fwd"],
                       generative, train_rows, training["launches"], ptxas,
-                      gen_rows, gen_training))
+                      gen_rows, gen_training, cls))
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

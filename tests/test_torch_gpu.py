@@ -684,3 +684,98 @@ def test_generative_train_step_on_card_matches_cpu():
     np.testing.assert_allclose(gn, cn, rtol=2e-2)
     for name, p in cp.items():
         assert float((gp[name] - p).abs().max()) <= 3 * lr_sum, name
+
+
+# -- the classification pipeline: prefetch and the pipeline's train step ----
+def test_device_prefetch_on_card_equals_blocking_copy():
+    """device_prefetch's pinned, non-blocking copies on a side stream give
+    exactly the tensors a blocking copy gives, with three batches in
+    flight while the compute stream is kept busy: each batch is read on
+    the compute stream as soon as it arrives and then dropped, so a copy
+    that overwrote memory still in use, or a read that did not wait for
+    its copy, would change a checksum."""
+    _need_card()
+    from vivqa_tpu_torch.data.loader import device_prefetch
+    rs = np.random.RandomState(0)
+    batches = [{"pixel_values": rs.standard_normal((8, 224, 224, 3)).astype(
+                    np.float32),
+                "input_ids": rs.randint(0, 64000, (8, 64)).astype(np.int32),
+                "u8": rs.randint(0, 256, (8, 32, 32, 3), dtype=np.uint8),
+                "question": [f"q{i}"], "_num_valid": i}
+               for i in range(12)]
+    want = [{k: torch.from_numpy(v).cuda() for k, v in b.items()
+             if isinstance(v, np.ndarray)} for b in batches]
+    w = torch.randn(2048, 2048, device="cuda")
+    sums, kept = [], []
+    for i, b in enumerate(device_prefetch(iter(batches), "cuda",
+                                          buffer_size=3)):
+        for _ in range(4):                  # keep the compute stream busy
+            w = torch.tanh(w @ w * 1e-3)
+        assert b["question"] == [f"q{i}"] and b["_num_valid"] == i
+        assert b["input_ids"].dtype == torch.int64
+        assert b["pixel_values"].dtype == torch.float32
+        assert b["u8"].dtype == torch.uint8
+        sums.append(torch.stack([b["pixel_values"].double().sum(),
+                                 b["input_ids"].double().sum(),
+                                 b["u8"].double().sum()]))
+        if i % 4 == 0:
+            kept.append((i, b))
+    torch.cuda.synchronize()
+    for i, s in enumerate(sums):
+        ref = want[i]
+        expect = torch.stack([ref["pixel_values"].double().sum(),
+                              ref["input_ids"].double().sum(),
+                              ref["u8"].double().sum()])
+        assert torch.equal(s, expect), i
+    for i, b in kept:
+        for k, ref in want[i].items():
+            assert torch.equal(b[k], ref.long() if k == "input_ids"
+                               else ref), (i, k)
+
+
+def test_pipeline_train_step_on_card_launches_training_kernels(tmp_path):
+    """One epoch of one step of TrainingPipeline on the card, under the
+    profiler: the step launches each training kernel once per attention
+    call (5 here), the two validations (the epoch's and the final one on
+    the best checkpoint) the serving forward 5 times each, as the launch
+    counts say; no library attention kernel runs."""
+    _need_card()
+    from torch.profiler import ProfilerActivity, profile
+    from vivqa_tpu_torch.data.synthetic import generate_synthetic_vivqa
+    from vivqa_tpu_torch.pipelines.data_pipeline import (DataPipeline,
+                                                         DataPipelineConfig)
+    from vivqa_tpu_torch.pipelines.training_pipeline import (
+        TrainingPipeline, TrainingPipelineConfig)
+    csv, imgs = generate_synthetic_vivqa(tmp_path / "data", n=10,
+                                         image_size=64)
+    data = DataPipeline(DataPipelineConfig(
+        csv_path=str(csv), image_dir=str(imgs), image_size=64,
+        max_question_length=16, batch_size=8)).run()
+    assert len(data.train_loader) == 1
+    cfg = PC.VQAModelConfig(
+        visual=PC.VisualEncoderConfig(image_size=64, patch_size=16,
+                                      hidden_dim=128, num_layers=1,
+                                      num_heads=2),
+        text=PC.TextEncoderConfig(vocab_size=data.tokenizer.vocab_size,
+                                  hidden_dim=128, num_layers=1, num_heads=2,
+                                  max_length=16),
+        fusion=PC.FusionConfig(fusion_type="mcan", hidden_dim=128,
+                               num_heads=2, num_layers=1),
+        num_answers=len(data.answer2id))
+    model = create_vqa_model(cfg, device="cuda")
+    fa.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = TrainingPipeline(TrainingPipelineConfig(
+            num_epochs=1, checkpoint_dir=str(tmp_path / "ck"))).run(
+            model, data.train_loader, data.val_loader, data.id2answer)
+        torch.cuda.synchronize()
+    assert out.best_step == 1 and np.isfinite(out.history[0]["train_loss"])
+    kernels: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and not e.is_user_annotation:
+            kernels[e.name] = kernels.get(e.name, 0) + 1
+    want = {"flash_attn_fwd": 10, "flash_attn_fwd_lse": 5,
+            "flash_attn_bwd_dq": 5, "flash_attn_bwd_dkv": 5}
+    assert fa.attention_kernel_counts(kernels) == {**want, "library": []}
+    assert dict(fa.launch_counts) == want, fa.launch_counts

@@ -170,7 +170,7 @@ def test_eval_transform_copy_matches():
     rs = np.random.RandomState(3)
     for img in (rs.randint(0, 256, (37, 23, 3), dtype=np.uint8),
                 rs.rand(20, 20, 3).astype(np.float32), "/nonexistent.jpg"):
-        np.testing.assert_array_equal(ImageAugmentation(16)(img),
+        np.testing.assert_array_equal(ImageAugmentation(16, mode="eval")(img),
                                       JAug(16, mode="eval")(img))
 
 

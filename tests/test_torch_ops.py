@@ -161,6 +161,29 @@ def test_serving_tile_rows_by_query_count():
     assert {fa.DECODE_TILE_ROWS, fa.SERVING_TILE_ROWS} <= set(fa.TILE_ROWS)
 
 
+def test_attention_kernel_counts_by_device_name():
+    """Profiled kernel names map to the launch counts' names (the serving
+    forward apart from the training forward), and library attention is
+    listed, whatever else the profile holds."""
+    from vivqa_tpu_torch.ops import flash_attention as fa
+    kernels = {
+        "void flash_attn_fwd_mma_kernel<__nv_bfloat16, 64, false>()": 3,
+        "void flash_attn_fwd_lse_mma_kernel<__nv_bfloat16, true>()": 2,
+        "void flash_attn_bwd_dq_mma_kernel<__nv_bfloat16>()": 2,
+        "void flash_attn_bwd_dkv_mma_kernel<__nv_bfloat16, true>()": 1,
+        "void pytorch_flash::flash_fwd_kernel<Flash_fwd_kernel_traits>()": 4,
+        "fmha_cutlassB_f16_aligned_64x64_k64_sm80": 1,
+        "ampere_bf16_s16816gemm_bf16_128x64_ldg8_f2f_tn": 9}
+    counts = fa.attention_kernel_counts(kernels)
+    assert {k: v for k, v in counts.items() if k != "library"} == {
+        "flash_attn_fwd": 3, "flash_attn_fwd_lse": 2,
+        "flash_attn_bwd_dq": 2, "flash_attn_bwd_dkv": 1}
+    assert counts["library"] == [
+        "fmha_cutlassB_f16_aligned_64x64_k64_sm80",
+        "void pytorch_flash::flash_fwd_kernel<Flash_fwd_kernel_traits>()"]
+    assert set(fa.DEVICE_KERNEL_NAMES) == set(fa.launch_counts)
+
+
 def _attention_variants():
     spec = importlib.util.spec_from_file_location(
         "attention_variants",

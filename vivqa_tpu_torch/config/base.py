@@ -1,8 +1,10 @@
-"""Config mixin: dict round-trip and replace for frozen dataclasses.
+"""Layered config system: CLI > YAML > dataclass defaults.
 
-Copy of vivqa_tpu/config/base.py without its YAML file helpers: the port
-imports nothing of the JAX package. Nested dataclass fields are handled
-recursively.
+Copy of vivqa_tpu/config/base.py (the port imports nothing of the JAX
+package): one mixin gives every config from_dict / from_yaml / to_dict /
+to_yaml / replace, with nested dataclass fields handled recursively.
+PyYAML is imported only by the YAML helpers (``utils/yaml_io.py``), so a
+host without it runs everything but ``--config``.
 """
 
 from __future__ import annotations
@@ -82,14 +84,48 @@ def dataclass_to_dict(obj: Any) -> Any:
 
 
 class ConfigBase:
-    """Mixin giving any dataclass from_dict / to_dict / replace, with recursive nested-dataclass support."""
+    """Mixin giving any dataclass from_dict / from_yaml / to_dict / to_yaml /
+    replace, with recursive nested-dataclass support."""
 
     @classmethod
     def from_dict(cls: Type[T], data: dict[str, Any]) -> T:
         return dataclass_from_dict(cls, data)
 
+    @classmethod
+    def from_yaml(cls: Type[T], path: str | Path, section: str | None = None) -> T:
+        from vivqa_tpu_torch.utils.yaml_io import load_yaml
+        data = load_yaml(path)
+        if section is not None:
+            data = data.get(section, {})
+        return cls.from_dict(data)
+
     def to_dict(self) -> dict[str, Any]:
         return dataclass_to_dict(self)
 
+    def to_yaml(self, path: str | Path) -> None:
+        from vivqa_tpu_torch.utils.yaml_io import save_yaml
+        save_yaml(self.to_dict(), path)
+
     def replace(self: T, **changes: Any) -> T:
         return dataclasses.replace(self, **changes)
+
+
+def merge_cli_overrides(config: T, overrides: dict[str, Any]) -> T:
+    """Apply CLI overrides (highest precedence). Dotted keys reach into
+    nested dataclass fields: ``fusion.fusion_type=mcan``. ``None`` values
+    (unset argparse flags) are skipped."""
+    updates: dict[str, Any] = {}
+    for key, value in overrides.items():
+        if value is None:
+            continue
+        parts = key.split(".")
+        if len(parts) == 1:
+            if hasattr(config, key):
+                hints = get_type_hints(type(config))
+                updates[key] = _coerce(value, hints.get(key, Any))
+        else:
+            head, rest = parts[0], ".".join(parts[1:])
+            if hasattr(config, head):
+                sub = updates.get(head, getattr(config, head))
+                updates[head] = merge_cli_overrides(sub, {rest: value})
+    return dataclasses.replace(config, **updates) if updates else config

@@ -7,11 +7,11 @@ vivqa_tpu/data/dataset.py (the port imports nothing of the JAX package).
 - GenerativeVQADataset: teacher-forcing construction
   decoder_input_ids=[BOS]+ans, labels=ans+[EOS], label padding = -100.
 
-Pixels go through the port's eval-mode ``ImageAugmentation``. The JAX
-package's ``load_batch`` (the native loader's batch path through
-``transform.batch``) and its batch loader wait for the port's loader
-(ROADMAP.md Queue A item 10); a caller collates items with
-``vqa_collate`` / ``generative_collate``.
+Pixels go through the dataset's ``ImageAugmentation``; ``load_batch``
+builds a whole batch through the native loader (``transform.batch``) and
+returns None where it is not available. ``data/loader.py:BatchLoader``
+takes that path only with the dataset's own collate
+(``default_collate``), where the two paths are equivalent.
 """
 
 from __future__ import annotations
@@ -68,6 +68,18 @@ class VQADataset:
         pixel = self.transform(self.samples[idx].image_path)
         item["pixel_values"] = pixel.astype(np.float32)
         return item
+
+    def load_batch(self, indices) -> Dict | None:
+        """Collated batch with images through the native loader (one
+        threaded C++ call: decode + augment + normalize); None without
+        it, and the BatchLoader then collates item by item."""
+        pixels = self.transform.batch(
+            [self.samples[int(i)].image_path for i in indices])
+        if pixels is None:
+            return None
+        batch = vqa_collate([self._meta(int(i)) for i in indices])
+        batch["pixel_values"] = pixels
+        return batch
 
 
 def vqa_collate(items: List[Dict]) -> Dict:
@@ -152,6 +164,16 @@ class GenerativeVQADataset:
         item["pixel_values"] = pixel.astype(np.float32)
         return item
 
+    def load_batch(self, indices) -> Dict | None:
+        """Native-loader batch path (see VQADataset.load_batch)."""
+        pixels = self.transform.batch(
+            [self.samples[int(i)].image_path for i in indices])
+        if pixels is None:
+            return None
+        batch = generative_collate([self._meta(int(i)) for i in indices])
+        batch["pixel_values"] = pixels
+        return batch
+
 
 def generative_collate(items: List[Dict]) -> Dict:
     out = {}
@@ -162,3 +184,10 @@ def generative_collate(items: List[Dict]) -> Dict:
     for k in ("answer_text", "all_answers", "question"):
         out[k] = [it[k] for it in items]
     return out
+
+
+# the native load_batch path is only equivalent to the per-item path when
+# the loader uses the dataset's own collate: BatchLoader checks this
+# marker before taking it (a custom collate must keep seeing every item)
+VQADataset.default_collate = staticmethod(vqa_collate)
+GenerativeVQADataset.default_collate = staticmethod(generative_collate)

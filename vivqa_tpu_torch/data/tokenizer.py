@@ -1,6 +1,9 @@
-"""Word-level whitespace tokenizer: a copy of ``WhitespaceTokenizer`` from
-vivqa_tpu/data/tokenizer.py (the port imports nothing of the JAX
-package). Encoders produce fixed-length int32 numpy arrays."""
+"""Tokenizers: a copy of vivqa_tpu/data/tokenizer.py (the port imports
+nothing of the JAX package). ``WhitespaceTokenizer`` is the word-level
+tokenizer built from a corpus; ``PretrainedTokenizer`` wraps an HF
+tokenizer found on local disk (``transformers`` is imported when one is
+built); ``create_tokenizer`` picks between them. Encoders produce
+fixed-length int32 numpy arrays."""
 
 from __future__ import annotations
 
@@ -96,3 +99,59 @@ class WhitespaceTokenizer:
         data = json.loads(Path(path).read_text())
         return cls(vocab=data["vocab"], max_length=data["max_length"],
                    lowercase=data.get("lowercase", True))
+
+
+class PretrainedTokenizer:
+    """HF AutoTokenizer wrapper with fixed-length padding (reference
+    pre_trained_tokenizer.py:5-37). Requires the tokenizer files to be
+    available locally (HF cache); raises otherwise."""
+
+    def __init__(self, name_or_path: str, max_length: int = 64):
+        from transformers import AutoTokenizer
+        self.tok = AutoTokenizer.from_pretrained(name_or_path,
+                                                 local_files_only=True)
+        self.max_length = max_length
+
+    @property
+    def vocab_size(self):
+        return len(self.tok)
+
+    pad_token_id = property(lambda self: self.tok.pad_token_id or 0)
+    bos_token_id = property(
+        lambda self: self.tok.bos_token_id or self.tok.cls_token_id or 0)
+    eos_token_id = property(
+        lambda self: self.tok.eos_token_id or self.tok.sep_token_id or 0)
+
+    def encode_batch(self, texts: Sequence[str], max_length: int | None = None,
+                     add_special_tokens: bool = True):
+        out = self.tok(list(texts), padding="max_length", truncation=True,
+                       max_length=max_length or self.max_length,
+                       add_special_tokens=add_special_tokens,
+                       return_tensors="np")
+        return {"input_ids": out["input_ids"].astype(np.int32),
+                "attention_mask": out["attention_mask"].astype(np.int32)}
+
+    def encode(self, text: str, max_length: int | None = None,
+               add_special_tokens: bool = True):
+        return self.encode_batch([text], max_length,
+                                 add_special_tokens)["input_ids"][0]
+
+    def decode(self, ids, skip_special_tokens: bool = True) -> str:
+        return self.tok.decode([int(i) for i in ids],
+                               skip_special_tokens=skip_special_tokens)
+
+
+def create_tokenizer(name_or_path: str | None = None, max_length: int = 64,
+                     corpus: Sequence[str] | None = None,
+                     min_freq: int = 1):
+    """Factory: HF tokenizer when locally available, else whitespace
+    tokenizer built from the corpus."""
+    if name_or_path:
+        try:
+            return PretrainedTokenizer(name_or_path, max_length)
+        except (ImportError, OSError, ValueError):
+            pass
+    tok = WhitespaceTokenizer(max_length=max_length)
+    if corpus:
+        tok.build_vocab(corpus, min_freq=min_freq)
+    return tok

@@ -78,6 +78,29 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
+# What each launch count's kernel is called on the device (a part of the
+# names torch.profiler reports), and parts of what a library's attention
+# kernels are called (PyTorch's flash and memory-efficient SDPA, cuDNN's
+# fused attention); no kernel of this module's names holds one of these.
+DEVICE_KERNEL_NAMES = {"flash_attn_fwd": "flash_attn_fwd_mma_kernel",
+                       "flash_attn_fwd_lse": "flash_attn_fwd_lse",
+                       "flash_attn_bwd_dq": "flash_attn_bwd_dq",
+                       "flash_attn_bwd_dkv": "flash_attn_bwd_dkv"}
+LIBRARY_ATTENTION_NAMES = ("fmha", "flash_fwd", "flash_bwd", "sdpa",
+                           "attention")
+
+
+def attention_kernel_counts(kernels: dict) -> dict:
+    """{launch count name: launches} of a profile's ``kernels`` ({device
+    kernel name: launches}), and under ``library`` the sorted names of any
+    library attention kernel among them."""
+    counts = {name: sum(c for n, c in kernels.items() if part in n)
+              for name, part in DEVICE_KERNEL_NAMES.items()}
+    counts["library"] = sorted(n[:90] for n in kernels if any(
+        p in n.lower() for p in LIBRARY_ATTENTION_NAMES))
+    return counts
+
+
 # -- attention dropout: the keep hash ---------------------------------------
 _M32 = 0xFFFFFFFF
 

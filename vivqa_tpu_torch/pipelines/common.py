@@ -1,5 +1,6 @@
-"""Shared pipeline utilities: early stopping, param counting, timing
-(counterpart of vivqa_tpu/pipelines/common.py)."""
+"""Shared pipeline utilities: early stopping, param counting, timing and
+loading a checkpoint's parameters (counterpart of
+vivqa_tpu/pipelines/common.py)."""
 
 from __future__ import annotations
 
@@ -7,6 +8,7 @@ import dataclasses
 import time
 from typing import Dict, Optional
 
+import torch
 from torch import nn
 
 
@@ -69,3 +71,17 @@ class StepTimer:
         tot_t = sum(t for t, _ in self.times)
         tot_n = sum(n for _, n in self.times)
         return tot_n / tot_t if tot_t > 0 else 0.0
+
+
+def load_params(model: nn.Module, params: Dict[str, torch.Tensor]) -> None:
+    """Copy a checkpoint's {parameter name: tensor} into ``model`` in
+    place (the optimizer keeps its references); raises unless the names
+    and shapes match the model's exactly."""
+    own = dict(model.named_parameters())
+    if sorted(own) != sorted(params):
+        raise ValueError(f"checkpoint parameters do not match the model: "
+                         f"missing {sorted(set(own) - set(params))}, "
+                         f"unused {sorted(set(params) - set(own))}")
+    with torch.no_grad():
+        for name, p in own.items():
+            p.copy_(params[name])

@@ -10,11 +10,12 @@ and a checkpoint on improvement of ``metric_for_best`` (BLEU).
 
 The loop is the JAX package's: the losses stay on the device until the
 epoch ends, ``n_tokens`` is read once an epoch, the loss only every
-``log_every`` steps. It runs on the model's device. The JAX package's
-mesh, its batch prefetcher and its settled reads (defenses of its TPU
-runtime) have no counterpart here: batches are dicts of numpy arrays
-(``data/dataset.py:generative_collate``), moved to the model's device
-step by step.
+``log_every`` steps. It runs on the model's device. Batches are dicts of
+numpy arrays (``data/dataset.py:generative_collate``), moved to the
+model's device by ``data/loader.py:device_prefetch`` (a host thread,
+pinned buffers and copies on a side stream), as the JAX package moves
+them with its prefetcher. Its mesh and its settled reads (defenses of
+its TPU runtime) have no counterpart here.
 """
 
 from __future__ import annotations
@@ -26,11 +27,13 @@ import numpy as np
 import torch
 
 from vivqa_tpu_torch.config.base import ConfigBase
+from vivqa_tpu_torch.data.loader import device_prefetch, host_tensor
 from vivqa_tpu_torch.metrics import (BLEUScore, CIDErScore,
                                      ExactMatchAccuracy, METEORScore,
                                      PrecisionRecallF1, ROUGEScore)
 from vivqa_tpu_torch.models.decoding import DecodeConfig, build_generate_fn
-from vivqa_tpu_torch.pipelines.common import EarlyStopping, StepTimer
+from vivqa_tpu_torch.pipelines.common import (EarlyStopping, StepTimer,
+                                              load_params)
 from vivqa_tpu_torch.train.checkpoint import (CheckpointConfig,
                                               CheckpointManager)
 from vivqa_tpu_torch.train.losses import perplexity
@@ -83,17 +86,12 @@ class GenerativeTrainingOutput:
 
 
 def batch_to_device(batch: dict, device: torch.device) -> dict:
-    """The numpy arrays of a collated batch as tensors on ``device``
-    (integer arrays as int64); other values (answer texts, counts) stay
-    as they are."""
-    out = {}
-    for k, v in batch.items():
-        if isinstance(v, np.ndarray):
-            t = torch.from_numpy(v)
-            out[k] = (t.long() if v.dtype.kind in "iu" else t).to(device)
-        else:
-            out[k] = v
-    return out
+    """The numpy arrays of a collated batch as tensors on ``device``, by
+    ``device_prefetch``'s rule (signed integers as int64), copied in the
+    caller's thread; other values (answer texts, counts) stay as they
+    are."""
+    return {k: host_tensor(v).to(device) if isinstance(v, np.ndarray)
+            else v for k, v in batch.items()}
 
 
 class GenerativeTrainingPipeline:
@@ -154,8 +152,8 @@ class GenerativeTrainingPipeline:
         for epoch in range(start_epoch, cfg.num_epochs):
             losses = []
             timer.reset()
-            for i, batch in enumerate(train_loader):
-                dev = batch_to_device(batch, device)
+            for i, dev in enumerate(device_prefetch(iter(train_loader),
+                                                    device)):
                 timer.tic()
                 state, metrics = train_step(state, dev)
                 losses.append(metrics["loss"])     # stays on the device
@@ -201,19 +199,18 @@ class GenerativeTrainingPipeline:
         bleu, meteor, rouge = BLEUScore(), METEORScore(), ROUGEScore()
         cider, em, prf = CIDErScore(), ExactMatchAccuracy(), PrecisionRecallF1()
         n = 0
-        for batch in val_loader:
+        for dev in device_prefetch(iter(val_loader), device):
             if cfg.max_eval_batches and n >= cfg.max_eval_batches:
                 break
             n += 1
-            dev = batch_to_device(batch, device)
             # decode with the SAME expert composition the model was
             # trained with (ablation masks)
             seqs, _ = generate(dev["pixel_values"], dev["question_ids"],
                                dev["question_mask"], expert_mask=expert_mask)
-            nv = batch.get("_num_valid", len(seqs))
+            nv = dev.get("_num_valid", len(seqs))
             preds = [tokenizer.decode(s) for s in seqs[:nv].cpu().numpy()]
-            refs = batch.get("all_answers", [[t] for t in
-                                             batch.get("answer_text", [])])[:nv]
+            refs = dev.get("all_answers", [[t] for t in
+                                           dev.get("answer_text", [])])[:nv]
             for metric in (bleu, meteor, rouge, cider, em, prf):
                 metric.update(preds, refs)
         return {"bleu": bleu.compute().value,
@@ -223,17 +220,3 @@ class GenerativeTrainingPipeline:
                 "exact_match": em.compute().value,
                 "token_f1": prf.compute().value}
 
-
-def load_params(model: torch.nn.Module, params: Dict[str, torch.Tensor]
-                ) -> None:
-    """Copy a checkpoint's {parameter name: tensor} into ``model`` in
-    place (the optimizer keeps its references); raises unless the names
-    and shapes match the model's exactly."""
-    own = dict(model.named_parameters())
-    if sorted(own) != sorted(params):
-        raise ValueError(f"checkpoint parameters do not match the model: "
-                         f"missing {sorted(set(own) - set(params))}, "
-                         f"unused {sorted(set(params) - set(own))}")
-    with torch.no_grad():
-        for name, p in own.items():
-            p.copy_(params[name])

@@ -19,9 +19,9 @@ Nothing is held open between calls, so there is no ``close``; the JAX
 config's ``save_interval_steps``, which its manager never reads, is left
 out.
 
-The JAX package's ``partial_load`` and ``emergency_save`` wait for the
-port's classification pipeline and resource monitor (ROADMAP.md Queue A
-items 10 and 12).
+``partial_load`` merges a restored {name: tensor} dict into a model by
+name and shape. The JAX package's ``emergency_save`` waits for the
+port's resource monitor (ROADMAP.md Queue A item 12).
 """
 
 from __future__ import annotations
@@ -30,9 +30,10 @@ import dataclasses
 import json
 import shutil
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import torch
+from torch import nn
 
 from vivqa_tpu_torch.config.base import ConfigBase
 
@@ -131,3 +132,28 @@ class CheckpointManager:
         if step is None:
             step = self.latest_step()
         return self.restore(step, map_location)
+
+
+def partial_load(restored_params: Mapping[str, torch.Tensor],
+                 model: nn.Module, logger=None):
+    """Copy each restored parameter whose name and shape match one of
+    ``model``'s into it, in place; a parameter the checkpoint lacks keeps
+    its value, a checkpoint entry the model lacks is ignored (reference
+    strict/partial load, checkpoint_manager.py:403-492). Returns (model,
+    the list of names skipped for a shape mismatch, each with both
+    shapes)."""
+    skipped = []
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            r = restored_params.get(name)
+            if r is None:
+                continue
+            if tuple(r.shape) == tuple(p.shape):
+                p.copy_(r)
+            else:
+                skipped.append(f"{name}: ckpt{tuple(r.shape)} != "
+                               f"model{tuple(p.shape)}")
+    if skipped and logger is not None:
+        logger.warning("partial load skipped %d params: %s",
+                       len(skipped), skipped[:5])
+    return model, skipped

@@ -61,17 +61,26 @@ class TrainState:
 
 
 def classification_loss_fn(aux_weight: float = 0.01,
-                           label_smoothing: float = 0.0) -> Callable:
-    """bench.py's loss: cross-entropy of the answer logits plus
-    ``aux_weight`` times the MoE router's aux loss. batch: dict of
-    pixel_values, input_ids, attention_mask, labels on the model's
-    device."""
+                           label_smoothing: float = 0.0,
+                           expert_mask: Optional[torch.Tensor] = None
+                           ) -> Callable:
+    """The classification loss (bench.py's, and the training pipeline's
+    ``_loss_fn`` without batch mixing): cross-entropy of the answer
+    logits plus ``aux_weight`` times the MoE router's aux loss. batch:
+    dict of pixel_values, input_ids, attention_mask, labels on the
+    model's device. The metrics ``ce``, ``aux_loss`` and ``accuracy``
+    (top-1 against the labels) are 0-d tensors on the device."""
     def loss_fn(model: nn.Module, batch: dict, generator: torch.Generator):
         out = model(batch["pixel_values"], batch["input_ids"],
-                    batch["attention_mask"], generator=generator)
-        loss = cross_entropy_loss(out["logits"], batch["labels"],
-                                  label_smoothing)
-        return loss + aux_weight * out["aux_loss"], {}
+                    batch["attention_mask"], expert_mask=expert_mask,
+                    generator=generator)
+        ce = cross_entropy_loss(out["logits"], batch["labels"],
+                                label_smoothing)
+        accuracy = (out["logits"].detach().argmax(-1)
+                    == batch["labels"]).float().mean()
+        return ce + aux_weight * out["aux_loss"], {
+            "ce": ce.detach(), "aux_loss": out["aux_loss"].detach(),
+            "accuracy": accuracy}
     return loss_fn
 
 
