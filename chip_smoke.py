@@ -75,13 +75,26 @@ Phases, in order; any failure exits non-zero:
    inside TrainingPipeline.run) against the bare step, one step and one
    validation under the profiler (36 launches of each training kernel,
    36 of the forward, no library attention);
-9. path shapes: each wrapper call of phases 4-8 is recorded by its
+9. the generative CLI pipeline (``python -m
+   vivqa_tpu_torch.pipelines.generative_vqa_pipeline``, driven through
+   its ``main`` with a YAML config) at bench_serving's width and depth on
+   a learnable seq_answers corpus of 160 images at 224 px (the vocab
+   follows the corpus): train (one epoch of 4 steps at batch 32, a greedy
+   validation, a checkpoint), evaluate (beam 4) and inference from the
+   checkpoint, ``vivqa_evaluation.main`` and the fitted serving bench's
+   function (greedy and beam at batch 16, early exit against the fixed
+   loop) on it, each run's launches held to 39 a step for the training
+   kernels and 27 a generate plus 12 a decode step for the forward; every
+   resumed parameter on the card; the bare step (host clock and events),
+   a generate and a step under the profiler (idle share, no library
+   attention);
+10. path shapes: each wrapper call of phases 4-9 is recorded by its
    kernel, dtype, shapes, mask layout, causal, dropout rate and tile
    rows; each such launch the kernel phases did not hold against the
    plain version (the classification pipeline's batches of 32, 2 and 1,
    say) is held now on random inputs of that kind, and the script fails
    if any launch of a main path stays unchecked;
-10. the card line (nvidia-smi's name and power limit), the kernels line,
+11. the card line (nvidia-smi's name and power limit), the kernels line,
    and the device line, which is the last line.
 
 Each path's launch counts are set to 0 just before it runs and read just
@@ -144,6 +157,7 @@ from vivqa_tpu_torch.train.optimizers import (OptimizerConfig,
                                               create_optimizer)
 from vivqa_tpu_torch.train.state import (TrainState, classification_loss_fn,
                                          generative_loss_fn, make_train_step)
+from vivqa_tpu_torch.utils import profiling
 
 # H100 SXM published peaks (NVIDIA data sheet, dense), at a 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -1162,8 +1176,9 @@ def training_phase(cfg: VQAModelConfig, device: str = "cuda",
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
-    host_ms, event_ms, metrics = bench.time_train_steps(state, train_step,
-                                                        data, steps)
+    host_ms, event_ms, metrics = profiling.time_train_steps(train_step,
+                                                              state, data,
+                                                              steps)
     launches = dict(fa.launch_counts)
     calls = ATTN_CALLS_PER_STEP * steps if on_card else 0
     want = {name: calls for name in TRAIN_KERNELS}
@@ -1553,8 +1568,9 @@ def gen_training_phase(cfg: GenerativeVQAConfig, tok: WhitespaceTokenizer,
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
-    host_ms, event_ms, metrics = bench.time_train_steps(state, train_step,
-                                                        data, steps)
+    host_ms, event_ms, metrics = profiling.time_train_steps(train_step,
+                                                              state, data,
+                                                              steps)
     launches = dict(fa.launch_counts)
     per_step = gen_calls_per_step(cfg)
     want = {name: per_step * steps if on_card else 0
@@ -1694,25 +1710,38 @@ CLS_EPOCHS = 2
 CLS_BATCH = 32
 
 
-def cls_profile(fn) -> dict:
-    """``fn`` once under torch.profiler (device activity only): its
-    attention kernels by name (``fa.attention_kernel_counts``), the
-    device's busy time, and the host time of the same call to a
-    synchronize, of which the busy time gives the device's idle share
-    (the profiler's own host cost included)."""
+def cls_profile(fn, tries: int = 5) -> dict:
+    """``fn`` under torch.profiler (device activity only): its attention
+    kernels by name (``fa.attention_kernel_counts``), the device's busy
+    time, and the host time of the same call to a synchronize, of which
+    the busy time gives the device's idle share (the profiler's own host
+    cost included). The profiler at times drops a kernel of a call that
+    launches thousands, so ``fn`` is profiled until two profiles hold the
+    most kernels any has held (at most ``tries``), and the first of those
+    is returned, with the number of profiles taken and ``complete``
+    (False when no two agreed)."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) * 1e3
-    kernels = device_kernels(prof)
-    busy = sum(t for _, t in kernels.values()) / 1e3
-    return {"kernels": fa.attention_kernel_counts(
+    seen = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3
+        kernels = device_kernels(prof)
+        busy = sum(t for _, t in kernels.values()) / 1e3
+        seen.append({
+            "kernels": fa.attention_kernel_counts(
                 {n: c for n, (c, _) in kernels.items()}),
             "kernels_total": sum(c for c, _ in kernels.values()),
             "device_busy_ms": busy, "host_ms": host_ms,
-            "device_idle_share": 1 - busy / host_ms if kernels else None}
+            "device_idle_share": 1 - busy / host_ms if kernels else None})
+        most = max(s["kernels_total"] for s in seen)
+        fullest = [s for s in seen if s["kernels_total"] == most]
+        if most and len(fullest) >= 2:
+            break
+    return {**fullest[0], "profiles": len(seen),
+            "complete": len(fullest) >= 2}
 
 
 def cls_pipeline_phase(cfg: VQAModelConfig, device: str = "cuda",
@@ -1800,8 +1829,8 @@ def cls_pipeline_phase(cfg: VQAModelConfig, device: str = "cuda",
         train_step = make_train_step(classification_loss_fn(
             vcfg.training.moe_aux_weight, vcfg.training.label_smoothing))
         resident = batch_to_device(host_batch, model_out.device)
-        bare_host, bare_event, bare_metrics = bench.time_train_steps(
-            state, train_step, resident, steps)
+        bare_host, bare_event, bare_metrics = profiling.time_train_steps(
+            train_step, state, resident, steps)
         losses = [float(m["loss"]) for m in bare_metrics]
         profiles = None
         if on_card:
@@ -1913,7 +1942,251 @@ def cls_pipeline_phase(cfg: VQAModelConfig, device: str = "cuda",
         "profile": profiles}
 
 
-# -- phase 9: every launch shape of the main paths held ---------------------
+# -- phase 9: the generative CLI pipeline -------------------------------------
+GEN_CLI_CORPUS = 160        # 128 / 16 / 16 samples: 4 train steps of 32
+GEN_CLI_BATCH = 32
+GEN_CLI_FITTED_BATCH = 16
+
+
+@contextlib.contextmanager
+def counting_decode(counts: dict):
+    """Counts, into ``counts``, the generates (``encode`` calls in
+    inference mode, as ``build_generate_fn`` makes them; a training
+    forward encodes with autograd on) and the decode steps of every
+    GenerativeVQAModel used inside."""
+    from vivqa_tpu_torch.models.generative import GenerativeVQAModel
+    encode, step = GenerativeVQAModel.encode, GenerativeVQAModel.decode_step
+
+    def counted_encode(self, *a, **kw):
+        counts["generates"] += torch.is_inference_mode_enabled()
+        return encode(self, *a, **kw)
+
+    def counted_step(self, *a, **kw):
+        counts["decode_steps"] += 1
+        return step(self, *a, **kw)
+    GenerativeVQAModel.encode = counted_encode
+    GenerativeVQAModel.decode_step = counted_step
+    try:
+        yield counts
+    finally:
+        GenerativeVQAModel.encode = encode
+        GenerativeVQAModel.decode_step = step
+
+
+def gen_cli_phase(cfg: GenerativeVQAConfig, device: str = "cuda",
+                  n: int = GEN_CLI_CORPUS, image_size: int = 224,
+                  batch: int = GEN_CLI_BATCH,
+                  fitted_batch: int = GEN_CLI_FITTED_BATCH,
+                  fitted_iters: int = 2, seed: int = 0) -> dict:
+    """The generative CLI as a user drives it: ``generative_vqa_pipeline.
+    main([...])`` with a YAML config on the learnable ``seq_answers``
+    corpus of ``n`` images (bench_convergence_gen.py's flagship recipe:
+    dropout 0.05, AdamW at lr 1e-3, warmup-cosine, medium augmentation):
+    train (one epoch, a greedy validation, a checkpoint), then from
+    ``--resume`` evaluate with beam 4 and inference, then
+    ``vivqa_evaluation.main([...])`` and the fitted bench's function on
+    the same checkpoint (greedy and beam at ``fitted_batch``, early exit
+    against the fixed loop). Each run's launch counts are set to 0 just
+    before it and read just after, and held to the config's count: 39 of
+    each training kernel a step; 27 forward calls a generate and 12 a
+    decode step (generates and decode steps counted at the model, the
+    train run's validation steps also read from its sequences). Then the
+    resumed model (every parameter on the device), the bare train step
+    (host clock and events) on one resident batch, the validation's
+    generate and one step under the profiler (kernels by name, idle
+    share)."""
+    from vivqa_tpu_torch.data import ensure_synthetic_vivqa
+    from vivqa_tpu_torch.pipelines import generative_vqa_pipeline as gvp
+    from vivqa_tpu_torch.pipelines import vivqa_evaluation as ve
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    per_step = gen_calls_per_step(cfg)
+    enc_calls = attention_calls_per_generate(cfg, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        csv, imgs = ensure_synthetic_vivqa(f"{tmp}/data", n=n,
+                                           image_size=image_size,
+                                           learnable=True, seq_answers=True)
+        corpus_s = time.perf_counter() - t0
+        ckpt, out = f"{tmp}/ckpt", f"{tmp}/out"
+        pcfg = gvp.GenerativeVQAPipelineConfig(
+            data=DataPipelineConfig(
+                csv_path=str(csv), image_dir=str(imgs),
+                image_size=image_size,
+                max_question_length=cfg.text.max_length,
+                max_answer_length=cfg.max_answer_length, batch_size=batch,
+                augmentation_strength="medium", generative=True, seed=seed),
+            model=cfg.replace(dropout=GEN_DROPOUT, label_smoothing=0.0),
+            training=GenerativeTrainingConfig(
+                num_epochs=1, label_smoothing=0.0, checkpoint_dir=ckpt,
+                optimizer=OptimizerConfig(learning_rate=1e-3,
+                                          weight_decay=0.01),
+                scheduler=SchedulerConfig(name="warmup_cosine",
+                                          warmup_ratio=0.05),
+                log_every=1, seed=seed),
+            device=device, output_dir=out, seed=seed)
+        yaml_path = f"{tmp}/gen_cli.yaml"
+        pcfg.to_yaml(yaml_path)
+        base = ["--config", yaml_path]
+        argvs = {"train": ["--mode", "train"],
+                 "evaluate": ["--mode", "evaluate", "--resume", ckpt,
+                              "--decode", "beam", "--num-beams", "4"],
+                 "inference": ["--mode", "inference", "--resume", ckpt]}
+        runs = {}
+
+        def measured(name, fn):
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            counts = {"generates": 0, "decode_steps": 0}
+            fa.reset_launch_counts()
+            t0 = time.perf_counter()
+            with counting_decode(counts):
+                result = fn()
+            sync()
+            runs[name] = {"seconds": time.perf_counter() - t0,
+                          "launches": dict(fa.launch_counts), **counts,
+                          "max_memory_allocated_gib":
+                              torch.cuda.max_memory_allocated() / 2 ** 30
+                              if on_card else None}
+            return result
+        summaries = {mode: measured(mode, lambda: gvp.main(base + argv))
+                     for mode, argv in argvs.items()}
+        vivqa = measured("vivqa_evaluation", lambda: ve.main([
+            "--checkpoint-dir", ckpt, "--csv-path", str(csv),
+            "--image-dir", str(imgs), "--output-dir", f"{tmp}/vivqa",
+            "--device", device]))
+        with open(f"{tmp}/vivqa/predictions.json") as f:
+            vivqa_predictions = len(json.load(f))
+        with open(summaries["inference"]["results_path"]) as f:
+            inference_results = len(json.load(f))
+
+        # the resumed model, as evaluate and inference built it
+        pipe = gvp.GenerativeVQAPipeline(pcfg.replace(resume=ckpt))
+        data, model = pipe._setup()
+        saved, _ = CheckpointManager(CheckpointConfig(
+            directory=ckpt)).restore_best()
+        dev = torch.device(device)
+        resumed_on_device = all(
+            p.device.type == dev.type and torch.equal(
+                p.detach().cpu(), saved["params"][name])
+            for name, p in model.named_parameters())
+        # the train run's validation generate, again on the saved
+        # parameters: its steps, from its sequences
+        val = batch_to_device(next(iter(data.val_loader)), dev)
+        generate = build_generate_fn(model, pipe._decode_cfg(model))
+        seqs, _ = generate(val["pixel_values"], val["question_ids"],
+                           val["question_mask"])
+        val_steps = decode_steps_taken(seqs.cpu(), model.config.eos_token_id)
+        args = (val["pixel_values"], val["question_ids"], val["question_mask"])
+        profiles = {"generate": cls_profile(lambda: generate(*args))} \
+            if on_card else None
+
+        fitted_model, _ = ve.load_model_from_checkpoint(ckpt, device=dev)
+        host = bench_serving.fitted_batch(fitted_model.config, fitted_batch,
+                                          n, f"{tmp}/data")
+        fitted = measured("fitted_bench", lambda: bench_serving.bench_fitted(
+            fitted_model, host, [fitted_batch], ["greedy", "beam"], 3,
+            fitted_iters, fitted_iters))
+        fitted_on_device = all(p.device.type == dev.type
+                               for p in fitted_model.parameters())
+        del fitted_model
+
+        # the bare step and one generate on resident inputs, profiled
+        steps = len(data.train_loader)
+        state = TrainState.create(model, gen_optimizer(model), seed=seed)
+        train_step = make_train_step(generative_loss_fn(label_smoothing=0.0))
+        resident = batch_to_device(next(iter(data.train_loader)), dev)
+        train_step(state, resident)
+        bare_host, bare_event, bare_metrics = profiling.time_train_steps(
+            train_step, state, resident, steps)
+        if on_card:
+            profiles["step"] = cls_profile(lambda: train_step(state, resident))
+
+    train = summaries["train"]
+    zero = {name: 0 for name in TRAIN_KERNELS}
+
+    def fwd(mode):
+        r = runs[mode]
+        return (enc_calls * r["generates"]
+                + 2 * cfg.decoder_layers * r["decode_steps"]) if on_card \
+            else 0
+    want = {mode: {**zero, "flash_attn_fwd": fwd(mode)} for mode in runs}
+    want["train"].update({name: per_step * steps if on_card else 0
+                          for name in TRAIN_KERNELS})
+    problems = []
+    for mode, w in want.items():
+        if runs[mode]["launches"] != w:
+            problems.append(f"{mode} launches {runs[mode]['launches']} != "
+                            f"{w}")
+    if runs["train"]["generates"] != 1 \
+            or runs["train"]["decode_steps"] != val_steps:
+        problems.append(f"train run: {runs['train']['generates']} "
+                        f"generates of {runs['train']['decode_steps']} "
+                        f"decode steps; its validation takes {val_steps}")
+    history = train["history"]
+    metrics = [summaries["evaluate"]["metrics"], vivqa["metrics"]]
+    losses = [h["train_loss"] for h in history] + \
+        [float(m["loss"]) for m in bare_metrics]
+    if len(history) != 1 or not all(math.isfinite(v) for m in metrics
+                                    for v in m.values()) \
+            or not all(math.isfinite(x) for x in losses):
+        problems.append(f"history {history}, metrics {metrics}, losses "
+                        f"{losses}")
+    if vivqa_predictions != vivqa["num_samples"] or vivqa["num_samples"] != n:
+        problems.append(f"{vivqa_predictions} ViVQA predictions for "
+                        f"{vivqa['num_samples']} samples read ({n} in the "
+                        f"CSV)")
+    n_test = len(data.test_loader.dataset)
+    if inference_results != n_test:
+        problems.append(f"{inference_results} generations for {n_test} "
+                        f"test samples")
+    if not (resumed_on_device and fitted_on_device):
+        problems.append(f"resumed parameters on {device} and equal to the "
+                        f"checkpoint: {resumed_on_device}; the fitted "
+                        f"bench's on {device}: {fitted_on_device}")
+    if profiles is not None:
+        step_want = {**{name: per_step for name in TRAIN_KERNELS},
+                     "flash_attn_fwd": 0, "library": []}
+        gen_want = {**zero, "flash_attn_fwd": enc_calls + 2
+                    * cfg.decoder_layers * val_steps, "library": []}
+        for name, w in (("step", step_want), ("generate", gen_want)):
+            p = profiles[name]
+            if p["kernels"] != w:
+                problems.append(f"profiled {name} {p['kernels']} != {w} "
+                                f"(the fullest of {p['profiles']} "
+                                f"profiles, complete: {p['complete']})")
+    if problems:
+        raise AssertionError("gen_cli: " + "; ".join(problems))
+    return {
+        "corpus": {"n": n, "image_size": image_size,
+                   "split": [len(data.train_loader.dataset),
+                             len(data.val_loader.dataset), n_test],
+                   "text_vocab": data.tokenizer.vocab_size,
+                   "seconds": corpus_s},
+        "params": sum(p.numel() for p in model.parameters()),
+        "batch": batch, "steps_per_epoch": steps,
+        "run_seconds": {m: r["seconds"] for m, r in runs.items()},
+        "launches": {m: r["launches"] for m, r in runs.items()},
+        "generates": {m: r["generates"] for m, r in runs.items()},
+        "decode_steps": {m: r["decode_steps"] for m, r in runs.items()},
+        "validation_decode_steps": val_steps,
+        "history": history,
+        "evaluate_metrics": summaries["evaluate"]["metrics"],
+        "vivqa_metrics": vivqa["metrics"],
+        "vivqa_predictions": vivqa_predictions,
+        "inference_results": inference_results,
+        "resumed_on_device": resumed_on_device,
+        "fitted": fitted,
+        "bare_step_ms": bare_host, "bare_step_event_ms": bare_event,
+        "median_bare_step_ms": float(np.median(bare_host)),
+        "median_bare_step_event_ms":
+            float(np.median(bare_event)) if bare_event else None,
+        "max_memory_allocated_gib":
+            {m: r["max_memory_allocated_gib"] for m, r in runs.items()},
+        "profile": profiles}
+
+
+# -- phase 10: every launch shape of the main paths held ---------------------
 def path_check_phase(launched: dict) -> dict:
     """``launched``: {path: the launch keys its run recorded}. Each key no
     kernel check held yet is held now against the plain version on inputs
@@ -1964,7 +2237,7 @@ def path_check_phase(launched: dict) -> dict:
 def kernels_line(rows: dict, launches: int, generative: dict,
                  train_rows: dict, train_launches: dict,
                  ptxas: dict, gen_rows: dict, gen_training: dict,
-                 cls_pipeline: dict) -> dict:
+                 cls_pipeline: dict, gen_cli: dict) -> dict:
     """One entry per kernel. The forward's numbers are for one flagship
     forward at batch 8 (its 36 calls of the five serving shapes, each
     shape's time times its calls), and, under ``generate``, for one beam
@@ -1976,7 +2249,13 @@ def kernels_line(rows: dict, launches: int, generative: dict,
     ``library_ms`` is timed); registers and spills are ptxas' for the
     template the main path runs. ``cls_pipeline`` holds each kernel's
     launches in the classification CLI pipeline's runs (train, evaluate,
-    inference), per train step and per validation forward."""
+    inference), per train step and per validation forward; ``gen_cli``
+    each kernel's launches in the generative CLI's runs (train, evaluate,
+    inference, vivqa_evaluation, the fitted bench)."""
+    cli_launches = gen_cli["launches"]
+    cli_per = (f"GenerativeVQAPipeline train ({gen_cli['steps_per_epoch']} "
+               f"steps at batch {gen_cli['batch']}), evaluate (beam 4), "
+               f"inference, vivqa_evaluation and fitted-bench runs")
     entries = [forward_entry(rows, launches, ptxas["flash_attn_fwd"])]
     entries[0]["generate"] = generate_entry(rows, generative)
     cls_launches = cls_pipeline["launches"]
@@ -1988,6 +2267,11 @@ def kernels_line(rows: dict, launches: int, generative: dict,
         "per": f"VQAPipeline train ({cls_pipeline['epochs']} epochs of "
                f"{cls_pipeline['steps_per_epoch']} steps at batch "
                f"{cls_pipeline['batch']}), evaluate and inference runs"}
+    entries[0]["gen_cli"] = {
+        "launches": {m: cli_launches[m]["flash_attn_fwd"]
+                     for m in cli_launches},
+        "generates": gen_cli["generates"],
+        "decode_steps": gen_cli["decode_steps"], "per": cli_per}
     totals = step_totals(train_rows)
     gen_totals = step_totals(gen_rows)
     replaces = {
@@ -2025,7 +2309,11 @@ def kernels_line(rows: dict, launches: int, generative: dict,
                 "per": f"VQAPipeline train run, "
                        f"{cls_pipeline['epochs']} epochs of "
                        f"{cls_pipeline['steps_per_epoch']} steps at batch "
-                       f"{cls_pipeline['batch']}"}})
+                       f"{cls_pipeline['batch']}"},
+            "gen_cli": {
+                "launches": {m: cli_launches[m][name]
+                             for m in cli_launches},
+                "per": cli_per}})
     return {"kernels": entries}
 
 
@@ -2195,6 +2483,27 @@ def main() -> int:
           f"{prof['validation']['device_idle_share']:.3f} of a profiled "
           f"validation; peak {cls['max_memory_allocated_gib']:.2f} GiB on "
           f"{card}", flush=True)
+    with recording_launches(launched.setdefault("gen_cli", set())):
+        gen_cli = gen_cli_phase(bench_serving.serving_config())
+    emit({"gen_cli": gen_cli, "card": card})
+    prof = gen_cli["profile"]
+    fitted = gen_cli["fitted"]
+    print("[gen_cli] " + ", ".join(
+        f"{m} {t:.1f} s" for m, t in gen_cli["run_seconds"].items())
+        + f"; bare step median {gen_cli['median_bare_step_ms']:.1f} ms by "
+          f"host clock, {gen_cli['median_bare_step_event_ms']:.1f} ms by "
+          f"events at batch {gen_cli['batch']}; idle "
+          f"{prof['step']['device_idle_share']:.3f} of a profiled step, "
+          f"{prof['generate']['device_idle_share']:.3f} of a profiled "
+          f"generate ({gen_cli['validation_decode_steps']} decode steps); "
+          f"fitted bench early/fixed "
+          + ", ".join(f"{k} {r['speedup_vs_fixed']:.3f}x"
+                      for k, r in fitted.items() if k.endswith("early"))
+          + "; peak " + ", ".join(
+              f"{m} {g:.2f} GiB" for m, g in
+              gen_cli["max_memory_allocated_gib"].items())
+          + f" on {card} ({time.perf_counter() - t_start:.1f} s)",
+        flush=True)
     paths = path_check_phase(launched)
     emit({"path_check": paths})
     print(f"[path_check] launch keys by path {paths['launch_keys']}: "
@@ -2204,7 +2513,7 @@ def main() -> int:
     print(card)
     emit(kernels_line(rows, serving["launches"]["flash_attn_fwd"],
                       generative, train_rows, training["launches"], ptxas,
-                      gen_rows, gen_training, cls))
+                      gen_rows, gen_training, cls, gen_cli))
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -40,6 +40,8 @@ CASES = [  # (B, H, Lq, Lk, D, mask kind, causal)
     (3, 2, 33, 33, 64, "query_key", True),
     (2, 4, 113, 113, 128, "key", False),
     (1, 2, 1, 70, 64, None, False),         # one query row
+    (4, 4, 65, 65, 32, "query_key", False),  # D 32: the convergence models
+    (4, 4, 24, 24, 32, None, True),
 ]
 
 
@@ -87,6 +89,7 @@ SERVE_TILE_CASES = [  # (B, H, Lq, Lk, D, mask kind, causal)
     (3, 2, 17, 40, 64, "query_key", False),
     (3, 2, 33, 33, 64, None, True),
     (3, 2, 49, 24, 64, None, True),
+    (3, 2, 17, 40, 32, "query_key", False),
 ]
 
 
@@ -128,7 +131,7 @@ def test_kernel_reads_strided_views(offset):
 
 def test_kernel_rejects_what_it_does_not_take():
     _need_card()
-    q = torch.randn(1, 1, 4, 32, device="cuda")
+    q = torch.randn(1, 1, 4, 48, device="cuda")
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention_cuda(q, q, q)
     q = torch.randn(1, 1, 4, 64, device="cuda", dtype=torch.float64)
@@ -288,6 +291,112 @@ def test_dropout_mask_bit_equal_to_plain_version(dtype):
             B, H, Lq, Lk).to(dtype))
 
 
+def _bytes_before_unmapped(nbytes: int) -> torch.Tensor:
+    """A uint8 tensor of ``nbytes`` on the card whose last byte is the
+    last mapped byte of a reserved address range: a read past its end
+    faults (illegal address), wherever the caching allocator would have
+    put it. Made with the driver's virtual memory calls (one granule
+    mapped at the start of two reserved); never unmapped, so it belongs
+    in a process of its own."""
+    import ctypes
+    cuda = ctypes.CDLL("libcuda.so.1")
+    u64, size_t = ctypes.c_ulonglong, ctypes.c_size_t
+
+    class Location(ctypes.Structure):        # CUmemLocation
+        _fields_ = [("type", ctypes.c_int), ("id", ctypes.c_int)]
+
+    class Prop(ctypes.Structure):            # CUmemAllocationProp
+        _fields_ = [("type", ctypes.c_int), ("handle_types", ctypes.c_int),
+                    ("location", Location), ("win32_meta", ctypes.c_void_p),
+                    ("alloc_flags", ctypes.c_ubyte * 8)]
+
+    class Access(ctypes.Structure):          # CUmemAccessDesc
+        _fields_ = [("location", Location), ("flags", ctypes.c_int)]
+
+    def check(err, call):
+        if err != 0:
+            raise RuntimeError(f"{call} failed: CUresult {err}")
+    torch.zeros(1, device="cuda")             # the primary context, current
+    here = Location(1, torch.cuda.current_device())  # LOCATION_TYPE_DEVICE
+    prop = Prop(type=1, location=here)        # ALLOCATION_TYPE_PINNED
+    gran = size_t()
+    check(cuda.cuMemGetAllocationGranularity(ctypes.byref(gran),
+                                             ctypes.byref(prop), 0),
+          "cuMemGetAllocationGranularity")
+    handle, base = u64(), u64()
+    check(cuda.cuMemCreate(ctypes.byref(handle), size_t(gran.value),
+                           ctypes.byref(prop), u64(0)), "cuMemCreate")
+    check(cuda.cuMemAddressReserve(ctypes.byref(base), size_t(2 * gran.value),
+                                   size_t(0), u64(0), u64(0)),
+          "cuMemAddressReserve")
+    check(cuda.cuMemMap(base, size_t(gran.value), size_t(0), handle, u64(0)),
+          "cuMemMap")
+    check(cuda.cuMemSetAccess(base, size_t(gran.value),
+                              ctypes.byref(Access(here, 3)), size_t(1)),
+          "cuMemSetAccess")                   # ACCESS_FLAGS_PROT_READWRITE
+
+    class Raw:
+        __cuda_array_interface__ = {
+            "shape": (nbytes,), "typestr": "|u1", "version": 2,
+            "data": (base.value + gran.value - nbytes, False)}
+    return torch.as_tensor(Raw(), device="cuda")
+
+
+def masks_at_mapping_end():
+    """The training kernels and the serving forward at the demo models'
+    text attention, (32, 4, 12, 12) with head dim 32 and 64, each with its
+    (32, 1, 12, 12) padding mask stored so that the last key of the last
+    row is the last mapped byte. A 12-key row lies in the first 64-key
+    block, whose keys past Lk no kernel may read. Runs in a process of its
+    own (``test_kernels_read_no_mask_byte_past_the_last_key``), since a
+    fault spoils the process's CUDA context."""
+    B, H, L = 32, 4, 12
+    for D in (32, 64):
+        for dtype in DTYPES:
+            q, k, v, mask = _inputs(B, H, L, L, D, "query_key", dtype)
+            stored = _bytes_before_unmapped(mask.numel()).view(torch.bool)
+            mask = stored.view(mask.shape).copy_(mask)
+            do = torch.randn(q.shape, generator=torch.Generator(
+                ).manual_seed(9)).to("cuda", dtype)
+            o, m, l = fa.flash_attention_fwd_lse_cuda(q, k, v, mask)
+            grads = fa.flash_attention_bwd_cuda(q, k, v, o, m, l, do, mask)
+            served = fa.flash_attention_cuda(q, k, v, mask)
+            torch.cuda.synchronize()
+            want = fa.attention_backward_reference(q, k, v, o, m, l, do,
+                                                   mask)
+            what = f"D {D} {dtype}"
+            _assert_rel(served, fa.attention_reference(q, k, v, mask),
+                        TOL[dtype], f"{what} serving o")
+            _assert_rel(o, fa.attention_reference(q, k, v, mask),
+                        TOL[dtype], f"{what} o")
+            for name, got, ref in zip(("dq", "dk", "dv"), grads, want):
+                _assert_rel(got, ref, GRAD_TOL[dtype], f"{what} {name}")
+    print("masks at the mapping's end: ok", flush=True)
+
+
+def test_kernels_read_no_mask_byte_past_the_last_key():
+    """The dQ kernel once read the mask byte of keys past Lk before testing
+    the bound (``KeyRule`` in ``csrc/flash_attn_mma.cuh``): at the demo
+    text mask the last row's read left the tensor, and faulted where its
+    allocation ended there. ``masks_at_mapping_end`` puts each mask's end
+    at an unmapped page, so any such read faults; it runs in a child
+    process, which must finish cleanly."""
+    _need_card()
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    tests = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(tests), str(tests.parent), os.environ.get("PYTHONPATH", "")]))
+    run = subprocess.run(
+        [sys.executable, "-c",
+         "import test_torch_gpu as t; t.masks_at_mapping_end()"],
+        cwd=tests, env=env, capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0 and "ok" in run.stdout, (
+        f"rc {run.returncode}\n{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
+
+
 def _shifted(t, offset):
     """t as the (B, H, L, D) view of (B, L, H, D) storage that starts
     ``offset`` elements into its buffer: rows off 16 bytes when offset is
@@ -332,7 +441,7 @@ def test_training_kernels_read_strided_views(offset, dtype):
 
 def test_training_kernels_reject_what_they_do_not_take():
     _need_card()
-    q = torch.randn(1, 1, 4, 32, device="cuda")
+    q = torch.randn(1, 1, 4, 48, device="cuda")
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention_fwd_lse_cuda(q, q, q)
     q64 = torch.randn(1, 1, 4, 64, device="cuda", dtype=torch.float64)
@@ -779,3 +888,141 @@ def test_pipeline_train_step_on_card_launches_training_kernels(tmp_path):
             "flash_attn_bwd_dq": 5, "flash_attn_bwd_dkv": 5}
     assert fa.attention_kernel_counts(kernels) == {**want, "library": []}
     assert dict(fa.launch_counts) == want, fa.launch_counts
+
+
+# -- the generative CLI pipeline ------------------------------------------------
+def _gen_cli_config(tmp_path, epochs=1):
+    """A tiny generative pipeline on the card (head dim 64) over a
+    learnable seq_answers corpus of 40 images: 4 train steps of 8."""
+    from vivqa_tpu_torch.data.synthetic import generate_synthetic_vivqa
+    from vivqa_tpu_torch.pipelines import generative_vqa_pipeline as gvp
+    from vivqa_tpu_torch.pipelines.data_pipeline import DataPipelineConfig
+    from vivqa_tpu_torch.pipelines.generative_training_pipeline import \
+        GenerativeTrainingConfig
+    csv, imgs = generate_synthetic_vivqa(tmp_path / "data", n=40,
+                                         image_size=64, learnable=True,
+                                         seq_answers=True)
+    model = PC.GenerativeVQAConfig(
+        visual=PC.VisualEncoderConfig(image_size=64, patch_size=16,
+                                      hidden_dim=128, num_layers=1,
+                                      num_heads=2),
+        text=PC.TextEncoderConfig(hidden_dim=128, num_layers=1, num_heads=2,
+                                  max_length=12),
+        fusion_dim=128, fusion_layers=1, fusion_heads=2, decoder_layers=1,
+        decoder_heads=2, decoder_dim=128, decoder_ff_dim=256)
+    return gvp.GenerativeVQAPipelineConfig(
+        data=DataPipelineConfig(csv_path=str(csv), image_dir=str(imgs),
+                                image_size=64, max_question_length=12,
+                                max_answer_length=8, batch_size=8,
+                                generative=True),
+        model=model,
+        training=GenerativeTrainingConfig(
+            num_epochs=epochs, checkpoint_dir=str(tmp_path / "ck")),
+        output_dir=str(tmp_path / "out"))
+
+
+def test_generative_cli_train_evaluate_inference_on_card(tmp_path):
+    """``main`` with a YAML config and no --device: train, then evaluate
+    (beam 4) and inference from the checkpoint, all on the card, with
+    finite metrics and one generation per test sample."""
+    _need_card()
+    import json
+    from vivqa_tpu_torch.pipelines import generative_vqa_pipeline as gvp
+    cfg = _gen_cli_config(tmp_path)
+    path = tmp_path / "cfg.yaml"
+    cfg.to_yaml(path)
+    assert cfg.device == "cuda"
+    base = ["--config", str(path)]
+    train = gvp.main(base + ["--mode", "train"])
+    assert len(train["history"]) == 1
+    assert all(np.isfinite(v) for v in train["history"][0].values())
+    ck = cfg.training.checkpoint_dir
+    ev = gvp.main(base + ["--mode", "evaluate", "--resume", ck,
+                          "--decode", "beam", "--num-beams", "4"])
+    assert all(np.isfinite(v) for v in ev["metrics"].values())
+    inf = gvp.main(base + ["--mode", "inference", "--resume", ck])
+    results = json.loads(open(inf["results_path"]).read())
+    assert len(results) == 4
+    assert all(np.isfinite(r["score"]) for r in results)
+
+
+def test_generative_resume_and_checkpoint_reader_keep_params_on_card(
+        tmp_path):
+    """After resume (the pipeline's) and load_model_from_checkpoint
+    (vivqa_evaluation's), every parameter is a CUDA tensor holding the
+    checkpoint's value."""
+    _need_card()
+    from vivqa_tpu_torch.pipelines import generative_vqa_pipeline as gvp
+    from vivqa_tpu_torch.pipelines.vivqa_evaluation import \
+        load_model_from_checkpoint
+    from vivqa_tpu_torch.train.checkpoint import (CheckpointConfig,
+                                                  CheckpointManager)
+    cfg = _gen_cli_config(tmp_path)
+    gvp.GenerativeVQAPipeline(cfg).run()
+    ck = cfg.training.checkpoint_dir
+    saved, _ = CheckpointManager(CheckpointConfig(directory=ck)
+                                 ).restore_best()
+    _, model = gvp.GenerativeVQAPipeline(cfg.replace(resume=ck))._setup()
+    reader, meta = load_model_from_checkpoint(ck)
+    assert meta["epoch"] == 0
+    for m in (model, reader):
+        for name, p in m.named_parameters():
+            assert p.device.type == "cuda", name
+            assert torch.equal(p.detach().cpu(), saved["params"][name]), name
+
+
+def test_generative_pipeline_launch_counts_on_card(tmp_path):
+    """Through the pipeline on the card: one train step launches each
+    training kernel once per attention call (1 ViT + 1 text + 1 fusion +
+    2 decoder = 5) and no forward kernel; one generate launches the
+    forward kernel 3 times for the encoders and the fusion and 2 a decode
+    step, and no training kernel; the profiler sees the same kernels and
+    no library attention."""
+    _need_card()
+    from torch.profiler import ProfilerActivity, profile
+    from vivqa_tpu_torch.models.decoding import build_generate_fn
+    from vivqa_tpu_torch.pipelines import generative_vqa_pipeline as gvp
+    from vivqa_tpu_torch.pipelines.generative_training_pipeline import \
+        batch_to_device
+    from vivqa_tpu_torch.train.optimizers import (OptimizerConfig,
+                                                  create_optimizer)
+    from vivqa_tpu_torch.train.state import (TrainState, generative_loss_fn,
+                                             make_train_step)
+    pipe = gvp.GenerativeVQAPipeline(_gen_cli_config(tmp_path))
+    data, model = pipe._setup()
+    batch = batch_to_device(next(iter(data.train_loader)),
+                            torch.device("cuda"))
+    state = TrainState.create(model, create_optimizer(
+        OptimizerConfig(), model))
+    step = make_train_step(generative_loss_fn())
+    generate = build_generate_fn(model, pipe._decode_cfg(model))
+    step(state, batch)
+    generate(batch["pixel_values"], batch["question_ids"],
+             batch["question_mask"])
+    torch.cuda.synchronize()
+
+    def counted(fn):
+        fa.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        kernels: dict = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA \
+                    and not e.is_user_annotation:
+                kernels[e.name] = kernels.get(e.name, 0) + 1
+        return out, dict(fa.launch_counts), fa.attention_kernel_counts(
+            kernels)
+    _, launches, seen = counted(lambda: step(state, batch))
+    want = {"flash_attn_fwd": 0, "flash_attn_fwd_lse": 5,
+            "flash_attn_bwd_dq": 5, "flash_attn_bwd_dkv": 5}
+    assert launches == want and seen == {**want, "library": []}
+    (seqs, _), launches, seen = counted(lambda: generate(
+        batch["pixel_values"], batch["question_ids"],
+        batch["question_mask"]))
+    ended = (seqs == model.config.eos_token_id)
+    steps = int(ended.int().argmax(1).max()) + 1 if bool(
+        ended.any(1).all()) else seqs.shape[1]
+    want = {"flash_attn_fwd": 3 + 2 * steps, "flash_attn_fwd_lse": 0,
+            "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0}
+    assert launches == want and seen == {**want, "library": []}

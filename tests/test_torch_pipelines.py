@@ -504,7 +504,10 @@ NEW_MODULES = [
     "pipelines/data_pipeline.py", "pipelines/model_pipeline.py",
     "pipelines/training_pipeline.py", "pipelines/vqa_pipeline.py",
     "pipelines/common.py", "pipelines/generative_training_pipeline.py",
-    "pipelines/__init__.py"]
+    "pipelines/__init__.py", "pipelines/generative_vqa_pipeline.py",
+    "pipelines/vivqa_evaluation.py", "utils/profiling.py",
+    "utils/__init__.py", "bench.py", "bench_serving.py",
+    "bench_convergence.py", "bench_convergence_gen.py"]
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)

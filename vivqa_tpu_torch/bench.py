@@ -19,7 +19,6 @@ writes no file.
 from __future__ import annotations
 
 import json
-import time
 
 import numpy as np
 import torch
@@ -36,9 +35,8 @@ from vivqa_tpu_torch.train.optimizers import (OptimizerConfig,
                                               create_optimizer)
 from vivqa_tpu_torch.train.state import (TrainState, classification_loss_fn,
                                          make_train_step)
+from vivqa_tpu_torch.utils.profiling import peak_tflops, time_train_steps
 
-# H100 SXM dense bf16 peak (NVIDIA data sheet), at a 700 W limit
-PEAK_BF16_FLOPS = 989e12
 TRAIN_KERNELS = ("flash_attn_fwd_lse", "flash_attn_bwd_dq",
                  "flash_attn_bwd_dkv")
 
@@ -106,28 +104,6 @@ def train_step_flops(cfg: VQAModelConfig, batch: int) -> float:
     return 6.0 * macs * batch
 
 
-def time_train_steps(state: TrainState, train_step, data: dict,
-                     steps: int):
-    """``steps`` train steps, each ending in a synchronize (a loop that
-    reads its loss pays that); returns (host-clock ms, CUDA-event ms,
-    metrics) per step. On the CPU the event list stays empty."""
-    on_card = data["labels"].device.type == "cuda"
-    host_ms, event_ms, metrics = [], [], []
-    for _ in range(steps):
-        t = time.perf_counter()
-        if on_card:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-        metrics.append(train_step(state, data)[1])
-        if on_card:
-            end.record()
-            torch.cuda.synchronize()
-            event_ms.append(start.elapsed_time(end))
-        host_ms.append((time.perf_counter() - t) * 1e3)
-    return host_ms, event_ms, metrics
-
-
 def main(steps: int = 20, warmup: int = 3, batch: int = 128) -> dict:
     dev = resolve_device("cuda")
     cfg = flagship_config()
@@ -140,23 +116,25 @@ def main(steps: int = 20, warmup: int = 3, batch: int = 128) -> dict:
         train_step(state, data)
     torch.cuda.synchronize()
     fa.reset_launch_counts()
-    _, event_ms, metrics = time_train_steps(state, train_step, data, steps)
+    times = time_train_steps(train_step, state, data, steps)
     calls = {n: fa.launch_counts[n] / steps for n in TRAIN_KERNELS}
     if fa.launch_counts["flash_attn_fwd"] or min(calls.values()) == 0:
         raise RuntimeError(f"attention did not run through the training "
                            f"kernels: {fa.launch_counts}")
-    losses = [float(m["loss"]) for m in metrics]
+    losses = [float(m["loss"]) for m in times.metrics]
     if not all(np.isfinite(losses)):
         raise RuntimeError(f"non-finite loss {losses}")
-    step_ms = float(np.median(event_ms))
+    step_ms = times.median_ms
     flops = train_step_flops(cfg, batch)
+    peak = peak_tflops(dev)
     out = {"metric": "train_qa_pairs_per_sec",
            "value": batch * 1e3 / step_ms,
            "unit": f"QA-pairs/sec (batch {batch}, median of {steps} "
                    f"steps by CUDA events)",
            "step_ms": step_ms, "step_tflops": flops / 1e12,
-           "mfu_pct": 100 * flops / (step_ms * 1e-3) / PEAK_BF16_FLOPS,
-           "peak_tflops_bf16": PEAK_BF16_FLOPS / 1e12,
+           "mfu_pct": (100 * flops / (step_ms * 1e-3) / (peak * 1e12)
+                       if peak else None),
+           "peak_tflops_bf16": peak,
            "attention_backend": "kernel",
            "attention_calls_per_step": calls,
            "loss_first_last": [losses[0], losses[-1]],

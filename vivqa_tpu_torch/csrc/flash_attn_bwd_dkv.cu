@@ -12,7 +12,7 @@
 // dropout is off) and delta = rowsum(dO * O) comes from the dQ pass
 // (flash_attn_bwd_dq.cu), which runs first.
 //
-// Like the forward it takes ragged Lq and Lk, head dim 64 or 128, f32 /
+// Like the forward it takes ragged Lq and Lk, head dim 32, 64 or 128, f32 /
 // bf16 / f16, operands by (b, h, l) strides, and the boolean mask by
 // (b, q, k) strides with stride-0 broadcast, plus causal. A fully masked
 // row has m = -1e30 and l = Lk, so p = 1/Lk for every key: it still feeds
@@ -451,6 +451,8 @@ int launch_any(const BwdParams& p, cudaStream_t stream) {
 template <typename T>
 int launch(const BwdParams& p, int head_dim, cudaStream_t stream) {
   switch (head_dim) {
+    case 32:
+      return launch_any<T, 32>(p, stream);
     case 64:
       return launch_any<T, 64>(p, stream);
     case 128:

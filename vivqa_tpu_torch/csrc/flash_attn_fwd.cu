@@ -437,6 +437,9 @@ int launch(const Params& p, int head_dim, cudaStream_t stream) {
   const dim3 grid((p.Lq + kBlockQ - 1) / kBlockQ, p.B * p.H);
   const dim3 block(kThreads);
   switch (head_dim) {
+    case 32:
+      flash_attn_fwd_kernel<T, 32, kTrain><<<grid, block, 0, stream>>>(p);
+      break;
     case 64:
       flash_attn_fwd_kernel<T, 64, kTrain><<<grid, block, 0, stream>>>(p);
       break;
@@ -477,6 +480,8 @@ int launch_mma_d(const Params& p, cudaStream_t stream) {
 template <typename T>
 int launch_mma(const Params& p, int head_dim, cudaStream_t stream) {
   switch (head_dim) {
+    case 32:
+      return launch_mma_d<T, 32>(p, stream);
     case 64:
       return launch_mma_d<T, 64>(p, stream);
     case 128:
@@ -511,6 +516,8 @@ int launch_serve_d(const Params& p, int tile_rows, cudaStream_t stream) {
 template <typename T>
 int launch_serve(const Params& p, int head_dim, int tile_rows, cudaStream_t stream) {
   switch (head_dim) {
+    case 32:
+      return launch_serve_d<T, 32>(p, tile_rows, stream);
     case 64:
       return launch_serve_d<T, 64>(p, tile_rows, stream);
     case 128:

@@ -217,9 +217,12 @@ struct KeyRule {
     if (kj >= Lk) return kPastEnd;
     return mask_keeps && (!causal || q_offset + qi >= kj) ? kKept : kRemoved;
   }
-  // reading the mask byte from device memory
+  // reading the mask byte from device memory, only for a key that exists:
+  // a key past Lk would read past the mask row (past the tensor at its
+  // last row, which faulted where the allocation ended there)
   __device__ __forceinline__ KeyState operator()(int qi, int kj) const {
-    return state(qi, kj, mask == nullptr || qi >= Lq || __ldg(mask + qi * sq + kj * sk) != 0);
+    return state(qi, kj,
+                 mask == nullptr || qi >= Lq || kj >= Lk || __ldg(mask + qi * sq + kj * sk) != 0);
   }
 };
 

@@ -50,7 +50,9 @@ NEG_INF = -1e30
 launch_counts = {"flash_attn_fwd": 0, "flash_attn_fwd_lse": 0,
                  "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0}
 
-HEAD_DIMS = (64, 128)
+# head dims the kernels are built for: 64 on every flagship path; 32 in
+# the demo-size models of the convergence benches (width 128, 4 heads)
+HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 # Query rows a block of the serving forward's tensor-core template (bf16,
