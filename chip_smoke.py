@@ -88,13 +88,32 @@ Phases, in order; any failure exits non-zero:
    resumed parameter on the card; the bare step (host clock and events),
    a generate and a step under the profiler (idle share, no library
    attention);
-10. path shapes: each wrapper call of phases 4-9 is recorded by its
+10. the MoE ablation study (``python -m
+   vivqa_tpu_torch.ablation.run_ablation``, driven through its ``main``):
+   first the four kernels at the study's 20 attention shapes (slot
+   queries against the 80 fused tokens and back, the 88-token joint
+   encoder, the fusion's query-side mask) against their plain versions in
+   f32 and bf16 and timed beside SDPA, with their totals per training
+   step and per validation forward; then the round-3 study's model
+   (hidden 256, 4 layers, 64 px, the six specialized experts, noisy top-2)
+   on a learnable corpus of 320 samples, one epoch at batch 32, for the
+   full model, the dense one, a leave-one-out and its post-hoc twin, a
+   post-hoc single expert and the soft router swap; each must complete
+   with router telemetry and a per-sample mask that agrees with its
+   exact match, with 42 launches of each training kernel a step (16
+   without the MoE) and as many forward launches a validation forward;
+   the same command again skips every experiment and ``--report-only``
+   rewrites the reports, neither launching a kernel; the card against
+   the CPU (eval logits, two soft-router train steps, the CLI's default
+   2/2/2/0 composition's logits); the bare step against the pipeline's,
+   a step and a validation under the profiler;
+11. path shapes: each wrapper call of phases 4-10 is recorded by its
    kernel, dtype, shapes, mask layout, causal, dropout rate and tile
    rows; each such launch the kernel phases did not hold against the
    plain version (the classification pipeline's batches of 32, 2 and 1,
    say) is held now on random inputs of that kind, and the script fails
    if any launch of a main path stays unchecked;
-11. the card line (nvidia-smi's name and power limit), the kernels line,
+12. the card line (nvidia-smi's name and power limit), the kernels line,
    and the device line, which is the last line.
 
 Each path's launch counts are set to 0 just before it runs and read just
@@ -114,7 +133,9 @@ import re
 import sys
 import tempfile
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -137,7 +158,8 @@ from vivqa_tpu_torch.models.decoding import DecodeConfig, build_generate_fn
 from vivqa_tpu_torch.models.generative import create_generative_vqa_model
 from vivqa_tpu_torch.models.layers import (make_attention_mask,
                                            make_causal_mask)
-from vivqa_tpu_torch.models.vqa_model import create_vqa_model
+from vivqa_tpu_torch.models.vqa_model import (SPECIALIZED_ORDER,
+                                              create_vqa_model)
 from vivqa_tpu_torch.ops import cuda_build
 from vivqa_tpu_torch.ops import flash_attention as fa
 from vivqa_tpu_torch.pipelines.data_pipeline import (DataPipeline,
@@ -2186,7 +2208,530 @@ def gen_cli_phase(cfg: GenerativeVQAConfig, device: str = "cuda",
         "profile": profiles}
 
 
-# -- phase 10: every launch shape of the main paths held ---------------------
+# -- phase 10: the MoE ablation study -----------------------------------------
+# The round-3 study's corpus and scale (reports/ablation_r3/run_study.sh),
+# its corpus cut to 320 samples: 224 / 64 / 32 after the 0.7 / 0.2 / 0.1
+# split, so 7 train steps and 2 validation batches of 32 an epoch
+ABL_CORPUS = 320
+ABL_BATCH = 32
+ABL_EPOCHS = 1
+ABL_SCALE = ["--image-size", "64", "--train-ratio", "0.7", "--val-ratio",
+             "0.2"]
+ABL_STUDY = ["--specialized-experts", "6", "--vision-experts", "0",
+             "--text-experts", "0", "--multimodal-experts", "0"]
+ABL_CLI_DEFAULT = ["--specialized-experts", "0", "--vision-experts", "2",
+                   "--text-experts", "2", "--multimodal-experts", "2"]
+# the experiments of the phase's selection: the full baseline, the dense
+# model, one retrained leave-one-out and its post-hoc twin, a post-hoc
+# single-expert row (whose router must then use one expert) and the soft
+# router swap
+ABL_SELECTION = ("full__noisy_topk_k2_lb0.01", "no_moe__noisy_topk_k2_lb0.01",
+                 "leave_one_out_3__noisy_topk_k2_lb0.01",
+                 "ph_leave_one_out_3__noisy_topk_k2_lb0.01",
+                 "ph_single_expert_5__noisy_topk_k2_lb0.01",
+                 "full__soft_k0_lb0.01")
+# attention calls of one forward of each expert type (models/moe/
+# experts.py, specialized.py): a query decoder layer makes two
+EXPERT_ATTENTION_CALLS = {
+    "vision": 1, "text": 1, "multimodal": 1,
+    "object_detection": 2 * 3 + 1, "counting": 2 * 2,
+    "scene_understanding": 2 + 1, "ocr": 2 * 2 + 2,
+    "segmentation": 2 * 2 + 1, "spatial_reasoning": 1}
+
+
+def abl_model_config(scale: tuple = ()) -> VQAModelConfig:
+    """The study's classification model at the CLI's scale (or
+    ``scale``'s flags), as ``run_ablation.base_model_config`` builds it;
+    its vocabulary and answers are the corpus', which no kernel shape
+    depends on."""
+    from vivqa_tpu_torch.ablation import AblationConfig
+    from vivqa_tpu_torch.ablation import run_ablation as RA
+    args = RA.build_argparser().parse_args([*ABL_SCALE, *scale, *ABL_STUDY])
+    study = AblationConfig(batch_size=ABL_BATCH)
+    return RA.base_model_config(args, study,
+                                types.SimpleNamespace(vocab_size=100),
+                                RA.data_config(args, study))
+
+
+def abl_study_config(tmp: str, output_dir: str) -> str:
+    """reports/ablation_r3/study.yaml's search over the six specialized
+    experts, with single-expert rows and post-hoc twins so that the
+    selection can take them; returns the YAML's path."""
+    from vivqa_tpu_torch.ablation import AblationConfig, AblationSearchSpace
+    path = f"{tmp}/study.yaml"
+    AblationConfig(
+        search=AblationSearchSpace(
+            num_experts=6, include_single_expert=True,
+            include_leave_one_out=True, router_types=("noisy_topk", "soft"),
+            post_hoc_masks=True),
+        model_type="classification", num_epochs=6, batch_size=32,
+        learning_rate=3e-4, output_dir=output_dir,
+        primary_metric="exact_match", seed=42,
+        expert_names=SPECIALIZED_ORDER).to_yaml(path)
+    return path
+
+
+def attention_calls_per_forward(cfg: VQAModelConfig) -> int:
+    """The classification model's attention calls per forward: each
+    encoder layer one, each cross-attention fusion layer four (two per
+    stream), MCAN three per layer, and the VQA-MoE's experts theirs."""
+    fusion = {"cross_attention": 4, "mcan": 3}[cfg.fusion.fusion_type]
+    calls = (cfg.visual.num_layers + cfg.text.num_layers
+             + fusion * cfg.fusion.num_layers)
+    if cfg.moe.use_moe:
+        m = cfg.moe
+        calls += (m.num_vision_experts + m.num_text_experts
+                  + m.num_multimodal_experts)
+        calls += sum(EXPERT_ATTENTION_CALLS[s] for s in
+                     SPECIALIZED_ORDER[:m.num_specialized_experts])
+    return calls
+
+
+def abl_cases(cfg: VQAModelConfig, batch: int) -> list:
+    """(name, B, H, Lq, Lk, D, mask kind, calls per step, dropout) of one
+    training step of the study's full model: the ViT (patches + CLS), the
+    text encoder under its query-AND-key mask, the cross-attention
+    fusion's four calls per layer (image self, image to text under the
+    key mask, text self, text to image under the query-side mask), and
+    the experts' calls over the fused tokens, unmasked, at the experts'
+    width (``expert_hidden_dim``, 8 heads)."""
+    vis, txt, fus = cfg.visual, cfg.text, cfg.fusion
+    n_vis = (vis.image_size // vis.patch_size) ** 2
+    Lt = txt.max_length
+    L = n_vis + Lt
+    Hf, Df = fus.num_heads, fus.hidden_dim // fus.num_heads
+    He, De = 8, cfg.moe.expert_hidden_dim // 8
+    r = 0.1          # the text encoder's, the fusion's and the experts'
+    cases = [("abl_vit_self", batch, vis.num_heads, n_vis + 1, n_vis + 1,
+              vis.hidden_dim // vis.num_heads, None, vis.num_layers,
+              vis.dropout),
+             ("abl_text_self", batch, txt.num_heads, Lt, Lt,
+              txt.hidden_dim // txt.num_heads, "t2t", txt.num_layers,
+              txt.dropout),
+             ("abl_fusion_v_self", batch, Hf, n_vis, n_vis, Df, None,
+              fus.num_layers, fus.dropout),
+             ("abl_fusion_v2t", batch, Hf, n_vis, Lt, Df, "v2t",
+              fus.num_layers, fus.dropout),
+             ("abl_fusion_t_self", batch, Hf, Lt, Lt, Df, "t2t",
+              fus.num_layers, fus.dropout),
+             ("abl_fusion_t2v", batch, Hf, Lt, n_vis, Df, "t2v",
+              fus.num_layers, fus.dropout)]
+    # (Lq, Lk): calls, over the six specialized experts
+    moe = {}
+    for lq, lk, calls in (
+            (32, 32, 3), (32, L, 3), (L, 32, 1),        # object detection
+            (21, 21, 2), (21, L, 2),                    # counting
+            (L + 8, L + 8, 2), (L, 9, 1),               # scene
+            (16, 16, 3), (16, L, 2), (L, 16, 1),        # OCR
+            (8, 8, 2), (8, L, 2), (L, 8, 1),            # segmentation
+            (L, L, 1)):                                 # spatial reasoning
+        moe[(lq, lk)] = moe.get((lq, lk), 0) + calls
+    cases += [(f"abl_expert_{lq}x{lk}", batch, He, lq, lk, De, None, calls,
+               r) for (lq, lk), calls in moe.items()]
+    return cases
+
+
+def abl_masks(cfg: VQAModelConfig, batch: int, gen) -> dict:
+    """The fusion's and the text encoder's masks for questions of 3-64
+    tokens, by the model's own function: t2t (B, 1, 64, 64), v2t (B, 1,
+    16, 64) and t2v (B, 1, 64, 16), whose padded query rows are fully
+    masked."""
+    n_vis = (cfg.visual.image_size // cfg.visual.patch_size) ** 2
+    Lt = cfg.text.max_length
+    dev = gen.device
+    q_len = torch.randint(3, Lt + 1, (batch,), generator=gen, device=dev)
+    t_mask = (torch.arange(Lt, device=dev)[None] < q_len[:, None]).int()
+    v_mask = torch.ones(batch, n_vis, dtype=torch.int32, device=dev)
+    return {"t2t": make_attention_mask(t_mask, t_mask),
+            "v2t": make_attention_mask(v_mask, t_mask),
+            "t2v": make_attention_mask(t_mask, v_mask)}
+
+
+def abl_kernel_phase(cfg: VQAModelConfig, batch: int = ABL_BATCH) -> dict:
+    """Rows keyed by case: each of the four kernels at the study's shapes
+    and masks against its plain version in f32 and bf16 (the training
+    kernels at the call's dropout, the forward at the serving tile rows),
+    then in bf16 the training kernels timed as ``time_train_kernels``
+    times them and the forward by graph replay and the profiler, beside
+    its plain version, its bound and SDPA's forward."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = {}
+    for name, B, H, Lq, Lk, D, kind, calls, rate in abl_cases(cfg, batch):
+        mask = None if kind is None else abl_masks(cfg, B, gen)[kind]
+        key = fa.dropout_key(2029, len(rows))
+        errs, fwd_errs = {}, {}
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = (torch.randn(B, H, L, D, generator=gen,
+                                       device="cuda").to(dtype)
+                           for L in (Lq, Lk, Lk, Lq))
+            errs[dtype] = check_train_kernels(q, k, v, do, mask, False,
+                                              rate, key)
+            with recording_launches(CHECKED):
+                out = fa.flash_attention_cuda(q, k, v, mask)
+            ref = fa.attention_reference(q, k, v, mask)
+            torch.cuda.synchronize()
+            fwd_errs[dtype] = float((out.float() - ref.float()).abs().max())
+            if not math.isfinite(fwd_errs[dtype]) \
+                    or fwd_errs[dtype] > ATTN_TOL[dtype]:
+                raise AssertionError(f"{name} {dtype}: forward kernel vs "
+                                     f"plain {fwd_errs[dtype]}")
+        nbytes, flops, _ = attention_work(q, k, mask, False)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_flops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+
+        def kernel():
+            return fa.flash_attention_cuda(q, k, v, mask)
+        row = {"case": name, "B": B, "H": H, "Lq": Lq, "Lk": Lk, "D": D,
+               "mask": kind,
+               "mask_shape": None if mask is None else list(mask.shape),
+               "keyless_rows": 0 if mask is None else int(
+                   (~mask.expand(B, 1, Lq, Lk).any(-1)).sum()),
+               "dropout": rate, "calls_per_step": calls,
+               "calls_per_forward": calls,
+               "max_err_bf16": errs[torch.bfloat16],
+               "max_err_f32": errs[torch.float32],
+               **time_train_kernels(q, k, v, do, mask, False, rate, key),
+               "flash_attn_fwd": {
+                   "max_abs_err": fwd_errs[torch.bfloat16],
+                   "max_abs_err_f32": fwd_errs[torch.float32],
+                   "kernel_ms": device_ms(kernel),
+                   "profiled_ms": profiled_ms(kernel),
+                   "plain_ms": device_ms(
+                       lambda: fa.attention_reference(q, k, v, mask)),
+                   "library_ms": profiled_ms(
+                       lambda: F.scaled_dot_product_attention(
+                           q, k, v, attn_mask=mask)),
+                   "bytes": nbytes, "flops": flops,
+                   "bound_ms": max(t_bytes, t_flops),
+                   "bound_by": "bytes" if t_bytes >= t_flops
+                   else "operations"}}
+        emit({"ablation_attention_case": row})
+        rows[name] = row
+    return rows
+
+
+def abl_forward_totals(rows: dict) -> dict:
+    """The forward kernel over one validation forward of the full model
+    (each shape's number times its calls)."""
+    def total(key):
+        return sum(r["flash_attn_fwd"][key] * r["calls_per_forward"]
+                   for r in rows.values())
+    t_bytes = total("bytes") / HBM_BYTES_PER_S * 1e3
+    t_flops = total("flops") / PEAK_FLOPS[torch.bfloat16] * 1e3
+    return {"calls_per_forward": sum(r["calls_per_forward"]
+                                     for r in rows.values()),
+            "max_abs_err": max(r["flash_attn_fwd"]["max_abs_err"]
+                               for r in rows.values()),
+            "ms": total("kernel_ms"), "profiled_ms": total("profiled_ms"),
+            "plain_ms": total("plain_ms"), "library_ms": total("library_ms"),
+            "bound_ms": max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
+
+
+def abl_profile(fn, want: dict, tries: int = 3) -> dict:
+    """``cls_profile`` of ``fn`` until its attention kernels by name are
+    ``want`` (at most ``tries`` times: at ~7,000 kernels a step the
+    profiler at times loses a kernel, which the launch counts, exact,
+    do not); the last profile, with ``want`` and the ``attempts``."""
+    for attempt in range(1, tries + 1):
+        prof = cls_profile(fn)
+        if prof["kernels"] == want:
+            break
+    return {**prof, "want": want, "attempts": attempt}
+
+
+@contextlib.contextmanager
+def recording_experiments(records: list):
+    """Each ``AblationTrainer.run_experiment`` call made inside appends
+    {id, seconds, launches} with the launch counts set to 0 just before
+    it and read just after, and each ``TrainingPipeline.run`` its
+    output's step and loop times."""
+    from vivqa_tpu_torch.ablation.trainer import AblationTrainer
+    run_experiment, run = AblationTrainer.run_experiment, TrainingPipeline.run
+
+    def experiment(self, exp):
+        sync = torch.cuda.synchronize if self.device.type == "cuda" \
+            else (lambda: None)
+        records.append({"id": exp.experiment_id, "pipelines": []})
+        sync()
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = run_experiment(self, exp)
+        sync()
+        records[-1].update(seconds=time.perf_counter() - t0,
+                           launches=dict(fa.launch_counts),
+                           train_steps=len(self.data.train_loader),
+                           val_batches=len(self.data.val_loader))
+        return result
+
+    def pipeline(self, *args, **kwargs):
+        out = run(self, *args, **kwargs)
+        records[-1]["pipelines"].append(
+            {"step_seconds": out.step_seconds,
+             "loop_seconds": out.loop_seconds})
+        return out
+    AblationTrainer.run_experiment = experiment
+    TrainingPipeline.run = pipeline
+    try:
+        yield records
+    finally:
+        AblationTrainer.run_experiment = run_experiment
+        TrainingPipeline.run = run
+
+
+def no_dropout(model: torch.nn.Module) -> torch.nn.Module:
+    """Every dropout rate of ``model`` at 0 (the experts' 0.1 comes from
+    VQAMoEConfig, which VQAModelConfig does not reach)."""
+    for m in model.modules():
+        for attr in ("dropout", "dropout_rate"):
+            if isinstance(getattr(m, attr, None), float):
+                setattr(m, attr, 0.0)
+    return model
+
+
+def abl_card_vs_cpu(cfg: VQAModelConfig, cli_default: VQAModelConfig,
+                    device: str = "cuda", seed: int = 0) -> dict:
+    """The study's model, the same weights on the card and on the CPU, on
+    a batch of 4 questions of 64, 40, 17 and 5 tokens: eval logits with
+    the noisy router (deterministic in eval) by ``compare_logits``; two
+    train steps with the soft router (a noisy draw differs between the
+    devices) and dropout 0 by ``card_vs_cpu_steps``; and eval logits of
+    the CLI's default composition (vision, text and multimodal experts:
+    80 x 80 at head dim 32, 80 x 1)."""
+    S, L = cfg.visual.image_size, cfg.text.max_length
+    rs = np.random.RandomState(seed + 11)
+    lengths = np.array([L, 40, 17, 5])
+    mask = (np.arange(L)[None] < lengths[:, None]).astype(np.int64)
+    data = {"pixel_values": rs.rand(4, S, S, 3).astype(np.float32),
+            "input_ids": rs.randint(4, cfg.text.vocab_size - 1, (4, L)) * mask,
+            "attention_mask": mask,
+            "labels": rs.randint(0, cfg.num_answers, (4,))}
+
+    def logits(c):
+        out = {}
+        for dev in ("cpu", device):
+            model = create_vqa_model(
+                c, device=dev, generator=torch.Generator().manual_seed(seed))
+            batch = batch_to_device(data, torch.device(dev))
+            with torch.no_grad():
+                out[dev] = model(batch["pixel_values"], batch["input_ids"],
+                                 batch["attention_mask"])["logits"]
+        return compare_logits(out[device].float().cpu().numpy(),
+                              out["cpu"].float().cpu().numpy())
+
+    soft = cfg.replace(
+        text=cfg.text.replace(dropout=0.0),
+        fusion=cfg.fusion.replace(dropout=0.0),
+        head=cfg.head.replace(dropout=0.0),
+        moe=cfg.moe.replace(router_type="soft"))
+
+    def build(dev):
+        model = no_dropout(create_vqa_model(
+            soft, device=dev, generator=torch.Generator().manual_seed(seed)))
+        return TrainState.create(model, bench_optimizer(model, 1), seed=seed)
+    calls = attention_calls_per_forward(cfg) if device == "cuda" else 0
+    return {"batch": 4, "question_lengths": lengths.tolist(),
+            "study_logits": logits(cfg),
+            "soft_train_steps": card_vs_cpu_steps(
+                build, classification_loss_fn(), data, device, 2, calls),
+            "cli_default_logits": logits(cli_default)}
+
+
+def ablation_phase(device: str = "cuda", n: int = ABL_CORPUS,
+                   epochs: int = ABL_EPOCHS, batch: int = ABL_BATCH,
+                   scale: tuple = (), seed: int = 0) -> dict:
+    """The MoE ablation study as a user drives it, through
+    ``vivqa_tpu_torch.ablation.run_ablation.main``: the round-3 study's
+    model (hidden 256, 4 layers, 64 px, patch 16, expert hidden 512; or
+    ``scale``'s flags) with the six specialized experts on a learnable
+    synthetic corpus of ``n`` samples, ``epochs`` epochs at ``batch``,
+    the experiments of ABL_SELECTION; then the same command again, which
+    must skip them all (resume), and ``--report-only``. Each experiment
+    runs with the launch counts set to 0 just before it and read just
+    after; it must complete with router telemetry and a per-sample mask
+    that agree with its metrics, and launch each training kernel the
+    config's calls per forward per step and the forward kernel that many
+    per validation forward. Then the card against the CPU
+    (``abl_card_vs_cpu``), the bare step against the pipeline's, one step
+    and one validation under the profiler."""
+    from vivqa_tpu_torch.ablation import run_ablation as RA
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = f"{tmp}/out"
+        image_size = RA.build_argparser().parse_args(
+            [*ABL_SCALE, *scale]).image_size
+        t0 = time.perf_counter()
+        csv, imgs = generate_synthetic_vivqa(f"{tmp}/data", n=n,
+                                             image_size=image_size,
+                                             learnable=True, seed=seed)
+        corpus_s = time.perf_counter() - t0
+        common = ["--config", abl_study_config(tmp, out_dir),
+                  "--csv-path", str(csv), "--image-dir", str(imgs),
+                  "--epochs", str(epochs), "--batch-size", str(batch),
+                  "--device", device, *ABL_SCALE, *scale]
+        argv = common + ABL_STUDY
+        args = RA.build_argparser().parse_args(argv)
+        study = RA.AblationConfig.from_yaml(args.config).replace(
+            num_epochs=epochs, batch_size=batch)
+        matrix = [e.experiment_id for e in
+                  study.generate_experiment_matrix()]
+        selection = ",".join(str(matrix.index(e)) for e in ABL_SELECTION)
+
+        records = []
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with recording_experiments(records):
+            results = RA.main(argv + ["--experiments", selection])
+        sync()
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card \
+            else None
+        fa.reset_launch_counts()
+        resumed_records = []
+        with recording_experiments(resumed_records):
+            resumed = RA.main(argv + ["--experiments", selection])
+        resume_launches = dict(fa.launch_counts)
+        files = RA.main(argv + ["--report-only"])
+        report_launches = dict(fa.launch_counts)
+        written = {k: Path(v).stat().st_size for k, v in files.items()}
+        written["manifest"] = Path(f"{out_dir}/manifest.json").stat().st_size
+
+        # the bare step and the profiles, on the CLI's data and model
+        data_cfg = RA.data_config(args, study)
+        data = DataPipeline(data_cfg).run()
+        base = RA.base_model_config(args, study, data.tokenizer, data_cfg)
+        base = base.replace(num_answers=len(data.answer2id))
+        model = create_vqa_model(base, device=device,
+                                 generator=torch.Generator().manual_seed(42))
+        steps = len(data.train_loader)
+        tp = TrainingPipeline(TrainingPipelineConfig(
+            num_epochs=epochs, optimizer=OptimizerConfig(learning_rate=3e-4),
+            seed=42))
+        state = tp._build_state(model, steps)
+        train_step = make_train_step(classification_loss_fn())
+        host_batch = next(iter(data.train_loader))
+        resident = batch_to_device(host_batch, torch.device(device))
+        bare = profiling.time_train_steps(train_step, state, resident, steps)
+        per_forward = attention_calls_per_forward(base) if on_card else 0
+        val_batches = len(data.val_loader)
+        profiles = None
+        if on_card:
+            profiles = {
+                "step": abl_profile(
+                    lambda: train_step(state, resident),
+                    {**{name: per_forward for name in TRAIN_KERNELS},
+                     "flash_attn_fwd": 0, "library": []}),
+                "validation": abl_profile(
+                    lambda: tp.validate(model, data.val_loader,
+                                        data.id2answer),
+                    {**{name: 0 for name in TRAIN_KERNELS},
+                     "flash_attn_fwd": per_forward * val_batches,
+                     "library": []})}
+        cli_args = RA.build_argparser().parse_args(common + ABL_CLI_DEFAULT)
+        cli_default = RA.base_model_config(cli_args, study, data.tokenizer,
+                                           data_cfg).replace(
+            num_answers=len(data.answer2id))
+        n_train = len(data.train_loader.dataset)
+        n_val = len(data.val_loader.dataset)
+
+    dense = attention_calls_per_forward(
+        base.replace(moe=base.moe.replace(use_moe=False))) if on_card else 0
+    problems = []
+    by_id = {r.experiment_id: r for r in results}
+    if sorted(by_id) != sorted(ABL_SELECTION):
+        problems.append(f"results {sorted(by_id)}")
+    rows = {}
+    for rec in records:
+        eid = rec["id"]
+        r = by_id[eid]
+        post_hoc = eid.startswith("ph_")
+        calls = dense if eid.startswith("no_moe") else per_forward
+        S, V = rec["train_steps"], rec["val_batches"]
+        if post_hoc:     # the mask over the val set, the telemetry batch
+            want = {**{k: 0 for k in TRAIN_KERNELS},
+                    "flash_attn_fwd": calls * (V + 1)}
+        else:            # a validation an epoch, the best checkpoint's,
+            #              the telemetry batch and the mask
+            want = {**{k: calls * S * epochs for k in TRAIN_KERNELS},
+                    "flash_attn_fwd": calls * (V * (epochs + 2) + 1)}
+        if rec["launches"] != want:
+            problems.append(f"{eid} launches {rec['launches']} != {want}")
+        if r.status != "completed" or r.moe_metrics is None \
+                or r.correct_mask is None:
+            problems.append(f"{eid}: status {r.status}, moe_metrics "
+                            f"{r.moe_metrics}, correct_mask "
+                            f"{'None' if r.correct_mask is None else 'set'}"
+                            f"; {r.error[-400:]}")
+            continue
+        em = r.metrics.get("exact_match")
+        mask_mean = sum(r.correct_mask) / max(len(r.correct_mask), 1)
+        if len(r.correct_mask) != n_val or em is None \
+                or abs(mask_mean - em) > 0.02:
+            problems.append(f"{eid}: mask of {len(r.correct_mask)} with "
+                            f"mean {mask_mean} against exact_match {em}")
+        if eid.startswith("ph_single_expert") \
+                and r.moe_metrics.get("num_active_experts", 99) > 1:
+            problems.append(f"{eid}: {r.moe_metrics['num_active_experts']} "
+                            f"active experts under a single-expert mask")
+        loop = [t for p in rec["pipelines"] for t in p["loop_seconds"]]
+        step = [t for p in rec["pipelines"] for epoch in p["step_seconds"]
+                for t in epoch]
+        rows[eid] = {
+            "seconds": rec["seconds"], "launches": rec["launches"],
+            "exact_match": em, "n_eval": len(r.correct_mask),
+            "moe": {k: r.moe_metrics.get(k) for k in
+                    ("num_active_experts", "routing_entropy",
+                     "load_imbalance", "expert_usage")},
+            "history": [{k: h[k] for k in ("epoch", "train_loss",
+                                           "val_loss", "exact_match")}
+                        for h in r.history],
+            "pipeline_loop_s": loop,
+            "median_pipeline_step_ms":
+                float(np.median(step)) * 1e3 if step else None}
+    if resumed_records or sorted(r.experiment_id for r in resumed) \
+            != sorted(ABL_SELECTION) or any(resume_launches.values()) \
+            or any(report_launches.values()):
+        problems.append(f"resume ran {[r['id'] for r in resumed_records]}, "
+                        f"launches {resume_launches}, report-only "
+                        f"{report_launches}")
+    if set(written) != {"report", "csv", "latex", "analysis", "manifest"} \
+            or not all(written.values()):
+        problems.append(f"reports {written}")
+    for name, prof in (profiles or {}).items():
+        if prof["kernels"] != prof["want"]:
+            problems.append(f"profiled {name} {prof['kernels']} != "
+                            f"{prof['want']}")
+    if problems:
+        raise AssertionError("ablation: " + "; ".join(problems))
+    check = abl_card_vs_cpu(base, cli_default, device) if on_card else None
+    return {
+        "corpus": {"n": n, "image_size": image_size,
+                   "split": [n_train, n_val], "seconds": corpus_s},
+        "params": sum(p.numel() for p in model.parameters()),
+        "batch": batch, "epochs": epochs, "steps_per_epoch": steps,
+        "val_batches": val_batches,
+        "attention_calls_per_forward": per_forward,
+        "attention_calls_per_forward_no_moe": dense,
+        "selection": list(ABL_SELECTION), "run_seconds": run_s,
+        "experiments": rows, "reports": written,
+        "launches": {eid: row["launches"] for eid, row in rows.items()},
+        "launches_per_step": {
+            name: rows[ABL_SELECTION[0]]["launches"][name]
+            / (steps * epochs) for name in TRAIN_KERNELS},
+        "launches_per_validation_forward": None if profiles is None else
+            profiles["validation"]["kernels"]["flash_attn_fwd"]
+            / val_batches,
+        "bare_step_ms": bare.host_ms, "bare_step_event_ms": bare.event_ms,
+        "median_bare_step_ms": float(np.median(bare.host_ms)),
+        "median_bare_step_event_ms":
+            float(np.median(bare.event_ms)) if bare.event_ms else None,
+        "max_memory_allocated_gib": peak, "profile": profiles,
+        "card_vs_cpu": check}
+
+
+# -- phase 11: every launch shape of the main paths held ---------------------
 def path_check_phase(launched: dict) -> dict:
     """``launched``: {path: the launch keys its run recorded}. Each key no
     kernel check held yet is held now against the plain version on inputs
@@ -2237,7 +2782,8 @@ def path_check_phase(launched: dict) -> dict:
 def kernels_line(rows: dict, launches: int, generative: dict,
                  train_rows: dict, train_launches: dict,
                  ptxas: dict, gen_rows: dict, gen_training: dict,
-                 cls_pipeline: dict, gen_cli: dict) -> dict:
+                 cls_pipeline: dict, gen_cli: dict, abl_totals: dict,
+                 ablation: dict) -> dict:
     """One entry per kernel. The forward's numbers are for one flagship
     forward at batch 8 (its 36 calls of the five serving shapes, each
     shape's time times its calls), and, under ``generate``, for one beam
@@ -2251,7 +2797,17 @@ def kernels_line(rows: dict, launches: int, generative: dict,
     launches in the classification CLI pipeline's runs (train, evaluate,
     inference), per train step and per validation forward; ``gen_cli``
     each kernel's launches in the generative CLI's runs (train, evaluate,
-    inference, vivqa_evaluation, the fitted bench)."""
+    inference, vivqa_evaluation, the fitted bench); ``ablation`` each
+    kernel's launches in the ablation CLI's experiments and its times, at
+    the study's shapes, over one validation forward (the forward) or one
+    training step (the training kernels) of the full model at batch
+    32."""
+    abl_launches = {name: sum(r[name] for r in ablation["launches"].values())
+                    for name in fa.launch_counts}
+    abl_per = (f"the ablation CLI's {len(ablation['experiments'])} "
+               f"experiments ({ablation['epochs']} epoch of "
+               f"{ablation['steps_per_epoch']} steps at batch "
+               f"{ablation['batch']}); times per ")
     cli_launches = gen_cli["launches"]
     cli_per = (f"GenerativeVQAPipeline train ({gen_cli['steps_per_epoch']} "
                f"steps at batch {gen_cli['batch']}), evaluate (beam 4), "
@@ -2272,6 +2828,12 @@ def kernels_line(rows: dict, launches: int, generative: dict,
                      for m in cli_launches},
         "generates": gen_cli["generates"],
         "decode_steps": gen_cli["decode_steps"], "per": cli_per}
+    entries[0]["ablation"] = {
+        **abl_totals["per_validation_forward"],
+        "launches": abl_launches["flash_attn_fwd"],
+        "launches_per_validation_forward":
+            ablation["launches_per_validation_forward"],
+        "per": abl_per + "validation forward of the full model, bf16"}
     totals = step_totals(train_rows)
     gen_totals = step_totals(gen_rows)
     replaces = {
@@ -2313,7 +2875,13 @@ def kernels_line(rows: dict, launches: int, generative: dict,
             "gen_cli": {
                 "launches": {m: cli_launches[m][name]
                              for m in cli_launches},
-                "per": cli_per}})
+                "per": cli_per},
+            "ablation": {
+                **{k: v for k, v in abl_totals["per_step"][name].items()
+                   if k != "by_case_ms"},
+                "launches": abl_launches[name],
+                "launches_per_step": ablation["launches_per_step"][name],
+                "per": abl_per + "training step of the full model, bf16"}})
     return {"kernels": entries}
 
 
@@ -2504,6 +3072,29 @@ def main() -> int:
               gen_cli["max_memory_allocated_gib"].items())
           + f" on {card} ({time.perf_counter() - t_start:.1f} s)",
         flush=True)
+    abl_cfg = abl_model_config()
+    abl_rows = abl_kernel_phase(abl_cfg)
+    abl_totals = {"per_step": step_totals(abl_rows),
+                  "per_validation_forward": abl_forward_totals(abl_rows)}
+    emit({"ablation_attention": abl_totals, "card": card})
+    with recording_launches(launched.setdefault("ablation", set())):
+        abl = ablation_phase()
+    emit({"ablation": abl, "card": card})
+    prof = abl["profile"]
+    print("[ablation] " + ", ".join(
+        f"{eid.split('__')[0]}__{eid.split('__')[1][:4]} "
+        f"{r['seconds']:.1f} s em {r['exact_match']:.3f}"
+        for eid, r in abl["experiments"].items())
+        + f"; {abl['attention_calls_per_forward']} attention calls per "
+          f"forward ({abl['attention_calls_per_forward_no_moe']} without "
+          f"the MoE); bare step median {abl['median_bare_step_ms']:.1f} ms "
+          f"({abl['median_bare_step_event_ms']:.1f} by events) at batch "
+          f"{abl['batch']}; idle {prof['step']['device_idle_share']:.3f} of "
+          f"a profiled step; peak {abl['max_memory_allocated_gib']:.2f} GiB;"
+          f" attention per step " + ", ".join(
+              f"{n} {t['ms']:.3f} ms" for n, t in
+              abl_totals["per_step"].items())
+        + f" on {card} ({time.perf_counter() - t_start:.1f} s)", flush=True)
     paths = path_check_phase(launched)
     emit({"path_check": paths})
     print(f"[path_check] launch keys by path {paths['launch_keys']}: "
@@ -2513,7 +3104,7 @@ def main() -> int:
     print(card)
     emit(kernels_line(rows, serving["launches"]["flash_attn_fwd"],
                       generative, train_rows, training["launches"], ptxas,
-                      gen_rows, gen_training, cls, gen_cli))
+                      gen_rows, gen_training, cls, gen_cli, abl_totals, abl))
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -141,4 +141,4 @@ def test_unported_moe_parts_raise():
     with pytest.raises(NotImplementedError):
         create_moe_layer(PMC.MoEConfig(moe_type="sparse"))
     with pytest.raises(NotImplementedError):
-        PR.create_router(PMC.RouterConfig(router_type="soft"), 4, 8)
+        create_moe_layer(PMC.MoEConfig(moe_type="hierarchical"))

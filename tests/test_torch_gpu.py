@@ -1026,3 +1026,125 @@ def test_generative_pipeline_launch_counts_on_card(tmp_path):
     want = {"flash_attn_fwd": 3 + 2 * steps, "flash_attn_fwd_lse": 0,
             "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0}
     assert launches == want and seen == {**want, "library": []}
+
+
+# -- the MoE ablation study's shapes ------------------------------------------
+# (B, H, Lq, Lk, D, mask kind): the multimodal expert's single key (each
+# row's one valid key beside 63 empty columns of the 64-key tile, at the
+# CLI default's head dim 32), the tokens' attention to 8 mask tokens and
+# to 9 scene slots (a 64-key dK/dV block holding 8 or 9 keys), slot
+# queries against the 80 fused tokens, the 88-token joint encoder, the
+# vision/text experts at head dim 32, and the cross-attention fusion's
+# text-to-image call under the query-side mask t2v (padded question rows
+# fully masked, the mask not stride-0 over keys) and image-to-text v2t
+ABL_CASES = [
+    (4, 8, 80, 1, 32, None),
+    (4, 8, 80, 8, 64, None),
+    (4, 8, 80, 9, 64, None),
+    (4, 8, 8, 80, 64, None),
+    (4, 8, 21, 80, 64, None),
+    (4, 8, 88, 88, 64, None),
+    (4, 8, 80, 80, 32, None),
+    (6, 4, 64, 16, 64, "t2v"),
+    (6, 4, 16, 64, 64, "v2t"),
+]
+
+
+def _abl_mask(kind, B, seed=0):
+    """The cross-attention fusion's masks for questions of 3-64 tokens
+    (one of 64, so that not every row of every batch is padded)."""
+    from vivqa_tpu_torch.models.layers import make_attention_mask
+    lens = np.random.RandomState(seed).randint(3, 65, B)
+    lens[0] = 64
+    t_mask = torch.from_numpy(padding_mask(lens, 64))
+    v_mask = torch.ones(B, 16, dtype=torch.int32)
+    if kind == "t2v":
+        return make_attention_mask(t_mask, v_mask).cuda()
+    return make_attention_mask(v_mask, t_mask).cuda()
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["no_dropout", "dropout"])
+@pytest.mark.parametrize("case", ABL_CASES, ids=str)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_ablation_shapes_match_plain_versions(case, dtype, rate):
+    """The serving forward and the three training kernels at the study's
+    new shapes against their plain versions, forward and backward."""
+    _need_card()
+    B, H, Lq, Lk, D, kind = case
+    gen = torch.Generator().manual_seed(13)
+    q, k, v, do = (torch.randn(B, H, L, D, generator=gen).to("cuda", dtype)
+                   for L in (Lq, Lk, Lk, Lq))
+    mask = None if kind is None else _abl_mask(kind, B)
+    if kind == "t2v":
+        keyless = int((~mask.any(-1)).sum())
+        assert mask.shape == (B, 1, Lq, Lk) and keyless > 0
+        assert mask.expand(B, 1, Lq, Lk).stride(3) != 0
+    got = fa.flash_attention_cuda(q, k, v, mask)
+    key = fa.dropout_key(2468, 3)
+    o, m, l = fa.flash_attention_fwd_lse_cuda(q, k, v, mask, False, rate, key)
+    grads = fa.flash_attention_bwd_cuda(q, k, v, o, m, l, do, mask, False,
+                                        rate, key)
+    want = fa.attention_reference(q, k, v, mask)
+    o_ref, m_ref, l_ref = fa.attention_forward_lse_reference(
+        q, k, v, mask, False, rate, key)
+    grads_ref = fa.attention_backward_reference(q, k, v, o, m, l, do, mask,
+                                                False, rate, key)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    _assert_rel(o, o_ref, TOL[dtype], "o")
+    torch.testing.assert_close(m, m_ref, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(l, l_ref, atol=1e-5, rtol=1e-5)
+    for name, g, ref in zip(("dq", "dk", "dv"), grads, grads_ref):
+        assert g.dtype == dtype and g.shape == ref.shape
+        assert torch.isfinite(g).all(), name
+        _assert_rel(g, ref, GRAD_TOL[dtype], name)
+
+
+def test_dropout_masks_on_card_follow_their_law():
+    """The randomness of training forwards on a CUDA generator, drawn as
+    ``TrainState.step_generator`` and ``DropoutRNG`` draw it: each
+    step's ``DropoutRNG`` reads its seed from the generator's initial
+    seed and Philox offset, then moves the offset on by 4; elementwise
+    masks come from the generator.
+
+    - each mask keeps 1 - p of its units within 5 binomial standard
+      errors;
+    - two layers' masks in one forward, and one layer's masks at two
+      consecutive steps, agree on p^2 + (1 - p)^2 of the units, the rate
+      of independent masks, within 5 standard errors;
+    - the attention calls' ``dropout_key(seed, n)`` are distinct across
+      the calls of a forward and across steps."""
+    _need_card()
+    from vivqa_tpu_torch.models.layers import _SEED_MIX, DropoutRNG, dropout
+    from vivqa_tpu_torch.train.state import fold_in
+    p, N, steps, calls = 0.1, 1 << 20, 4, 64
+    x = torch.ones(N, device="cuda")
+    gen = torch.Generator(device="cuda")
+    masks, keys, seeds = [], [], []
+    for step in range(steps):
+        gen.manual_seed(fold_in(42, step))
+        offset = gen.get_offset()
+        rng = DropoutRNG(gen)
+        assert gen.get_offset() == offset + 4
+        assert rng.seed == (gen.initial_seed() * _SEED_MIX + offset) % 2 ** 64
+        seeds.append(rng.seed)
+        masks.append([dropout(x, p, rng) != 0 for _ in range(2)])
+        keys += [rng.attention_key() for _ in range(calls)]
+    assert len(set(seeds)) == steps
+    assert len(set(keys)) == steps * calls
+
+    def within(frac, want):
+        return abs(frac - want) <= 5 * (want * (1 - want) / N) ** 0.5
+
+    for step_masks in masks:
+        for mask in step_masks:
+            assert within(float(mask.float().mean()), 1 - p)
+    same = p * p + (1 - p) ** 2
+    for step in range(steps):
+        a, b = masks[step]
+        assert within(float((a == b).float().mean()), same), step
+        if step:
+            prev = masks[step - 1][0]
+            assert within(float((a == prev).float().mean()), same), step

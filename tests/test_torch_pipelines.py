@@ -401,7 +401,7 @@ def test_config_yaml_and_overrides_match_jax(tmp_path):
 @pytest.mark.parametrize("change,item", [
     ({"mix_mode": "mixup"}, "item 12"),
     ({"strategy": "freeze_visual"}, "item 12"),
-    ({"optimizer": POpt(accumulate_steps=2)}, "item 12")], ids=str)
+    ({"optimizer": POpt(lookahead=True)}, "item 12")], ids=str)
 def test_training_pipeline_unported_options_name_their_item(change, item):
     pipe = PTP.TrainingPipeline(PTP.TrainingPipelineConfig(**change))
     with pytest.raises(NotImplementedError, match=item):

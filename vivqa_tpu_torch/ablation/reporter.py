@@ -1,0 +1,215 @@
+"""Ablation reports: Markdown, CSV, LaTeX.
+
+A copy of vivqa_tpu/ablation/reporter.py on the port's own modules.
+
+Counterpart of src/ablation/ablation_reporter.py:51-360 in the reference:
+markdown report with ranking/findings/synergy tables, CSV export,
+expert-contribution CSV, model-type-aware LaTeX table, save_all_reports.
+"""
+
+from __future__ import annotations
+
+import csv
+import json
+from pathlib import Path
+
+from vivqa_tpu_torch.ablation.analyzer import AblationAnalyzer
+from vivqa_tpu_torch.ablation.evaluator import (AblationEvaluator,
+                                                get_metrics_for_model_type)
+
+
+class AblationReporter:
+    def __init__(self, evaluator: AblationEvaluator,
+                 analyzer: AblationAnalyzer, expert_label=str):
+        self.ev = evaluator
+        self.an = analyzer
+        # int -> str label for expert indices (e.g. "3:ocr"); defaults
+        # to the bare index
+        self.expert_label = expert_label
+
+    # -- markdown -------------------------------------------------------------
+    def generate_markdown_report(self) -> str:
+        ev = self.ev
+        lines = ["# MoE Ablation Study Report", ""]
+        lines += [f"- model type: **{ev.model_type}**",
+                  f"- primary metric: **{ev.primary}**",
+                  f"- completed experiments: **{len(ev.results)}**", ""]
+
+        lines += ["## Key findings", ""]
+        for f in self.an.generate_key_findings():
+            lines.append(f"- {f}")
+        lines.append("")
+
+        lines += ["## Ranking", ""]
+        metrics = get_metrics_for_model_type(ev.model_type)
+        header = "| rank | experiment | " + " | ".join(metrics) + " |"
+        lines += [header,
+                  "|" + "---|" * (len(metrics) + 2)]
+        for i, r in enumerate(ev.ranking(), 1):
+            vals = " | ".join(
+                f"{r.metrics.get(m):.4f}" if isinstance(
+                    r.metrics.get(m), (int, float)) else "-"
+                for m in metrics)
+            lines.append(f"| {i} | `{r.experiment_id}` | {vals} |")
+        for note in self._saturated_metric_notes(metrics):
+            lines.append("")
+            lines.append(note)
+        lines.append("")
+
+        imp = self.an.expert_contributions()
+        if imp:
+            floor = ev.noise_floor()
+            lines += ["## Expert importance (leave-one-out)", ""]
+            if floor is not None:
+                lines += [f"95% noise bound on a between-run {ev.primary} "
+                          f"difference: ±{floor['ci95_diff']:.4f} "
+                          f"(n_eval={floor['n_eval']}).", ""]
+            lines += ["| expert | importance | classification | significant |",
+                      "|---|---|---|---|"]
+            for c in imp:
+                sig = ("-" if c.significant is None
+                       else ("yes" if c.significant else "no"))
+                lines.append(f"| {self.expert_label(c.expert_index)} "
+                             f"| {c.importance:+.4f} "
+                             f"| {c.classification} | {sig} |")
+            lines.append("")
+
+        paired = ev.paired_comparisons()
+        if paired:
+            lines += ["## Paired McNemar tests vs baseline", "",
+                      "Exact two-sided test on discordant val samples "
+                      "(paired — far tighter than the independent bound "
+                      "above).", "",
+                      "| experiment | baseline-only ✓ | ablated-only ✓ "
+                      "| delta | delta 95% CI | p | significant |",
+                      "|---|---|---|---|---|---|---|"]
+            for p in paired:
+                ci = p.get("delta_ci95")
+                ci_s = (f"[{ci[0]:+.4f}, {ci[1]:+.4f}]" if ci else "-")
+                lines.append(
+                    f"| `{p['experiment_id']}` "
+                    f"| {p['baseline_only_correct']} "
+                    f"| {p['ablated_only_correct']} | {p['delta']:+.4f} "
+                    f"| {ci_s} | {p['p_value']:.4f} "
+                    f"| {'yes' if p['significant'] else 'no'} |")
+            lines.append("")
+
+        syn = self.an.pairwise_synergies()
+        if syn:
+            lines += ["## Pairwise synergies", "",
+                      "| experts | pair | solo sum | synergy |",
+                      "|---|---|---|---|"]
+            for s in syn:
+                lines.append(f"| {s.experts} | {s.pair_metric:.4f} | "
+                             f"{s.solo_sum:.4f} | {s.synergy:+.4f} |")
+            lines.append("")
+
+        routers = self.an.router_analysis()
+        if routers:
+            lines += ["## Router comparison", "",
+                      f"| router | {ev.primary} |", "|---|---|"]
+            for r in routers:
+                v = r.get(ev.primary)
+                lines.append(f"| `{r['router']}` | "
+                             f"{v:.4f} |" if v is not None else
+                             f"| `{r['router']}` | - |")
+            lines.append("")
+
+        rec = self.an.recommendation()
+        lines += ["## Recommendation", "",
+                  f"- keep experts: {rec.keep_experts}",
+                  f"- drop experts: {rec.drop_experts}",
+                  f"- router: `{rec.best_router}`",
+                  f"- rationale: {rec.rationale}", ""]
+        return "\n".join(lines)
+
+    def _saturated_metric_notes(self, metrics) -> list:
+        """Footnotes for metric columns that carry no signal on this
+        corpus. On a single-gold corpus the VQA-v2 soft accuracy
+        min(count/3, 1) cap makes vqa_accuracy = exact_match/3 exactly —
+        a saturated, perfectly-correlated column that misleads readers
+        unless annotated (round-3 verdict weak #6)."""
+        notes = []
+        if ("vqa_accuracy" in metrics and "exact_match" in metrics
+                and self.ev.primary != "vqa_accuracy"):
+            rows = [r for r in self.ev.results
+                    if isinstance(r.metrics.get("vqa_accuracy"),
+                                  (int, float))
+                    and isinstance(r.metrics.get("exact_match"),
+                                   (int, float))]
+            if rows and all(abs(r.metrics["vqa_accuracy"]
+                                - r.metrics["exact_match"] / 3.0) < 1e-6
+                            for r in rows):
+                notes.append(
+                    "*`vqa_accuracy` is SATURATED on this corpus: every "
+                    "sample has a single gold answer, so the VQA-v2 "
+                    "min(count/3, 1) cap makes it exactly "
+                    "`exact_match / 3` — the column carries no "
+                    "information beyond `exact_match` and should not be "
+                    "compared across experiments.*")
+        return notes
+
+    # -- CSV -------------------------------------------------------------------
+    def export_csv(self, path: str | Path) -> Path:
+        path = Path(path)
+        rows = self.ev.metric_table()
+        if not rows:
+            path.write_text("")
+            return path
+        keys = list(rows[0])
+        with open(path, "w", newline="") as f:
+            w = csv.DictWriter(f, fieldnames=keys)
+            w.writeheader()
+            w.writerows(rows)
+        return path
+
+    def export_contributions_csv(self, path: str | Path) -> Path:
+        path = Path(path)
+        with open(path, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["expert", "importance", "classification",
+                        "significant"])
+            for c in self.an.expert_contributions():
+                w.writerow([self.expert_label(c.expert_index),
+                            f"{c.importance:.6f}",
+                            c.classification, c.significant])
+        return path
+
+    # -- LaTeX -------------------------------------------------------------------
+    def generate_latex_table(self) -> str:
+        metrics = get_metrics_for_model_type(self.ev.model_type)
+        cols = "l" + "c" * len(metrics)
+        head = " & ".join(m.replace("_", "\\_") for m in metrics)
+        lines = [
+            "\\begin{table}[t]", "\\centering",
+            f"\\caption{{MoE ablation results ({self.ev.model_type}, "
+            f"primary metric: {self.ev.primary.replace('_', '\\_')})}}",
+            f"\\begin{{tabular}}{{{cols}}}", "\\toprule",
+            f"Experiment & {head} \\\\", "\\midrule"]
+        for r in self.ev.ranking():
+            vals = " & ".join(
+                f"{r.metrics.get(m):.4f}" if isinstance(
+                    r.metrics.get(m), (int, float)) else "-"
+                for m in metrics)
+            eid = r.experiment_id.replace("_", "\\_")
+            lines.append(f"{eid} & {vals} \\\\")
+        lines += ["\\bottomrule", "\\end{tabular}", "\\end{table}"]
+        return "\n".join(lines)
+
+    # -- bundle -------------------------------------------------------------------
+    def save_all_reports(self, output_dir: str | Path) -> dict:
+        out = Path(output_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        (out / "report.md").write_text(self.generate_markdown_report())
+        self.export_csv(out / "results.csv")
+        self.export_contributions_csv(out / "expert_contributions.csv")
+        (out / "table.tex").write_text(self.generate_latex_table())
+        self.an.save(out / "analysis.json")
+        (out / "raw_results.json").write_text(json.dumps(
+            [{"experiment_id": r.experiment_id, "status": r.status,
+              "metrics": r.metrics, "wall_seconds": r.wall_seconds}
+             for r in self.ev.results], indent=2, default=str))
+        return {"report": str(out / "report.md"),
+                "csv": str(out / "results.csv"),
+                "latex": str(out / "table.tex"),
+                "analysis": str(out / "analysis.json")}

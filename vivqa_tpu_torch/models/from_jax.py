@@ -10,11 +10,19 @@ name by the module's type:
   kernel flattened to (in, out) and transposed, so q/k/v kernels
   (D, H, Dh) become (H*Dh, D) and the out kernel (H, Dh, D) becomes
   (D, H*Dh); ``bias`` flattened, (H, Dh) -> (H*Dh,);
-- ``Conv2d``: ``kernel`` HWIO -> ``weight`` OIHW;
+- ``Conv2d``: ``kernel`` HWIO -> ``weight`` OIHW; ``Conv1d`` (the
+  segmentation expert's convolutions over the token axis): ``kernel``
+  (K, in, out) -> ``weight`` (out, in, K);
 - ``LayerNorm``: ``scale`` -> ``weight``; ``Embed``: ``embedding`` ->
   ``weight``;
 - any other parameter (``cls_token``, ``pos_embed``, LayerScale gains,
-  the stacked ``experts_*`` of ``MOELayer``) keeps its name and layout.
+  the stacked ``experts_*`` of ``MOELayer``, the specialized experts'
+  query slots, ``order_embed`` and ``relation_embeddings``) keeps its
+  name and layout.
+
+A ``ModuleDict`` key is a path segment like any other, so the VQA-MoE's
+``experts`` dict of ``vision_0``, ``specialized_3_ocr``... maps onto the
+flax names ``experts/vision_0``, ``experts/specialized_3_ocr``.
 
 A torch parameter without a flax leaf, a flax leaf that no parameter
 takes, or a shape that does not match raises. Only the ``params``
@@ -44,6 +52,7 @@ from vivqa_tpu_torch.ops.embedding import Embed
 _LEAF = {  # (module type, torch leaf) -> flax leaf
     (Dense, "weight"): "kernel",
     (nn.Conv2d, "weight"): "kernel",
+    (nn.Conv1d, "weight"): "kernel",
     (LayerNorm, "weight"): "scale",
     (Embed, "weight"): "embedding",
 }
@@ -69,6 +78,8 @@ def _convert(module: nn.Module, leaf: str, arr: np.ndarray,
         return arr.reshape(-1)
     if isinstance(module, nn.Conv2d) and leaf == "weight":
         return arr.transpose(3, 2, 0, 1)
+    if isinstance(module, nn.Conv1d) and leaf == "weight":
+        return arr.transpose(2, 1, 0)
     return arr
 
 
@@ -79,6 +90,8 @@ def _to_flax_layout(module: nn.Module, leaf: str, arr: np.ndarray,
         return arr.T.reshape(flax_shape)
     if isinstance(module, nn.Conv2d) and leaf == "weight":
         return arr.transpose(2, 3, 1, 0)
+    if isinstance(module, nn.Conv1d) and leaf == "weight":
+        return arr.transpose(2, 1, 0)
     return arr.reshape(flax_shape)
 
 

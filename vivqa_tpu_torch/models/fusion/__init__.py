@@ -1,7 +1,8 @@
 """Fusion factory (counterpart of vivqa_tpu/models/fusion/__init__.py).
 
-MCAN is ported; the other fusion types wait for ROADMAP.md Queue A
-item 13.
+MCAN and the four basic fusions (concat, add, bilinear,
+cross-attention) are ported; mutan, qformer and single_stream wait for
+ROADMAP.md Queue A item 13.
 """
 
 from __future__ import annotations
@@ -9,8 +10,14 @@ from __future__ import annotations
 from torch import nn
 
 from vivqa_tpu_torch.models.config import FusionConfig, FUSION_TYPES
+from vivqa_tpu_torch.models.fusion.basic import (AddFusion, BilinearFusion,
+                                                 ConcatFusion,
+                                                 CrossAttentionFusion)
 from vivqa_tpu_torch.models.fusion.mcan import AttFlat, MCANFusion
 
+_FUSIONS = {"concat": ConcatFusion, "add": AddFusion,
+            "bilinear": BilinearFusion,
+            "cross_attention": CrossAttentionFusion, "mcan": MCANFusion}
 _ALIASES = {"cross-attention": "cross_attention", "q_former": "qformer",
             "vilt": "single_stream", "joint": "single_stream"}
 
@@ -21,10 +28,11 @@ def create_fusion(config: FusionConfig, visual_dim: int,
     if kind not in FUSION_TYPES:
         raise ValueError(f"unknown fusion '{config.fusion_type}' "
                          f"(choices: {FUSION_TYPES})")
-    if kind == "mcan":
-        return MCANFusion(config, visual_dim, text_dim)
+    if kind in _FUSIONS:
+        return _FUSIONS[kind](config, visual_dim, text_dim)
     raise NotImplementedError(
         f"fusion '{kind}' is not ported yet (ROADMAP.md Queue A item 13)")
 
 
-__all__ = ["create_fusion", "MCANFusion", "AttFlat"]
+__all__ = ["create_fusion", "ConcatFusion", "AddFusion", "BilinearFusion",
+           "CrossAttentionFusion", "MCANFusion", "AttFlat"]

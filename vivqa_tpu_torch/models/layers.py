@@ -391,27 +391,34 @@ def make_causal_mask(ids: torch.Tensor) -> torch.Tensor:
         None, None]
 
 
+# the learned query slots and tables of the specialized MoE experts
+# (models/moe/specialized.py), drawn from normal(0.02) as in flax
+_TABLES = ("mask_tokens", "object_queries", "text_queries", "scene_tokens",
+           "count_queries", "order_embed", "relation_embeddings")
+
+
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded random weights in the spirit of the flax initialisers: Dense
     and Conv kernels normal with variance 1/fan_in (lecun), embedding and
-    position tables normal(0.02), biases and the CLS token 0, LayerNorm
-    scale 1, LayerScale gains left at their init value."""
+    position tables and the experts' query slots normal(0.02), biases and
+    the CLS token 0, LayerNorm scale 1, LayerScale gains left at their
+    init value."""
     with torch.no_grad():
         for mod in module.modules():
             for leaf, p in mod.named_parameters(recurse=False):
-                if isinstance(mod, Embed) or leaf == "pos_embed":
+                if isinstance(mod, Embed) or leaf == "pos_embed" \
+                        or leaf in _TABLES:
                     p.normal_(0.0, 0.02, generator=generator)
                 elif isinstance(mod, LayerNorm):
                     p.fill_(1.0 if leaf == "weight" else 0.0)
-                elif leaf in ("bias", "cls_token") \
-                        or leaf.startswith("experts_bias"):
+                elif "bias" in leaf or leaf == "cls_token":
                     p.zero_()
                 elif leaf in ("ls1_scale", "ls2_scale"):
                     continue
                 else:
-                    # Linear (out, in), Conv (O, I, kh, kw), stacked experts
+                    # Linear (out, in), Conv (O, I, k...), stacked experts
                     # (E, in, out): the input width is dim 1
-                    fan_in = math.prod(p.shape[1:]) if p.dim() != 3 \
-                        else p.shape[1]
+                    fan_in = p.shape[1] if p.dim() == 3 and not isinstance(
+                        mod, nn.Conv1d) else math.prod(p.shape[1:])
                     p.normal_(0.0, 1.0 / math.sqrt(fan_in),
                               generator=generator)

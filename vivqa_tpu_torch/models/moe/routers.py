@@ -2,9 +2,15 @@
 
 Every router returns a DENSE per-token combine-weight matrix (B, L, E)
 plus aux losses. ``expert_mask`` (E,) gives disabled experts -1e9 logits
-before top-k/softmax, so the remaining weights renormalize. The top-k
-router is ported; the noisy, soft and expert-choice routers wait for
-ROADMAP.md Queue A item 6.
+before top-k/softmax, so the remaining weights renormalize.
+
+Training mode is a ``DropoutRNG`` passed as ``rng`` (flax's
+``deterministic=False``): the noisy router draws its N(0, 1) noise from
+that forward's generator, never from the global RNG, so its training
+draws differ from JAX's ``make_rng("router")`` and only its
+deterministic path is compared with the JAX package. Every ``top_k``
+here breaks ties toward the lower index, as ``jax.lax.top_k`` does
+(``torch.topk`` on CUDA promises no order among equal values).
 """
 
 from __future__ import annotations
@@ -14,8 +20,9 @@ from typing import Optional
 
 import torch
 from torch import nn
+import torch.nn.functional as F
 
-from vivqa_tpu_torch.models.layers import Dense
+from vivqa_tpu_torch.models.layers import Dense, DropoutRNG
 from vivqa_tpu_torch.models.moe.config import RouterConfig
 
 NEG_INF = -1e9
@@ -54,13 +61,17 @@ def _router_metrics(probs: torch.Tensor, weights: torch.Tensor) -> dict:
             "load_imbalance": imbalance}
 
 
+def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` over the last dim: ties go to the lower index."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 def _topk_dense(probs: torch.Tensor,
                 k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k then renormalize, scattered back to dense (..., E). Ties go
     to the lower expert index, as ``jax.lax.top_k`` breaks them."""
-    top_vals, top_idx = torch.sort(probs, dim=-1, descending=True,
-                                   stable=True)
-    top_vals, top_idx = top_vals[..., :k], top_idx[..., :k]
+    top_vals, top_idx = _top_k(probs, k)
     top_vals = top_vals / torch.clamp(top_vals.sum(dim=-1, keepdim=True),
                                       min=1e-9)
     dense = torch.zeros_like(probs).scatter(-1, top_idx, top_vals)
@@ -84,12 +95,9 @@ class TopKRouter(nn.Module):
             logits = torch.where(expert_mask > 0, logits, NEG_INF)
         return logits
 
-    def forward(self, x: torch.Tensor,
-                expert_mask: Optional[torch.Tensor] = None) -> RouterOutput:
-        logits = self._logits(x, expert_mask)
+    def _finish(self, logits: torch.Tensor, weights: torch.Tensor,
+                assignment: torch.Tensor) -> RouterOutput:
         probs = torch.softmax(logits, dim=-1)
-        weights, assignment = _topk_dense(
-            probs, min(self.config.top_k, self.num_experts))
         aux = self.config.load_balance_weight * load_balance_loss(probs,
                                                                   assignment)
         if self.config.z_loss_weight:
@@ -97,18 +105,97 @@ class TopKRouter(nn.Module):
         return RouterOutput(weights, probs, aux,
                             _router_metrics(probs, weights))
 
+    def forward(self, x: torch.Tensor,
+                expert_mask: Optional[torch.Tensor] = None,
+                rng: Optional[DropoutRNG] = None) -> RouterOutput:
+        logits = self._logits(x, expert_mask)
+        weights, assignment = _topk_dense(
+            torch.softmax(logits, dim=-1),
+            min(self.config.top_k, self.num_experts))
+        return self._finish(logits, weights, assignment)
 
+
+class NoisyTopKRouter(TopKRouter):
+    """Learned-noise top-k: in training, N(0, 1) * softplus(w_noise(x)) *
+    ``noise_std`` is added to the logits before the top-k; the masked
+    experts are masked again after the noise. ``w_noise`` exists in eval
+    too. Aux loss and metrics read the clean logits."""
+
+    def __init__(self, config: RouterConfig, num_experts: int, dim: int):
+        super().__init__(config, num_experts, dim)
+        self.w_noise = Dense(dim, num_experts, bias=False,
+                             dtype=torch.float32)
+
+    def noisy_logits(self, x: torch.Tensor, logits: torch.Tensor,
+                     expert_mask: Optional[torch.Tensor],
+                     rng: DropoutRNG) -> torch.Tensor:
+        """The training logits: ``logits`` + N(0, 1) * softplus(w_noise(x))
+        * noise_std, the masked experts masked again."""
+        scale = F.softplus(self.w_noise(x.float())) * self.config.noise_std
+        noise = torch.randn(logits.shape, generator=rng.generator,
+                            device=logits.device)
+        noisy = logits + noise * scale
+        if expert_mask is not None:
+            noisy = torch.where(expert_mask > 0, noisy, NEG_INF)
+        return noisy
+
+    def forward(self, x: torch.Tensor,
+                expert_mask: Optional[torch.Tensor] = None,
+                rng: Optional[DropoutRNG] = None) -> RouterOutput:
+        logits = self._logits(x, expert_mask)
+        noisy = logits if rng is None else self.noisy_logits(
+            x, logits, expert_mask, rng)
+        weights, assignment = _topk_dense(
+            torch.softmax(noisy, dim=-1),
+            min(self.config.top_k, self.num_experts))
+        return self._finish(logits, weights, assignment)
+
+
+class SoftRouter(TopKRouter):
+    """Every expert at its softmax weight; an entropy regularizer when
+    ``entropy_weight`` is set."""
+
+    def forward(self, x: torch.Tensor,
+                expert_mask: Optional[torch.Tensor] = None,
+                rng: Optional[DropoutRNG] = None) -> RouterOutput:
+        logits = self._logits(x, expert_mask)
+        probs = torch.softmax(logits, dim=-1)
+        out = self._finish(logits, probs, (probs > 1e-6).to(probs.dtype))
+        if self.config.entropy_weight:
+            ent = -torch.mean(torch.sum(probs * torch.log(probs + 1e-9),
+                                        dim=-1))
+            out.aux_loss = out.aux_loss + self.config.entropy_weight * ent
+        return out
+
+
+class ExpertChoiceRouter(TopKRouter):
+    """Each expert takes its top ``int(capacity_factor * L / E)`` tokens
+    (at least one) at their softmax weight; a token no expert chose gets
+    zero weight."""
+
+    def forward(self, x: torch.Tensor,
+                expert_mask: Optional[torch.Tensor] = None,
+                rng: Optional[DropoutRNG] = None) -> RouterOutput:
+        logits = self._logits(x, expert_mask)             # (B, L, E)
+        L, E = logits.shape[1:]
+        probs = torch.softmax(logits, dim=-1)
+        cap = max(1, int(self.config.capacity_factor * L / E))
+        scores = probs.transpose(1, 2)                    # (B, E, L)
+        top_vals, top_idx = _top_k(scores, min(cap, L))
+        weights = torch.zeros_like(scores).scatter(
+            -1, top_idx, top_vals).transpose(1, 2)
+        return self._finish(logits, weights, (weights > 0).to(probs.dtype))
+
+
+_ROUTERS = {"topk": TopKRouter, "noisy_topk": NoisyTopKRouter,
+            "soft": SoftRouter, "expert_choice": ExpertChoiceRouter}
 _ALIASES = {"top_k": "topk", "noisy_top_k": "noisy_topk"}
-_KNOWN = ("topk", "noisy_topk", "soft", "expert_choice")
 
 
 def create_router(config: RouterConfig, num_experts: int,
                   dim: int) -> nn.Module:
     kind = _ALIASES.get(config.router_type, config.router_type)
-    if kind not in _KNOWN:
+    if kind not in _ROUTERS:
         raise ValueError(f"unknown router '{config.router_type}' "
-                         f"(choices: {_KNOWN})")
-    if kind == "topk":
-        return TopKRouter(config, num_experts, dim)
-    raise NotImplementedError(
-        f"router '{kind}' is not ported yet (ROADMAP.md Queue A item 6)")
+                         f"(choices: {tuple(_ROUTERS)})")
+    return _ROUTERS[kind](config, num_experts, dim)

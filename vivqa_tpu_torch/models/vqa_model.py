@@ -26,20 +26,37 @@ from vivqa_tpu_torch.models.fusion import create_fusion
 from vivqa_tpu_torch.models.heads import AnswerHead
 from vivqa_tpu_torch.models.layers import DropoutRNG, init_weights
 from vivqa_tpu_torch.models.moe.config import (ExpertConfig, MoEConfig,
-                                               RouterConfig)
+                                               RouterConfig, VQAMoEConfig)
 from vivqa_tpu_torch.models.moe.layer import create_moe_layer
 
 
-def moe_config_from_model(cfg: VQAModelConfig, input_dim: int) -> MoEConfig:
-    """Translate the meta-arch MoE knobs into a full MoE config."""
+# the VQA-MoE's specialized experts, in the fixed order the ablation's
+# expert masks index (vivqa_tpu/models/vqa_model.py:48-50)
+SPECIALIZED_ORDER = ("object_detection", "counting", "scene_understanding",
+                     "ocr", "segmentation", "spatial_reasoning")
+
+
+def moe_config_from_model(cfg, input_dim: int) -> MoEConfig | VQAMoEConfig:
+    """Translate the meta-arch MoE knobs (``cfg.moe``, of a
+    ``VQAModelConfig`` or a ``GenerativeVQAConfig``) into a full MoE
+    config."""
     m = cfg.moe
-    if m.moe_type == "vqa":
-        raise NotImplementedError(
-            "moe_type 'vqa' is not ported yet (ROADMAP.md Queue A item 13)")
     router = RouterConfig(router_type=m.router_type, top_k=m.top_k,
                           capacity_factor=m.capacity_factor,
                           load_balance_weight=m.load_balance_weight,
                           z_loss_weight=m.router_z_weight)
+    if m.moe_type == "vqa":
+        return VQAMoEConfig(
+            input_dim=input_dim,
+            num_vision_experts=m.num_vision_experts,
+            num_text_experts=m.num_text_experts,
+            num_multimodal_experts=m.num_multimodal_experts,
+            specialized_types=SPECIALIZED_ORDER[:m.num_specialized_experts],
+            expert_hidden_dim=m.expert_hidden_dim,
+            # the generic default "topk" becomes the VQA-MoE's noisy
+            # default; any other router (the ablation's swaps) stays
+            router=(router.replace(router_type="noisy_topk")
+                    if m.router_type == "topk" else router))
     return MoEConfig(num_experts=m.num_experts, input_dim=input_dim,
                      expert=ExpertConfig(hidden_dim=m.expert_hidden_dim),
                      router=router, moe_type=m.moe_type)

@@ -17,8 +17,10 @@ losses stay on the device until the epoch ends (read on log steps too),
 the batches reach the device through ``data/loader.py:device_prefetch``.
 Validation runs the model in eval mode with no gradient, so on the card
 every attention call goes through the serving forward kernel, and every
-train step through the three training kernels. Batch mixing, freezing
-strategies and gradient accumulation wait for ROADMAP.md Queue A item 12.
+train step through the three training kernels. Gradient accumulation is
+the optimizer's (``optax.MultiSteps``): the schedule spans steps /
+``accumulate_steps`` updates. Batch mixing and freezing strategies wait
+for ROADMAP.md Queue A item 12.
 """
 
 from __future__ import annotations
@@ -118,10 +120,6 @@ class TrainingPipeline:
                 f"strategy '{cfg.strategy}': freezing strategies "
                 f"(train/strategies.py) are not ported yet (ROADMAP.md, "
                 f"Queue A item 12)")
-        if cfg.optimizer.accumulate_steps > 1:
-            raise NotImplementedError(
-                "accumulate_steps > 1: gradient accumulation is not ported "
-                "yet (ROADMAP.md, Queue A item 12)")
 
     def _build_state(self, model: torch.nn.Module,
                      steps_per_epoch: int) -> TrainState:

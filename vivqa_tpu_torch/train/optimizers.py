@@ -7,13 +7,17 @@ defaults:
 - AdamW decays decoupled, only where ``decay_mask`` says so, with eps
   outside the square root; the schedule is read at the count BEFORE the
   update, so the first update of ``warmup_cosine`` uses lr = 0;
-- the returned ``grad_norm`` is the global norm before clipping.
+- the returned ``grad_norm`` is the global norm before clipping;
+- ``accumulate_steps`` k > 1 is ``optax.MultiSteps``: every step adds
+  its gradients to a running mean (acc += (g - acc) / (n + 1)), and only
+  every k-th step applies clip + AdamW to that mean and advances the
+  schedule's count; the parameters do not move in between.
 
 The weight-decay mask matches ``NO_DECAY_PATTERNS`` on each parameter's
 flax path (``models/from_jax.flax_paths``), as the JAX package matches its
 param tree. Only ``adamw`` with an f32 first moment is ported; the other
-optimizers, layer-wise decay, lookahead and accumulation wait (ROADMAP.md,
-Queue A item 12).
+optimizers, layer-wise decay and lookahead wait (ROADMAP.md, Queue A
+item 12).
 """
 
 from __future__ import annotations
@@ -166,11 +170,13 @@ def global_grad_norm(grads: Iterable[Optional[torch.Tensor]]
 
 class Optimizer:
     """optax.chain(clip_by_global_norm(clip), adamw(schedule, mask)) over
-    a model's parameters; ``step()`` applies one update from the
-    parameters' ``.grad`` and returns the pre-clip global norm as a
-    tensor (no host sync). A parameter without a gradient is left as it
+    a model's parameters, in ``optax.MultiSteps`` when
+    ``accumulate_steps`` > 1; ``step()`` takes the parameters' ``.grad``
+    and returns their global norm (before clipping and accumulation) as
+    a tensor (no host sync). A parameter without a gradient is left as it
     is, as optax leaves a parameter whose gradient is zero (no decay
-    applies to the leaves that have none on the main path)."""
+    applies to the leaves that have none on the main path). ``count`` is
+    the number of updates applied, the schedule's count."""
 
     def __init__(self, model: nn.Module, config: OptimizerConfig,
                  schedule: Callable[[int], float]):
@@ -189,16 +195,46 @@ class Optimizer:
         self.schedule = schedule
         self.clip_norm = config.grad_clip_norm
         self.count = 0
+        self.accumulate_steps = config.accumulate_steps
+        self.mini_step = 0
+        self.acc: list = [None] * len(self.params)  # running mean of grads
 
     def zero_grad(self) -> None:
         self.inner.zero_grad(set_to_none=True)
 
+    def _accumulate(self) -> bool:
+        """Fold this step's gradients into the running mean; True when
+        the mean is due (in ``.grad``) and an update applies now."""
+        n = self.mini_step
+        for i, p in enumerate(self.params):
+            if p.grad is None:      # a zero gradient
+                if self.acc[i] is not None:
+                    self.acc[i].mul_(n / (n + 1))
+            elif self.acc[i] is None:
+                # optax's accumulator starts at zeros
+                self.acc[i] = p.grad / (n + 1)
+            else:
+                self.acc[i].add_((p.grad - self.acc[i]) / (n + 1))
+        self.mini_step = (n + 1) % self.accumulate_steps
+        if self.mini_step:
+            return False
+        for p, a in zip(self.params, self.acc):
+            p.grad = a
+        self.acc = [None] * len(self.params)
+        return True
+
     def step(self) -> torch.Tensor:
+        norm = global_grad_norm(p.grad for p in self.params)
+        clip_norm = norm
+        if self.accumulate_steps > 1:
+            if not self._accumulate():
+                return norm
+            # the clip sees the mean of the accumulated gradients
+            clip_norm = global_grad_norm(p.grad for p in self.params)
         grads = [p.grad for p in self.params if p.grad is not None]
-        norm = global_grad_norm(grads)
         if self.clip_norm > 0:
-            scale = torch.where(norm < self.clip_norm, 1.0,
-                                self.clip_norm / norm)
+            scale = torch.where(clip_norm < self.clip_norm, 1.0,
+                                self.clip_norm / clip_norm)
             torch._foreach_mul_(grads, scale)
         lr = self.schedule(self.count)
         for group in self.inner.param_groups:
@@ -212,9 +248,10 @@ def create_optimizer(config: OptimizerConfig, model: nn.Module,
                      sched: Optional[SchedulerConfig] = None) -> Optimizer:
     """AdamW with the decay mask and global-norm clipping; the schedule
     from ``sched`` (a constant ``config.learning_rate`` without one)."""
+    if config.accumulate_steps < 1:
+        raise ValueError(f"accumulate_steps {config.accumulate_steps} < 1")
     unported = {"layer_decay": config.layer_decay != 0.0,
                 "lookahead": config.lookahead,
-                "accumulate_steps": config.accumulate_steps != 1,
                 "mu_dtype": config.mu_dtype != "float32"}
     if config.name != "adamw" or any(unported.values()):
         raise NotImplementedError(
