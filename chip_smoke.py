@@ -107,13 +107,34 @@ Phases, in order; any failure exits non-zero:
    the CPU (eval logits, two soft-router train steps, the CLI's default
    2/2/2/0 composition's logits); the bare step against the pipeline's,
    a step and a validation under the profiler;
-11. path shapes: each wrapper call of phases 4-10 is recorded by its
+11. the knowledge (RAG) path: the four kernels at its new shapes
+   (KnowledgeAttention's one query over K = 5 contexts under a mask with
+   padded and fully masked rows, at batch 8, 32 and, training, 128; the
+   generative decoder's cross-attention over 113 + 5 = 118 keys under
+   the concatenated memory mask, 32 queries at batch 32 and one query at
+   the greedy and beam rows of a generate at batch 16) against their
+   plain versions in f32, f16 and bf16, timed beside SDPA, and their
+   totals per classification forward and step and per generative step
+   and generate; the flagship with KnowledgeAttention (contexts from a
+   KnowledgeProvider over a synthetic knowledge base): card against CPU
+   logits, a validation forward (37 launches), the train step at batch
+   128 (37 of each training kernel) beside the bare step, profiled, and
+   two steps card against CPU; bench_serving's model with the knowledge
+   memory: greedy and beam generates at batch 16 (411 launches each),
+   cache against teacher forcing, greedy tokens card against CPU, the
+   train step at batch 32 (39); both CLIs with ``--use-knowledge`` (train,
+   evaluate, inference; 37 launches a forward with the knowledge, 36
+   without, 39 a generative step, 27 + 12 a decode step; the provider's
+   host ms a batch, cold and cached); dense retrieval through the
+   flagship's text tower (12 launches a chunk of 32, embeddings and top-5
+   against the CPU);
+12. path shapes: each wrapper call of phases 4-11 is recorded by its
    kernel, dtype, shapes, mask layout, causal, dropout rate and tile
    rows; each such launch the kernel phases did not hold against the
    plain version (the classification pipeline's batches of 32, 2 and 1,
    say) is held now on random inputs of that kind, and the script fails
    if any launch of a main path stays unchecked;
-12. the card line (nvidia-smi's name and power limit), the kernels line,
+13. the card line (nvidia-smi's name and power limit), the kernels line,
    and the device line, which is the last line.
 
 Each path's launch counts are set to 0 just before it runs and read just
@@ -148,11 +169,18 @@ from vivqa_tpu_torch.data import fastloader
 from vivqa_tpu_torch.data.augmentation import ImageAugmentation
 from vivqa_tpu_torch.data.dataset import (IGNORE_INDEX, GenerativeVQADataset,
                                           generative_collate)
+from vivqa_tpu_torch.data.loader import host_tensor
 from vivqa_tpu_torch.data.synthetic import generate_synthetic_vivqa
 from vivqa_tpu_torch.data.schema import OneSample
 from vivqa_tpu_torch.data.tokenizer import WhitespaceTokenizer
 from vivqa_tpu_torch.device import card_line, resolve_device
 from vivqa_tpu_torch.eval.predictor import VQAPredictor
+from vivqa_tpu_torch.knowledge import (VIETNAMESE_STOPWORDS, DenseRetriever,
+                                       Document, DocumentStore,
+                                       InMemoryVectorStore,
+                                       KnowledgeProvider,
+                                       KnowledgeProviderConfig,
+                                       TextKnowledgeEncoder)
 from vivqa_tpu_torch.models.config import GenerativeVQAConfig, VQAModelConfig
 from vivqa_tpu_torch.models.decoding import DecodeConfig, build_generate_fn
 from vivqa_tpu_torch.models.generative import create_generative_vqa_model
@@ -177,7 +205,8 @@ from vivqa_tpu_torch.train.checkpoint import (CheckpointConfig,
 from vivqa_tpu_torch.train.optimizers import (OptimizerConfig,
                                               SchedulerConfig,
                                               create_optimizer)
-from vivqa_tpu_torch.train.state import (TrainState, classification_loss_fn,
+from vivqa_tpu_torch.train.state import (KNOWLEDGE_KEYS, TrainState,
+                                         classification_loss_fn,
                                          generative_loss_fn, make_train_step)
 from vivqa_tpu_torch.utils import profiling
 
@@ -522,6 +551,8 @@ def attention_inputs(B, H, Lq, Lk, D, kind, dtype, gen, cur_index=None):
         mask = torch.ones(B, 1, 1, Lk, dtype=torch.bool, device="cuda")
     elif kind == "full_query_key":      # make_attention_mask(ones, ones)
         mask = torch.ones(B, 1, Lq, Lk, dtype=torch.bool, device="cuda")
+    elif kind in ("knowledge", "memory_knowledge"):
+        mask = knowledge_key_mask(B, Lk, kind, gen)
     elif kind is not None:
         klen = torch.randint(1, Lk + 1, (B,), generator=gen, device="cuda")
         kv = torch.arange(Lk, device="cuda")[None] < klen[:, None]
@@ -1376,13 +1407,14 @@ def _first_eos_mask(seqs: torch.Tensor, eos: int) -> torch.Tensor:
     return after == 0
 
 
-def cache_consistency(model, args, seqs, decode_cfg) -> dict:
+def cache_consistency(model, args, seqs, decode_cfg, **knowledge) -> dict:
     """The card's greedy sequences against its own teacher-forced argmax
-    on the same tokens (BOS, then each sequence but its last token)."""
+    on the same tokens (BOS, then each sequence but its last token); the
+    knowledge arrays, if the generate had them, reach the forward too."""
     bos = torch.full_like(seqs[:, :1], decode_cfg.bos_token_id)
     with torch.inference_mode():
-        logits = model(*args, torch.cat([bos, seqs[:, :-1]], dim=1))[
-            "logits"].float()
+        logits = model(*args, torch.cat([bos, seqs[:, :-1]], dim=1),
+                       **knowledge)["logits"].float()
     top2 = logits.topk(2, dim=-1).values
     margin = top2[..., 0] - top2[..., 1]
     tol = CACHE_TOL * float(logits.abs().max())
@@ -2731,7 +2763,743 @@ def ablation_phase(device: str = "cuda", n: int = ABL_CORPUS,
         "card_vs_cpu": check}
 
 
-# -- phase 11: every launch shape of the main paths held ---------------------
+# -- phase 11: the knowledge (RAG) path ---------------------------------------
+# K retrieved contexts per question, embedded by the provider's hashing
+# encoder (KnowledgeProviderConfig.encoder_dim, 256). KnowledgeAttention
+# is one query (the fused vector) over K keys under the knowledge mask; the
+# generative memory grows from 113 to 113 + K = 118 keys.
+RAG_K = 5
+RAG_MEMORY = 49 + 64 + RAG_K
+RAG_CLI_CORPUS = 160        # 128 / 16 / 16 samples: 4 train steps of 32
+RAG_CLI_BATCH = 32
+# (name, B, H, Lq, Lk, D, mask kind, calls per classification forward at
+# batch 8, calls per beam generate at batch 16): the forward kernel's new
+# shapes. KnowledgeAttention at the serving batch and at the CLI's
+# validation batch; the decoder's cross calls over the memory with the
+# knowledge tokens at the greedy (16) and beam (64) rows of a generate
+# at batch 16 (32 steps x 6 layers each)
+RAG_FWD_CASES = [
+    ("know_attn_b8", 8, 8, 1, RAG_K, 64, "knowledge", 1, 0),
+    ("know_attn_b32", 32, 8, 1, RAG_K, 64, "knowledge", 0, 0),
+    ("dec_cross_118_16", 16, 8, 1, RAG_MEMORY, 64, "memory_knowledge", 0, 0),
+    ("dec_cross_118_64", 64, 8, 1, RAG_MEMORY, 64, "memory_knowledge", 0,
+     192),
+]
+# (name, B, H, Lq, Lk, mask kind, calls per classification step at batch
+# 128, calls per generative step at batch 32, the dropout rate of those
+# calls): KnowledgeAttention in the classification step (flax MHDPA's
+# dropout is 0) and the decoder's cross-attention over 118 keys
+RAG_TRAIN_CASES = [
+    ("know_attn_b128", TRAIN_BATCH, 8, 1, RAG_K, "knowledge", 1, 0, 0.0),
+    ("gen_dec_cross_118", GEN_TRAIN_BATCH, 8, 32, RAG_MEMORY,
+     "memory_knowledge", 0, 6, GEN_DROPOUT),
+]
+
+
+def knowledge_key_mask(B: int, Lk: int, kind: str, gen) -> torch.Tensor:
+    """(B, 1, 1, Lk) key masks as the models build them from a provider's
+    knowledge mask, row b keeping K - (b mod (K + 1)) of the K contexts
+    (so every count from K down to none, a fully masked row): "knowledge"
+    is KnowledgeAttention's (Lk = K); "memory_knowledge" the generative
+    decoder's cross mask over [49 patch tokens; 64 question tokens of
+    which 3-60 are real; K contexts], the concatenation of the fusion's
+    mask and the knowledge mask."""
+    dev = gen.device
+    k = torch.tensor([RAG_K - b % (RAG_K + 1) for b in range(B)],
+                     device=dev)
+    know = torch.arange(RAG_K, device=dev)[None] < k[:, None]
+    if kind == "memory_knowledge":
+        L = Lk - 49 - RAG_K
+        q_len = torch.randint(3, min(60, L) + 1, (B,), generator=gen,
+                              device=dev)
+        know = torch.cat([torch.ones(B, 49, dtype=torch.bool, device=dev),
+                          torch.arange(L, device=dev)[None] < q_len[:, None],
+                          know], dim=1)
+    return make_attention_mask(None, know.int())
+
+
+def rag_kernel_phase() -> dict:
+    """The four kernels at the knowledge path's shapes against their plain
+    versions: the forward (``attention_case``: f32, f16 and bf16 at every
+    tile size, timed beside its plain version and SDPA) at RAG_FWD_CASES;
+    the three training kernels (``check_train_kernels``: f32, f16, bf16,
+    at dropout 0 and at the path's rate) at RAG_TRAIN_CASES, timed in
+    bf16 by ``time_train_kernels``. Rows keyed by case ((case, rate) for
+    the training ones)."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    fwd, train = {}, {}
+    for name, B, H, Lq, Lk, D, kind, per_fwd, per_gen in RAG_FWD_CASES:
+        fwd[name] = attention_case(name, B, H, Lq, Lk, D, kind, False, gen,
+                                   calls_per_forward=per_fwd,
+                                   calls_per_generate=per_gen)
+    for name, B, H, Lq, Lk, kind, cls_calls, gen_calls, path_rate \
+            in RAG_TRAIN_CASES:
+        mask = knowledge_key_mask(B, Lk, kind, gen)
+        for rate in sorted({0.0, path_rate}):
+            key = fa.dropout_key(2030, len(train))
+            errs = {}
+            for dtype in (torch.float32, torch.float16, torch.bfloat16):
+                q, k, v, do = (torch.randn(B, H, L, 64, generator=gen,
+                                           device="cuda").to(dtype)
+                               for L in (Lq, Lk, Lk, Lq))
+                errs[dtype] = check_train_kernels(q, k, v, do, mask, False,
+                                                  rate, key)
+            on_path = rate == path_rate
+            row = {"case": name, "B": B, "H": H, "Lq": Lq, "Lk": Lk, "D": 64,
+                   "mask": kind, "mask_shape": list(mask.shape),
+                   "keyless_rows": int((~mask.any(-1)).sum()),
+                   "dropout": rate,
+                   "calls_per_cls_step": cls_calls if on_path else 0,
+                   "calls_per_gen_step": gen_calls if on_path else 0,
+                   "max_err_bf16": errs[torch.bfloat16],
+                   "max_err_f16": errs[torch.float16],
+                   "max_err_f32": errs[torch.float32],
+                   **time_train_kernels(q, k, v, do, mask, False, rate, key)}
+            emit({"rag_training_attention_case": row})
+            train[(name, rate)] = row
+    return {"forward": fwd, "training": train}
+
+
+def rag_totals(rag_rows: dict, rows: dict, train_rows: dict,
+               gen_rows: dict) -> dict:
+    """Each kernel over one pass of a knowledge path, from the kernel
+    phases' rows (each shape's number times its calls): the forward per
+    classification forward at batch 8 (the 36 serving calls and
+    KnowledgeAttention's) and per beam generate at batch 16 (its cross
+    calls over 118 keys in place of 113); the training kernels per
+    classification step at batch 128 (36 + 1) and per generative step at
+    batch 32 (the decoder's cross calls over 118 keys)."""
+    fwd, train = rag_rows["forward"], rag_rows["training"]
+    cls_step = {**train_rows, **{k: {**r, "calls_per_step":
+                                     r["calls_per_cls_step"]}
+                                 for k, r in train.items()}}
+    gen_step = {**{k: r for k, r in gen_rows.items()
+                   if r["case"] != "gen_dec_cross"},
+                **{k: {**r, "calls_per_step": r["calls_per_gen_step"]}
+                   for k, r in train.items()}}
+    generate = {**{k: r for k, r in rows.items() if k != "dec_cross_64"},
+                **fwd}
+    return {"per_forward": _path_totals({**rows, **fwd},
+                                        "calls_per_forward"),
+            "per_generate": _path_totals(generate, "calls_per_generate"),
+            "per_step": step_totals(cls_step),
+            "per_generative_step": step_totals(gen_step)}
+
+
+def rag_documents() -> list:
+    """The knowledge base of the model phases: one fact per content word
+    of WORDS (stopwords left out, as BM25 leaves them out), so that a
+    question of 3-60 of those words retrieves from none to K facts."""
+    words = [w for w in dict.fromkeys(WORDS) if w not in VIETNAMESE_STOPWORDS]
+    return [Document(content=f"{w} : sự kiện số {i}", source="rag",
+                     category="fact") for i, w in enumerate(words)]
+
+
+def rag_provider() -> KnowledgeProvider:
+    """BM25 over ``rag_documents``, K facts a question."""
+    return KnowledgeProvider(KnowledgeProviderConfig(
+        retriever="sparse", num_retrieved=RAG_K), documents=rag_documents())
+
+
+def rag_questions(n: int, seed: int) -> list:
+    """``make_requests``' questions after three short ones: one of
+    stopwords only (its knowledge row is fully masked), one that finds
+    two facts, one four."""
+    questions = make_requests(n, seed, image_hw=(8, 8))[1]
+    return (["có là không vậy", "con mèo đang ngủ", "bàn ghế xe đạp"]
+            + questions)[:n]
+
+
+def knowledge_arrays(provider: KnowledgeProvider, questions) -> dict:
+    emb, mask = provider.contexts_for(list(questions))
+    return {"knowledge_embeddings": emb, "knowledge_mask": mask}
+
+
+def with_knowledge(cfg, dim: int):
+    return cfg.replace(knowledge=cfg.knowledge.replace(
+        use_knowledge=True, knowledge_dim=dim, num_retrieved=RAG_K))
+
+
+def rag_cls_batch(cfg: VQAModelConfig, provider, n: int, seed: int) -> dict:
+    """``n`` requests as numpy arrays: pixels uniform in [0, 1), the
+    questions tokenized (3-60 words, padded to the text length), answer
+    labels, and the provider's knowledge for those questions."""
+    tok = WhitespaceTokenizer(max_length=cfg.text.max_length)
+    tok.build_vocab(WORDS)
+    questions = rag_questions(n, seed)
+    enc = tok.encode_batch(questions, cfg.text.max_length)
+    rs = np.random.RandomState(seed)
+    S = cfg.visual.image_size
+    return {"pixel_values": rs.rand(n, S, S, 3).astype(np.float32),
+            "input_ids": enc["input_ids"].astype(np.int64),
+            "attention_mask": enc["attention_mask"].astype(np.int64),
+            "labels": rs.randint(0, cfg.num_answers, (n,)),
+            **knowledge_arrays(provider, questions)}
+
+
+def rag_cls_phase(cfg: VQAModelConfig, provider, device: str = "cuda",
+                  batch: int = TRAIN_BATCH, val_batch: int = CLS_BATCH,
+                  steps: int = 5, warmup: int = 2, seed: int = 0) -> dict:
+    """The flagship with ``use_knowledge`` (K contexts of the provider's
+    dim): logits card against CPU at batch 2 (``compare_logits``); a
+    validation forward at ``val_batch`` (36 + 1 forward launches); the
+    train step through ``make_train_step`` at ``batch`` (36 + 1 launches
+    of each training kernel a step), timed by
+    ``profiling.time_train_steps`` beside the bare flagship step of the
+    same model (the batch without its knowledge arrays: 36 a step), the
+    two in turns, ``steps`` steps each a turn, two turns; one step
+    profiled (idle share), peak memory; then two steps card against CPU
+    at batch 4 (``card_vs_cpu_steps``, dropout 0)."""
+    on_card = device == "cuda"
+    dev = torch.device(device)
+    kcfg = with_knowledge(cfg, provider.dim)
+    per_forward = ATTN_CALLS_PER_FORWARD + 1 if on_card else 0
+    cpu_model = create_vqa_model(kcfg, device="cpu",
+                                 generator=torch.Generator().manual_seed(seed))
+    model = copy.deepcopy(cpu_model).to(dev)
+    n_params = sum(p.numel() for p in model.parameters())
+
+    pair = rag_cls_batch(kcfg, provider, 2, seed + 1)
+    inputs = ("pixel_values", "input_ids", "attention_mask")
+    know = {k: pair[k] for k in KNOWLEDGE_KEYS}
+    with torch.inference_mode():
+        card = model(*(host_tensor(pair[k]).to(dev) for k in inputs),
+                     **{k: host_tensor(v).to(dev) for k, v in know.items()}
+                     )["logits"].float().cpu().numpy()
+        cpu = cpu_model(*(host_tensor(pair[k]) for k in inputs),
+                        **{k: host_tensor(v) for k, v in know.items()}
+                        )["logits"].float().numpy()
+    cpu_check = compare_logits(card, cpu)
+    del cpu_model
+
+    val = batch_to_device(rag_cls_batch(kcfg, provider, val_batch,
+                                        seed + 2), dev)
+    fa.reset_launch_counts()
+    with torch.inference_mode():
+        logits = model(*(val[k] for k in inputs),
+                       **{k: val[k] for k in KNOWLEDGE_KEYS})["logits"]
+    val_launches = dict(fa.launch_counts)
+
+    host = rag_cls_batch(kcfg, provider, batch, seed + 3)
+    data = batch_to_device(host, dev)
+    bare = {k: v for k, v in data.items() if k not in KNOWLEDGE_KEYS}
+    state = TrainState.create(model, bench_optimizer(model), seed=seed)
+    train_step = make_train_step(classification_loss_fn())
+    for _ in range(warmup):
+        train_step(state, data)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    # the two steps in turns (knowledge, bare, knowledge, bare), the
+    # launches of the first turn of each
+    host_ms, event_ms, metrics = [], [], []
+    bare_host, bare_event, bare_metrics = [], [], []
+    for turn in range(2):
+        for batch_, out in ((data, (host_ms, event_ms, metrics)),
+                            (bare, (bare_host, bare_event, bare_metrics))):
+            fa.reset_launch_counts()
+            for acc, got in zip(out, profiling.time_train_steps(
+                    train_step, state, batch_, steps)):
+                acc.extend(got)
+            if turn == 0 and batch_ is data:
+                launches = dict(fa.launch_counts)
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
+                    if on_card else None
+            elif turn == 0:
+                bare_launches = dict(fa.launch_counts)
+    profile = cls_profile(lambda: train_step(state, data)) if on_card \
+        else None
+
+    problems = []
+    want = {**{n: per_forward * steps for n in TRAIN_KERNELS},
+            "flash_attn_fwd": 0}
+    want_bare = {**{n: (per_forward - 1) * steps if on_card else 0
+                    for n in TRAIN_KERNELS}, "flash_attn_fwd": 0}
+    want_val = {**{n: 0 for n in TRAIN_KERNELS},
+                "flash_attn_fwd": per_forward}
+    for label, got, w in (("step", launches, want),
+                          ("bare step", bare_launches, want_bare),
+                          ("validation forward", val_launches, want_val)):
+        if got != w:
+            problems.append(f"{label} launches {got} != {w}")
+    if profile is not None:
+        step_want = {**{n: per_forward for n in TRAIN_KERNELS},
+                     "flash_attn_fwd": 0, "library": []}
+        if profile["kernels"] != step_want:
+            problems.append(f"profiled step {profile['kernels']} != "
+                            f"{step_want}")
+    losses = [float(m["loss"]) for m in metrics + bare_metrics]
+    if tuple(logits.shape) != (val_batch, kcfg.num_answers) \
+            or not bool(torch.isfinite(logits.float()).all()) \
+            or not all(math.isfinite(x) for x in losses):
+        problems.append(f"logits {tuple(logits.shape)}, losses {losses}")
+    if problems:
+        raise AssertionError("rag classification: " + "; ".join(problems))
+    del state, model, data, bare, val
+    if on_card:
+        torch.cuda.empty_cache()
+
+    kcfg0 = kcfg.replace(text=kcfg.text.replace(dropout=0.0),
+                         fusion=kcfg.fusion.replace(dropout=0.0),
+                         head=kcfg.head.replace(dropout=0.0))
+    four = rag_cls_batch(kcfg0, provider, 4, seed + 4)
+
+    def build(d):
+        m = create_vqa_model(kcfg0, device=d,
+                             generator=torch.Generator().manual_seed(seed))
+        m.moe.dropout = 0.0
+        return TrainState.create(m, bench_optimizer(m, 1), seed=seed)
+    steps_check = card_vs_cpu_steps(build, classification_loss_fn(), four,
+                                    device, 2, ATTN_CALLS_PER_STEP + 1)
+    return {
+        "params": n_params,
+        "knowledge": {"K": RAG_K, "dim": provider.dim,
+                      "contexts_per_row": host["knowledge_mask"].sum(1)
+                      .tolist(),
+                      "fully_masked_rows": int(
+                          (host["knowledge_mask"].sum(1) == 0).sum())},
+        "batch": batch, "steps": steps, "val_batch": val_batch,
+        "step_ms": host_ms, "step_event_ms": event_ms,
+        "median_step_ms": float(np.median(host_ms)),
+        "median_step_event_ms": float(np.median(event_ms))
+        if event_ms else None,
+        "bare_step_ms": bare_host, "bare_step_event_ms": bare_event,
+        "median_bare_step_ms": float(np.median(bare_host)),
+        "median_bare_step_event_ms": float(np.median(bare_event))
+        if bare_event else None,
+        "loss": [float(m["loss"]) for m in metrics],
+        "launches": launches, "bare_launches": bare_launches,
+        "validation_launches": val_launches,
+        "launches_per_step": {n: launches[n] / steps for n in TRAIN_KERNELS},
+        "max_memory_allocated_gib": peak, "profile": profile, "turns": 2,
+        "cpu_check": cpu_check, "train_check": steps_check}
+
+
+def rag_gen_phase(provider, cfg: GenerativeVQAConfig | None = None,
+                  device: str = "cuda", batch: int = GEN_VAL_BATCH,
+                  train_batch: int = GEN_TRAIN_BATCH, steps: int = 3,
+                  warmup: int = 1, reps: int = 3, seed: int = 0) -> dict:
+    """bench_serving's model in gen_training_config's recipe (``cfg``, if
+    given, in its place) with the knowledge memory: greedy and 4-beam
+    generates of 32 tokens at ``batch`` with the provider's contexts (27 +
+    12 x 32 = 411 forward launches each, the cross calls over 118 keys),
+    timed (host clock to a synchronize, median of ``reps``); the greedy
+    sequences against the card's own teacher forcing with the knowledge;
+    greedy tokens card against CPU at batch 2 (equal up to the first step
+    whose CPU top-1/top-2 margin is within twice ``compare_logits``'
+    tolerance, and the logits teacher-forced on the CPU's tokens by
+    ``compare_logits``); then
+    the teacher-forced train step at ``train_batch`` (39 launches of each
+    training kernel a step), timed by ``profiling.time_train_steps``."""
+    on_card = device == "cuda"
+    dev = torch.device(device)
+    tok = gen_tokenizer()
+    cfg = cfg or with_knowledge(gen_training_config(tok), provider.dim)
+    cpu_model = create_generative_vqa_model(
+        cfg, device="cpu", generator=torch.Generator().manual_seed(seed))
+    model = copy.deepcopy(cpu_model).to(dev)
+    host = gen_train_batch(cfg, tok, batch, seed)
+    host.update(knowledge_arrays(provider, rag_questions(batch, seed)))
+    b = batch_to_device(host, dev)
+    args = (b["pixel_values"], b["question_ids"], b["question_mask"])
+    know = {k: b[k] for k in KNOWLEDGE_KEYS}
+    per_generate = attention_calls_per_generate(cfg, bench_serving.NEW_TOKENS)
+    gens = {s: build_generate_fn(model, bench_serving.decode_config(s))
+            for s in GEN_STRATEGIES}
+    for s in GEN_STRATEGIES:                 # warm-up
+        gens[s](*args, **know)
+    outputs, launches, ms = {}, {}, {}
+    for s in GEN_STRATEGIES:
+        fa.reset_launch_counts()
+        outputs[s] = gens[s](*args, **know)
+        launches[s] = dict(fa.launch_counts)
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            gens[s](*args, **know)
+            if on_card:
+                torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[s] = float(np.median(times))
+    with torch.inference_mode():
+        enc = model.encode(*args, **know)
+    decode_cfg = bench_serving.decode_config("greedy")
+    consistency = cache_consistency(model, args[:2], outputs["greedy"][0],
+                                    decode_cfg, question_mask=args[2],
+                                    **know)
+
+    two = {k: v[:2] for k, v in b.items() if isinstance(v, torch.Tensor)}
+    two_args = (two["pixel_values"], two["question_ids"],
+                two["question_mask"])
+    two_know = {k: two[k] for k in KNOWLEDGE_KEYS}
+    cpu_args = tuple(a.cpu() for a in two_args)
+    cpu_know = {k: v.cpu() for k, v in two_know.items()}
+    card_seqs, _ = gens["greedy"](*two_args, **two_know)
+    cpu_seqs, _ = build_generate_fn(cpu_model, decode_cfg)(*cpu_args,
+                                                           **cpu_know)
+    bos = torch.full_like(cpu_seqs[:, :1], decode_cfg.bos_token_id)
+    with torch.inference_mode():
+        cpu_logits = cpu_model(*cpu_args[:2], torch.cat(
+            [bos, cpu_seqs[:, :-1]], dim=1), cpu_args[2],
+            **cpu_know)["logits"].float()
+        card_logits = model(*two_args[:2], torch.cat(
+            [bos, cpu_seqs[:, :-1]], dim=1).to(dev), two_args[2],
+            **two_know)["logits"].float().cpu()
+    V = cpu_logits.shape[-1]
+    tol = 0.05 * float(cpu_logits.abs().max())
+    top2 = cpu_logits.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > 2 * tol
+    undecided_before = torch.cumsum((~decided).long(), dim=1) == 0
+    same = card_seqs.cpu() == cpu_seqs
+    greedy_check = {"decided_prefix": undecided_before.sum(1).tolist(),
+                    "tokens_equal": same.sum(1).tolist(),
+                    "tolerance": tol}
+    if not bool(same[undecided_before].all()):
+        raise AssertionError(f"rag greedy tokens card vs CPU: {greedy_check}"
+                             f" {card_seqs.tolist()} {cpu_seqs.tolist()}")
+    greedy_check["logits"] = compare_logits(
+        card_logits.reshape(-1, V).numpy(), cpu_logits.reshape(-1, V).numpy())
+    del cpu_model
+
+    tb = gen_train_batch(cfg, tok, train_batch, seed + 1)
+    tb.update(knowledge_arrays(provider, rag_questions(train_batch,
+                                                       seed + 1)))
+    data = batch_to_device(tb, dev)
+    model.train()
+    state = TrainState.create(model, gen_optimizer(model), seed=seed)
+    train_step = make_train_step(generative_loss_fn(label_smoothing=0.0))
+    for _ in range(warmup):
+        train_step(state, data)
+    fa.reset_launch_counts()
+    host_ms, event_ms, metrics = profiling.time_train_steps(
+        train_step, state, data, steps)
+    train_launches = dict(fa.launch_counts)
+
+    per_step = gen_calls_per_step(cfg) if on_card else 0
+    want_gen = {**{n: 0 for n in TRAIN_KERNELS},
+                "flash_attn_fwd": per_generate if on_card else 0}
+    want_step = {**{n: per_step * steps for n in TRAIN_KERNELS},
+                 "flash_attn_fwd": 0}
+    problems = [f"{s} launches {launches[s]} != {want_gen}"
+                for s in GEN_STRATEGIES if launches[s] != want_gen]
+    if train_launches != want_step:
+        problems.append(f"step launches {train_launches} != {want_step}")
+    n_vis = (cfg.visual.image_size // cfg.visual.patch_size) ** 2
+    if tuple(enc["memory"].shape[:2]) != (batch, n_vis + cfg.text.max_length
+                                          + RAG_K):
+        problems.append(f"memory {tuple(enc['memory'].shape)}")
+    losses = [float(m["loss"]) for m in metrics]
+    for s in GEN_STRATEGIES:
+        seqs, scores = outputs[s]
+        if seqs.shape != (batch, bench_serving.NEW_TOKENS) \
+                or not bool(torch.isfinite(scores).all()):
+            problems.append(f"{s}: {tuple(seqs.shape)}, {scores}")
+    if not all(math.isfinite(x) for x in losses):
+        problems.append(f"losses {losses}")
+    if problems:
+        raise AssertionError("rag generative: " + "; ".join(problems))
+    return {"params": sum(p.numel() for p in model.parameters()),
+            "batch": batch, "memory": list(enc["memory"].shape),
+            "memory_keys_kept": enc["memory_mask"].sum(1).tolist(),
+            "generate_ms": ms, "launches_per_generate": launches,
+            "attention_calls_per_generate": per_generate,
+            "cache_consistency": consistency, "cpu_greedy": greedy_check,
+            "train_batch": train_batch, "steps": steps,
+            "step_ms": host_ms, "step_event_ms": event_ms,
+            "median_step_ms": float(np.median(host_ms)),
+            "median_step_event_ms": float(np.median(event_ms))
+            if event_ms else None,
+            "loss": losses, "launches": train_launches,
+            "launches_per_step": {n: train_launches[n] / steps
+                                  for n in TRAIN_KERNELS}}
+
+
+@contextlib.contextmanager
+def timing_retrieval(calls: list):
+    """Appends to ``calls``, for each ``KnowledgeProvider.contexts_for``
+    made inside: its host ms, its questions, and how many of them the
+    memo cache did not hold yet."""
+    original = KnowledgeProvider.contexts_for
+
+    def timed(self, questions):
+        missing = len({q for q in questions if q not in self._cache})
+        t0 = time.perf_counter()
+        out = original(self, questions)
+        calls.append({"ms": (time.perf_counter() - t0) * 1e3,
+                      "questions": len(questions), "missing": missing})
+        return out
+    KnowledgeProvider.contexts_for = timed
+    try:
+        yield calls
+    finally:
+        KnowledgeProvider.contexts_for = original
+
+
+def _retrieval_ms(calls: list) -> dict:
+    cold = [c["ms"] for c in calls if c["missing"]]
+    cached = [c["ms"] for c in calls if not c["missing"]]
+    return {"calls": len(calls),
+            "cold_ms_per_batch": float(np.mean(cold)) if cold else None,
+            "cached_ms_per_batch": float(np.mean(cached)) if cached
+            else None,
+            "cold_batches": len(cold), "cached_batches": len(cached)}
+
+
+def rag_cli_phase(cls_cfg: VQAModelConfig, gen_cfg: GenerativeVQAConfig,
+                  device: str = "cuda", n: int = RAG_CLI_CORPUS,
+                  image_size: int = 224, batch: int = RAG_CLI_BATCH,
+                  seed: int = 0) -> dict:
+    """Both CLIs with ``--use-knowledge`` as a user drives them, one epoch
+    each on learnable corpora of ``n`` images (the cls_pipeline and
+    gen_cli recipes cut to one epoch and ``n`` samples): the
+    classification one through ``vqa_pipeline.main`` (the provider from
+    the training QA pairs, hybrid retrieval), the generative one through
+    ``generative_vqa_pipeline.main`` with a YAML config and ``--kb-path``
+    (sparse retrieval over rag_documents as JSON); train, then from the
+    checkpoint evaluate (beam 4 for the generative one) and inference.
+    Each run's launches are set to 0 just before it and read just after,
+    and held to the count its batches give: 37 of each training kernel a
+    classification step and 37 forward calls a forward that has the
+    knowledge (ModelPipeline's dummy forward, validation, evaluate), 36
+    one that does not (inference, through VQAPredictor); 39 a generative
+    step, 27 a generate and 12 a decode step. The provider's host ms a
+    batch, cold and from its memo cache."""
+    from vivqa_tpu_torch.data import ensure_synthetic_vivqa
+    from vivqa_tpu_torch.pipelines import generative_vqa_pipeline as gvp
+    from vivqa_tpu_torch.pipelines import vqa_pipeline as vp
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    runs = {}
+
+    def measured(name, fn):
+        counts = {"generates": 0, "decode_steps": 0}
+        calls = []
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        with counting_decode(counts), timing_retrieval(calls):
+            result = fn()
+        sync()
+        runs[name] = {"seconds": time.perf_counter() - t0,
+                      "launches": dict(fa.launch_counts), **counts,
+                      "retrieval": _retrieval_ms(calls),
+                      "retrieval_calls": calls}
+        return result
+
+    with tempfile.TemporaryDirectory() as tmp:
+        kb = Path(tmp) / "kb.json"
+        kb.write_text(json.dumps([{"content": d.content,
+                                   "category": d.category}
+                                  for d in rag_documents()],
+                                 ensure_ascii=False))
+        csv, imgs = generate_synthetic_vivqa(f"{tmp}/cls", n=n,
+                                             image_size=image_size,
+                                             learnable=True, seed=seed)
+        vcfg = VQAPipelineConfig(
+            data=DataPipelineConfig(
+                csv_path=str(csv), image_dir=str(imgs),
+                image_size=image_size,
+                max_question_length=cls_cfg.text.max_length,
+                batch_size=batch, augmentation_strength="medium",
+                seed=seed),
+            model=ModelPipelineConfig(
+                model=cls_cfg.replace(knowledge=cls_cfg.knowledge.replace(
+                    num_retrieved=RAG_K)), device=device, seed=seed),
+            training=TrainingPipelineConfig(
+                num_epochs=1, checkpoint_dir=f"{tmp}/ck_cls", log_every=4,
+                seed=seed),
+            output_dir=f"{tmp}/out_cls", seed=seed)
+        cls_yaml = f"{tmp}/cls.yaml"
+        vcfg.to_yaml(cls_yaml)
+        cls_base = ["--config", cls_yaml, "--use-knowledge"]
+        cls_sum = {
+            mode: measured(f"cls_{mode}", lambda mode=mode: vp.main(
+                cls_base + ["--mode", mode]
+                + ([] if mode == "train" else
+                   ["--resume", f"{tmp}/ck_cls"])))
+            for mode in ("train", "evaluate", "inference")}
+        data = DataPipeline(vcfg.data).run()
+        cls_split = [len(data.train_loader.dataset),
+                     len(data.val_loader.dataset),
+                     len(data.test_loader.dataset)]
+
+        gcsv, gimgs = ensure_synthetic_vivqa(f"{tmp}/gen", n=n,
+                                             image_size=image_size,
+                                             learnable=True,
+                                             seq_answers=True)
+        pcfg = gvp.GenerativeVQAPipelineConfig(
+            data=DataPipelineConfig(
+                csv_path=str(gcsv), image_dir=str(gimgs),
+                image_size=image_size,
+                max_question_length=gen_cfg.text.max_length,
+                max_answer_length=gen_cfg.max_answer_length,
+                batch_size=batch, augmentation_strength="medium",
+                generative=True, seed=seed),
+            model=gen_cfg.replace(dropout=GEN_DROPOUT, label_smoothing=0.0,
+                                  knowledge=gen_cfg.knowledge.replace(
+                                      num_retrieved=RAG_K)),
+            training=GenerativeTrainingConfig(
+                num_epochs=1, label_smoothing=0.0,
+                checkpoint_dir=f"{tmp}/ck_gen",
+                optimizer=OptimizerConfig(learning_rate=1e-3,
+                                          weight_decay=0.01),
+                log_every=1, seed=seed),
+            knowledge=KnowledgeProviderConfig(retriever="sparse"),
+            device=device, output_dir=f"{tmp}/out_gen", seed=seed)
+        gen_yaml = f"{tmp}/gen.yaml"
+        pcfg.to_yaml(gen_yaml)
+        gen_base = ["--config", gen_yaml, "--use-knowledge", "--kb-path",
+                    str(kb)]
+        gen_argv = {"train": ["--mode", "train"],
+                    "evaluate": ["--mode", "evaluate", "--resume",
+                                 f"{tmp}/ck_gen", "--decode", "beam",
+                                 "--num-beams", "4"],
+                    "inference": ["--mode", "inference", "--resume",
+                                  f"{tmp}/ck_gen"]}
+        gen_sum = {mode: measured(f"gen_{mode}", lambda argv=argv: gvp.main(
+            gen_base + argv)) for mode, argv in gen_argv.items()}
+        gdata = DataPipeline(pcfg.data).run()
+        gen_steps = len(gdata.train_loader)
+        with open(gen_sum["inference"]["results_path"]) as f:
+            gen_results = len(json.load(f))
+
+    steps = math.ceil(cls_split[0] / batch)
+    val_batches = math.ceil(cls_split[1] / batch)
+    test_batches = math.ceil(cls_split[2] / batch)
+    per_fwd = ATTN_CALLS_PER_FORWARD + 1 if on_card else 0
+    zero = {name: 0 for name in TRAIN_KERNELS}
+    enc_calls = attention_calls_per_generate(gen_cfg, 0)
+    want = {
+        "cls_train": {**{n: per_fwd * steps for n in TRAIN_KERNELS},
+                      "flash_attn_fwd": per_fwd * (1 + 2 * val_batches)},
+        "cls_evaluate": {**zero,
+                         "flash_attn_fwd": per_fwd * (1 + test_batches)},
+        "cls_inference": {**zero, "flash_attn_fwd": per_fwd + (
+            ATTN_CALLS_PER_FORWARD if on_card else 0) * cls_split[2]}}
+    for mode in ("train", "evaluate", "inference"):
+        r = runs[f"gen_{mode}"]
+        want[f"gen_{mode}"] = {
+            **zero, "flash_attn_fwd": enc_calls * r["generates"]
+            + 2 * gen_cfg.decoder_layers * r["decode_steps"]
+            if on_card else 0}
+    want["gen_train"].update({
+        n: gen_calls_per_step(gen_cfg) * gen_steps if on_card else 0
+        for n in TRAIN_KERNELS})
+    problems = [f"{name} launches {runs[name]['launches']} != {w}"
+                for name, w in want.items() if runs[name]["launches"] != w]
+    history = cls_sum["train"]["history"] + gen_sum["train"]["history"]
+    if len(history) != 2 or not all(
+            math.isfinite(h["train_loss"]) for h in history):
+        problems.append(f"history {history}")
+    if cls_sum["inference"]["num_predictions"] != cls_split[2] \
+            or gen_results != len(gdata.test_loader.dataset):
+        problems.append(f"predictions {cls_sum['inference']} / "
+                        f"{gen_results}")
+    if runs["gen_train"]["generates"] != 1 \
+            or runs["gen_evaluate"]["generates"] < 1:
+        problems.append(f"generates {runs}")
+    if problems:
+        raise AssertionError("rag CLIs: " + "; ".join(problems))
+    return {
+        "cls": {"split": cls_split, "batch": batch, "steps": steps,
+                "history": cls_sum["train"]["history"],
+                "evaluate_metrics": cls_sum["evaluate"]["metrics"],
+                "knowledge_dim": cls_sum["train"]["config"]["knowledge"][
+                    "encoder_dim"]},
+        "gen": {"split": [len(gdata.train_loader.dataset),
+                          len(gdata.val_loader.dataset),
+                          len(gdata.test_loader.dataset)],
+                "batch": batch, "steps": gen_steps,
+                "history": gen_sum["train"]["history"],
+                "evaluate_metrics": gen_sum["evaluate"]["metrics"]},
+        "run_seconds": {m: r["seconds"] for m, r in runs.items()},
+        "launches": {m: r["launches"] for m, r in runs.items()},
+        "generates": {m: r["generates"] for m, r in runs.items()},
+        "decode_steps": {m: r["decode_steps"] for m, r in runs.items()},
+        "retrieval": {m: r["retrieval"] for m, r in runs.items()},
+        "launches_per_step": {
+            "cls": {n: runs["cls_train"]["launches"][n] / steps
+                    for n in TRAIN_KERNELS},
+            "gen": {n: runs["gen_train"]["launches"][n] / gen_steps
+                    for n in TRAIN_KERNELS}}}
+
+
+def rag_dense_phase(cfg: VQAModelConfig, provider, device: str = "cuda",
+                    queries: int = 16, batch_size: int = 32,
+                    seed: int = 0) -> dict:
+    """Dense retrieval through the flagship's text tower at full width
+    (12 layers, 64 tokens, seeded weights): ``TextKnowledgeEncoder``
+    encodes the provider's documents and ``queries`` questions on the
+    card (12 forward launches a chunk of ``batch_size``) and on the CPU;
+    the card's embeddings within ``compare_logits``' tolerance (5% of the
+    largest) of the CPU's; a ``DenseRetriever`` over each, whose top-5
+    ids on the card equal the CPU's at every rank whose CPU score margins
+    to its neighbours exceed twice the largest score difference the two
+    embeddings allow (the sum of the largest query and document row
+    differences)."""
+    from vivqa_tpu_torch.models.encoders import create_text_encoder
+    from vivqa_tpu_torch.models.layers import init_weights
+    dev = torch.device(device)
+    tok = WhitespaceTokenizer(max_length=cfg.text.max_length)
+    tok.build_vocab(WORDS + [w for d in provider.documents
+                             for w in d.content.split()])
+    cpu_tower = create_text_encoder(cfg.text)
+    init_weights(cpu_tower, torch.Generator().manual_seed(seed))
+    cpu_tower.eval()
+    card_tower = copy.deepcopy(cpu_tower).to(dev)
+    docs = provider.documents
+    texts = [d.content for d in docs]
+    qs = rag_questions(queries, seed + 5)
+    enc = {d: TextKnowledgeEncoder(tower, tok, batch_size=batch_size)
+           for d, tower in (("card", card_tower), ("cpu", cpu_tower))}
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    card_docs = enc["card"].encode(texts)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = dict(fa.launch_counts)
+    chunks = math.ceil(len(texts) / batch_size)
+    card_q = enc["card"].encode(qs)
+    cpu_docs, cpu_q = enc["cpu"].encode(texts), enc["cpu"].encode(qs)
+    diff = max(float(np.abs(card_docs - cpu_docs).max()),
+               float(np.abs(card_q - cpu_q).max()))
+    tol = 0.05 * max(float(np.abs(cpu_docs).max()),
+                     float(np.abs(cpu_q).max()))
+    score_tol = float(np.linalg.norm(card_docs - cpu_docs, axis=1).max()
+                      + np.linalg.norm(card_q - cpu_q, axis=1).max())
+    results = {}
+    for d in ("card", "cpu"):
+        r = DenseRetriever(enc[d], InMemoryVectorStore(), DocumentStore())
+        r.index(docs)
+        results[d] = r.retrieve_batch(qs, RAG_K + 1)
+    decided = agree = 0
+    for card_r, cpu_r in zip(results["card"], results["cpu"]):
+        s = [x.score for x in cpu_r]
+        for i in range(RAG_K):
+            gaps = [s[i] - s[i + 1]] + ([s[i - 1] - s[i]] if i else [])
+            if min(gaps) > 2 * score_tol:
+                decided += 1
+                agree += card_r[i].doc_id == cpu_r[i].doc_id
+    want = {**{n: 0 for n in TRAIN_KERNELS},
+            "flash_attn_fwd": cfg.text.num_layers * chunks
+            if device == "cuda" else 0}
+    out = {"documents": len(texts), "queries": len(qs),
+           "chunks": chunks, "launches": launches,
+           "launches_per_chunk": launches["flash_attn_fwd"] / chunks,
+           "encode_s": card_s, "max_abs_diff": diff, "tolerance": tol,
+           "score_tolerance": score_tol, "decided_ranks": decided,
+           "decided_agree": agree,
+           "top5_equal": sum(
+               [x.doc_id for x in a[:RAG_K]] == [x.doc_id for x in b[:RAG_K]]
+               for a, b in zip(results["card"], results["cpu"]))}
+    if launches != want or not math.isfinite(diff) or diff > tol \
+            or agree != decided:
+        raise AssertionError(f"rag dense retrieval: {out} (launches want "
+                             f"{want})")
+    return out
+
+
+# -- phase 12: every launch shape of the main paths held ---------------------
 def path_check_phase(launched: dict) -> dict:
     """``launched``: {path: the launch keys its run recorded}. Each key no
     kernel check held yet is held now against the plain version on inputs
@@ -2783,7 +3551,7 @@ def kernels_line(rows: dict, launches: int, generative: dict,
                  train_rows: dict, train_launches: dict,
                  ptxas: dict, gen_rows: dict, gen_training: dict,
                  cls_pipeline: dict, gen_cli: dict, abl_totals: dict,
-                 ablation: dict) -> dict:
+                 ablation: dict, rag_tot: dict, rag: dict) -> dict:
     """One entry per kernel. The forward's numbers are for one flagship
     forward at batch 8 (its 36 calls of the five serving shapes, each
     shape's time times its calls), and, under ``generate``, for one beam
@@ -2801,9 +3569,14 @@ def kernels_line(rows: dict, launches: int, generative: dict,
     kernel's launches in the ablation CLI's experiments and its times, at
     the study's shapes, over one validation forward (the forward) or one
     training step (the training kernels) of the full model at batch
-    32."""
+    32; ``rag`` each kernel's on the knowledge path: per classification
+    forward at batch 8 and per beam generate at batch 16 (the forward),
+    per classification step at batch 128 and generative step at batch 32
+    (the training kernels), with the knowledge, and its launches in the
+    rag phase's runs."""
     abl_launches = {name: sum(r[name] for r in ablation["launches"].values())
                     for name in fa.launch_counts}
+    rag_cli = rag["cli"]["launches"]
     abl_per = (f"the ablation CLI's {len(ablation['experiments'])} "
                f"experiments ({ablation['epochs']} epoch of "
                f"{ablation['steps_per_epoch']} steps at batch "
@@ -2834,6 +3607,19 @@ def kernels_line(rows: dict, launches: int, generative: dict,
         "launches_per_validation_forward":
             ablation["launches_per_validation_forward"],
         "per": abl_per + "validation forward of the full model, bf16"}
+    entries[0]["rag"] = {
+        **rag_tot["per_forward"],
+        "generate": rag_tot["per_generate"],
+        "launches_per_validation_forward":
+            rag["cls"]["validation_launches"]["flash_attn_fwd"],
+        "launches_per_generate": rag["gen"]["launches_per_generate"],
+        "dense_retrieval_launches_per_chunk":
+            rag["dense"]["launches_per_chunk"],
+        "cli_launches": {m: r["flash_attn_fwd"] for m, r in rag_cli.items()},
+        "per": f"one flagship forward at batch 8 with KnowledgeAttention "
+               f"(K = {RAG_K}; {ATTN_CALLS_PER_FORWARD + 1} calls), and "
+               f"under generate one beam generate at batch 16 over a "
+               f"{RAG_MEMORY}-token memory, bf16"}
     totals = step_totals(train_rows)
     gen_totals = step_totals(gen_rows)
     replaces = {
@@ -2881,7 +3667,26 @@ def kernels_line(rows: dict, launches: int, generative: dict,
                    if k != "by_case_ms"},
                 "launches": abl_launches[name],
                 "launches_per_step": ablation["launches_per_step"][name],
-                "per": abl_per + "training step of the full model, bf16"}})
+                "per": abl_per + "training step of the full model, bf16"},
+            "rag": {
+                **{k: v for k, v in rag_tot["per_step"][name].items()
+                   if k != "by_case_ms"},
+                "launches": rag["cls"]["launches"][name],
+                "launches_per_step": rag["cls"]["launches_per_step"][name],
+                "generative_step": {
+                    **{k: v for k, v in
+                       rag_tot["per_generative_step"][name].items()
+                       if k != "by_case_ms"},
+                    "launches": rag["gen"]["launches"][name],
+                    "launches_per_step":
+                        rag["gen"]["launches_per_step"][name]},
+                "cli_launches": {m: r[name] for m, r in rag_cli.items()},
+                "per": f"one flagship train step at batch {TRAIN_BATCH} "
+                       f"with KnowledgeAttention "
+                       f"({ATTN_CALLS_PER_STEP + 1} calls), and under "
+                       f"generative_step one generative step at batch "
+                       f"{GEN_TRAIN_BATCH} over a {RAG_MEMORY}-token "
+                       f"memory, bf16"}})
     return {"kernels": entries}
 
 
@@ -3095,6 +3900,33 @@ def main() -> int:
               f"{n} {t['ms']:.3f} ms" for n, t in
               abl_totals["per_step"].items())
         + f" on {card} ({time.perf_counter() - t_start:.1f} s)", flush=True)
+    rag_rows = rag_kernel_phase()
+    rag_tot = rag_totals(rag_rows, rows, train_rows, gen_rows)
+    emit({"rag_attention": rag_tot, "card": card})
+    provider = rag_provider()
+    with recording_launches(launched.setdefault("rag", set())):
+        rag = {"cls": rag_cls_phase(cfg, provider),
+               "gen": rag_gen_phase(provider),
+               "cli": rag_cli_phase(cfg, bench_serving.serving_config()),
+               "dense": rag_dense_phase(cfg, provider)}
+    emit({"rag": rag, "card": card})
+    retrieval = rag["cli"]["retrieval"]["cls_train"]
+    print(f"[rag] classification step with knowledge "
+          f"{rag['cls']['median_step_ms']:.1f} ms (bare "
+          f"{rag['cls']['median_bare_step_ms']:.1f}) at batch "
+          f"{rag['cls']['batch']}, idle "
+          f"{rag['cls']['profile']['device_idle_share']:.3f} of a profiled "
+          f"step, peak {rag['cls']['max_memory_allocated_gib']:.2f} GiB; "
+          f"generate over {RAG_MEMORY} keys " + ", ".join(
+              f"{s} {ms:.1f} ms" for s, ms in rag["gen"]["generate_ms"]
+              .items())
+          + f"; generative step {rag['gen']['median_step_ms']:.1f} ms; "
+          f"retrieval {retrieval['cold_ms_per_batch']} ms a cold batch, "
+          f"{retrieval['cached_ms_per_batch']} cached; attention per step "
+          + ", ".join(f"{n} {t['ms']:.3f} ms" for n, t in
+                      rag_tot["per_step"].items())
+          + f" on {card} ({time.perf_counter() - t_start:.1f} s)",
+          flush=True)
     paths = path_check_phase(launched)
     emit({"path_check": paths})
     print(f"[path_check] launch keys by path {paths['launch_keys']}: "
@@ -3104,7 +3936,8 @@ def main() -> int:
     print(card)
     emit(kernels_line(rows, serving["launches"]["flash_attn_fwd"],
                       generative, train_rows, training["launches"], ptxas,
-                      gen_rows, gen_training, cls, gen_cli, abl_totals, abl))
+                      gen_rows, gen_training, cls, gen_cli, abl_totals, abl,
+                      rag_tot, rag))
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

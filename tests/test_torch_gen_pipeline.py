@@ -497,7 +497,7 @@ def test_cli_trains_on_the_cpu_from_yaml(corpus, tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--use-knowledge"], "item 12"),
+    (["--use-moe", "--moe-type", "sparse"], "item 13"),
     (["--pretrained-visual", "openai/clip-vit-base-patch32"], "item 13"),
     (["--pretrained-text", "vinai/phobert-base"], "item 13"),
     (["--enable-resource-management"], "item 12"),

@@ -245,10 +245,30 @@ def test_training_forward_needs_a_generator():
 
 
 def test_knowledge_raises():
-    cfg = gen_config(PC).replace(
-        knowledge=PC.KnowledgeModelConfig(use_knowledge=True))
-    with pytest.raises(NotImplementedError, match="Queue A item 12"):
-        GenerativeVQAModel(cfg)
+    """The knowledge model builds (it raised while the RAG path was not
+    ported; the name is kept): ``knowledge_proj`` and ``knowledge_ln``
+    exist, the memory is K tokens longer with the knowledge arrays and
+    unchanged without them."""
+    K = 4
+    cfg = gen_config(PC).replace(knowledge=PC.KnowledgeModelConfig(
+        use_knowledge=True, knowledge_dim=24, num_retrieved=K))
+    model = create_generative_vqa_model(cfg, device="cpu")
+    assert model.knowledge_proj.weight.shape == (32, 24)
+    assert model.knowledge_ln.weight.shape == (32,)
+    px, q, qmask, _, _ = gen_inputs()
+    know = torch.randn(3, K, 24)
+    with torch.no_grad():
+        plain = model.encode(t(px), t(q), t(qmask))
+        enc = model.encode(t(px), t(q), t(qmask), knowledge_embeddings=know,
+                           knowledge_mask=torch.tensor([[1, 1, 1, 1],
+                                                        [1, 0, 0, 0],
+                                                        [0, 0, 0, 0]]))
+    L = plain["memory"].shape[1]
+    assert enc["memory"].shape == (3, L + K, 32)
+    assert torch.equal(enc["memory"][:, :L], plain["memory"])
+    assert enc["memory_mask"][:, L:].tolist() == [[1, 1, 1, 1], [1, 0, 0, 0],
+                                                  [0, 0, 0, 0]]
+    assert not hasattr(GenerativeVQAModel(gen_config(PC)), "knowledge_proj")
 
 
 def test_create_generative_model_defaults_to_card():

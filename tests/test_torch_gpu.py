@@ -1148,3 +1148,208 @@ def test_dropout_masks_on_card_follow_their_law():
         if step:
             prev = masks[step - 1][0]
             assert within(float((a == prev).float().mean()), same), step
+
+
+# -- the knowledge (RAG) path --------------------------------------------------
+# KnowledgeAttention: one query over K = 5 retrieved contexts under the
+# knowledge mask (B, 1, 1, 5), rows keeping 5, 4, ... 0 contexts (a
+# fully masked row: the mean of the values); the generative decoder's
+# cross-attention over 113 fused tokens + 5 contexts = 118 keys under the
+# concatenated memory mask, teacher-forced (32 queries) and in decode
+# (one query, at the greedy and beam rows of a generate at batch 16).
+RAG_K = 5
+RAG_CASES = [  # (B, H, Lq, Lk, D, mask kind)
+    (6, 8, 1, RAG_K, 64, "knowledge"),
+    (128, 8, 1, RAG_K, 64, "knowledge"),
+    (4, 8, 32, 118, 64, "memory"),
+    (6, 8, 1, 118, 64, "memory"),
+    (64, 8, 1, 118, 64, "memory"),
+]
+
+
+def _knowledge_mask(kind, B, Lk, seed=0):
+    """The masks the models build: make_attention_mask(ones, knowledge
+    mask) for KnowledgeAttention, make_attention_mask(None, [fusion mask;
+    knowledge mask]) for the decoder, the fusion mask of 49 patch tokens
+    and 64 question tokens of which 3-64 are real."""
+    from vivqa_tpu_torch.models.layers import make_attention_mask
+    know = torch.from_numpy(padding_mask(
+        [RAG_K - b % (RAG_K + 1) for b in range(B)], RAG_K))
+    if kind == "knowledge":
+        return make_attention_mask(torch.ones(B, 1, dtype=torch.int32),
+                                   know).cuda()
+    lens = np.random.RandomState(seed).randint(3, 65, B)
+    memory = torch.cat([torch.ones(B, 49, dtype=torch.int32),
+                        torch.from_numpy(padding_mask(lens, 64)), know], 1)
+    assert memory.shape[1] == Lk
+    return make_attention_mask(None, memory).cuda()
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.05], ids=["no_dropout", "dropout"])
+@pytest.mark.parametrize("case", RAG_CASES, ids=str)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_knowledge_shapes_match_plain_versions(case, dtype, rate):
+    """The serving forward and the three training kernels at the knowledge
+    path's shapes against their plain versions, forward and backward:
+    single-query training calls, keyless rows, and 118 keys (two 64-key
+    tiles, the second 54 wide) under a mask that is a concatenation, not
+    a stride-0 view."""
+    _need_card()
+    B, H, Lq, Lk, D, kind = case
+    gen = torch.Generator().manual_seed(17)
+    q, k, v, do = (torch.randn(B, H, L, D, generator=gen).to("cuda", dtype)
+                   for L in (Lq, Lk, Lk, Lq))
+    mask = _knowledge_mask(kind, B, Lk)
+    assert mask.shape == (B, 1, 1, Lk) and mask.stride(3) == 1
+    keyless = int((~mask.any(-1)).sum())
+    assert keyless == (B // (RAG_K + 1) if kind == "knowledge" else 0)
+    got = fa.flash_attention_cuda(q, k, v, mask)
+    key = fa.dropout_key(2470, 5)
+    o, m, l = fa.flash_attention_fwd_lse_cuda(q, k, v, mask, False, rate, key)
+    grads = fa.flash_attention_bwd_cuda(q, k, v, o, m, l, do, mask, False,
+                                        rate, key)
+    want = fa.attention_reference(q, k, v, mask)
+    o_ref, m_ref, l_ref = fa.attention_forward_lse_reference(
+        q, k, v, mask, False, rate, key)
+    grads_ref = fa.attention_backward_reference(q, k, v, o, m, l, do, mask,
+                                                False, rate, key)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    _assert_rel(o, o_ref, TOL[dtype], "o")
+    torch.testing.assert_close(m, m_ref, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(l, l_ref, atol=1e-5, rtol=1e-5)
+    for name, g, ref in zip(("dq", "dk", "dv"), grads, grads_ref):
+        assert g.dtype == dtype and g.shape == ref.shape
+        assert torch.isfinite(g).all(), name
+        _assert_rel(g, ref, GRAD_TOL[dtype], name)
+
+
+def knowledge_masks_at_mapping_end():
+    """The four kernels at the knowledge shapes (5 and 118 keys) with each
+    mask stored so that its last byte is the last mapped byte (see
+    ``masks_at_mapping_end``): a read past the last key faults. Runs in a
+    process of its own."""
+    for B, H, Lq, Lk, D, kind in RAG_CASES[::2] + RAG_CASES[3:4]:
+        for dtype in DTYPES:
+            gen = torch.Generator().manual_seed(19)
+            q, k, v, do = (torch.randn(B, H, L, D, generator=gen).to(
+                "cuda", dtype) for L in (Lq, Lk, Lk, Lq))
+            mask = _knowledge_mask(kind, B, Lk)
+            stored = _bytes_before_unmapped(mask.numel()).view(torch.bool)
+            mask = stored.view(mask.shape).copy_(mask)
+            o, m, l = fa.flash_attention_fwd_lse_cuda(q, k, v, mask)
+            grads = fa.flash_attention_bwd_cuda(q, k, v, o, m, l, do, mask)
+            served = fa.flash_attention_cuda(q, k, v, mask)
+            torch.cuda.synchronize()
+            want = fa.attention_backward_reference(q, k, v, o, m, l, do,
+                                                   mask)
+            what = f"{B}x{Lq}x{Lk} {dtype}"
+            _assert_rel(served, fa.attention_reference(q, k, v, mask),
+                        TOL[dtype], f"{what} serving o")
+            for name, got, ref in zip(("dq", "dk", "dv"), grads, want):
+                _assert_rel(got, ref, GRAD_TOL[dtype], f"{what} {name}")
+    print("knowledge masks at the mapping's end: ok", flush=True)
+
+
+def test_kernels_read_no_knowledge_mask_byte_past_the_last_key():
+    """``knowledge_masks_at_mapping_end`` in a child process, which must
+    finish cleanly (the 118-key mask's last row ends inside the second
+    64-key tile, the 5-key one inside the first)."""
+    _need_card()
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    tests = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(tests), str(tests.parent), os.environ.get("PYTHONPATH", "")]))
+    run = subprocess.run(
+        [sys.executable, "-c",
+         "import test_torch_gpu as t; t.knowledge_masks_at_mapping_end()"],
+        cwd=tests, env=env, capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0 and "ok" in run.stdout, (
+        f"rc {run.returncode}\n{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
+
+
+def test_knowledge_train_step_on_card_matches_cpu():
+    """``test_train_step_on_card_matches_cpu`` with KnowledgeAttention: a
+    small flagship-shaped model with K = 5 contexts of width 64 in the
+    batch (rows with 5, 4, ... 0 contexts), two steps on the card and on
+    the CPU from the same weights: loss and grad_norm within 2%, every
+    parameter within 3 learning rates; 10 + 1 launches of each training
+    kernel a step, and a validation forward on the card within 5% of
+    the CPU's largest logit with 11 forward launches."""
+    _need_card()
+    from vivqa_tpu_torch.train.optimizers import (OptimizerConfig,
+                                                  SchedulerConfig,
+                                                  create_optimizer)
+    from vivqa_tpu_torch.train.state import (TrainState,
+                                             classification_loss_fn,
+                                             make_train_step)
+    cfg = PC.VQAModelConfig(
+        visual=PC.VisualEncoderConfig(image_size=64, patch_size=16,
+                                      hidden_dim=128, num_layers=2,
+                                      num_heads=2),
+        text=PC.TextEncoderConfig(vocab_size=100, hidden_dim=128,
+                                  num_layers=2, num_heads=2, max_length=16,
+                                  dropout=0.0),
+        fusion=PC.FusionConfig(fusion_type="mcan", hidden_dim=512,
+                               num_heads=8, num_layers=2, dropout=0.0),
+        moe=PC.MoEModelConfig(use_moe=True, num_experts=4, top_k=2,
+                              expert_hidden_dim=256),
+        knowledge=PC.KnowledgeModelConfig(use_knowledge=True,
+                                          knowledge_dim=64,
+                                          num_retrieved=RAG_K),
+        head=PC.AnswerHeadConfig(dropout=0.0), num_answers=32)
+    rs = np.random.RandomState(0)
+    mask = torch.from_numpy(padding_mask(rs.randint(1, 17, 8), 16))
+    batch = {"pixel_values": torch.from_numpy(
+                 rs.standard_normal((8, 64, 64, 3)).astype(np.float32)),
+             "input_ids": torch.from_numpy(rs.randint(4, 100, (8, 16))) * mask,
+             "attention_mask": mask,
+             "labels": torch.from_numpy(rs.randint(0, 32, 8)),
+             "knowledge_embeddings": torch.from_numpy(
+                 rs.standard_normal((8, RAG_K, 64)).astype(np.float32)),
+             "knowledge_mask": torch.from_numpy(padding_mask(
+                 [RAG_K - b % (RAG_K + 1) for b in range(8)], RAG_K)).long()}
+    lr = 1e-3
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        model = create_vqa_model(cfg, device=dev,
+                                 generator=torch.Generator().manual_seed(1))
+        model.moe.dropout = 0.0
+        b = {n: t.to(dev) for n, t in batch.items()}
+        fa.reset_launch_counts()
+        with torch.no_grad():
+            logits = model(b["pixel_values"], b["input_ids"],
+                           b["attention_mask"],
+                           knowledge_embeddings=b["knowledge_embeddings"],
+                           knowledge_mask=b["knowledge_mask"])["logits"]
+        if dev == "cuda":
+            assert fa.launch_counts["flash_attn_fwd"] == 11
+        opt = create_optimizer(OptimizerConfig(learning_rate=lr), model,
+                               SchedulerConfig(warmup_steps=1,
+                                               total_steps=10))
+        state = TrainState.create(model, opt, seed=0)
+        step = make_train_step(classification_loss_fn())
+        fa.reset_launch_counts()
+        metrics = [step(state, b)[1] for _ in range(2)]
+        runs[dev] = (logits.float().cpu(),
+                     [float(m["loss"]) for m in metrics],
+                     [float(m["grad_norm"]) for m in metrics],
+                     {n: p.detach().cpu()
+                      for n, p in model.named_parameters()})
+        if dev == "cuda":
+            assert fa.launch_counts["flash_attn_fwd"] == 0
+            for name in ("flash_attn_fwd_lse", "flash_attn_bwd_dq",
+                         "flash_attn_bwd_dkv"):
+                assert fa.launch_counts[name] == 2 * 11, fa.launch_counts
+    (clog, cl, cn, cp), (glog, gl, gn, gp) = runs["cpu"], runs["cuda"]
+    assert float((glog - clog).abs().max()) <= 0.05 * float(
+        clog.abs().max())
+    np.testing.assert_allclose(gl, cl, rtol=2e-2)
+    np.testing.assert_allclose(gn, cn, rtol=2e-2)
+    for name, p in cp.items():
+        assert float((gp[name] - p).abs().max()) <= 3 * lr, name

@@ -229,18 +229,24 @@ def tile_for_beams(tensor: torch.Tensor, num_beams: int) -> torch.Tensor:
 # -- model-level generate ----------------------------------------------------
 def build_generate_fn(model, cfg: DecodeConfig) -> Callable:
     """generate(pixel_values, question_ids, question_mask=None,
-    generator=None, expert_mask=None) -> (sequences, scores) for a
+    generator=None, expert_mask=None, knowledge_embeddings=None,
+    knowledge_mask=None) -> (sequences, scores) for a
     ``GenerativeVQAModel``, on the device of its inputs, with no
     gradient.
 
     ``expert_mask`` reaches the fusion MoE, so a model trained with an
-    ablation mask decodes with the same experts."""
+    ablation mask decodes with the same experts. The knowledge arrays
+    (a ``KnowledgeProvider``'s) join the memory as ``encode`` takes them;
+    beam search tiles the whole memory, knowledge tokens included."""
 
     def generate(pixel_values, question_ids, question_mask=None,
-                 generator=None, expert_mask=None):
+                 generator=None, expert_mask=None, knowledge_embeddings=None,
+                 knowledge_mask=None):
         with torch.inference_mode():
             enc = model.encode(pixel_values, question_ids, question_mask,
-                               expert_mask)
+                               expert_mask,
+                               knowledge_embeddings=knowledge_embeddings,
+                               knowledge_mask=knowledge_mask)
             memory, memory_mask = enc["memory"], enc["memory_mask"]
             B = memory.shape[0]
             if cfg.strategy == "beam":

@@ -22,7 +22,12 @@ name by the module's type:
 
 A ``ModuleDict`` key is a path segment like any other, so the VQA-MoE's
 ``experts`` dict of ``vision_0``, ``specialized_3_ocr``... maps onto the
-flax names ``experts/vision_0``, ``experts/specialized_3_ocr``.
+flax names ``experts/vision_0``, ``experts/specialized_3_ocr``. The
+knowledge modules carry the flax names too (``knowledge_attn/k_proj``,
+``knowledge_attn/context_attn/{query,key,value,out}``, ``knowledge_proj``,
+``knowledge_ln``; ``ContextAttention``'s ``k_proj``, ``q_proj``,
+``attn/*`` and ``ln``; ``RAGFusion``'s ``merge`` and ``gate``), so they
+map by the same rules.
 
 A torch parameter without a flax leaf, a flax leaf that no parameter
 takes, or a shape that does not match raises. Only the ``params``

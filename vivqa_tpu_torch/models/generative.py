@@ -10,8 +10,11 @@ Entry points, as the JAX model's:
     decode_step(...)  one cached decoder step
 Generation itself lives in ``models/decoding.py``. Training mode is
 ``model.train()`` with a ``torch.Generator`` passed to ``forward``, as in
-``VietnameseVQAModel``. The RAG path (knowledge tokens appended to the
-memory) is not ported yet (ROADMAP.md Queue A item 12).
+``VietnameseVQAModel``. With ``knowledge.use_knowledge`` the K retrieved
+contexts, projected to the fusion width and normalised
+(``knowledge_proj``, ``knowledge_ln``), are appended to the memory as K
+more tokens under the knowledge mask (fusion-in-decoder RAG), so the
+decoder cross-attends over Lv + Lq + K keys.
 """
 
 from __future__ import annotations
@@ -86,24 +89,40 @@ class GenerativeVQAModel(nn.Module):
     def __init__(self, config: GenerativeVQAConfig):
         super().__init__()
         cfg = config
-        if cfg.knowledge.use_knowledge:
-            raise NotImplementedError(
-                "knowledge tokens in the generative memory are not ported "
-                "yet (ROADMAP.md Queue A item 12)")
         self.config = cfg
         self.visual_encoder = create_visual_encoder(cfg.visual)
         self.question_encoder = create_text_encoder(cfg.text)
         self.fusion = CrossModalFusion(cfg)
         self.decoder = TransformerDecoder(cfg)
+        if cfg.knowledge.use_knowledge:
+            dtype = to_dtype(cfg.dtype)
+            self.knowledge_proj = Dense(cfg.knowledge.knowledge_dim,
+                                        cfg.fusion_dim, dtype=dtype)
+            self.knowledge_ln = LayerNorm(cfg.fusion_dim, dtype)
 
     def encode(self, pixel_values: torch.Tensor, question_ids: torch.Tensor,
                question_mask: Optional[torch.Tensor] = None,
                expert_mask: Optional[torch.Tensor] = None,
-               rng: Optional[DropoutRNG] = None) -> dict:
+               rng: Optional[DropoutRNG] = None, *,
+               knowledge_embeddings: Optional[torch.Tensor] = None,
+               knowledge_mask: Optional[torch.Tensor] = None) -> dict:
+        """The memory (B, Lv + Lq [+ K], D) and its mask. With
+        ``use_knowledge`` and ``knowledge_embeddings`` (B, K, Dk) given,
+        the projected contexts follow the fused tokens, under
+        ``knowledge_mask`` (B, K), or all-ones when it is None."""
         visual = self.visual_encoder(pixel_values, rng)
         text = self.question_encoder(question_ids, question_mask, rng)
         memory, mask, aux_loss, moe_metrics = self.fusion(
             visual["tokens"], text["tokens"], text["mask"], expert_mask, rng)
+        if self.config.knowledge.use_knowledge \
+                and knowledge_embeddings is not None:
+            k = self.knowledge_ln(self.knowledge_proj(
+                knowledge_embeddings.to(memory.dtype)))
+            memory = torch.cat([memory, k], dim=1)
+            if knowledge_mask is None:
+                knowledge_mask = torch.ones(k.shape[:2], dtype=torch.int32,
+                                            device=k.device)
+            mask = torch.cat([mask, knowledge_mask.to(mask.dtype)], dim=1)
         return {"memory": memory, "memory_mask": mask,
                 "aux_loss": aux_loss, "moe_metrics": moe_metrics}
 
@@ -122,9 +141,12 @@ class GenerativeVQAModel(nn.Module):
                 question_mask: Optional[torch.Tensor] = None,
                 decoder_mask: Optional[torch.Tensor] = None,
                 expert_mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> dict:
+                generator: Optional[torch.Generator] = None, *,
+                knowledge_embeddings: Optional[torch.Tensor] = None,
+                knowledge_mask: Optional[torch.Tensor] = None) -> dict:
         """Teacher forcing: logits (B, L, vocab) f32 and the aux loss of
-        both MoE positions."""
+        both MoE positions; the knowledge arrays as ``encode`` takes
+        them."""
         rng = None
         if self.training:
             if generator is None:
@@ -133,7 +155,9 @@ class GenerativeVQAModel(nn.Module):
                     "dropout (model.eval() for a deterministic forward)")
             rng = DropoutRNG(generator)
         enc = self.encode(pixel_values, question_ids, question_mask,
-                          expert_mask, rng)
+                          expert_mask, rng,
+                          knowledge_embeddings=knowledge_embeddings,
+                          knowledge_mask=knowledge_mask)
         logits, decoder_aux = self.decoder(
             decoder_input_ids, enc["memory"], enc["memory_mask"],
             decoder_mask, rng, return_aux=True)

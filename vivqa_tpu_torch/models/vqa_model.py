@@ -1,14 +1,16 @@
 """Classification VQA meta-architecture (counterpart of
 vivqa_tpu/models/vqa_model.py): visual encoder + text encoder + fusion +
-optional MoE + answer head.
+optional MoE + optional knowledge (RAG) attention + answer head.
 
 MoE runs over the fused token sequence; the pooled vector then gains the
-masked mean of the MoE output tokens. Training mode is ``model.train()``
-with a ``torch.Generator`` on the model's device passed to each forward:
-it is the only source of the dropout randomness (flax's
-``deterministic=False`` with an explicit ``dropout`` rng).
-``KnowledgeAttention`` (RAG) is not ported yet (ROADMAP.md Queue A
-item 7).
+masked mean of the MoE output tokens. With ``knowledge.use_knowledge``
+and ``knowledge_embeddings`` given, the pooled vector attends over the K
+retrieved contexts (``KnowledgeAttention``, one query over K keys under
+the knowledge mask) and adds the result with a fixed weight. Training
+mode is ``model.train()`` with a ``torch.Generator`` on the model's
+device passed to each forward: it is the only source of the dropout
+randomness (flax's ``deterministic=False`` with an explicit ``dropout``
+rng).
 """
 
 from __future__ import annotations
@@ -24,7 +26,10 @@ from vivqa_tpu_torch.models.encoders import (create_text_encoder,
                                              create_visual_encoder)
 from vivqa_tpu_torch.models.fusion import create_fusion
 from vivqa_tpu_torch.models.heads import AnswerHead
-from vivqa_tpu_torch.models.layers import DropoutRNG, init_weights
+from vivqa_tpu_torch.models.layers import (Dense, DropoutRNG,
+                                           MultiHeadDotProductAttention,
+                                           init_weights, make_attention_mask,
+                                           to_dtype)
 from vivqa_tpu_torch.models.moe.config import (ExpertConfig, MoEConfig,
                                                RouterConfig, VQAMoEConfig)
 from vivqa_tpu_torch.models.moe.layer import create_moe_layer
@@ -66,14 +71,46 @@ def encoder_out_dim(enc_cfg) -> int:
     return enc_cfg.output_dim or enc_cfg.hidden_dim
 
 
+# KnowledgeAttention computes in bf16 whatever the model's dtype, as the
+# JAX module does (``dtype = jnp.bfloat16``)
+_KNOWLEDGE_DTYPE = torch.bfloat16
+
+
+class KnowledgeAttention(nn.Module):
+    """Batched RAG fusion (vivqa_tpu/models/vqa_model.py:62-85): the fused
+    vector attends over the retrieved knowledge embeddings (``k_proj``,
+    then flax MHDPA ``context_attn`` with the fused vector as its one
+    query); residual add with a fixed weight (reference: fused +
+    0.5 * knowledge per sample, vqa_model.py:689-702)."""
+
+    def __init__(self, knowledge_dim: int, hidden_dim: int,
+                 residual_weight: float = 0.5, num_heads: int = 8):
+        super().__init__()
+        self.residual_weight = residual_weight
+        self.k_proj = Dense(knowledge_dim, hidden_dim,
+                            dtype=_KNOWLEDGE_DTYPE)
+        self.context_attn = MultiHeadDotProductAttention(
+            hidden_dim, num_heads, dtype=_KNOWLEDGE_DTYPE)
+
+    def forward(self, fused: torch.Tensor, knowledge: torch.Tensor,
+                knowledge_mask: Optional[torch.Tensor] = None,
+                rng: Optional[DropoutRNG] = None) -> torch.Tensor:
+        """fused (B, D); knowledge (B, K, Dk); knowledge_mask (B, K) ->
+        (B, D)."""
+        k = self.k_proj(knowledge)
+        mask = None
+        if knowledge_mask is not None:
+            mask = make_attention_mask(
+                torch.ones((fused.shape[0], 1), dtype=torch.int32,
+                           device=fused.device), knowledge_mask)
+        ctx = self.context_attn(fused[:, None, :], k, mask, rng)[:, 0]
+        return fused + self.residual_weight * ctx
+
+
 class VietnameseVQAModel(nn.Module):
     def __init__(self, config: VQAModelConfig):
         super().__init__()
         cfg = config
-        if cfg.knowledge.use_knowledge:
-            raise NotImplementedError(
-                "KnowledgeAttention is not ported yet "
-                "(ROADMAP.md Queue A item 7)")
         self.config = cfg
         self.visual_encoder = create_visual_encoder(cfg.visual)
         self.text_encoder = create_text_encoder(cfg.text)
@@ -82,13 +119,23 @@ class VietnameseVQAModel(nn.Module):
         if cfg.moe.use_moe:
             self.moe = create_moe_layer(
                 moe_config_from_model(cfg, cfg.fusion.hidden_dim))
+        if cfg.knowledge.use_knowledge:
+            self.knowledge_attn = KnowledgeAttention(
+                cfg.knowledge.knowledge_dim, cfg.fusion.hidden_dim,
+                cfg.knowledge.residual_weight)
         self.answer_head = AnswerHead(cfg.head, cfg.num_answers,
                                       cfg.fusion.hidden_dim)
 
     def forward(self, pixel_values: torch.Tensor, input_ids: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
                 expert_mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> dict:
+                generator: Optional[torch.Generator] = None, *,
+                knowledge_embeddings: Optional[torch.Tensor] = None,
+                knowledge_mask: Optional[torch.Tensor] = None) -> dict:
+        """``knowledge_embeddings`` (B, K, knowledge_dim) and
+        ``knowledge_mask`` (B, K) come from a ``KnowledgeProvider``; they
+        are read only when the config's ``use_knowledge`` is set (the JAX
+        model's rule: without embeddings the branch is skipped)."""
         rng = None
         if self.training:
             if generator is None:
@@ -111,6 +158,12 @@ class VietnameseVQAModel(nn.Module):
             m = mask[..., None].to(tokens.dtype)
             pooled = pooled + (tokens * m).sum(dim=1) / torch.clamp(
                 m.sum(dim=1), min=1e-6)
+
+        if self.config.knowledge.use_knowledge \
+                and knowledge_embeddings is not None:
+            pooled = self.knowledge_attn(
+                pooled, knowledge_embeddings.to(to_dtype(self.config.dtype)),
+                knowledge_mask, rng)
 
         logits = self.answer_head(pooled, rng)
         return {"logits": logits, "features": pooled,

@@ -20,8 +20,7 @@ from vivqa_tpu_torch.pipelines.training_pipeline import (
     TrainingPipeline, TrainingPipelineConfig, TrainingPipelineOutput)
 from vivqa_tpu_torch.pipelines.vivqa_evaluation import (
     VivqaEvaluationConfig, VivqaEvaluationPipeline)
-from vivqa_tpu_torch.pipelines.vqa_pipeline import (KnowledgeProviderConfig,
-                                                    VQAPipeline,
+from vivqa_tpu_torch.pipelines.vqa_pipeline import (VQAPipeline,
                                                     VQAPipelineConfig,
                                                     build_argparser, main)
 
@@ -34,5 +33,5 @@ __all__ = ["EarlyStopping", "StepTimer", "count_parameters", "load_params",
            "ModelPipeline", "ModelPipelineConfig", "ModelPipelineOutput",
            "TrainingPipeline", "TrainingPipelineConfig",
            "TrainingPipelineOutput",
-           "KnowledgeProviderConfig", "VQAPipeline", "VQAPipelineConfig",
+           "VQAPipeline", "VQAPipelineConfig",
            "build_argparser", "main"]

@@ -14,7 +14,9 @@ epoch ends, ``n_tokens`` is read once an epoch, the loss only every
 numpy arrays (``data/dataset.py:generative_collate``), moved to the
 model's device by ``data/loader.py:device_prefetch`` (a host thread,
 pinned buffers and copies on a side stream), as the JAX package moves
-them with its prefetcher. Its mesh and its settled reads (defenses of
+them with its prefetcher, with the knowledge arrays a
+``KnowledgeProvider`` attached, which the step and the validation's
+generate pass to the model. Its mesh and its settled reads (defenses of
 its TPU runtime) have no counterpart here.
 """
 
@@ -41,7 +43,7 @@ from vivqa_tpu_torch.train.optimizers import (OptimizerConfig,
                                               SchedulerConfig,
                                               create_optimizer)
 from vivqa_tpu_torch.train.state import (TrainState, generative_loss_fn,
-                                         make_train_step)
+                                         knowledge_of, make_train_step)
 from vivqa_tpu_torch.utils import get_pipeline_logger
 
 
@@ -206,7 +208,8 @@ class GenerativeTrainingPipeline:
             # decode with the SAME expert composition the model was
             # trained with (ablation masks)
             seqs, _ = generate(dev["pixel_values"], dev["question_ids"],
-                               dev["question_mask"], expert_mask=expert_mask)
+                               dev["question_mask"], expert_mask=expert_mask,
+                               **knowledge_of(dev))
             nv = dev.get("_num_valid", len(seqs))
             preds = [tokenizer.decode(s) for s in seqs[:nv].cpu().numpy()]
             refs = dev.get("all_answers", [[t] for t in

@@ -13,9 +13,13 @@ CLI flags override YAML, which overrides the dataclass defaults. The JAX
 package's mesh field becomes ``device``: the card unless ``--device cpu``
 is given; asking for the card on a host without one raises. ``resume``
 copies the best checkpoint of a port checkpoint directory
-(``train/checkpoint.py``) into the model's parameters on its device. The
-knowledge (RAG) stage and the resource manager wait for ROADMAP.md Queue
-A item 12, the pretrained towers for item 13.
+(``train/checkpoint.py``) into the model's parameters on its device.
+With ``--use-knowledge`` a ``KnowledgeProvider`` (from ``--kb-path``,
+else from the training split's QA pairs) wraps the train, val and test
+loaders, and the model appends the K retrieved contexts to its memory;
+train, evaluate and inference pass them to the model, the demo does not
+(the JAX package's behaviour). The resource manager waits for ROADMAP.md
+Queue A item 12, the pretrained towers for item 13.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch
 from vivqa_tpu_torch.config.base import ConfigBase, merge_cli_overrides
 from vivqa_tpu_torch.data.augmentation import ImageAugmentation
 from vivqa_tpu_torch.device import resolve_device
+from vivqa_tpu_torch.knowledge.provider import KnowledgeProviderConfig
 from vivqa_tpu_torch.models.config import GenerativeVQAConfig
 from vivqa_tpu_torch.models.decoding import DecodeConfig, build_generate_fn
 from vivqa_tpu_torch.models.generative import create_generative_vqa_model
@@ -39,10 +44,11 @@ from vivqa_tpu_torch.pipelines.data_pipeline import (DataPipeline,
                                                      DataPipelineConfig)
 from vivqa_tpu_torch.pipelines.generative_training_pipeline import (
     GenerativeTrainingConfig, GenerativeTrainingPipeline, batch_to_device)
-from vivqa_tpu_torch.pipelines.vqa_pipeline import KnowledgeProviderConfig
+from vivqa_tpu_torch.pipelines.vqa_pipeline import attach_knowledge
 from vivqa_tpu_torch.train.checkpoint import (CheckpointConfig,
                                               CheckpointManager,
                                               partial_load)
+from vivqa_tpu_torch.train.state import knowledge_of
 from vivqa_tpu_torch.utils import get_pipeline_logger
 from vivqa_tpu_torch.utils.seeding import set_seed
 
@@ -78,11 +84,6 @@ def _check_ported(cfg: GenerativeVQAPipelineConfig) -> None:
     if cfg.mode not in MODES:
         raise ValueError(f"unknown mode '{cfg.mode}' (choices: "
                          f"{', '.join(MODES)})")
-    if cfg.model.knowledge.use_knowledge:
-        raise NotImplementedError(
-            "use_knowledge: the KnowledgeProvider retrieval stage and the "
-            "decoder's knowledge tokens are not ported yet (ROADMAP.md "
-            "Queue A item 12)")
     if cfg.pretrained_visual or cfg.pretrained_text:
         raise NotImplementedError(
             "pretrained towers (pretrained_visual / pretrained_text) need "
@@ -121,6 +122,18 @@ class GenerativeVQAPipeline:
             text=cfg.model.text.replace(
                 max_length=data.max_question_length,
                 vocab_size=tok.vocab_size))
+        # knowledge/RAG stage: retrieved contexts become extra memory
+        # tokens for the decoder
+        if model_cfg.knowledge.use_knowledge:
+            provider = attach_knowledge(data_out, cfg.knowledge,
+                                        model_cfg.knowledge)
+            model_cfg = model_cfg.replace(
+                knowledge=model_cfg.knowledge.replace(
+                    knowledge_dim=provider.dim))
+            self.log.success(
+                f"knowledge provider: {len(provider.documents)} docs, "
+                f"retriever={provider.config.retriever}, "
+                f"K={provider.config.num_retrieved}")
         model = create_generative_vqa_model(
             model_cfg, device=device,
             generator=torch.Generator().manual_seed(cfg.seed))
@@ -209,7 +222,7 @@ class GenerativeVQAPipeline:
         for batch in data_out.test_loader:
             dev = batch_to_device(batch, device)
             seqs, scores = generate(dev["pixel_values"], dev["question_ids"],
-                                    dev["question_mask"])
+                                    dev["question_mask"], **knowledge_of(dev))
             seqs, scores = seqs.cpu().numpy(), scores.float().cpu().numpy()
             nv = batch.get("_num_valid", len(batch["question"]))
             for i, q in enumerate(batch["question"][:nv]):

@@ -100,8 +100,19 @@ class ModelPipeline:
                              device=device)
             ids = torch.ones((2, model_cfg.text.max_length),
                              dtype=torch.long, device=device)
+            # the knowledge branch runs only with contexts: dummy ones,
+            # as the JAX pipeline feeds its init and check
+            know = {}
+            if model_cfg.knowledge.use_knowledge:
+                kc = model_cfg.knowledge
+                know = {"knowledge_embeddings": torch.zeros(
+                            (2, kc.num_retrieved, kc.knowledge_dim),
+                            device=device),
+                        "knowledge_mask": torch.ones(
+                            (2, kc.num_retrieved), dtype=torch.long,
+                            device=device)}
             with torch.no_grad():
-                logits = model(px, ids)["logits"]
+                logits = model(px, ids, **know)["logits"]
             expected = (2, model_cfg.num_answers)
             if tuple(logits.shape) != expected:
                 raise RuntimeError(f"logits {tuple(logits.shape)} != "

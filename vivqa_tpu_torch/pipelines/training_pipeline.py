@@ -17,7 +17,9 @@ losses stay on the device until the epoch ends (read on log steps too),
 the batches reach the device through ``data/loader.py:device_prefetch``.
 Validation runs the model in eval mode with no gradient, so on the card
 every attention call goes through the serving forward kernel, and every
-train step through the three training kernels. Gradient accumulation is
+train step through the three training kernels. A ``KnowledgeProvider``
+that wraps the loaders adds its arrays to the batches, and both the step
+and the validation pass them to the model. Gradient accumulation is
 the optimizer's (``optax.MultiSteps``): the schedule spans steps /
 ``accumulate_steps`` updates. Batch mixing and freezing strategies wait
 for ROADMAP.md Queue A item 12.
@@ -49,7 +51,7 @@ from vivqa_tpu_torch.train.optimizers import (OptimizerConfig,
                                               SchedulerConfig,
                                               create_optimizer)
 from vivqa_tpu_torch.train.state import (TrainState, classification_loss_fn,
-                                         make_train_step)
+                                         knowledge_of, make_train_step)
 from vivqa_tpu_torch.utils import get_pipeline_logger
 
 
@@ -257,7 +259,8 @@ class TrainingPipeline:
         """Full metric dict over the validation set (reference :536-741):
         the model in eval mode with no gradient, on its device; the
         metrics from its f32 logits over the first ``_num_valid`` rows
-        of each batch."""
+        of each batch. The knowledge arrays a provider attached to the
+        batches reach the model, as in the train step."""
         cfg = self.config
         device = next(model.parameters()).device
         expert_mask = self._expert_mask(device)
@@ -272,7 +275,8 @@ class TrainingPipeline:
         for batch in device_prefetch(iter(val_loader), device):
             with torch.no_grad():
                 out = model(batch["pixel_values"], batch["input_ids"],
-                            batch["attention_mask"], expert_mask=expert_mask)
+                            batch["attention_mask"], expert_mask=expert_mask,
+                            **knowledge_of(batch))
             nv = batch.get("_num_valid", len(batch["labels"]))
             logits = out["logits"].float().cpu().numpy()[:nv]
             labels = batch["labels"].cpu().numpy()[:nv]

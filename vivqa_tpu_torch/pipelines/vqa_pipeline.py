@@ -8,8 +8,12 @@ and Training pipelines, logs a banner, and writes pipeline_summary.json
 and run_stats.json to the output directory. CLI flags override YAML,
 which overrides the dataclass defaults. It runs on the card unless
 ``--device cpu`` (``model.device``) is given; asking for the card on a
-host without one raises. The knowledge (RAG) stage waits for the port's
-KnowledgeProvider (ROADMAP.md Queue A item 12).
+host without one raises. With ``--use-knowledge`` a ``KnowledgeProvider``
+(from ``--kb-path``, else from the training split's QA pairs) wraps the
+train, val and test loaders, and the model gains its
+``KnowledgeAttention`` at the provider's dim. As in the JAX package, the
+training run and ``evaluate`` pass the knowledge arrays to the model, and
+``inference`` (``VQAPredictor``) does not.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ import torch
 from vivqa_tpu_torch.config.base import ConfigBase, merge_cli_overrides
 from vivqa_tpu_torch.device import resolve_device
 from vivqa_tpu_torch.eval.predictor import VQAPredictor
+from vivqa_tpu_torch.knowledge.provider import (KnowledgeProvider,
+                                                KnowledgeProviderConfig)
 from vivqa_tpu_torch.pipelines.data_pipeline import (DataPipeline,
                                                      DataPipelineConfig)
 from vivqa_tpu_torch.pipelines.model_pipeline import (ModelPipeline,
@@ -36,21 +42,6 @@ from vivqa_tpu_torch.utils.seeding import set_seed
 
 
 @dataclasses.dataclass(frozen=True)
-class KnowledgeProviderConfig(ConfigBase):
-    """A copy of vivqa_tpu/knowledge/provider.py's config (host-side
-    retrieval, reference KnowledgeConfig kb_config.py:184-263), so the
-    port's configs and flags read as the JAX package's; the provider
-    itself is not ported yet (ROADMAP.md Queue A item 12)."""
-    kb_path: str = ""            # JSON docs
-    retriever: str = "hybrid"    # dense | sparse | hybrid
-    vector_store: str = "memory"  # memory | faiss
-    num_retrieved: int = 5
-    encoder_dim: int = 256       # hashing-encoder dim == knowledge_dim
-    build_from_train: bool = True
-    cache_size: int = 100_000
-
-
-@dataclasses.dataclass(frozen=True)
 class VQAPipelineConfig(ConfigBase):
     mode: str = "train"                 # train | evaluate | inference
     data: DataPipelineConfig = dataclasses.field(
@@ -59,11 +50,30 @@ class VQAPipelineConfig(ConfigBase):
         default_factory=ModelPipelineConfig)
     training: TrainingPipelineConfig = dataclasses.field(
         default_factory=TrainingPipelineConfig)
+    # host-side retrieval stage; active when model.model.knowledge
+    # .use_knowledge is set (the reference retrieves inside forward,
+    # vqa_model.py:689-702; here it is a stage wrapping the loaders)
     knowledge: KnowledgeProviderConfig = dataclasses.field(
         default_factory=KnowledgeProviderConfig)
     output_dir: str = "outputs/vqa"
     resume: str = ""                    # checkpoint dir to resume from
     seed: int = 42
+
+
+def attach_knowledge(data_out, config: KnowledgeProviderConfig,
+                     model_knowledge) -> KnowledgeProvider:
+    """Both pipelines' knowledge stage: a provider with K from the model's
+    knowledge config (the provider config's own ``num_retrieved`` gives
+    way, as in the JAX pipelines), documents from ``kb_path``, else one
+    fact per training QA pair (``KnowledgeProvider.from_samples``); it
+    wraps ``data_out``'s train, val and test loaders."""
+    kcfg = config.replace(num_retrieved=model_knowledge.num_retrieved)
+    provider = KnowledgeProvider(kcfg) if kcfg.kb_path else \
+        KnowledgeProvider.from_samples(kcfg, data_out.train_samples)
+    data_out.train_loader = provider.wrap(data_out.train_loader)
+    data_out.val_loader = provider.wrap(data_out.val_loader)
+    data_out.test_loader = provider.wrap(data_out.test_loader)
+    return provider
 
 
 class VQAPipeline:
@@ -79,10 +89,6 @@ class VQAPipeline:
         if cfg.mode not in ("train", "evaluate", "inference"):
             raise ValueError(f"unknown mode '{cfg.mode}' "
                              "(choices: train, evaluate, inference)")
-        if cfg.model.model.knowledge.use_knowledge:
-            raise NotImplementedError(
-                "use_knowledge: the KnowledgeProvider retrieval stage is not "
-                "ported yet (ROADMAP.md Queue A item 12)")
         log = self.log
         t0 = time.time()
         log.section("VIETNAMESE VQA PIPELINE (PyTorch)")
@@ -95,9 +101,23 @@ class VQAPipeline:
 
         data_out = DataPipeline(cfg.data, log).run()
 
+        # Knowledge/RAG stage: retrieve + encode K contexts per question
+        # on the host and attach them to every batch.
+        provider = None
+        if cfg.model.model.knowledge.use_knowledge:
+            provider = attach_knowledge(data_out, cfg.knowledge,
+                                        cfg.model.model.knowledge)
+            log.success(f"knowledge provider: {len(provider.documents)} "
+                        f"docs, retriever={provider.config.retriever}, "
+                        f"K={provider.config.num_retrieved}, "
+                        f"dim={provider.dim}")
+
         # Sync the model config with what the data pipeline actually
         # produces: image size, question length, tokenizer vocab.
         mc = cfg.model.model
+        if provider is not None:
+            mc = mc.replace(knowledge=mc.knowledge.replace(
+                knowledge_dim=provider.dim))
         mc = mc.replace(
             visual=mc.visual.replace(image_size=cfg.data.image_size),
             text=mc.text.replace(max_length=cfg.data.max_question_length,

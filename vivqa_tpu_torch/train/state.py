@@ -60,6 +60,16 @@ class TrainState:
         return self.generator
 
 
+KNOWLEDGE_KEYS = ("knowledge_embeddings", "knowledge_mask")
+
+
+def knowledge_of(batch: dict) -> dict:
+    """The knowledge arrays a ``KnowledgeProvider`` attached to ``batch``
+    (none when no provider wraps the loader), as the model's keyword
+    arguments."""
+    return {k: batch[k] for k in KNOWLEDGE_KEYS if k in batch}
+
+
 def classification_loss_fn(aux_weight: float = 0.01,
                            label_smoothing: float = 0.0,
                            expert_mask: Optional[torch.Tensor] = None
@@ -68,12 +78,13 @@ def classification_loss_fn(aux_weight: float = 0.01,
     ``_loss_fn`` without batch mixing): cross-entropy of the answer
     logits plus ``aux_weight`` times the MoE router's aux loss. batch:
     dict of pixel_values, input_ids, attention_mask, labels on the
-    model's device. The metrics ``ce``, ``aux_loss`` and ``accuracy``
-    (top-1 against the labels) are 0-d tensors on the device."""
+    model's device, and the knowledge arrays when a provider attached
+    them. The metrics ``ce``, ``aux_loss`` and ``accuracy`` (top-1
+    against the labels) are 0-d tensors on the device."""
     def loss_fn(model: nn.Module, batch: dict, generator: torch.Generator):
         out = model(batch["pixel_values"], batch["input_ids"],
                     batch["attention_mask"], expert_mask=expert_mask,
-                    generator=generator)
+                    generator=generator, **knowledge_of(batch))
         ce = cross_entropy_loss(out["logits"], batch["labels"],
                                 label_smoothing)
         accuracy = (out["logits"].detach().argmax(-1)
@@ -93,14 +104,14 @@ def generative_loss_fn(label_smoothing: float = 0.1,
     against ``labels`` with ``IGNORE_INDEX`` positions left out, plus
     ``moe_aux_weight`` times the MoE aux loss. batch: dict of
     pixel_values, question_ids, question_mask, decoder_input_ids,
-    decoder_mask, labels on the model's device. The metrics ``ce``,
-    ``aux_loss`` and ``n_tokens`` (labels that count) are 0-d tensors on
-    the device."""
+    decoder_mask, labels on the model's device, and the knowledge arrays
+    when a provider attached them. The metrics ``ce``, ``aux_loss`` and
+    ``n_tokens`` (labels that count) are 0-d tensors on the device."""
     def loss_fn(model: nn.Module, batch: dict, generator: torch.Generator):
         out = model(batch["pixel_values"], batch["question_ids"],
                     batch["decoder_input_ids"], batch["question_mask"],
                     batch["decoder_mask"], expert_mask=expert_mask,
-                    generator=generator)
+                    generator=generator, **knowledge_of(batch))
         ce = cross_entropy_loss(out["logits"], batch["labels"],
                                 label_smoothing, ignore_index=IGNORE_INDEX)
         n_tokens = (batch["labels"] != IGNORE_INDEX).sum()
