@@ -128,13 +128,31 @@ Phases, in order; any failure exits non-zero:
    host ms a batch, cold and cached); dense retrieval through the
    flagship's text tower (12 launches a chunk of 32, embeddings and top-5
    against the CPU);
-12. path shapes: each wrapper call of phases 4-11 is recorded by its
+12. the trainer and the training extras at the flagship's width, batch
+   32: ``VQATrainer`` with gradual_unfreeze over 3 epochs of 2 steps,
+   layer-wise decay 0.9, lookahead and the resource manager attached (two
+   stage changes, each a fresh state with zero moments and count 0; the
+   frozen encoders bit-equal through their frozen epochs; 36 launches of
+   each training kernel a step and 36 of the forward a validation
+   forward; the manager's JSON report with the card's used memory above
+   0), ``emergency_save`` of its state read back bit for bit;
+   ``VQATrainer`` with gradient checkpointing and freeze_visual (one
+   step's loss and every gradient against the plain forward's, within
+   the card's own spread over three plain steps; 72 forward-with-stats
+   launches, 36 dQ and 36 dK/dV a step); two mixed steps (mix_mode
+   both, freeze_visual) card against CPU on given draws; one update of
+   each optimizer (adam, sgd, radam, lamb, adafactor, AdamW with a bf16
+   first moment) over the full parameter set, card against CPU; the
+   generative CLI's train mode with ``--freeze-visual`` and
+   ``--enable-resource-management`` (39 launches a step, the visual
+   encoder bit-equal);
+13. path shapes: each wrapper call of phases 4-12 is recorded by its
    kernel, dtype, shapes, mask layout, causal, dropout rate and tile
    rows; each such launch the kernel phases did not hold against the
    plain version (the classification pipeline's batches of 32, 2 and 1,
    say) is held now on random inputs of that kind, and the script fails
    if any launch of a main path stays unchecked;
-13. the card line (nvidia-smi's name and power limit), the kernels line,
+14. the card line (nvidia-smi's name and power limit), the kernels line,
    and the device line, which is the last line.
 
 Each path's launch counts are set to 0 just before it runs and read just
@@ -188,7 +206,7 @@ from vivqa_tpu_torch.models.layers import (make_attention_mask,
                                            make_causal_mask)
 from vivqa_tpu_torch.models.vqa_model import (SPECIALIZED_ORDER,
                                               create_vqa_model)
-from vivqa_tpu_torch.ops import cuda_build
+from vivqa_tpu_torch.ops import batch_mix, cuda_build
 from vivqa_tpu_torch.ops import flash_attention as fa
 from vivqa_tpu_torch.pipelines.data_pipeline import (DataPipeline,
                                                      DataPipelineConfig)
@@ -201,13 +219,16 @@ from vivqa_tpu_torch.pipelines.training_pipeline import (
 from vivqa_tpu_torch.pipelines.vqa_pipeline import (VQAPipeline,
                                                     VQAPipelineConfig)
 from vivqa_tpu_torch.train.checkpoint import (CheckpointConfig,
-                                              CheckpointManager)
+                                              CheckpointManager,
+                                              emergency_save,
+                                              restore_emergency)
 from vivqa_tpu_torch.train.optimizers import (OptimizerConfig,
                                               SchedulerConfig,
                                               create_optimizer)
 from vivqa_tpu_torch.train.state import (KNOWLEDGE_KEYS, TrainState,
                                          classification_loss_fn,
                                          generative_loss_fn, make_train_step)
+from vivqa_tpu_torch.train.trainer import TrainerConfig, VQATrainer
 from vivqa_tpu_torch.utils import profiling
 
 # H100 SXM published peaks (NVIDIA data sheet, dense), at a 700 W limit
@@ -3499,7 +3520,560 @@ def rag_dense_phase(cfg: VQAModelConfig, provider, device: str = "cuda",
     return out
 
 
-# -- phase 12: every launch shape of the main paths held ---------------------
+# -- phase 12: the trainer and the training extras -----------------------------
+TRAINER_BATCH = 32
+TRAINER_STEPS = 2           # steps an epoch of the trainer runs
+TRAINER_EPOCHS = 3          # gradual_unfreeze's three stages
+# one update of each optimizer (constant lr 1e-3, clipping at 1.0) over
+# the flagship's parameters, card against CPU from the same gradients
+TRAINER_OPTIMIZERS = {
+    "adam": OptimizerConfig(name="adam", learning_rate=1e-3),
+    "sgd": OptimizerConfig(name="sgd", learning_rate=1e-3),
+    "radam": OptimizerConfig(name="radam", learning_rate=1e-3),
+    "lamb": OptimizerConfig(name="lamb", learning_rate=1e-3),
+    "adafactor": OptimizerConfig(name="adafactor", learning_rate=1e-3),
+    "adamw_bf16_mu": OptimizerConfig(learning_rate=1e-3,
+                                     mu_dtype="bfloat16")}
+# each element of the card's update within this share of the largest
+# element of the CPU's, past one f32 rounding of the updated parameter
+# (the update is read back as p' - p): both compute in f32, in other
+# orders
+OPTIMIZER_TOL = 1e-4
+F32_EPS = torch.finfo(torch.float32).eps
+# the given draws of the mixed steps: MixUp on the first, CutMix (a box
+# clipped at the image's bottom edge) on the second
+MIX_DRAWS = ({"lam": 0.6, "cx": 150, "cy": 60, "use_mixup": True},
+             {"lam": 0.7, "cx": 20, "cy": 210, "use_mixup": False})
+
+
+class ListLoader:
+    """Collated numpy batches with a length, re-iterable, as the trainer
+    takes a BatchLoader."""
+
+    def __init__(self, batches):
+        self.batches = list(batches)
+
+    def __len__(self):
+        return len(self.batches)
+
+    def __iter__(self):
+        return iter([dict(b) for b in self.batches])
+
+
+def trainer_batch(cfg: VQAModelConfig, batch: int, seed: int) -> dict:
+    """A classification batch of numpy arrays at the model's shapes:
+    pixels in [0, 1), questions of 5 to L tokens (the first of L), labels."""
+    S, L = cfg.visual.image_size, cfg.text.max_length
+    rs = np.random.RandomState(seed)
+    lengths = rs.randint(5, L + 1, batch)
+    lengths[0] = L
+    mask = (np.arange(L)[None] < lengths[:, None]).astype(np.int64)
+    return {"pixel_values": rs.rand(batch, S, S, 3).astype(np.float32),
+            "input_ids": rs.randint(4, cfg.text.vocab_size - 1,
+                                    (batch, L)) * mask,
+            "attention_mask": mask,
+            "labels": rs.randint(0, cfg.num_answers, (batch,))}
+
+
+def _weights(model, prefixes=("visual_encoder", "text_encoder")) -> dict:
+    return {n: p.detach().clone() for n, p in model.named_parameters()
+            if n.startswith(prefixes)}
+
+
+class StageRecorder(VQATrainer):
+    """The trainer, recording each state it builds: its epoch, step and
+    optimizer count, whether every moment is zero, and the encoders'
+    weights at that moment."""
+
+    def _build_state(self, steps_per_epoch, epoch=0):
+        state = super()._build_state(steps_per_epoch, epoch)
+        self.stages = getattr(self, "stages", [])
+        self.stages.append({
+            "epoch": epoch, "step": state.step, "optimizer": state.optimizer,
+            "count": state.optimizer.count,
+            "zero": all(not bool(t.any()) for ts in
+                        state.optimizer.state.values() for t in ts),
+            "encoders": _weights(self.model)})
+        return state
+
+
+def trainer_unfreeze_run(cfg: VQAModelConfig, device: str, rm, tmp: str,
+                         batch: int, steps: int, seed: int) -> tuple:
+    """``VQATrainer`` with gradual_unfreeze over three epochs of ``steps``
+    steps, layer-wise decay 0.9, lookahead (synced every 2 updates) and
+    the resource manager attached, validating one batch an epoch. Holds
+    the two stage changes (each a fresh state: zero moments, count and
+    step 0; each stage's optimizer applied its updates), the frozen
+    encoders bit-equal through their frozen epochs and moved by the end,
+    36 launches of each training kernel a step and 36 forward launches a
+    validation forward. Returns (its record, the final state, the
+    trainer's config)."""
+    on_card = device == "cuda"
+    calls = ATTN_CALLS_PER_STEP if on_card else 0
+    model = create_vqa_model(cfg, device=device,
+                             generator=torch.Generator().manual_seed(seed))
+    start = _weights(model)
+    train = ListLoader(trainer_batch(cfg, batch, seed + i)
+                       for i in range(steps))
+    val = ListLoader([trainer_batch(cfg, batch, seed + 99)])
+    tcfg = TrainerConfig(
+        num_epochs=TRAINER_EPOCHS, strategy="gradual_unfreeze",
+        optimizer=OptimizerConfig(learning_rate=1e-4, layer_decay=0.9,
+                                  lookahead=True, lookahead_sync=2),
+        scheduler=SchedulerConfig(name="warmup_cosine", warmup_steps=1),
+        checkpoint_dir=f"{tmp}/trainer", max_checkpoints=1, resume=False,
+        log_every=1, early_stopping_patience=10, seed=seed)
+    trainer = StageRecorder(tcfg, model, device=device, resource_manager=rm)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = trainer.train(train, val)
+    if on_card:
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(fa.launch_counts)
+    want = {n: calls * steps * TRAINER_EPOCHS for n in TRAIN_KERNELS}
+    want["flash_attn_fwd"] = calls * TRAINER_EPOCHS
+    stages = trainer.stages
+    final = _weights(model)
+    frozen_held = {
+        "text_encoder through epoch 0": all(
+            torch.equal(stages[1]["encoders"][n], p) for n, p in start.items()
+            if n.startswith("text_encoder")),
+        "visual_encoder through epochs 0-1": all(
+            torch.equal(stages[2]["encoders"][n], p) for n, p in start.items()
+            if n.startswith("visual_encoder"))}
+    moved = {head: any(not torch.equal(final[n], p) for n, p in start.items()
+                       if n.startswith(head))
+             for head in ("visual_encoder", "text_encoder")}
+    out = {"batch": batch, "epochs": TRAINER_EPOCHS, "steps_per_epoch": steps,
+           "seconds": seconds, "launches": launches, "want": want,
+           "stage_epochs": [s["epoch"] for s in stages],
+           "fresh_at_build": [s["zero"] and s["count"] == 0 and s["step"] == 0
+                              for s in stages],
+           "updates_per_stage": [s["optimizer"].count for s in stages],
+           "frozen_held": frozen_held, "moved": moved,
+           "history": result["history"],
+           "progress": rm.progress.summary() if rm is not None else None,
+           "max_memory_allocated_gib":
+               torch.cuda.max_memory_allocated() / 2 ** 30 if on_card
+               else None}
+    if (out["stage_epochs"] != [0, 1, 2] or not all(out["fresh_at_build"])
+            or out["updates_per_stage"] != [steps] * TRAINER_EPOCHS
+            or not all(frozen_held.values()) or not all(moved.values())
+            or launches != want
+            or rm.progress.tasks["training"].status != "completed"):
+        raise AssertionError(f"trainer gradual_unfreeze: {out}")
+    # the step's time by CUDA events, on the final state (every tower
+    # trains): the stopwatch of bench.py and the training phase
+    data = batch_to_device(train.batches[0], torch.device(device))
+    step_fn = make_train_step(trainer._loss_fn())
+    times = profiling.time_train_steps(step_fn, result["state"], data, 3)
+    out["step_ms"] = times.host_ms
+    out["step_event_ms"] = times.event_ms
+    out["median_step_event_ms"] = float(np.median(times.event_ms)) \
+        if times.event_ms else None
+    out["profile"] = train_profile(result["state"], step_fn, data,
+                                   out["median_step_event_ms"]) \
+        if on_card else None
+    return out, result["state"], tcfg
+
+
+def trainer_emergency(state, tcfg, tmp: str) -> dict:
+    """``emergency_save`` of the trainer's full state, then
+    ``restore_emergency`` and a fresh optimizer loading it: the
+    parameters, every optimizer tensor, the count and the lookahead's
+    slow copy come back bit for bit."""
+    sd = VQATrainer.state_dict(state)
+    t0 = time.perf_counter()
+    path = emergency_save(sd, f"{tmp}/emergency_trainer",
+                          metadata={"epoch": TRAINER_EPOCHS - 1})
+    saved_s = time.perf_counter() - t0
+    got, meta = restore_emergency(path)
+    params_equal = all(torch.equal(got["params"][n], t)
+                       for n, t in sd["params"].items())
+    fresh = create_optimizer(tcfg.optimizer, state.model)
+    fresh.load_state_dict(got["optimizer"])
+    mine = state.optimizer
+    state_equal = all(torch.equal(a.cpu(), b.cpu()) for f in mine.state
+                      for a, b in zip(mine.state[f], fresh.state[f])) \
+        and all(torch.equal(a.cpu(), b.cpu())
+                for a, b in zip(mine.slow, fresh.slow))
+    out = {"path": str(path), "save_seconds": saved_s, "metadata": meta,
+           "params_equal": params_equal, "optimizer_equal": state_equal,
+           "count": fresh.count, "step": got["step"],
+           "bytes": (Path(path) / "state.pt").stat().st_size}
+    if not (params_equal and state_equal and fresh.count == mine.count
+            and got["step"] == state.step):
+        raise AssertionError(f"trainer emergency save: {out}")
+    return out
+
+
+def trainer_checkpoint_run(cfg: VQAModelConfig, device: str, tmp: str,
+                           batch: int, steps: int, seed: int) -> dict:
+    """Gradient checkpointing under freeze_visual, dropout on (the
+    flagship's 0.1): one step's loss and every gradient leaf against the
+    plain forward's from the same weights and generator state, three
+    plain steps first to measure the card's own run-to-run spread (each
+    leaf held to twice its spread, bit for bit where the plain steps
+    agree bit for bit); the checkpointed step's launches (both passes of
+    every attention call record the graph: 72 forward-with-stats, none of
+    the serving forward, 36 dQ and 36 dK/dV); then ``VQATrainer`` with
+    both options for ``steps`` steps, the visual encoder bit-equal."""
+    on_card = device == "cuda"
+    calls = ATTN_CALLS_PER_STEP if on_card else 0
+    dev = torch.device(device)
+    model = create_vqa_model(cfg, device=device,
+                             generator=torch.Generator().manual_seed(seed + 1))
+    data = batch_to_device(trainer_batch(cfg, batch, seed + 5), dev)
+    base = TrainerConfig(strategy="freeze_visual", num_epochs=1,
+                         checkpoint_dir=f"{tmp}/trainer_ckpt",
+                         max_checkpoints=1, resume=False, log_every=1,
+                         seed=seed)
+    plain_fn = VQATrainer(base, model, device=device)._loss_fn()
+    ckpt_cfg = base.replace(gradient_checkpointing=True)
+    ckpt_fn = VQATrainer(ckpt_cfg, model, device=device)._loss_fn()
+
+    def one_step(fn):
+        model.train()
+        for p in model.parameters():
+            p.grad = None
+        gen = torch.Generator(device=dev).manual_seed(seed + 7)
+        loss, _ = fn(model, data, gen)
+        loss.backward()
+        return loss.detach(), {n: p.grad.detach().clone()
+                               for n, p in model.named_parameters()}
+    plain = [one_step(plain_fn) for _ in range(3)]
+    fa.reset_launch_counts()
+    c_loss, c_grads = one_step(ckpt_fn)
+    if on_card:
+        torch.cuda.synchronize()
+    step_launches = dict(fa.launch_counts)
+    loss_spread = max(float((a[0] - b[0]).abs()) for a in plain
+                      for b in plain)
+    spread = {n: max(float((a[1][n] - b[1][n]).abs().max()) for a in plain
+                     for b in plain) for n in c_grads}
+    diff = {n: float((g - plain[0][1][n]).abs().max())
+            for n, g in c_grads.items()}
+    loss_diff = float((c_loss - plain[0][0]).abs())
+    over = [n for n in diff if diff[n] > 2 * spread[n]]
+    del plain, c_grads
+    want_step = {"flash_attn_fwd": 0, "flash_attn_fwd_lse": 2 * calls,
+                 "flash_attn_bwd_dq": calls, "flash_attn_bwd_dkv": calls}
+    start = _weights(model, ("visual_encoder",))
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    VQATrainer(ckpt_cfg, model, device=device).train(
+        ListLoader(trainer_batch(cfg, batch, seed + i)
+                   for i in range(steps)))
+    if on_card:
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(fa.launch_counts)
+    want = {n: steps * c for n, c in want_step.items()}
+    frozen = all(torch.equal(p.detach(), start[n])
+                 for n, p in model.named_parameters() if n in start)
+    # the checkpointed step's time by CUDA events, and one step profiled
+    trainer = VQATrainer(ckpt_cfg, model, device=device)
+    state = trainer._build_state(steps)
+    step_fn = make_train_step(trainer._loss_fn())
+    times = profiling.time_train_steps(step_fn, state, data, 3)
+    step_ms = float(np.median(times.event_ms)) if times.event_ms else None
+    out = {"batch": batch, "loss": float(c_loss), "loss_diff": loss_diff,
+           "loss_spread": loss_spread,
+           "leaves": len(diff),
+           "leaves_bit_equal": sum(d == 0.0 for d in diff.values()),
+           "leaves_with_spread": sum(s > 0.0 for s in spread.values()),
+           "max_leaf_diff": max(diff.values()),
+           "max_leaf_spread": max(spread.values()),
+           "leaves_over_twice_their_spread": over,
+           "step_launches": step_launches, "step_want": want_step,
+           "train_seconds": seconds, "train_steps": steps,
+           "train_launches": launches, "train_want": want,
+           "visual_encoder_unchanged": frozen,
+           "max_memory_allocated_gib":
+               torch.cuda.max_memory_allocated() / 2 ** 30 if on_card
+               else None,
+           "step_event_ms": times.event_ms, "median_step_event_ms": step_ms,
+           "profile": train_profile(state, step_fn, data, step_ms)
+           if on_card else None,
+           "tolerance": "each gradient leaf and the loss within twice the "
+                        "spread of three plain steps (0: bit for bit)"}
+    if (over or loss_diff > 2 * loss_spread or step_launches != want_step
+            or launches != want or not frozen):
+        raise AssertionError(f"trainer gradient checkpointing: {out}")
+    return out
+
+
+def trainer_mix_check(cfg: VQAModelConfig, device: str, seed: int) -> dict:
+    """Two steps of the classification training pipeline's step with
+    mix_mode "both" and freeze_visual (``TrainingPipeline._build_state``'s
+    optimizer, its mixed loss) on the same weights at dropout 0, card
+    against CPU, on the given draws ``MIX_DRAWS`` (MixUp, then CutMix),
+    held to ``train_check``'s tolerances; the visual encoder bit-equal on
+    both."""
+    cfg0 = cfg.replace(text=cfg.text.replace(dropout=0.0),
+                       fusion=cfg.fusion.replace(dropout=0.0),
+                       head=cfg.head.replace(dropout=0.0))
+    S, L = cfg.visual.image_size, cfg.text.max_length
+    rs = np.random.RandomState(seed + 11)
+    lengths = np.array([L, 40, 17, 5]) if L >= 40 else np.array([L, L - 1,
+                                                                  3, 1])
+    mask = (np.arange(L)[None] < lengths[:, None]).astype(np.int64)
+    data = {"pixel_values": rs.rand(4, S, S, 3).astype(np.float32),
+            "input_ids": rs.randint(4, cfg.text.vocab_size - 1, (4, L)) * mask,
+            "attention_mask": mask,
+            "labels": rs.randint(0, cfg.num_answers, (4,))}
+    pipe = TrainingPipeline(TrainingPipelineConfig(
+        mix_mode="both", mix_alpha=0.4, strategy="freeze_visual",
+        optimizer=OptimizerConfig(learning_rate=1e-4),
+        scheduler=SchedulerConfig(name="warmup_cosine", warmup_steps=1),
+        seed=seed))
+    drawn = {"n": 0}
+    built = {}
+
+    def given_draw(generator, mode, alpha, height, width):
+        d = MIX_DRAWS[drawn["n"] % len(MIX_DRAWS)]
+        drawn["n"] += 1
+        return {k: torch.tensor(v, device=generator.device)
+                for k, v in d.items()}
+
+    def build(dev):
+        drawn["n"] = 0
+        model = create_vqa_model(cfg0, device=dev,
+                                 generator=torch.Generator().manual_seed(seed))
+        model.moe.dropout = 0.0
+        built[dev] = (model, _weights(model, ("visual_encoder",)))
+        # the pipeline's schedule spans 10 epochs of 1,000 steps here
+        return pipe._build_state(model, 1000)
+    loss_fn = classification_loss_fn(pipe.config.moe_aux_weight,
+                                     pipe.config.label_smoothing, None,
+                                     "both", pipe.config.mix_alpha)
+    real = batch_mix.draw_mix
+    batch_mix.draw_mix = given_draw
+    try:
+        out = card_vs_cpu_steps(build, loss_fn, data, device, 2,
+                                ATTN_CALLS_PER_STEP)
+    finally:
+        batch_mix.draw_mix = real
+    frozen = {dev: all(torch.equal(p.detach(), start[n])
+                       for n, p in model.named_parameters() if n in start)
+              for dev, (model, start) in built.items()}
+    if not all(frozen.values()) or drawn["n"] != 2:
+        raise AssertionError(f"mixed steps: visual encoder unchanged "
+                             f"{frozen}, draws taken {drawn['n']}")
+    return {"batch": 4, "draws": list(MIX_DRAWS), **out,
+            "visual_encoder_unchanged": frozen}
+
+
+def optimizer_check(cfg: VQAModelConfig, device: str, seed: int) -> dict:
+    """One update of each optimizer of ``TRAINER_OPTIMIZERS`` over the
+    flagship's full parameter set, from the same gradients (normal, scale
+    1e-2, seeded), on the card and on the CPU: every element of the two
+    updates (read back as p' - p) within ``OPTIMIZER_TOL`` of the CPU
+    update's largest, past one f32 rounding of p'."""
+    model0 = create_vqa_model(cfg, device="cpu",
+                              generator=torch.Generator().manual_seed(seed))
+    g = torch.Generator().manual_seed(seed + 3)
+    grads = {n: torch.randn(p.shape, generator=g) * 1e-2
+             for n, p in model0.named_parameters()}
+    start = {n: p.detach().clone() for n, p in model0.named_parameters()}
+    rows = {}
+    for name, ocfg in TRAINER_OPTIMIZERS.items():
+        updates, seconds = {}, {}
+        for dev in ("cpu", device):
+            model = copy.deepcopy(model0).to(dev)
+            opt = create_optimizer(ocfg, model, SchedulerConfig(
+                name="constant"))
+            for n, p in model.named_parameters():
+                # a copy: the clip scales the gradients in place
+                p.grad = grads[n].to(dev, copy=True)
+            t0 = time.perf_counter()
+            opt.step()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            seconds[dev] = time.perf_counter() - t0
+            updates[dev] = {n: p.detach().cpu() - start[n]
+                            for n, p in model.named_parameters()}
+            del model, opt
+        cpu, card = updates["cpu"], updates[device]
+        scale = max(float(u.abs().max()) for u in cpu.values())
+        diff = max(float((card[n] - u).abs().max()) for n, u in cpu.items())
+        # past one rounding of the updated parameter, |p'| f32 eps
+        past = {n: (card[n] - u).abs() - F32_EPS * (start[n] + u).abs()
+                for n, u in cpu.items()}
+        worst = max(past, key=lambda n: float(past[n].max()))
+        i = int(past[worst].argmax())
+        excess = float(past[worst].view(-1)[i])
+        rows[name] = {"max_abs_update": scale, "max_abs_diff": diff,
+                      "max_diff_past_one_rounding": excess,
+                      "worst": {"param": worst, "index": i,
+                                "p": float(start[worst].view(-1)[i]),
+                                "grad": float(grads[worst].view(-1)[i]),
+                                "update_cpu": float(cpu[worst].view(-1)[i]),
+                                "update_card": float(card[worst].view(-1)[i])},
+                      "step_seconds": seconds}
+        del updates, cpu, card, past
+    bad = [n for n, r in rows.items()
+           if not math.isfinite(r["max_abs_diff"]) or r["max_abs_update"] == 0
+           or r["max_diff_past_one_rounding"]
+           > OPTIMIZER_TOL * r["max_abs_update"]]
+    if bad:
+        raise AssertionError(f"optimizers {bad} card vs CPU: {rows}")
+    return {"params": sum(t.numel() for t in start.values()),
+            "tolerance_of_largest_update": OPTIMIZER_TOL, "optimizers": rows}
+
+
+def trainer_gen_cli(cfg: GenerativeVQAConfig, device: str, tmp: str,
+                    n: int, image_size: int, batch: int, seed: int) -> dict:
+    """The generative CLI in train mode with ``--freeze-visual`` and
+    ``--enable-resource-management`` (``gen_cli``'s corpus and recipe, one
+    epoch): the visual encoder bit-equal through the epoch while the rest
+    trains, the manager running during the mode and stopped after, 39
+    launches of each training kernel a step and 27 + 12 forward launches
+    a generate and decode step of the validation."""
+    from vivqa_tpu_torch import resources
+    from vivqa_tpu_torch.data import ensure_synthetic_vivqa
+    from vivqa_tpu_torch.pipelines import generative_vqa_pipeline as gvp
+    on_card = device == "cuda"
+    csv, imgs = ensure_synthetic_vivqa(f"{tmp}/gen_data", n=n,
+                                       image_size=image_size, learnable=True,
+                                       seq_answers=True)
+    pcfg = gvp.GenerativeVQAPipelineConfig(
+        data=DataPipelineConfig(
+            csv_path=str(csv), image_dir=str(imgs), image_size=image_size,
+            max_question_length=cfg.text.max_length,
+            max_answer_length=cfg.max_answer_length, batch_size=batch,
+            augmentation_strength="medium", generative=True, seed=seed),
+        model=cfg.replace(dropout=GEN_DROPOUT, label_smoothing=0.0),
+        training=GenerativeTrainingConfig(
+            num_epochs=1, label_smoothing=0.0,
+            checkpoint_dir=f"{tmp}/gen_ckpt",
+            optimizer=OptimizerConfig(learning_rate=1e-3, weight_decay=0.01),
+            scheduler=SchedulerConfig(name="warmup_cosine",
+                                      warmup_ratio=0.05),
+            log_every=1, seed=seed),
+        device=device, output_dir=f"{tmp}/gen_out", seed=seed)
+    yaml_path = f"{tmp}/trainer_gen.yaml"
+    pcfg.to_yaml(yaml_path)
+    rm = resources.get_resource_manager(resources.ResourceConfig(
+        backup=resources.BackupConfig(emergency_dir=f"{tmp}/gen_em"),
+        report=resources.ReportIntervalConfig(report_dir=f"{tmp}/gen_rep"),
+        enable_signal_handlers=False), reset=True)
+    seen = {}
+    real = GenerativeTrainingPipeline.run
+
+    def run(self, model, *args):
+        seen["strategy"] = self.config.strategy
+        seen["manager_running"] = rm._running
+        seen["steps"] = len(args[0])
+        seen["before"] = {n: p.detach().clone()
+                          for n, p in model.named_parameters()}
+        result = real(self, model, *args)
+        seen["after"] = {n: p.detach() for n, p in model.named_parameters()}
+        return result
+    GenerativeTrainingPipeline.run = run
+    counts = {"generates": 0, "decode_steps": 0}
+    try:
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        with counting_decode(counts):
+            summary = gvp.main(["--config", yaml_path, "--mode", "train",
+                                "--freeze-visual",
+                                "--enable-resource-management"])
+        if on_card:
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        GenerativeTrainingPipeline.run = real
+        resources.get_resource_manager(reset=True)
+    launches = dict(fa.launch_counts)
+    steps = seen["steps"]
+    per_step = gen_calls_per_step(cfg) if on_card else 0
+    enc = attention_calls_per_generate(cfg, 0) if on_card else 0
+    dec = attention_calls_per_generate(cfg, 1) - attention_calls_per_generate(
+        cfg, 0) if on_card else 0
+    want = {name: per_step * steps for name in TRAIN_KERNELS}
+    want["flash_attn_fwd"] = enc * counts["generates"] \
+        + dec * counts["decode_steps"]
+    before, after = seen["before"], seen["after"]
+    frozen = all(torch.equal(after[n], p) for n, p in before.items()
+                 if n.startswith("visual_encoder"))
+    moved = {head: any(not torch.equal(after[n], p)
+                       for n, p in before.items() if n.startswith(head))
+             for head in ("question_encoder", "fusion", "decoder")}
+    out = {"steps": steps, "batch": batch, "seconds": seconds,
+           "strategy": seen["strategy"],
+           "manager_running_during_train": seen["manager_running"],
+           "manager_stopped_after": not rm._running,
+           "launches": launches, "want": want, **counts,
+           "launches_per_step": {k: launches[k] / steps
+                                 for k in TRAIN_KERNELS},
+           "visual_encoder_unchanged": frozen, "moved": moved,
+           "history": summary["history"]}
+    if (seen["strategy"] != "freeze_visual" or not seen["manager_running"]
+            or rm._running or launches != want or not frozen
+            or not all(moved.values())):
+        raise AssertionError(f"generative CLI --freeze-visual: {out}")
+    return out
+
+
+def trainer_phase(cfg: VQAModelConfig, gen_cfg: GenerativeVQAConfig,
+                  device: str = "cuda", batch: int = TRAINER_BATCH,
+                  steps: int = TRAINER_STEPS, gen_n: int = GEN_CLI_CORPUS,
+                  gen_image_size: int = 224, gen_batch: int = GEN_CLI_BATCH,
+                  seed: int = 0) -> dict:
+    """The JAX package's trainer and its options on the card, at the
+    flagship's width: ``trainer_unfreeze_run`` with the resource manager
+    (started for it; its JSON report read back, the card's used memory
+    above 0), ``trainer_emergency`` on its final state,
+    ``trainer_checkpoint_run``, ``trainer_mix_check``,
+    ``optimizer_check`` and ``trainer_gen_cli`` (on ``gen_cfg``). (On the
+    CPU, a rehearsal at a tiny size: no launches, the card's memory 0.)"""
+    from vivqa_tpu_torch import resources
+    on_card = device == "cuda"
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        rm = resources.ResourceManager(resources.ResourceConfig(
+            intervals=resources.MonitoringIntervals(
+                cpu_seconds=0.5, memory_seconds=0.5, disk_seconds=1.0,
+                device_seconds=0.5),
+            backup=resources.BackupConfig(emergency_dir=f"{tmp}/em"),
+            report=resources.ReportIntervalConfig(
+                report_dir=f"{tmp}/reports"),
+            enable_signal_handlers=False))
+        rm.start()
+        try:
+            run, state, tcfg = trainer_unfreeze_run(cfg, device, rm, tmp,
+                                                    batch, steps, seed)
+            report = rm.reports.save(rm.reports.combined_report())
+        finally:
+            rm.stop()
+        rep = json.loads(Path(report).read_text())
+        card = rep["snapshot"]["device"]
+        used = card.get("0", {}).get("used_gb", 0.0)
+        run["resource_report"] = {
+            "path": Path(report).name, "device_percent": card["percent"],
+            "device_used_gb": used, "tasks": rep["tasks"],
+            "memory_percent": rep["snapshot"]["memory"]["percent"]}
+        if on_card and not used > 0:
+            raise AssertionError(f"resource report: {run['resource_report']}")
+        out["gradual_unfreeze"] = run
+        out["emergency"] = trainer_emergency(state, tcfg, tmp)
+        del state
+        out["checkpointing"] = trainer_checkpoint_run(cfg, device, tmp,
+                                                      batch, steps, seed)
+        out["mix"] = trainer_mix_check(cfg, device, seed)
+        out["optimizers"] = optimizer_check(cfg, device, seed)
+        out["gen_cli"] = trainer_gen_cli(gen_cfg, device, tmp, gen_n,
+                                         gen_image_size, gen_batch, seed)
+    return out
+
+
+# -- phase 13: every launch shape of the main paths held ---------------------
 def path_check_phase(launched: dict) -> dict:
     """``launched``: {path: the launch keys its run recorded}. Each key no
     kernel check held yet is held now against the plain version on inputs
@@ -3551,7 +4125,8 @@ def kernels_line(rows: dict, launches: int, generative: dict,
                  train_rows: dict, train_launches: dict,
                  ptxas: dict, gen_rows: dict, gen_training: dict,
                  cls_pipeline: dict, gen_cli: dict, abl_totals: dict,
-                 ablation: dict, rag_tot: dict, rag: dict) -> dict:
+                 ablation: dict, rag_tot: dict, rag: dict,
+                 trainer: dict) -> dict:
     """One entry per kernel. The forward's numbers are for one flagship
     forward at batch 8 (its 36 calls of the five serving shapes, each
     shape's time times its calls), and, under ``generate``, for one beam
@@ -3573,7 +4148,10 @@ def kernels_line(rows: dict, launches: int, generative: dict,
     forward at batch 8 and per beam generate at batch 16 (the forward),
     per classification step at batch 128 and generative step at batch 32
     (the training kernels), with the knowledge, and its launches in the
-    rag phase's runs."""
+    rag phase's runs; ``trainer`` each kernel's launches in the trainer
+    phase's runs (the gradual_unfreeze trainer, the checkpointed trainer,
+    the generative CLI with ``--freeze-visual``) with the step's time by
+    CUDA events."""
     abl_launches = {name: sum(r[name] for r in ablation["launches"].values())
                     for name in fa.launch_counts}
     rag_cli = rag["cli"]["launches"]
@@ -3620,6 +4198,33 @@ def kernels_line(rows: dict, launches: int, generative: dict,
                f"(K = {RAG_K}; {ATTN_CALLS_PER_FORWARD + 1} calls), and "
                f"under generate one beam generate at batch 16 over a "
                f"{RAG_MEMORY}-token memory, bf16"}
+    runs = {"gradual_unfreeze": trainer["gradual_unfreeze"],
+            "checkpointing": {"launches": trainer["checkpointing"][
+                "train_launches"]},
+            "gen_cli_freeze_visual": trainer["gen_cli"]}
+    trainer_per = (f"VQATrainer gradual_unfreeze ({TRAINER_EPOCHS} epochs "
+                   f"of {trainer['gradual_unfreeze']['steps_per_epoch']} "
+                   f"steps at batch {trainer['gradual_unfreeze']['batch']},"
+                   f" a validation forward an epoch), VQATrainer with "
+                   f"gradient checkpointing and freeze_visual "
+                   f"({trainer['checkpointing']['train_steps']} steps), the"
+                   f" generative CLI's train with --freeze-visual "
+                   f"({trainer['gen_cli']['steps']} steps)")
+
+    def trainer_entry(name):
+        profiles = {r: trainer[r]["profile"]["attention_device_ms"][name]
+                    for r in ("gradual_unfreeze", "checkpointing")}
+        return {"launches": {r: v["launches"][name] for r, v in runs.items()},
+                "checkpointed_step_launches":
+                    trainer["checkpointing"]["step_launches"][name],
+                "profiled_ms_per_step": profiles,
+                "step_event_ms": {
+                    r: trainer[r]["median_step_event_ms"]
+                    for r in ("gradual_unfreeze", "checkpointing")},
+                "per": trainer_per + "; profiled_ms_per_step: the kernel's "
+                       "device ms in one profiled step at batch 32 (every "
+                       "tower training; checkpointed with freeze_visual)"}
+    entries[0]["trainer"] = trainer_entry("flash_attn_fwd")
     totals = step_totals(train_rows)
     gen_totals = step_totals(gen_rows)
     replaces = {
@@ -3686,7 +4291,8 @@ def kernels_line(rows: dict, launches: int, generative: dict,
                        f"({ATTN_CALLS_PER_STEP + 1} calls), and under "
                        f"generative_step one generative step at batch "
                        f"{GEN_TRAIN_BATCH} over a {RAG_MEMORY}-token "
-                       f"memory, bf16"}})
+                       f"memory, bf16"},
+            "trainer": trainer_entry(name)})
     return {"kernels": entries}
 
 
@@ -3927,6 +4533,36 @@ def main() -> int:
                       rag_tot["per_step"].items())
           + f" on {card} ({time.perf_counter() - t_start:.1f} s)",
           flush=True)
+    with recording_launches(launched.setdefault("trainer", set())):
+        trainer = trainer_phase(cfg, bench_serving.serving_config())
+    emit({"trainer": trainer, "card": card})
+    unfreeze, ckpt = trainer["gradual_unfreeze"], trainer["checkpointing"]
+    print(f"[trainer] gradual_unfreeze at batch {unfreeze['batch']}: "
+          f"{unfreeze['epochs']} epochs of {unfreeze['steps_per_epoch']} "
+          f"steps in {unfreeze['seconds']:.1f} s, step "
+          f"{unfreeze['median_step_event_ms']:.1f} ms by events (layer "
+          f"decay, lookahead), launches {unfreeze['launches']}, idle "
+          f"{unfreeze['profile']['device_idle_share']:.3f} of a profiled "
+          f"step, peak {unfreeze['max_memory_allocated_gib']:.2f} GiB, the "
+          f"resource report's card memory "
+          f"{unfreeze['resource_report']['device_used_gb']:.2f} GB; "
+          f"gradient checkpointing: launches a step "
+          f"{ckpt['step_launches']}, step "
+          f"{ckpt['median_step_event_ms']:.1f} ms by events, "
+          f"{ckpt['leaves_bit_equal']} of "
+          f"{ckpt['leaves']} gradient leaves bit-equal to the plain step's "
+          f"(largest difference {ckpt['max_leaf_diff']:.3g}, the card's "
+          f"spread {ckpt['max_leaf_spread']:.3g}), peak "
+          f"{ckpt['max_memory_allocated_gib']:.2f} GiB; mixed steps loss "
+          f"card/CPU {trainer['mix']['loss_card']}/{trainer['mix']['loss_cpu']}"
+          f"; optimizers card vs CPU: max |diff| past one rounding of "
+          f"p' / max |update| "
+          + ", ".join(f"{n} {r['max_diff_past_one_rounding'] / r['max_abs_update']:.2e}"
+                      for n, r in trainer["optimizers"]["optimizers"].items())
+          + f"; generative CLI --freeze-visual {trainer['gen_cli']['steps']}"
+          f" steps, {trainer['gen_cli']['launches_per_step']} launches a "
+          f"step on {card} ({time.perf_counter() - t_start:.1f} s)",
+          flush=True)
     paths = path_check_phase(launched)
     emit({"path_check": paths})
     print(f"[path_check] launch keys by path {paths['launch_keys']}: "
@@ -3937,7 +4573,7 @@ def main() -> int:
     emit(kernels_line(rows, serving["launches"]["flash_attn_fwd"],
                       generative, train_rows, training["launches"], ptxas,
                       gen_rows, gen_training, cls, gen_cli, abl_totals, abl,
-                      rag_tot, rag))
+                      rag_tot, rag, trainer))
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

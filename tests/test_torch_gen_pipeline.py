@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_support import kept_prng_impl
 from vivqa_tpu.data import fastloader as JF
 from vivqa_tpu.metrics import (BLEUScore as JBLEU, CIDErScore as JCIDEr,
                                ExactMatchAccuracy as JEM,
@@ -134,8 +135,10 @@ def corpus(tmp_path_factory):
 
 @contextlib.contextmanager
 def _one_device():
-    """The JAX pipeline on a one-device mesh, as its own tests run it."""
-    with pytest.MonkeyPatch.context() as mp:
+    """The JAX pipeline on a one-device mesh, as its own tests run it,
+    with the PRNG implementation that its ``set_seed`` switches restored
+    after it."""
+    with pytest.MonkeyPatch.context() as mp, kept_prng_impl():
         mp.setattr(JGP, "create_mesh", lambda c: j_create_mesh(
             c, devices=jax.devices("cpu")[:1]))
         yield
@@ -496,13 +499,54 @@ def test_cli_trains_on_the_cpu_from_yaml(corpus, tmp_path):
     assert len(results) == N // 10
 
 
+@pytest.mark.parametrize("flag,frozen", [
+    ("--freeze-visual", ("visual_encoder",)),
+    ("--freeze-text", ("question_encoder", "text_encoder"))], ids=str)
+def test_cli_freezes_and_runs_the_resource_manager(corpus, tmp_path,
+                                                   monkeypatch, flag,
+                                                   frozen):
+    """``--freeze-visual`` / ``--freeze-text`` (the strategies, ported)
+    leave their tower bit-equal through an epoch while the rest trains;
+    ``--enable-resource-management`` starts the manager before the mode
+    and stops it after."""
+    from vivqa_tpu_torch import resources
+    csv, imgs = corpus
+    cfg = _port_config(csv, imgs, tmp_path)
+    path = tmp_path / "cfg.yaml"
+    cfg.to_yaml(path)
+    monkeypatch.setattr(resources.manager, "_SINGLETON", None)
+    rm = resources.get_resource_manager(resources.ResourceConfig(
+        backup=resources.BackupConfig(emergency_dir=str(tmp_path / "em")),
+        report=resources.ReportIntervalConfig(
+            report_dir=str(tmp_path / "rep")),
+        enable_signal_handlers=False))
+    seen = {}
+    real = PGT.GenerativeTrainingPipeline.run
+
+    def run(self, model, *args):
+        seen["strategy"] = self.config.strategy
+        seen["running"] = rm._running
+        seen["before"] = {n: p.detach().clone()
+                          for n, p in model.named_parameters()}
+        out = real(self, model, *args)
+        seen["after"] = dict(model.named_parameters())
+        return out
+    monkeypatch.setattr(PGT.GenerativeTrainingPipeline, "run", run)
+    PGP.main(["--config", str(path), "--device", "cpu", "--epochs", "1",
+              "--mode", "train", flag, "--enable-resource-management",
+              "--checkpoint-dir", str(tmp_path / "ck"),
+              "--output-dir", str(tmp_path / "out")])
+    assert seen["strategy"] == flag[2:].replace("-", "_")
+    assert seen["running"] and not rm._running
+    for n, p in seen["before"].items():
+        same = torch.equal(seen["after"][n].detach(), p)
+        assert same == n.startswith(frozen), n
+
+
 @pytest.mark.parametrize("argv,item", [
     (["--use-moe", "--moe-type", "sparse"], "item 13"),
     (["--pretrained-visual", "openai/clip-vit-base-patch32"], "item 13"),
-    (["--pretrained-text", "vinai/phobert-base"], "item 13"),
-    (["--enable-resource-management"], "item 12"),
-    (["--freeze-visual"], "item 12"),
-    (["--freeze-text"], "item 12")], ids=str)
+    (["--pretrained-text", "vinai/phobert-base"], "item 13")], ids=str)
 def test_unported_options_name_their_item(corpus, tmp_path, argv, item):
     csv, imgs = corpus
     with pytest.raises(NotImplementedError, match=item):
@@ -718,10 +762,15 @@ def test_convergence_bench_seed_dtype_and_dropout_knobs(monkeypatch):
 
 
 def test_convergence_bench_mix_mode_names_its_item(monkeypatch):
+    """CONV_MIX_MODE reaches the training pipeline (batch mixing is
+    ported; the name is kept from when it raised) and the line names it
+    under ``augmentation``, as the root script's does."""
     monkeypatch.setenv("CONV_SAMPLES", "40")
-    monkeypatch.setenv("CONV_MIX_MODE", "mixup")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        bench_convergence.main("cpu")
+    monkeypatch.setenv("CONV_EPOCHS", "1")
+    monkeypatch.setenv("CONV_MIX_MODE", "both")
+    out = bench_convergence.main("cpu")
+    assert out["augmentation"]["mix_mode"] == "both"
+    assert len(out["val_em_curve"]) == 1
 
 
 def test_generative_convergence_bench_prints_the_root_scripts_keys(

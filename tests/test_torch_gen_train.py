@@ -560,6 +560,17 @@ def test_pipeline_stops_early_and_resumes_at_the_next_epoch(tmp_path):
 
 
 def test_pipeline_refuses_unported_strategies(tmp_path):
+    """Every strategy is ported (the name is kept from when they raised):
+    the pipeline applies epoch 0's mask for the whole run, as the JAX
+    pipeline does, so under gradual_unfreeze both encoders stay frozen
+    through both epochs while the fusion and decoder train; an unknown
+    strategy raises."""
     model, tok, train, val = _pipeline_setup()
-    with pytest.raises(NotImplementedError, match="item 12"):
-        _run(tmp_path, model, tok, train, val, strategy="freeze_visual")
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    _run(tmp_path, model, tok, train, val, num_epochs=2,
+         strategy="gradual_unfreeze")
+    for n, p in model.named_parameters():
+        frozen = n.startswith(("visual_encoder", "question_encoder"))
+        assert torch.equal(p.detach(), before[n]) == frozen, n
+    with pytest.raises(ValueError, match="unknown strategy"):
+        _run(tmp_path / "x", model, tok, train, val, strategy="freeze_all")

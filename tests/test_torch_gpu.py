@@ -1353,3 +1353,99 @@ def test_knowledge_train_step_on_card_matches_cpu():
     np.testing.assert_allclose(gn, cn, rtol=2e-2)
     for name, p in cp.items():
         assert float((gp[name] - p).abs().max()) <= 3 * lr, name
+
+
+# -- the trainer's extras on the card ------------------------------------------
+def _small_trainer_model(dropout: float):
+    cfg = PC.VQAModelConfig(
+        visual=PC.VisualEncoderConfig(image_size=64, patch_size=16,
+                                      hidden_dim=128, num_layers=2,
+                                      num_heads=2),
+        text=PC.TextEncoderConfig(vocab_size=200, hidden_dim=128,
+                                  num_layers=2, num_heads=2, max_length=24,
+                                  dropout=dropout),
+        fusion=PC.FusionConfig(fusion_type="mcan", hidden_dim=128,
+                               num_heads=2, num_layers=1, dropout=dropout),
+        head=PC.AnswerHeadConfig(dropout=dropout), num_answers=20)
+    return create_vqa_model(cfg, device="cuda",
+                            generator=torch.Generator().manual_seed(0))
+
+
+def _small_trainer_batch(B=8):
+    rs = np.random.RandomState(3)
+    mask = padding_mask(rs.randint(3, 25, B), 24)
+    return {"pixel_values": torch.from_numpy(
+                rs.rand(B, 64, 64, 3).astype(np.float32)).cuda(),
+            "input_ids": torch.from_numpy(
+                rs.randint(4, 199, (B, 24)) * mask).long().cuda(),
+            "attention_mask": torch.from_numpy(mask).long().cuda(),
+            "labels": torch.from_numpy(rs.randint(0, 20, B)).long().cuda()}
+
+
+def test_checkpointed_step_replays_dropout_on_a_cuda_generator():
+    """On a CUDA generator (its Philox seed and offset, which the
+    attention dropout's key is read from), the checkpointed forward's
+    recompute draws the masks of the first pass: the loss and every
+    gradient equal the plain step's within the card's own spread (three
+    plain steps), and the checkpointed step launches the forward with
+    stats twice per attention call (none of the serving forward), dQ and
+    dK/dV once. Without the generator's restore, the gradients differ."""
+    _need_card()
+    from vivqa_tpu_torch.train.trainer import TrainerConfig, VQATrainer
+    model = _small_trainer_model(0.1)
+    batch = _small_trainer_batch()
+    calls = 2 + 2 + 3          # ViT, text, MCAN (1 enc, 1 dec, 1 cross)
+
+    def step(checkpointing):
+        fn = VQATrainer(TrainerConfig(gradient_checkpointing=checkpointing),
+                        model)._loss_fn()
+        model.train()
+        for p in model.parameters():
+            p.grad = None
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        loss, _ = fn(model, batch, gen)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.detach(), {n: p.grad.clone()
+                               for n, p in model.named_parameters()}
+    plain = [step(False) for _ in range(3)]
+    fa.reset_launch_counts()
+    loss, grads = step(True)
+    assert dict(fa.launch_counts) == {
+        "flash_attn_fwd": 0, "flash_attn_fwd_lse": 2 * calls,
+        "flash_attn_bwd_dq": calls, "flash_attn_bwd_dkv": calls}
+    for n, g in grads.items():
+        spread = max(float((a[1][n] - b[1][n]).abs().max())
+                     for a in plain for b in plain)
+        assert float((g - plain[0][1][n]).abs().max()) <= 2 * spread, n
+    assert float((loss - plain[0][0]).abs()) <= 2 * max(
+        float((a[0] - b[0]).abs()) for a in plain for b in plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for p in model.parameters():
+        p.grad = None
+    naive = torch.utils.checkpoint.checkpoint(
+        lambda *a: model(*a, generator=gen), batch["pixel_values"],
+        batch["input_ids"], batch["attention_mask"], use_reentrant=False)
+    torch.nn.functional.cross_entropy(naive["logits"],
+                                      batch["labels"]).backward()
+    assert any(not torch.equal(p.grad, plain[0][1][n])
+               for n, p in model.named_parameters() if p.grad is not None)
+
+
+def test_device_monitor_reads_the_card():
+    """The resource monitor's device sample: the card's used memory
+    (mem_get_info) grows with an allocation of 1 GiB and the allocator's
+    own count (memory_stats) holds it."""
+    _need_card()
+    from vivqa_tpu_torch.resources import DeviceMemoryMonitor
+    m = DeviceMemoryMonitor(interval=1.0, warning=200.0, critical=300.0)
+    before = m.poll_once()
+    block = torch.empty(2 ** 30, dtype=torch.uint8, device="cuda")
+    after = m.poll_once()
+    del block
+    assert 0 < before.percent < after.percent < 100
+    d0, d1 = before.detail["0"], after.detail["0"]
+    assert d1["used_gb"] - d0["used_gb"] >= 1.0
+    assert d1["allocated_gb"] - d0["allocated_gb"] >= 1.07
+    assert d1["limit_gb"] > 70

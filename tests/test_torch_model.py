@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from test_torch_support import (assert_close, assert_close_bf16, jax_params,
-                                padding_mask, port_with)
+                                kept_prng_impl, padding_mask, port_with)
 from vivqa_tpu.models import config as JC
 from vivqa_tpu.models.vqa_model import VietnameseVQAModel as JModel
 from vivqa_tpu_torch.models import config as PC
@@ -103,7 +103,10 @@ def test_vqa_model_expert_mask():
     assert_close_bf16(got["logits"], want["logits"], msg="logits")
 
 
-def _predictors():
+def _predictors(top_k: int = 3):
+    """The JAX predictor asked for ``top_k + 1`` answers (so a test sees
+    the first answer outside the port's top ``top_k``), the port's for
+    ``top_k``, over one pair of weights."""
     from vivqa_tpu.data.tokenizer import WhitespaceTokenizer as JTok
     from vivqa_tpu.eval.predictor import VQAPredictor as JPred
     from vivqa_tpu_torch.data.tokenizer import WhitespaceTokenizer
@@ -115,19 +118,26 @@ def _predictors():
     tok.build_vocab(corpus)
     id2answer = {i: f"answer_{i}" for i in range(16)}
     jm, params, port = _pair("float32")
-    return (JPred(jm, params, jtok, id2answer, image_size=32, top_k=3,
-                  batch_pad=4),
-            VQAPredictor(port, tok, id2answer, image_size=32, top_k=3,
+    return (JPred(jm, params, jtok, id2answer, image_size=32,
+                  top_k=top_k + 1, batch_pad=4),
+            VQAPredictor(port, tok, id2answer, image_size=32, top_k=top_k,
                          batch_pad=4, device="cpu"),
             corpus)
 
 
-def test_predictor_matches_jax():
+@pytest.mark.parametrize("prng_impl", ["threefry2x32", "unsafe_rbg"])
+def test_predictor_matches_jax(prng_impl):
     """Top-k answers and confidences of predict_batch (5 requests, padded
-    to 8) and predict. Confidences are softmax outputs of bf16-level
-    logits; an answer pair is held to the same order only where the JAX
-    confidences differ by more than that noise."""
-    jpred, pred, corpus = _predictors()
+    to 8) and predict, at the init of each PRNG implementation (the JAX
+    pipelines' ``set_seed`` switches to ``unsafe_rbg``). Confidences are
+    softmax outputs of bf16-level logits; a JAX answer is held to the
+    port's top 3, within 0.02, only where its confidence differs by more
+    than that noise from every other answer of JAX's top 4 (so also from
+    the first answer outside the top 3, which the port may rank in its
+    place), and the top answer only where it leads by more."""
+    with kept_prng_impl():
+        jax.config.update("jax_default_prng_impl", prng_impl)
+        jpred, pred, corpus = _predictors(top_k=3)
     rs = np.random.RandomState(2)
     images = [rs.randint(0, 256, (40, 48, 3), dtype=np.uint8)
               for _ in range(5)]
@@ -139,9 +149,10 @@ def test_predictor_matches_jax():
     assert len(got) == len(want) == 6
     for g, w in zip(got, want):
         assert g.question == w.question and g.inference_ms > 0
+        assert len(g.top_answers) == 3 and len(w.top_answers) == 4
         wc = [a["confidence"] for a in w.top_answers]
         gc = {a["answer"]: a["confidence"] for a in g.top_answers}
-        for i, a in enumerate(w.top_answers):
+        for i, a in enumerate(w.top_answers[:3]):
             margin = min(abs(wc[i] - wc[j]) for j in range(len(wc)) if j != i)
             if margin > 0.02:
                 assert a["answer"] in gc and abs(

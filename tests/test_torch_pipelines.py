@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_support import kept_prng_impl
 from vivqa_tpu.eval.evaluator import VQAEvaluator as JEvaluator
 from vivqa_tpu.eval.predictor import PredictionResult as JResult
 from vivqa_tpu.eval.result_manager import InferenceResultManager as JRM
@@ -110,6 +111,11 @@ def corpus(tmp_path_factory):
 def runs(corpus, tmp_path_factory):
     """Both packages' DataPipeline and TrainingPipeline, two epochs from
     one JAX init (a one-device mesh: plain jit)."""
+    with kept_prng_impl():
+        return _runs(corpus, tmp_path_factory)
+
+
+def _runs(corpus, tmp_path_factory):
     csv, imgs = corpus
     jdata = JDP.DataPipeline(_data_config(JDP, csv, imgs)).run()
     pdata = PDP.DataPipeline(_data_config(PDP, csv, imgs)).run()
@@ -398,16 +404,6 @@ def test_config_yaml_and_overrides_match_jax(tmp_path):
 
 
 # -- what is not ported names its ROADMAP item --------------------------------
-@pytest.mark.parametrize("change,item", [
-    ({"mix_mode": "mixup"}, "item 12"),
-    ({"strategy": "freeze_visual"}, "item 12"),
-    ({"optimizer": POpt(lookahead=True)}, "item 12")], ids=str)
-def test_training_pipeline_unported_options_name_their_item(change, item):
-    pipe = PTP.TrainingPipeline(PTP.TrainingPipelineConfig(**change))
-    with pytest.raises(NotImplementedError, match=item):
-        pipe.run(torch.nn.Linear(1, 1), [], [], {})
-
-
 @pytest.mark.parametrize("field", ["pretrained_visual", "pretrained_text"])
 def test_model_pipeline_pretrained_towers_name_their_item(field):
     pipe = PMP.ModelPipeline(PMP.ModelPipelineConfig(
@@ -417,16 +413,38 @@ def test_model_pipeline_pretrained_towers_name_their_item(field):
 
 
 def test_vqa_pipeline_knowledge_names_its_item(corpus, tmp_path):
-    """An option of the CLI still unported names its ROADMAP item
-    (``--use-knowledge`` did until the RAG path was ported; the name is
-    kept): batch mixing, item 12."""
+    """The CLI's options that once named their ROADMAP item (the name is
+    kept from ``--use-knowledge``, then batch mixing) now run:
+    ``--mix-mode both --mix-alpha 0.3`` and a freezing strategy from the
+    YAML train an epoch, the frozen visual encoder unchanged and the
+    summary naming them."""
     csv, imgs = corpus
     yaml_path = tmp_path / "cfg.yaml"
-    _write_config(yaml_path, csv, imgs, 50, 2, tmp_path / "o",
-                  tmp_path / "ck")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        PVP.main(["--config", str(yaml_path), "--device", "cpu",
-                  "--mix-mode", "mixup"])
+    cfg = _write_config(yaml_path, csv, imgs, 50, 2, tmp_path / "o",
+                        tmp_path / "ck")
+    cfg.replace(training=cfg.training.replace(
+        strategy="freeze_visual")).to_yaml(yaml_path)
+    seen = {}
+    real = PTP.TrainingPipeline.run
+
+    def run(self, model, *args):
+        seen["before"] = {n: p.detach().clone()
+                          for n, p in model.named_parameters()}
+        out = real(self, model, *args)
+        seen["after"] = dict(model.named_parameters())
+        return out
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(PTP.TrainingPipeline, "run", run)
+        out = PVP.main(["--config", str(yaml_path), "--device", "cpu",
+                        "--mode", "train", "--epochs", "1",
+                        "--mix-mode", "both", "--mix-alpha", "0.3"])
+    training = out["config"]["training"]
+    assert (training["mix_mode"], training["mix_alpha"],
+            training["strategy"]) == ("both", 0.3, "freeze_visual")
+    assert np.isfinite(out["history"][0]["train_loss"])
+    for n, p in seen["before"].items():
+        same = torch.equal(seen["after"][n].detach(), p)
+        assert same == n.startswith("visual_encoder"), n
 
 
 # -- the smaller pieces -------------------------------------------------------

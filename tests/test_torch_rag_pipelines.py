@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_support import kept_prng_impl
 from vivqa_tpu.knowledge import KnowledgeProviderConfig as JKCfg
 from vivqa_tpu.models import config as JC
 from vivqa_tpu.models.vqa_model import VietnameseVQAModel as JModel
@@ -80,9 +81,10 @@ def corpora(tmp_path_factory):
 @contextlib.contextmanager
 def _one_device():
     """The JAX pipelines on a one-device mesh, as their own tests run
-    them."""
+    them, with the PRNG implementation that their ``set_seed`` switches
+    restored after them."""
     one = lambda c: j_create_mesh(c, devices=jax.devices("cpu")[:1])
-    with pytest.MonkeyPatch.context() as mp:
+    with pytest.MonkeyPatch.context() as mp, kept_prng_impl():
         mp.setattr(JMP, "create_mesh", one)
         mp.setattr(JGP, "create_mesh", one)
         yield

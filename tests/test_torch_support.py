@@ -9,6 +9,8 @@ with ``vivqa_tpu_torch.models.from_jax`` and compare outputs.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -33,6 +35,23 @@ def jax_params(module, *args, seed: int = 0, noise: float = 0.05,
         lambda p: np.asarray(p, np.float32)
         + noise * rs.standard_normal(np.shape(p)).astype(np.float32),
         jax.device_get(variables["params"]))
+
+
+@contextlib.contextmanager
+def kept_prng_impl():
+    """Restore JAX's global ``jax_default_prng_impl`` on exit. The JAX
+    pipelines' ``set_seed`` (``vivqa_tpu/utils/seeding.py``) switches it
+    to ``unsafe_rbg``; ``tests/conftest.py`` restores it after each test
+    but not after a module-scoped fixture, so without this a fixture that
+    runs a JAX pipeline would change which weights
+    ``jax.random.PRNGKey(0)`` initialises in the next test file of the
+    same process."""
+    import jax
+    prev = jax.config.jax_default_prng_impl
+    try:
+        yield
+    finally:
+        jax.config.update("jax_default_prng_impl", prev)
 
 
 def port_with(module: torch.nn.Module, params) -> torch.nn.Module:
@@ -200,3 +219,63 @@ def test_from_jax_layouts():
     np.testing.assert_array_equal(
         port.layers[0].ln1.weight.detach().numpy(),
         params["layers_0"]["ln1"]["scale"])
+
+
+def small_cls_config(mod, dropout: float = 0.0):
+    """The flagship's classification structure (ViT, text encoder, MCAN,
+    answer head; no MoE) at width 32, one layer each, 16 px, 8 tokens,
+    10 answers, in f32, in ``mod``'s config classes."""
+    return mod.VQAModelConfig(
+        visual=mod.VisualEncoderConfig(image_size=16, patch_size=8,
+                                       hidden_dim=32, num_layers=1,
+                                       num_heads=2, dtype="float32"),
+        text=mod.TextEncoderConfig(vocab_size=50, hidden_dim=32,
+                                   num_layers=1, num_heads=2, max_length=8,
+                                   dropout=dropout, dtype="float32"),
+        fusion=mod.FusionConfig(fusion_type="mcan", hidden_dim=32,
+                                num_heads=2, num_layers=1, dropout=dropout),
+        head=mod.AnswerHeadConfig(dropout=dropout), num_answers=10,
+        dtype="float32")
+
+
+@contextlib.contextmanager
+def forced_bf16_as_f32():
+    """The JAX package's forced-bf16 classification modules (MCAN, its
+    AttFlat, the answer head) computing in f32; ``as_f32`` does the same
+    for a port model after it is built."""
+    import jax.numpy as jnp
+    from vivqa_tpu.models import heads as JH
+    from vivqa_tpu.models.fusion import mcan as JMCAN
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JMCAN, "to_dtype", lambda name: jnp.float32)
+        for cls in (JMCAN.AttFlat, JH.AnswerHead):
+            mp.setattr(cls, "dtype", jnp.float32)
+        yield
+
+
+def as_f32(model: torch.nn.Module) -> torch.nn.Module:
+    """Every module of ``model`` built in bf16 set to compute in f32."""
+    for m in model.modules():
+        if getattr(m, "dtype", None) == torch.bfloat16:
+            m.dtype = torch.float32
+    return model
+
+
+def small_cls_params(batch: dict, seed: int = 0):
+    """JAX init of ``small_cls_config`` on ``batch`` (under the PRNG
+    implementation this restores), each leaf perturbed by seeded noise."""
+    import jax
+    from vivqa_tpu.models import config as JC
+    from vivqa_tpu.models.vqa_model import VietnameseVQAModel as JModel
+    jm = JModel(small_cls_config(JC))
+    with kept_prng_impl():
+        key = jax.random.PRNGKey(seed)
+        variables = jax.jit(jm.init)({"params": key, "router": key},
+                                     batch["pixel_values"],
+                                     batch["input_ids"],
+                                     batch["attention_mask"])
+    rs = np.random.RandomState(seed + 1)
+    return jax.tree.map(
+        lambda p: np.asarray(p, np.float32)
+        + 0.05 * rs.standard_normal(np.shape(p)).astype(np.float32),
+        jax.device_get(variables["params"]))

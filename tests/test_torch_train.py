@@ -320,13 +320,20 @@ def test_clip_and_grad_norm_follow_optax():
 
 
 def test_optimizer_refuses_what_is_not_ported():
+    """Every optimizer and option of the JAX package is ported (their
+    parity: tests/test_torch_optim_zoo.py); what neither package knows
+    raises ValueError, as optax's factory does."""
     lin = torch.nn.Linear(3, 2)
-    with pytest.raises(NotImplementedError, match="only adamw"):
-        PO.create_optimizer(PO.OptimizerConfig(name="sgd"), lin)
-    with pytest.raises(NotImplementedError, match="lookahead"):
-        PO.create_optimizer(PO.OptimizerConfig(lookahead=True), lin)
-    with pytest.raises(NotImplementedError, match="mu_dtype"):
-        PO.create_optimizer(PO.OptimizerConfig(mu_dtype="bfloat16"), lin)
+    for name in PO.OPTIMIZERS:
+        PO.create_optimizer(PO.OptimizerConfig(
+            name=name, lookahead=True, layer_decay=0.9,
+            mu_dtype="bfloat16"), lin)
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        PO.create_optimizer(PO.OptimizerConfig(name="lion"), lin)
+    with pytest.raises(ValueError, match="mu_dtype"):
+        PO.create_optimizer(PO.OptimizerConfig(mu_dtype="int8"), lin)
+    with pytest.raises(ValueError, match="accumulate_steps"):
+        PO.create_optimizer(PO.OptimizerConfig(accumulate_steps=0), lin)
 
 
 # -- training mode -----------------------------------------------------------

@@ -12,8 +12,8 @@ script's keys plus the card's name and power limit. Pass criterion
 recoverable from the question alone).
 
 Environment knobs as the root script's: CONV_SAMPLES (256), CONV_EPOCHS
-(30), CONV_LR (3e-4), CONV_MIX_MODE (only ``none`` is ported: mixup and
-cutmix wait for ROADMAP.md Queue A item 12), CONV_TEXT_AUG,
+(30), CONV_LR (3e-4), CONV_MIX_MODE (none | mixup | cutmix | both),
+CONV_TEXT_AUG,
 CONV_DROPOUT_SCHEDULE. Three more, to tell a seed's luck from the
 card's arithmetic, which leave the recipe as it is while unset:
 CONV_SEED (42, the pipelines' default: the model's init and the

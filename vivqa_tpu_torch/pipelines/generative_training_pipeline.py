@@ -44,6 +44,7 @@ from vivqa_tpu_torch.train.optimizers import (OptimizerConfig,
                                               create_optimizer)
 from vivqa_tpu_torch.train.state import (TrainState, generative_loss_fn,
                                          knowledge_of, make_train_step)
+from vivqa_tpu_torch.train.strategies import trainable_mask
 from vivqa_tpu_torch.utils import get_pipeline_logger
 
 
@@ -62,7 +63,8 @@ class GenerativeTrainingConfig(ConfigBase):
     max_checkpoints: int = 3
     log_every: int = 10
     # freezing strategy (full / freeze_visual / freeze_text /
-    # linear_probe / gradual_unfreeze); only "full" is ported
+    # linear_probe / gradual_unfreeze; train/strategies.py), epoch 0's
+    # mask for the whole run
     strategy: str = "full"
     decode_strategy: str = "greedy"
     num_beams: int = 4
@@ -109,20 +111,20 @@ class GenerativeTrainingPipeline:
         ``val_loader`` with answers decoded by ``tokenizer``."""
         cfg = self.config
         log = self.log
-        if cfg.strategy != "full":
-            raise NotImplementedError(
-                f"strategy '{cfg.strategy}': freezing strategies "
-                f"(train/strategies.py) are not ported yet (ROADMAP.md, "
-                f"Queue A item 12)")
         log.start_stage("generative_training")
         device = next(model.parameters()).device
         expert_mask = torch.tensor(cfg.expert_mask, dtype=torch.float32,
                                    device=device) if cfg.expert_mask else None
 
         total = max(1, len(train_loader) * cfg.num_epochs)
+        freeze = None
+        if cfg.strategy != "full":
+            # epoch 0's mask for the whole run, as the JAX pipeline
+            freeze = trainable_mask(model, cfg.strategy, 0, cfg.num_epochs)
         state = TrainState.create(
             model, create_optimizer(cfg.optimizer, model,
-                                    cfg.scheduler.replace(total_steps=total)),
+                                    cfg.scheduler.replace(total_steps=total),
+                                    freeze),
             seed=cfg.seed)
         train_step = make_train_step(generative_loss_fn(
             cfg.label_smoothing, cfg.moe_aux_weight, expert_mask))

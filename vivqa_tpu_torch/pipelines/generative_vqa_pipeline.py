@@ -18,8 +18,10 @@ With ``--use-knowledge`` a ``KnowledgeProvider`` (from ``--kb-path``,
 else from the training split's QA pairs) wraps the train, val and test
 loaders, and the model appends the K retrieved contexts to its memory;
 train, evaluate and inference pass them to the model, the demo does not
-(the JAX package's behaviour). The resource manager waits for ROADMAP.md
-Queue A item 12, the pretrained towers for item 13.
+(the JAX package's behaviour). ``--enable-resource-management`` starts
+the module's ``ResourceManager`` (``resources/``) before the mode and
+stops it after, as the JAX pipeline does. The pretrained towers wait for
+ROADMAP.md Queue A item 13.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from vivqa_tpu_torch.pipelines.data_pipeline import (DataPipeline,
 from vivqa_tpu_torch.pipelines.generative_training_pipeline import (
     GenerativeTrainingConfig, GenerativeTrainingPipeline, batch_to_device)
 from vivqa_tpu_torch.pipelines.vqa_pipeline import attach_knowledge
+from vivqa_tpu_torch.resources import get_resource_manager
 from vivqa_tpu_torch.train.checkpoint import (CheckpointConfig,
                                               CheckpointManager,
                                               partial_load)
@@ -88,10 +91,6 @@ def _check_ported(cfg: GenerativeVQAPipelineConfig) -> None:
         raise NotImplementedError(
             "pretrained towers (pretrained_visual / pretrained_text) need "
             "the HF import, not ported yet (ROADMAP.md Queue A item 13)")
-    if cfg.use_resource_manager:
-        raise NotImplementedError(
-            "use_resource_manager: the resource monitor is not ported yet "
-            "(ROADMAP.md Queue A item 12)")
 
 
 class GenerativeVQAPipeline:
@@ -172,31 +171,40 @@ class GenerativeVQAPipeline:
         log.key_value("mode", cfg.mode)
         set_seed(cfg.seed)
 
-        data_out, model = self._setup()
-        device = next(model.parameters()).device
-        summary = {"mode": cfg.mode, "config": cfg.to_dict()}
+        rm = None
+        if cfg.use_resource_manager:
+            rm = get_resource_manager()
+            rm.start()
 
-        if cfg.mode == "train":
-            tp = GenerativeTrainingPipeline(cfg.training, log)
-            out = tp.run(model, data_out.train_loader, data_out.val_loader,
-                         data_out.tokenizer)
-            summary["history"] = out.history
-            summary["best_metric"] = out.best_metric
-        elif cfg.mode == "evaluate":
-            tp = GenerativeTrainingPipeline(cfg.training, log)
-            mask = cfg.training.expert_mask
-            metrics = tp._validate(
-                build_generate_fn(model, self._decode_cfg(model)),
-                data_out.test_loader, data_out.tokenizer, device,
-                torch.tensor(mask, dtype=torch.float32, device=device)
-                if mask else None)
-            summary["metrics"] = metrics
-            log.log_metrics(metrics, prefix="test/")
-        elif cfg.mode == "inference":
-            summary["results_path"] = str(
-                self._run_inference(data_out, model, device))
-        else:
-            self._demo(data_out, model, device)
+        try:
+            data_out, model = self._setup()
+            device = next(model.parameters()).device
+            summary = {"mode": cfg.mode, "config": cfg.to_dict()}
+
+            if cfg.mode == "train":
+                tp = GenerativeTrainingPipeline(cfg.training, log)
+                out = tp.run(model, data_out.train_loader,
+                             data_out.val_loader, data_out.tokenizer)
+                summary["history"] = out.history
+                summary["best_metric"] = out.best_metric
+            elif cfg.mode == "evaluate":
+                tp = GenerativeTrainingPipeline(cfg.training, log)
+                mask = cfg.training.expert_mask
+                metrics = tp._validate(
+                    build_generate_fn(model, self._decode_cfg(model)),
+                    data_out.test_loader, data_out.tokenizer, device,
+                    torch.tensor(mask, dtype=torch.float32, device=device)
+                    if mask else None)
+                summary["metrics"] = metrics
+                log.log_metrics(metrics, prefix="test/")
+            elif cfg.mode == "inference":
+                summary["results_path"] = str(
+                    self._run_inference(data_out, model, device))
+            else:
+                self._demo(data_out, model, device)
+        finally:
+            if rm is not None:
+                rm.stop()
 
         summary["wall_seconds"] = time.time() - t0
         path = Path(cfg.output_dir) / "pipeline_summary.json"

@@ -21,8 +21,11 @@ train step through the three training kernels. A ``KnowledgeProvider``
 that wraps the loaders adds its arrays to the batches, and both the step
 and the validation pass them to the model. Gradient accumulation is
 the optimizer's (``optax.MultiSteps``): the schedule spans steps /
-``accumulate_steps`` updates. Batch mixing and freezing strategies wait
-for ROADMAP.md Queue A item 12.
+``accumulate_steps`` updates. ``mix_mode`` mixes each training batch
+(MixUp, CutMix or a coin between them, ``ops/batch_mix.py``) before the
+forward; ``strategy`` freezes by the mask of epoch 0 for the whole run,
+as the JAX pipeline does (so ``gradual_unfreeze`` never unlocks an
+encoder here; ``train/trainer.py`` rebuilds per stage).
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ from vivqa_tpu_torch.train.optimizers import (OptimizerConfig,
                                               create_optimizer)
 from vivqa_tpu_torch.train.state import (TrainState, classification_loss_fn,
                                          knowledge_of, make_train_step)
+from vivqa_tpu_torch.train.strategies import trainable_mask
 from vivqa_tpu_torch.utils import get_pipeline_logger
 
 
@@ -64,7 +68,7 @@ class TrainingPipelineConfig(ConfigBase):
         default_factory=SchedulerConfig)
     label_smoothing: float = 0.0
     # batch-mix augmentation (reference augmentation.py:219-348
-    # MixUp/CutMix); only "none" is ported
+    # MixUp/CutMix; ops/batch_mix.py)
     mix_mode: str = "none"              # none | mixup | cutmix | both
     mix_alpha: float = 0.4              # Beta(alpha, alpha) mixing ratio
     # scheduled dropout (reference augmentation.py:475-562
@@ -74,7 +78,8 @@ class TrainingPipelineConfig(ConfigBase):
     final_dropout: float = 0.3
     dropout_warmup_epochs: int = 0
     moe_aux_weight: float = 0.01
-    # freezing strategy; only "full" is ported
+    # freezing strategy (train/strategies.py): epoch 0's mask holds for
+    # the whole run, so gradual_unfreeze keeps both encoders frozen
     strategy: str = "full"
     early_stopping_patience: int = 5
     metric_for_best: str = "vqa_accuracy"
@@ -111,28 +116,21 @@ class TrainingPipeline:
         self.config = config
         self.log = logger or get_pipeline_logger()
 
-    def _check_ported(self) -> None:
-        cfg = self.config
-        if cfg.mix_mode != "none":
-            raise NotImplementedError(
-                f"mix_mode '{cfg.mix_mode}': batch mixing (ops/batch_mix.py)"
-                f" is not ported yet (ROADMAP.md, Queue A item 12)")
-        if cfg.strategy != "full":
-            raise NotImplementedError(
-                f"strategy '{cfg.strategy}': freezing strategies "
-                f"(train/strategies.py) are not ported yet (ROADMAP.md, "
-                f"Queue A item 12)")
-
     def _build_state(self, model: torch.nn.Module,
                      steps_per_epoch: int) -> TrainState:
-        """A fresh train state: AdamW over ``model``'s parameters with the
-        schedule spread over the whole run."""
+        """A fresh train state: the optimizer over ``model``'s parameters
+        with the schedule spread over the whole run and the strategy's
+        mask of epoch 0."""
         cfg = self.config
         total = max(1, steps_per_epoch * cfg.num_epochs //
                     max(1, cfg.optimizer.accumulate_steps))
         sched = cfg.scheduler.replace(total_steps=total)
+        freeze = None
+        if cfg.strategy != "full":
+            # epoch 0's mask for the whole run, as the JAX pipeline
+            freeze = trainable_mask(model, cfg.strategy, 0, cfg.num_epochs)
         return TrainState.create(
-            model, create_optimizer(cfg.optimizer, model, sched),
+            model, create_optimizer(cfg.optimizer, model, sched, freeze),
             seed=cfg.seed)
 
     def _expert_mask(self, device: torch.device) -> Optional[torch.Tensor]:
@@ -149,13 +147,13 @@ class TrainingPipeline:
         validating each epoch over ``val_loader``."""
         cfg = self.config
         log = self.log
-        self._check_ported()
         log.start_stage("training_pipeline")
         device = next(model.parameters()).device
         state = self._build_state(model, len(train_loader))
         expert_mask = self._expert_mask(device)
         train_step = make_train_step(classification_loss_fn(
-            cfg.moe_aux_weight, cfg.label_smoothing, expert_mask))
+            cfg.moe_aux_weight, cfg.label_smoothing, expert_mask,
+            cfg.mix_mode, cfg.mix_alpha))
 
         ckpt = CheckpointManager(CheckpointConfig(
             directory=cfg.checkpoint_dir, max_to_keep=cfg.max_checkpoints,

@@ -20,8 +20,9 @@ config's ``save_interval_steps``, which its manager never reads, is left
 out.
 
 ``partial_load`` merges a restored {name: tensor} dict into a model by
-name and shape. The JAX package's ``emergency_save`` waits for the
-port's resource monitor (ROADMAP.md Queue A item 12).
+name and shape. ``emergency_save`` writes one state at once, outside any
+manager's policy, into ``<directory>/emergency/`` (``state.pt`` and, with
+metadata, ``metadata.json``), where ``restore_emergency`` reads it.
 """
 
 from __future__ import annotations
@@ -157,3 +158,38 @@ def partial_load(restored_params: Mapping[str, torch.Tensor],
         logger.warning("partial load skipped %d params: %s",
                        len(skipped), skipped[:5])
     return model, skipped
+
+
+def to_host(tree):
+    """Tensors (in dicts, lists and tuples) copied to the CPU."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: to_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_host(v) for v in tree)
+    return tree
+
+
+def emergency_save(state, directory: str | Path,
+                   metadata: Optional[Dict[str, Any]] = None) -> Path:
+    """One synchronous save for the resource monitor's critical path
+    (reference BackupHandler emergency backup, backup_handler.py:620-735):
+    ``state`` (e.g. a train state's ``{"params", "optimizer", "step"}``)
+    copied to the host and ``torch.save``'d, replacing any earlier one.
+    Returns the emergency directory."""
+    path = Path(directory).absolute() / "emergency"
+    path.mkdir(parents=True, exist_ok=True)
+    torch.save(to_host(state), path / _STATE)
+    if metadata:
+        (path / _METADATA).write_text(json.dumps(metadata, default=str))
+    return path
+
+
+def restore_emergency(path: str | Path, map_location=None):
+    """(state, metadata or {}) of an ``emergency_save`` directory."""
+    path = Path(path)
+    state = torch.load(path / _STATE, map_location=map_location,
+                       weights_only=True)
+    meta = path / _METADATA
+    return state, json.loads(meta.read_text()) if meta.exists() else {}

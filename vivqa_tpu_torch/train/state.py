@@ -18,6 +18,7 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
+from vivqa_tpu_torch.ops.batch_mix import mix_batch, mixed_cross_entropy
 from vivqa_tpu_torch.train.losses import IGNORE_INDEX, cross_entropy_loss
 from vivqa_tpu_torch.train.optimizers import Optimizer
 
@@ -72,23 +73,37 @@ def knowledge_of(batch: dict) -> dict:
 
 def classification_loss_fn(aux_weight: float = 0.01,
                            label_smoothing: float = 0.0,
-                           expert_mask: Optional[torch.Tensor] = None
+                           expert_mask: Optional[torch.Tensor] = None,
+                           mix_mode: str = "none", mix_alpha: float = 0.4
                            ) -> Callable:
     """The classification loss (bench.py's, and the training pipeline's
-    ``_loss_fn`` without batch mixing): cross-entropy of the answer
-    logits plus ``aux_weight`` times the MoE router's aux loss. batch:
-    dict of pixel_values, input_ids, attention_mask, labels on the
-    model's device, and the knowledge arrays when a provider attached
-    them. The metrics ``ce``, ``aux_loss`` and ``accuracy`` (top-1
-    against the labels) are 0-d tensors on the device."""
+    ``_loss_fn``): cross-entropy of the answer logits plus ``aux_weight``
+    times the MoE router's aux loss. batch: dict of pixel_values,
+    input_ids, attention_mask, labels on the model's device, and the
+    knowledge arrays when a provider attached them. With ``mix_mode``
+    (mixup | cutmix | both, ``ops/batch_mix.py``) the pixels are mixed
+    first, with draws from the step's generator, and the loss and
+    accuracy are the λ-weighted pair over each row's labels and its
+    partner's. The metrics ``ce``, ``aux_loss`` and ``accuracy`` are 0-d
+    tensors on the device."""
     def loss_fn(model: nn.Module, batch: dict, generator: torch.Generator):
-        out = model(batch["pixel_values"], batch["input_ids"],
+        pixels, labels = batch["pixel_values"], batch["labels"]
+        if mix_mode != "none":
+            pixels, perm, lam = mix_batch(generator, pixels, mix_mode,
+                                          mix_alpha)
+        out = model(pixels, batch["input_ids"],
                     batch["attention_mask"], expert_mask=expert_mask,
                     generator=generator, **knowledge_of(batch))
-        ce = cross_entropy_loss(out["logits"], batch["labels"],
-                                label_smoothing)
-        accuracy = (out["logits"].detach().argmax(-1)
-                    == batch["labels"]).float().mean()
+        preds = out["logits"].detach().argmax(-1)
+        if mix_mode != "none":
+            labels_b = labels[perm]
+            ce = mixed_cross_entropy(out["logits"], labels, labels_b, lam,
+                                     label_smoothing)
+            accuracy = (lam * (preds == labels).float().mean()
+                        + (1 - lam) * (preds == labels_b).float().mean())
+        else:
+            ce = cross_entropy_loss(out["logits"], labels, label_smoothing)
+            accuracy = (preds == labels).float().mean()
         return ce + aux_weight * out["aux_loss"], {
             "ce": ce.detach(), "aux_loss": out["aux_loss"].detach(),
             "accuracy": accuracy}
