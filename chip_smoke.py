@@ -146,13 +146,36 @@ Phases, in order; any failure exits non-zero:
    generative CLI's train mode with ``--freeze-visual`` and
    ``--enable-resource-management`` (39 launches a step, the visual
    encoder bit-equal);
-13. path shapes: each wrapper call of phases 4-12 is recorded by its
+13. the model zoo at full width: first the four kernels at its new
+   shapes (the Q-Former's 32 x 32, 32 x 50, 32 x 49 and masked 32 x 64
+   calls, single-stream's 115 x 115 under the query-AND-key mask, the
+   vision-token embedding's 32 x 784 with 4 heads; and the flagship's
+   towers at the zoo's and the trainer's step batch of 32) against their
+   plain versions in f32, f16 and bf16, timed beside SDPA with their
+   bounds, and their totals per forward and step of each zoo path; then
+   BASELINE.json's Swin-B + PhoBERT + MCAN (with the dense MoE) and
+   ResNet-50 (GroupNorm) + BERT-style text + bilinear fusion, and the
+   flagship's towers with qformer + sparse MoE, single_stream +
+   hierarchical MoE and mutan + dense MoE: VQAPredictor at batch 8
+   (24, 12, 36, 28 and 24 launches a forward, predicted from the
+   configs), train steps at batch 32 (as many of each training kernel),
+   the card's logits against the CPU's (and the sparse layer's dropped
+   fraction equal), two steps card against CPU; Swin-B's window
+   attention (outside the kernels: it adds a learned bias) by the
+   profiler against its step, beside SDPA with an additive mask; the
+   classification CLI with ``--visual-backbone swin --fusion qformer``
+   (train one epoch, evaluate); bench_serving's generative model with
+   the sparse MoE (two steps card against CPU, a greedy generate at 16:
+   411 launches); DeBERTa-v3-base and the three image representations
+   forward and backward card against CPU (the vision-token embedding: 2
+   launches of each kernel);
+14. path shapes: each wrapper call of phases 4-13 is recorded by its
    kernel, dtype, shapes, mask layout, causal, dropout rate and tile
    rows; each such launch the kernel phases did not hold against the
    plain version (the classification pipeline's batches of 32, 2 and 1,
    say) is held now on random inputs of that kind, and the script fails
    if any launch of a main path stays unchecked;
-14. the card line (nvidia-smi's name and power limit), the kernels line,
+15. the card line (nvidia-smi's name and power limit), the kernels line,
    and the device line, which is the last line.
 
 Each path's launch counts are set to 0 just before it runs and read just
@@ -199,10 +222,19 @@ from vivqa_tpu_torch.knowledge import (VIETNAMESE_STOPWORDS, DenseRetriever,
                                        KnowledgeProvider,
                                        KnowledgeProviderConfig,
                                        TextKnowledgeEncoder)
-from vivqa_tpu_torch.models.config import GenerativeVQAConfig, VQAModelConfig
+from vivqa_tpu_torch.models.config import (GenerativeVQAConfig,
+                                           VisualEncoderConfig,
+                                           VQAModelConfig)
 from vivqa_tpu_torch.models.decoding import DecodeConfig, build_generate_fn
+from vivqa_tpu_torch.models.encoders import representation
+from vivqa_tpu_torch.models.encoders.deberta import (DeBERTaConfig,
+                                                     DeBERTaEncoder)
+from vivqa_tpu_torch.models.encoders.swin import (SwinEncoder,
+                                                  window_attention)
 from vivqa_tpu_torch.models.generative import create_generative_vqa_model
-from vivqa_tpu_torch.models.layers import (make_attention_mask,
+from vivqa_tpu_torch.models.moe.layer import SparseMOELayer
+from vivqa_tpu_torch.models.layers import (init_weights,
+                                           make_attention_mask,
                                            make_causal_mask)
 from vivqa_tpu_torch.models.vqa_model import (SPECIALIZED_ORDER,
                                               create_vqa_model)
@@ -1106,17 +1138,23 @@ def compare_logits(card: np.ndarray, cpu: np.ndarray) -> dict:
 
 
 def serving_phase(cfg: VQAModelConfig, device: str, batches: int = 10,
-                  batch: int = 8, seed: int = 0) -> dict:
+                  batch: int = 8, seed: int = 0,
+                  calls_per_forward: int = ATTN_CALLS_PER_FORWARD,
+                  profile: bool = True, base=None) -> dict:
     """Answer ``batches`` batches of ``batch`` requests through
-    VQAPredictor on ``device``; count kernel launches; check one batch
-    against the same weights on the CPU."""
+    VQAPredictor on ``device``; count kernel launches (``calls_per_forward``
+    a forward); check one batch against the same weights on the CPU (and,
+    where the model has the sparse MoE, the layer's dropped fraction on
+    the CPU model's own MoE input, which must be equal on both); with
+    ``profile``, one batch's forward eager, as a CUDA graph and under the
+    profiler. ``base``: the CPU model to copy (else built from ``seed``)."""
     image_size = cfg.visual.image_size
     tok = WhitespaceTokenizer(max_length=cfg.text.max_length)
     tok.build_vocab(WORDS)
     id2answer = {i: f"answer_{i}" for i in range(cfg.num_answers)}
     t0 = time.perf_counter()
-    cpu_model = create_vqa_model(cfg, device="cpu",
-                                 generator=torch.Generator().manual_seed(seed))
+    cpu_model = base if base is not None else create_vqa_model(
+        cfg, device="cpu", generator=torch.Generator().manual_seed(seed))
     model = copy.deepcopy(cpu_model)
     predictor = VQAPredictor(model, tok, id2answer, image_size=image_size,
                              top_k=5, batch_pad=batch, device=device)
@@ -1140,10 +1178,10 @@ def serving_phase(cfg: VQAModelConfig, device: str, batches: int = 10,
                     and len(r.top_answers) == 5):
                 raise AssertionError(f"bad prediction {r}")
     launches = dict(fa.launch_counts)
-    want = ATTN_CALLS_PER_FORWARD * batches if device == "cuda" else 0
+    want = calls_per_forward * batches if device == "cuda" else 0
     if launches["flash_attn_fwd"] != want:
         raise AssertionError(f"attention launches {launches} != {want} "
-                             f"({ATTN_CALLS_PER_FORWARD} x {batches})")
+                             f"({calls_per_forward} x {batches})")
 
     images, questions = requests[0]
     px = np.stack([predictor.transform(im) for im in images])
@@ -1151,16 +1189,42 @@ def serving_phase(cfg: VQAModelConfig, device: str, batches: int = 10,
     args = (torch.from_numpy(px), torch.from_numpy(enc["input_ids"]),
             torch.from_numpy(enc["attention_mask"]))
     dev_args = tuple(a.to(predictor.device) for a in args)
+    sparse = isinstance(getattr(cpu_model, "moe", None), SparseMOELayer)
+    moe_in = []
+    hook = cpu_model.moe.register_forward_hook(
+        lambda m, a, out: moe_in.append(a[0])) if sparse else None
     with torch.inference_mode():
-        card_logits = model(*dev_args)["logits"].float().cpu().numpy()
+        card_out = model(*dev_args)
         t = time.perf_counter()
-        cpu_logits = cpu_model(*args)["logits"].float().numpy()
+        cpu_out = cpu_model(*args)
         cpu_s = time.perf_counter() - t
+        if sparse:
+            hook.remove()
+            same_input = model.moe(moe_in[0].to(model.moe.ln_out.weight
+                                                 .device))[1]["metrics"]
+    card_logits = card_out["logits"].float().cpu().numpy()
+    cpu_logits = cpu_out["logits"].float().numpy()
     if card_logits.shape != (batch, cfg.num_answers) \
             or not np.isfinite(card_logits).all():
         raise AssertionError(f"bad logits {card_logits.shape}")
     check = compare_logits(card_logits, cpu_logits)
-    profile = profile_phase(model, dev_args) if device == "cuda" else None
+    if sparse:
+        # the card's fused tokens differ from the CPU's by bf16 noise, so
+        # a token whose top-2 or queue place is within that noise may
+        # route differently in the whole model; on the CPU model's MoE
+        # input the layer must drop the same assignments
+        frac = {"card": float(same_input["dropped_token_fraction"]),
+                "cpu": float(cpu_out["moe_metrics"]
+                             ["dropped_token_fraction"])}
+        check["dropped_token_fraction_same_input"] = frac
+        check["dropped_token_fraction_in_the_model"] = {
+            dev: float(out["moe_metrics"]["dropped_token_fraction"])
+            for dev, out in (("card", card_out), ("cpu", cpu_out))}
+        if frac["card"] != frac["cpu"]:
+            raise AssertionError(f"the sparse MoE drops other assignments "
+                                 f"on the card: {check}")
+    profile = profile_phase(model, dev_args) \
+        if device == "cuda" and profile else None
     mean_latency = float(np.mean(latencies))
     return {"params": n_params, "setup_s": setup_s, "batches": batches,
             "batch": batch,
@@ -1229,16 +1293,21 @@ def profile_phase(model, args, forwards: int = 3) -> dict:
 # -- phase 6: training ------------------------------------------------------
 def training_phase(cfg: VQAModelConfig, device: str = "cuda",
                    steps: int = 10, warmup: int = 3,
-                   batch: int = TRAIN_BATCH, seed: int = 0) -> dict:
+                   batch: int = TRAIN_BATCH, seed: int = 0,
+                   calls_per_step: int = ATTN_CALLS_PER_STEP,
+                   profile: bool = True, base=None) -> dict:
     """``steps`` timed train steps on ``device`` after ``warmup``; every
     step ends in a synchronize, so step_ms is what a training loop that
-    reads its loss pays. (On the CPU, a rehearsal at a tiny size: no
-    events, launches or profile.)"""
+    reads its loss pays; ``calls_per_step`` launches of each training
+    kernel a step; with ``profile``, one step under the profiler;
+    ``base``: the CPU model to copy (else built from ``seed``). (On the
+    CPU, a rehearsal at a tiny size: no events, launches or profile.)"""
     on_card = device == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     t0 = time.perf_counter()
-    model = create_vqa_model(cfg, device=device,
-                             generator=torch.Generator().manual_seed(seed))
+    model = copy.deepcopy(base).to(device) if base is not None else \
+        create_vqa_model(cfg, device=device,
+                         generator=torch.Generator().manual_seed(seed))
     state = TrainState.create(model, bench_optimizer(model), seed=seed)
     train_step = make_train_step(classification_loss_fn())
     data = synthetic_batch(cfg, batch, device)
@@ -1254,7 +1323,7 @@ def training_phase(cfg: VQAModelConfig, device: str = "cuda",
                                                               state, data,
                                                               steps)
     launches = dict(fa.launch_counts)
-    calls = ATTN_CALLS_PER_STEP * steps if on_card else 0
+    calls = calls_per_step * steps if on_card else 0
     want = {name: calls for name in TRAIN_KERNELS}
     want["flash_attn_fwd"] = 0
     if launches != want:
@@ -1277,7 +1346,7 @@ def training_phase(cfg: VQAModelConfig, device: str = "cuda",
             "launches_per_step": {n: launches[n] / steps
                                   for n in TRAIN_KERNELS},
             "profile": train_profile(state, train_step, data, step_ms)
-            if on_card else None}
+            if on_card and profile else None}
 
 
 def train_profile(state, train_step, data, step_ms: float) -> dict:
@@ -1309,7 +1378,8 @@ def train_profile(state, train_step, data, step_ms: float) -> dict:
 
 
 def train_check(cfg: VQAModelConfig, device: str = "cuda", steps: int = 2,
-                seed: int = 0) -> dict:
+                seed: int = 0,
+                calls_per_step: int = ATTN_CALLS_PER_STEP) -> dict:
     """The same weights, dropout 0, on the card and on the CPU (the plain
     versions): ``steps`` train steps on a batch of 4 with questions of
     64, 40, 17 and 5 tokens, so padded query rows are fully masked and
@@ -1334,13 +1404,14 @@ def train_check(cfg: VQAModelConfig, device: str = "cuda", steps: int = 2,
             "attention_mask": mask,
             "labels": rs.randint(0, cfg.num_answers, (4,))}
 
+    weights = create_vqa_model(cfg0, device="cpu",
+                               generator=torch.Generator().manual_seed(seed))
+
     def build(dev):
-        model = create_vqa_model(cfg0, device=dev,
-                                 generator=torch.Generator().manual_seed(seed))
-        model.moe.dropout = 0.0
+        model = no_dropout(copy.deepcopy(weights).to(dev))
         return TrainState.create(model, bench_optimizer(model, 1), seed=seed)
     out = card_vs_cpu_steps(build, classification_loss_fn(), data, device,
-                            steps, ATTN_CALLS_PER_STEP)
+                            steps, calls_per_step)
     return {"batch": 4, "question_lengths": lengths.tolist(), **out}
 
 
@@ -1696,10 +1767,11 @@ def gen_train_check(cfg: GenerativeVQAConfig, tok: WhitespaceTokenizer,
     both sides, rounded at other points)."""
     cfg0 = cfg.replace(dropout=0.0, text=cfg.text.replace(dropout=0.0))
     data = gen_train_batch(cfg0, tok, 4, seed + 7)
+    weights = create_generative_vqa_model(
+        cfg0, device="cpu", generator=torch.Generator().manual_seed(seed))
 
     def build(dev):
-        model = create_generative_vqa_model(
-            cfg0, device=dev, generator=torch.Generator().manual_seed(seed))
+        model = copy.deepcopy(weights).to(dev)
         return TrainState.create(model, gen_optimizer(model, 20), seed=seed)
     out = card_vs_cpu_steps(build, generative_loss_fn(label_smoothing=0.0),
                             data, device, steps, gen_calls_per_step(cfg))
@@ -2325,13 +2397,19 @@ def abl_study_config(tmp: str, output_dir: str) -> str:
 
 
 def attention_calls_per_forward(cfg: VQAModelConfig) -> int:
-    """The classification model's attention calls per forward: each
-    encoder layer one, each cross-attention fusion layer four (two per
-    stream), MCAN three per layer, and the VQA-MoE's experts theirs."""
-    fusion = {"cross_attention": 4, "mcan": 3}[cfg.fusion.fusion_type]
-    calls = (cfg.visual.num_layers + cfg.text.num_layers
-             + fusion * cfg.fusion.num_layers)
-    if cfg.moe.use_moe:
+    """The classification model's attention calls through the kernels per
+    forward: each ViT-family and text encoder layer one (ResNet none;
+    Swin's window attention adds its bias to the scores outside the
+    kernels), each cross-attention fusion layer four (two per stream),
+    MCAN and the Q-Former three per layer, single-stream one, the pooled
+    fusions none, and the VQA-MoE's experts theirs (the other MoE layers
+    none)."""
+    visual = cfg.visual.num_layers if cfg.visual.backbone in (
+        "vit", "clip", "dino") else 0
+    per_layer = {"cross_attention": 4, "mcan": 3, "qformer": 3,
+                 "single_stream": 1}.get(cfg.fusion.fusion_type, 0)
+    calls = visual + cfg.text.num_layers + per_layer * cfg.fusion.num_layers
+    if cfg.moe.use_moe and cfg.moe.moe_type == "vqa":
         m = cfg.moe
         calls += (m.num_vision_experts + m.num_text_experts
                   + m.num_multimodal_experts)
@@ -4074,6 +4152,656 @@ def trainer_phase(cfg: VQAModelConfig, gen_cfg: GenerativeVQAConfig,
 
 
 # -- phase 13: every launch shape of the main paths held ---------------------
+# -- phase 13: the model zoo -------------------------------------------------
+ZOO_BATCH = 32              # the zoo's train steps
+ZOO_SERVE_BATCH = 8         # its serving forwards
+ZOO_CLI_CORPUS = 160        # 128 / 16 / 16 samples: 4 train steps of 32
+ZOO_LIB_BATCH = 8           # the image representations at 224 px
+ZOO_DEBERTA_BATCH = 32      # DeBERTa-v3-base at 64 tokens
+ZOO_CHECK_BATCH = 4         # the library encoders card against the CPU
+ZOO_DROPOUT = 0.1           # the flagship's text and fusion dropout
+
+
+def swin_b_config() -> VQAModelConfig:
+    """BASELINE.json's "Swin-B + PhoBERT, cross-attention and MCAN
+    fusion": Swin-B (embed 128, depths (2, 2, 18, 2), heads (4, 8, 16,
+    32), window 7, 224 px) in place of the flagship's ViT; the rest (the
+    PhoBERT-style text tower, MCAN 512 x 8 heads x 4 layers, the dense
+    top-2 MoE, 1,000 answers) the flagship's."""
+    cfg = flagship_config()
+    return cfg.replace(visual=cfg.visual.replace(
+        backbone="swin", swin_embed_dim=128, swin_depths=(2, 2, 18, 2),
+        swin_heads=(4, 8, 16, 32), swin_window=7))
+
+
+def resnet50_config() -> VQAModelConfig:
+    """BASELINE.json's "ResNet-50 + BERT, bilinear fusion": ResNet-50
+    (stages (3, 4, 6, 3), width 64, GroupNorm), a BERT-style text tower
+    (``backbone="bert"``: post-LN, two token types) at the flagship's
+    widths, bilinear fusion, no MoE."""
+    cfg = flagship_config()
+    return cfg.replace(
+        visual=cfg.visual.replace(backbone="resnet"),
+        text=cfg.text.replace(backbone="bert", norm_style="post",
+                              type_vocab_size=2),
+        fusion=cfg.fusion.replace(fusion_type="bilinear"),
+        moe=cfg.moe.replace(use_moe=False))
+
+
+def zoo_fusion_config(fusion: str, moe_type: str) -> VQAModelConfig:
+    """The flagship's towers with ``fusion`` (its 512 x 8 heads x 4
+    layers, 32 Q-Former queries) and the ``moe_type`` MoE layer (4
+    experts, top-2, capacity factor 1.25; hierarchical: 2 groups)."""
+    cfg = flagship_config()
+    return cfg.replace(fusion=cfg.fusion.replace(fusion_type=fusion),
+                       moe=cfg.moe.replace(moe_type=moe_type))
+
+
+# (path, its config, the launches of the forward kernel a forward and of
+# each training kernel a step, predicted from the config before any run)
+ZOO_PATHS = [
+    ("swin_b", swin_b_config, 24),
+    ("resnet50", resnet50_config, 12),
+    ("qformer_sparse", lambda: zoo_fusion_config("qformer", "sparse"), 36),
+    ("single_stream_hierarchical",
+     lambda: zoo_fusion_config("single_stream", "hierarchical"), 28),
+    ("mutan_dense", lambda: zoo_fusion_config("mutan", "standard"), 24),
+]
+# the forward kernel's new shapes: (name, B, H, Lq, Lk, D, mask kind) at
+# the serving batch; the Q-Former's self-attention over its 32 queries,
+# its cross-attention to the ViT's 50 tokens or to Swin's or ResNet's 49
+# (the CLI path), to the 64 question tokens under their key mask,
+# single-stream's 1 + 50 + 64 tokens under the query-AND-key mask, and
+# VisionTokenEmbedding's 32 queries over its 28 x 28 map, 4 heads
+ZOO_FWD_CASES = [
+    ("qf_self", 8, 8, 32, 32, 64, None),
+    ("qf_cross_vit", 8, 8, 32, 50, 64, None),
+    ("qf_cross_49", 8, 8, 32, 49, 64, None),
+    ("qf_cross_text", 8, 8, 32, 64, 64, "key"),
+    ("stream_115", 8, 8, 115, 115, 64, "query_key"),
+    ("vision_tokens", ZOO_LIB_BATCH, 4, 32, 784, 64, None),
+]
+# the training kernels' shapes at the zoo's step batch: the flagship's
+# towers and MCAN at batch 32 (the zoo's steps and the trainer phase's),
+# then the new ones; (name, B, H, Lq, Lk, mask kind, dropout of those
+# calls); each is checked at dropout 0 and at its path's rate, timed at
+# the path's rate
+ZOO_TRAIN_CASES = [
+    ("vit_self_b32", ZOO_BATCH, 12, 50, 50, None, 0.0),
+    ("text_self_b32", ZOO_BATCH, 12, 64, 64, "query_key", ZOO_DROPOUT),
+    ("mcan_enc_self_b32", ZOO_BATCH, 8, 64, 64, "query_key", ZOO_DROPOUT),
+    ("mcan_dec_self_b32", ZOO_BATCH, 8, 49, 49, None, ZOO_DROPOUT),
+    ("mcan_cross_b32", ZOO_BATCH, 8, 49, 64, "key", ZOO_DROPOUT),
+    ("qf_self_b32", ZOO_BATCH, 8, 32, 32, None, ZOO_DROPOUT),
+    ("qf_cross_vit_b32", ZOO_BATCH, 8, 32, 50, None, ZOO_DROPOUT),
+    ("qf_cross_49_b32", ZOO_BATCH, 8, 32, 49, None, ZOO_DROPOUT),
+    ("qf_cross_text_b32", ZOO_BATCH, 8, 32, 64, "key", ZOO_DROPOUT),
+    ("stream_115_b32", ZOO_BATCH, 8, 115, 115, "query_key", ZOO_DROPOUT),
+    ("vision_tokens_b8", ZOO_LIB_BATCH, 4, 32, 784, None, 0.0),
+]
+_TOWERS_FWD = {"text_self": 12}
+_VIT_FWD = {"vit_self": 12}
+_MCAN_FWD = {"mcan_enc_self": 4, "mcan_dec_self": 4, "mcan_cross": 4}
+_QF_FWD = {"qf_self": 4, "qf_cross_vit": 4, "qf_cross_text": 4}
+# each path's forward calls at batch 8 by kernel-phase row (the serving
+# rows of ATTN_CASES and ZOO_FWD_CASES) and its step's calls at batch 32
+# by ZOO_TRAIN_CASES row; the trainer phase's step is the flagship's
+ZOO_FORWARD_CALLS = {
+    "swin_b": {**_TOWERS_FWD, **_MCAN_FWD},
+    "resnet50": dict(_TOWERS_FWD),
+    "qformer_sparse": {**_VIT_FWD, **_TOWERS_FWD, **_QF_FWD},
+    "single_stream_hierarchical": {**_VIT_FWD, **_TOWERS_FWD,
+                                   "stream_115": 4},
+    "mutan_dense": {**_VIT_FWD, **_TOWERS_FWD},
+    "vision_token_embedding": {"vision_tokens": 2},
+}
+ZOO_STEP_CALLS = {
+    path: {f"{name}_b32": n for name, n in calls.items()}
+    for path, calls in ZOO_FORWARD_CALLS.items()
+    if path != "vision_token_embedding"}
+ZOO_STEP_CALLS["vision_token_embedding"] = {"vision_tokens_b8": 2}
+ZOO_STEP_CALLS["trainer"] = {f"{n}_b32": c for n, c in
+                             {**_VIT_FWD, **_TOWERS_FWD, **_MCAN_FWD}.items()}
+
+
+def zoo_kernel_phase(rows: dict) -> dict:
+    """The four kernels at the zoo's new shapes against their plain
+    versions: the forward (``attention_case``: f32, f16 and bf16 at every
+    tile size, timed beside its plain version and SDPA) at ZOO_FWD_CASES;
+    the three training kernels (``check_train_kernels``: f32, f16 and
+    bf16 at dropout 0 and at the path's rate; ``time_train_kernels`` at
+    the path's rate in bf16) at ZOO_TRAIN_CASES, where each case of the
+    flagship's towers also times the forward kernel at batch 32 (the
+    trainer's validation forward) beside SDPA's forward, with its bound.
+    Then each path's totals: the forward per serving forward at batch 8
+    (with ``rows``, the serving phase's), the training kernels per step.
+    Rows keyed by case."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    fwd, train = {}, {}
+    for name, B, H, Lq, Lk, D, kind in ZOO_FWD_CASES:
+        fwd[name] = attention_case(name, B, H, Lq, Lk, D, kind, False, gen)
+    for name, B, H, Lq, Lk, kind, path_rate in ZOO_TRAIN_CASES:
+        q, k, v, mask = attention_inputs(B, H, Lq, Lk, 64, kind,
+                                         torch.bfloat16, gen)
+        errs = {}
+        for rate in sorted({0.0, path_rate}):
+            key = fa.dropout_key(2032, len(errs))
+            for dtype in (torch.float32, torch.float16, torch.bfloat16):
+                qd, kd, vd, do = (t.to(dtype) for t in (
+                    q, k, v, torch.randn(B, H, Lq, 64, generator=gen,
+                                         device="cuda")))
+                errs[(rate, dtype)] = check_train_kernels(
+                    qd, kd, vd, do, mask, False, rate, key)
+        do = torch.randn(B, H, Lq, 64, generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        row = {"case": name, "B": B, "H": H, "Lq": Lq, "Lk": Lk, "D": 64,
+               "mask": kind, "dropout": path_rate,
+               "checked_dropout": sorted({0.0, path_rate}),
+               "max_err_bf16": {
+                   e: max(errs[(r, torch.bfloat16)][e] for r in
+                          (0.0, path_rate)) for e in ("o", "m", "l", "dq",
+                                                      "dk", "dv")},
+               "max_err_f32": {
+                   e: max(errs[(r, torch.float32)][e] for r in
+                          (0.0, path_rate)) for e in ("o", "m", "l", "dq",
+                                                      "dk", "dv")},
+               **time_train_kernels(q, k, v, do, mask, False, path_rate,
+                                    fa.dropout_key(2033, len(train)))}
+        if name in ZOO_STEP_CALLS["trainer"]:
+            nbytes, flops, _ = attention_work(q, k, mask, False)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_flops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+            with recording_launches(CHECKED):
+                out = fa.flash_attention_cuda(q, k, v, mask)
+            err = float((out.float() - fa.attention_reference(
+                q, k, v, mask).float()).abs().max())
+            if not math.isfinite(err) or err > ATTN_TOL[torch.bfloat16]:
+                raise AssertionError(f"{name} forward: kernel vs plain "
+                                     f"{err}")
+            row["flash_attn_fwd"] = {
+                "kernel_ms": device_ms(
+                    lambda: fa.flash_attention_cuda(q, k, v, mask)),
+                "plain_ms": device_ms(
+                    lambda: fa.attention_reference(q, k, v, mask)),
+                "library_ms": profiled_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=mask)),
+                "max_abs_err_bf16": err, "bytes": nbytes, "flops": flops,
+                "bound_ms": max(t_bytes, t_flops),
+                "bound_by": "bytes" if t_bytes >= t_flops
+                else "operations"}
+        emit({"zoo_training_attention_case": row})
+        train[name] = row
+    per_forward = {
+        path: _path_totals({n: {**({**rows, **fwd}[n]),
+                                "calls_per_forward": c}
+                            for n, c in calls.items()}, "calls_per_forward")
+        for path, calls in ZOO_FORWARD_CALLS.items()}
+    per_step = {path: step_totals({n: {**train[n], "calls_per_step": c}
+                                   for n, c in calls.items()})
+                for path, calls in ZOO_STEP_CALLS.items()}
+    trainer_fwd = [train[n]["flash_attn_fwd"] for n in
+                   ZOO_STEP_CALLS["trainer"]]
+    calls = list(ZOO_STEP_CALLS["trainer"].values())
+
+    def total(key):
+        return sum(r[key] * c for r, c in zip(trainer_fwd, calls))
+    t_bytes = total("bytes") / HBM_BYTES_PER_S * 1e3
+    t_flops = total("flops") / PEAK_FLOPS[torch.bfloat16] * 1e3
+    trainer_forward = {
+        "ms": total("kernel_ms"), "plain_ms": total("plain_ms"),
+        "library_ms": total("library_ms"),
+        "bound_ms": max(t_bytes, t_flops),
+        "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+        "max_abs_err": max(r["max_abs_err_bf16"] for r in trainer_fwd),
+        "per": f"one flagship validation forward at batch {ZOO_BATCH} "
+               f"({sum(calls)} calls), bf16"}
+    return {"forward": fwd, "training": train,
+            "per_forward": per_forward, "per_step": per_step,
+            "trainer_forward": trainer_forward}
+
+
+def window_attention_profile(cfg: VQAModelConfig, batch: int = ZOO_BATCH,
+                             seed: int = 0) -> dict:
+    """Swin's window attention (``swin.window_attention``: f32 scores plus
+    the learned bias, the shift mask, an f32 softmax, the product with v;
+    the projections left out) at each block's shape at ``batch``, in
+    bf16, forward and forward + backward by the profiler's summed kernel
+    durations, beside SDPA on the same q, k and v with the bias and mask
+    as one additive bf16 mask (the library's form of the same function),
+    and the bound (q, k, v read, o written, the f32 bias and the mask
+    read once; 4 hd flops per pair forward, 8 more backward); summed over
+    the encoder's blocks, a forward's and a step's."""
+    enc = SwinEncoder(cfg.visual.replace(dtype="bfloat16"))
+    init_weights(enc, torch.Generator().manual_seed(seed))
+    enc = enc.to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shapes = {}
+    for names, _ in enc.stages:
+        for name in names:
+            blk = getattr(enc, name)
+            H, ws = blk.input_hw[0], blk.window_size
+            key = (H, ws, blk.attn.num_heads, blk.attn.qkv.in_features,
+                   blk.shift > 0)
+            shapes.setdefault(key, {"blocks": 0, "block": blk})
+            shapes[key]["blocks"] += 1
+    rows, totals = [], {"fwd_ms": 0.0, "fwd_bwd_ms": 0.0,
+                        "library_fwd_ms": 0.0, "library_fwd_bwd_ms": 0.0,
+                        "bound_fwd_ms": 0.0, "bound_fwd_bwd_ms": 0.0}
+    for (H, ws, h, C, shifted), s in shapes.items():
+        blk = s["block"]
+        nW, L, hd = (H // ws) ** 2, ws * ws, C // h
+        nB = batch * nW
+        q, k, v = (torch.randn(nB, h, L, hd, generator=gen, device="cuda")
+                   .to(torch.bfloat16).requires_grad_(True)
+                   for _ in range(3))
+        do = torch.randn(nB, h, L, hd, generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        with torch.no_grad():
+            bias = blk.attn.bias().detach()
+        mask = blk.shift_mask
+        add = bias[None] if mask is None else torch.where(
+            mask[None, :, None], bias[None, None], -1e9).expand(
+                nB // nW, -1, -1, -1, -1).reshape(nB, h, L, L)
+        add = add.to(torch.bfloat16)
+
+        def port():
+            return window_attention(q, k, v, bias, mask)
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=add)
+        row = {"H": H, "window": ws, "heads": h, "dim": C, "hd": hd,
+               "shifted": shifted, "windows": nB, "blocks": s["blocks"],
+               "max_abs_err_vs_library": float(
+                   (port().float() - library().float()).abs().max()
+                   .detach())}
+        for label, fn in (("", port), ("library_", library)):
+            row[f"{label}fwd_ms"] = profiled_ms(
+                lambda fn=fn: fn().detach())
+            row[f"{label}fwd_bwd_ms"] = profiled_ms(
+                lambda fn=fn: torch.autograd.grad(fn(), (q, k, v), do))
+        elem = q.element_size()
+        pairs = nB * h * L * L
+        fwd_bytes = 4 * nB * h * L * hd * elem + bias.numel() * 4 + (
+            0 if mask is None else mask.numel())
+        bwd_bytes = fwd_bytes + 4 * nB * h * L * hd * elem
+        for label, nbytes, flops in (("fwd", fwd_bytes, 4 * hd * pairs),
+                                     ("fwd_bwd", fwd_bytes + bwd_bytes,
+                                      12 * hd * pairs)):
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_flops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+            row[f"bound_{label}_ms"] = max(t_bytes, t_flops)
+            row[f"bound_{label}_by"] = "bytes" if t_bytes >= t_flops \
+                else "operations"
+        for key in totals:
+            totals[key] += row[key] * s["blocks"]
+        rows.append(row)
+    return {"batch": batch, "shapes": rows,
+            "per_forward": {k: v for k, v in totals.items()
+                            if "bwd" not in k},
+            "per_step": {k: v for k, v in totals.items() if "bwd" in k},
+            "blocks": sum(r["blocks"] for r in rows)}
+
+
+def zoo_model_path(name: str, cfg: VQAModelConfig, calls: int,
+                   device: str = "cuda", serve_batches: int = 2,
+                   steps: int = 2, batch: int = ZOO_BATCH,
+                   serve_batch: int = ZOO_SERVE_BATCH,
+                   profile: bool = False, seed: int = 0) -> dict:
+    """One zoo model through the user's entry points: ``serving_phase``
+    (VQAPredictor at ``serve_batch``, ``calls`` forward launches a
+    forward, the card's logits against the CPU's, and the sparse layer's
+    dropped fraction equal on both), ``training_phase`` (``steps`` steps
+    at ``batch`` after one warm-up, ``calls`` launches of each training
+    kernel a step; with ``profile`` one step profiled), from one CPU
+    model built from ``seed``, and ``train_check`` (two steps card against
+    CPU at its batch of 4, its bounds: the first step's warmup moves no
+    weight)."""
+    on_card = device == "cuda"
+    predicted = attention_calls_per_forward(cfg)
+    if predicted != calls:
+        raise AssertionError(f"{name}: the config gives {predicted} "
+                             f"attention calls a forward, not {calls}")
+    t0 = time.perf_counter()
+    base = create_vqa_model(cfg, device="cpu",
+                            generator=torch.Generator().manual_seed(seed))
+    seconds = {"build": time.perf_counter() - t0}
+    serving = serving_phase(cfg, device, batches=serve_batches,
+                            batch=serve_batch, seed=seed,
+                            calls_per_forward=calls, profile=False,
+                            base=base)
+    seconds["serving"] = time.perf_counter() - t0 - sum(seconds.values())
+    training = training_phase(cfg, device, steps=steps, warmup=1,
+                              batch=batch, seed=seed,
+                              calls_per_step=calls,
+                              profile=profile and on_card, base=base)
+    seconds["training"] = time.perf_counter() - t0 - sum(seconds.values())
+    check = train_check(cfg, device, seed=seed, calls_per_step=calls)
+    seconds["train_check"] = time.perf_counter() - t0 - sum(seconds.values())
+    out = {"config": name, "attention_calls_per_forward": calls,
+           "params": serving["params"],
+           "serving": {k: serving[k] for k in (
+               "batch", "batches", "mean_batch_latency_ms",
+               "answers_per_s", "launches", "launches_per_forward",
+               "cpu_check", "cpu_forward_s", "first_answers")},
+           "training": {k: training[k] for k in (
+               "batch", "steps", "median_step_ms", "step_event_ms",
+               "qa_pairs_per_s", "loss", "grad_norm",
+               "max_memory_allocated_gib", "launches",
+               "launches_per_step", "profile")},
+           "train_check": check, "seconds_by_part": seconds,
+           "seconds": time.perf_counter() - t0}
+    print(f"[zoo] {name}: {serving['params'] / 1e6:.1f}M parameters, "
+          f"{serving['mean_batch_latency_ms']:.1f} ms a serving batch of "
+          f"{serve_batch} ({serving['launches_per_forward']:.0f} launches "
+          f"a forward), step {training['median_step_ms']:.1f} ms at batch "
+          f"{batch}, logits card/CPU max diff "
+          f"{serving['cpu_check']['max_abs_logit_diff']:.3g} (tolerance "
+          f"{serving['cpu_check']['tolerance']:.3g}), train check loss "
+          f"{check['loss_card']} / {check['loss_cpu']} "
+          f"({out['seconds']:.1f} s: " + ", ".join(
+              f"{k} {v:.1f}" for k, v in seconds.items()) + ")", flush=True)
+    return out
+
+
+def zoo_cli_phase(cfg: VQAModelConfig, device: str = "cuda",
+                  n: int = ZOO_CLI_CORPUS, image_size: int = 224,
+                  batch: int = ZOO_BATCH, seed: int = 0) -> dict:
+    """The classification CLI (``vqa_pipeline.main``) with
+    ``--visual-backbone swin --fusion qformer`` over a YAML config that
+    holds ``cfg`` (the Swin-B widths, the flagship's text tower, MCAN and
+    MoE), on a learnable corpus of ``n`` images: train (one epoch, a
+    validation, the final evaluation on the best checkpoint) and evaluate
+    from the checkpoint, each with its launches (per forward the text
+    encoder's and the Q-Former's calls; none from Swin)."""
+    from vivqa_tpu_torch.pipelines import vqa_pipeline
+    on_card = device == "cuda"
+    built = cfg.replace(visual=cfg.visual.replace(backbone="swin"),
+                        fusion=cfg.fusion.replace(fusion_type="qformer"))
+    per_forward = attention_calls_per_forward(built) if on_card else 0
+    with tempfile.TemporaryDirectory() as tmp:
+        csv, imgs = generate_synthetic_vivqa(f"{tmp}/data", n=n,
+                                             image_size=image_size,
+                                             learnable=True, seed=seed)
+        ckpt_dir, out_dir = f"{tmp}/ckpt", f"{tmp}/out"
+        vcfg = VQAPipelineConfig(
+            data=DataPipelineConfig(
+                csv_path=str(csv), image_dir=str(imgs),
+                image_size=image_size,
+                max_question_length=cfg.text.max_length, batch_size=batch,
+                augmentation_strength="medium", seed=seed),
+            model=ModelPipelineConfig(model=cfg, device=device, seed=seed),
+            training=TrainingPipelineConfig(num_epochs=1,
+                                            checkpoint_dir=ckpt_dir,
+                                            log_every=4, seed=seed),
+            output_dir=out_dir, seed=seed)
+        path = f"{tmp}/zoo.yaml"
+        vcfg.to_yaml(path)
+        flags = ["--config", path, "--visual-backbone", "swin", "--fusion",
+                 "qformer", "--device", device]
+        runs = {}
+        for mode, extra in (("train", []), ("evaluate",
+                                            ["--resume", ckpt_dir])):
+            fa.reset_launch_counts()
+            t0 = time.perf_counter()
+            summary = vqa_pipeline.main(flags + ["--mode", mode] + extra)
+            runs[mode] = {"seconds": time.perf_counter() - t0,
+                          "launches": dict(fa.launch_counts),
+                          "summary": summary}
+        data = DataPipeline(vcfg.data).run()
+        steps = len(data.train_loader)
+        val_batches = math.ceil(len(data.val_loader.dataset) / batch)
+        test_batches = math.ceil(len(data.test_loader.dataset) / batch)
+    train, evaluate = runs["train"]["summary"], runs["evaluate"]["summary"]
+    zero = {name: 0 for name in TRAIN_KERNELS}
+    want = {"train": {**{name: per_forward * steps
+                         for name in TRAIN_KERNELS},
+                      "flash_attn_fwd": per_forward * (1 + 2 * val_batches)},
+            "evaluate": {**zero,
+                         "flash_attn_fwd": per_forward * (1 + test_batches)}}
+    history = train["history"]
+    finite = [h["train_loss"] for h in history] + \
+        [h["val_loss"] for h in history] + list(evaluate["metrics"].values())
+    problems = [f"{m} launches {runs[m]['launches']} != {w}"
+                for m, w in want.items() if runs[m]["launches"] != w]
+    if len(history) != 1 or not all(math.isfinite(x) for x in finite):
+        problems.append(f"history {history}, metrics {evaluate['metrics']}")
+    if problems:
+        raise AssertionError(f"zoo CLI: {problems}")
+    return {"flags": flags[2:6], "corpus": n, "batch": batch,
+            "steps": steps, "attention_calls_per_forward": per_forward,
+            "run_seconds": {m: r["seconds"] for m, r in runs.items()},
+            "launches": {m: r["launches"] for m, r in runs.items()},
+            "history": history, "evaluate_metrics": evaluate["metrics"]}
+
+
+def zoo_gen_phase(cfg: GenerativeVQAConfig, tok: WhitespaceTokenizer,
+                  device: str = "cuda", batch: int = 16,
+                  new_tokens: int = 32, seed: int = 0) -> dict:
+    """bench_serving's generative model with the sparse MoE in its fusion
+    (as ``--use-moe --moe-type sparse`` sets it): two train steps card
+    against CPU (``gen_train_check``: 39 launches of each training kernel
+    a step) and one greedy generate at ``batch`` (27 forward launches
+    and 12 a decode step), its sequences and scores finite and the cache
+    against teacher forcing."""
+    on_card = device == "cuda"
+    check = gen_train_check(cfg, tok, device, seed=seed)
+    model = create_generative_vqa_model(
+        cfg, device=device, generator=torch.Generator().manual_seed(seed))
+    px, q = (torch.from_numpy(a).to(device) for a in
+             bench_serving.synthetic_requests(cfg, batch))
+    decode_cfg = bench_serving.decode_config("greedy", new_tokens)
+    generate = build_generate_fn(model, decode_cfg)
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    seqs, scores = generate(px, q)
+    if on_card:
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(fa.launch_counts)
+    per_generate = attention_calls_per_generate(cfg, new_tokens)
+    want = {name: 0 for name in launches}
+    want["flash_attn_fwd"] = per_generate if on_card else 0
+    if launches != want or seqs.shape != (batch, new_tokens) \
+            or not bool(torch.isfinite(scores).all()):
+        raise AssertionError(f"zoo generate: launches {launches} != {want},"
+                             f" sequences {tuple(seqs.shape)}")
+    consistency = cache_consistency(model, (px, q), seqs, decode_cfg)
+    return {"moe": cfg.moe.to_dict(), "train_check": check,
+            "generate_batch": batch, "generate_ms": ms,
+            "launches_per_generate": launches["flash_attn_fwd"],
+            "cache_vs_teacher_forcing": consistency}
+
+
+def fwd_bwd_card_vs_cpu(build, inputs: tuple, device: str = "cuda",
+                        keys=("pooled", "tokens"), seed: int = 0) -> dict:
+    """``build(device)`` gives a module with seeded weights; its forward
+    on ``inputs`` (CPU tensors) and the backward of sum <out, c> (seeded
+    normal cotangents) on the CPU and on the card: each output to
+    ``compare_logits``' rule (5% of its largest value), the gradient's
+    norm to 5% and the cosine of the two gradients >= 0.9
+    (``train_check``'s bounds), and the launches of the card's run."""
+    runs = {}
+    for label, dev in (("cpu", "cpu"), ("card", device)):
+        module = build(dev)
+        args = [a.to(dev) for a in inputs]
+        fa.reset_launch_counts()
+        out = module(*args)
+        outs = [out[k] for k in keys]
+        gen = torch.Generator().manual_seed(seed)
+        cots = [torch.randn(o.shape, generator=gen).to(dev) for o in outs]
+        loss = sum((o.float() * c).sum() for o, c in zip(outs, cots))
+        grads = torch.autograd.grad(loss, list(module.parameters()),
+                                    allow_unused=True)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        runs[label] = {"outs": [o.detach().float().cpu() for o in outs],
+                     "grads": [torch.zeros(p.shape) if g is None
+                               else g.float().cpu() for p, g in
+                               zip(module.parameters(), grads)],
+                     "launches": dict(fa.launch_counts)}
+    cpu, card = runs["cpu"], runs["card"]
+    result = {"outputs": {}, "launches": card["launches"]}
+    for k, a, b in zip(keys, card["outs"], cpu["outs"]):
+        diff = float((a - b).abs().max())
+        tol = 0.05 * float(b.abs().max())
+        result["outputs"][k] = {"max_abs_diff": diff, "tolerance": tol}
+        if not math.isfinite(diff) or diff > tol:
+            raise AssertionError(f"card vs CPU {k}: {diff} > {tol}")
+    n_card = math.sqrt(sum(float(g.square().sum()) for g in card["grads"]))
+    n_cpu = math.sqrt(sum(float(g.square().sum()) for g in cpu["grads"]))
+    dot = sum(float((a * b).sum()) for a, b in zip(card["grads"],
+                                                     cpu["grads"]))
+    result.update(grad_norm_card=n_card, grad_norm_cpu=n_cpu,
+                  grad_cosine=dot / max(n_card * n_cpu, 1e-30))
+    if abs(n_card - n_cpu) > 0.05 * n_cpu or result["grad_cosine"] < 0.9:
+        raise AssertionError(f"card vs CPU gradients: {result}")
+    return result
+
+
+def zoo_library_phase(device: str = "cuda",
+                      deberta: DeBERTaConfig | None = None,
+                      visual: VisualEncoderConfig | None = None,
+                      image_size: int = 224, lib_batch: int = ZOO_LIB_BATCH,
+                      deberta_batch: int = ZOO_DEBERTA_BATCH,
+                      check_batch: int = ZOO_CHECK_BATCH,
+                      seed: int = 0) -> dict:
+    """The library encoders, each built by the representation factories
+    with seeded weights in bf16: DeBERTa-v3-base (768 wide, 12 layers, 12
+    heads, vocab 128,100, 64 tokens with padding) and the three image
+    representations at ``image_size``: forward and backward card against
+    CPU (``fwd_bwd_card_vs_cpu``; DeBERTa at ``check_batch``, the images
+    at ``lib_batch``), then on the card at DeBERTa's ``deberta_batch`` and
+    the images' ``lib_batch`` the forward's ms (events, no grad) and its
+    forward-kernel launches, and a forward and backward's ms and training
+    kernel launches (VisionTokenEmbedding: 2 of each; the others none)."""
+    on_card = device == "cuda"
+    deberta = deberta or DeBERTaConfig()
+    visual = visual or VisualEncoderConfig(image_size=image_size)
+    modules = {
+        "deberta_v3_base": lambda dev: DeBERTaEncoder(deberta),
+        **{kind: (lambda dev, kind=kind:
+                  representation.create_image_representation(kind,
+                                                             visual))
+           for kind in ("region_based", "multi_resolution", "vision_token")}}
+    want_calls = {"deberta_v3_base": 0, "region_based": 0,
+                  "multi_resolution": 0, "vision_token": 2}
+
+    bases = {}
+
+    def built(name):
+        """One seeded CPU module per name, copied to each device."""
+        if name not in bases:
+            bases[name] = modules[name]("cpu")
+            init_weights(bases[name], torch.Generator().manual_seed(seed))
+
+        def build(dev):
+            return copy.deepcopy(bases[name]).to(dev).eval()
+        return build
+
+    def inputs(name, B):
+        rs = np.random.RandomState(seed + B)
+        if name.startswith("deberta"):
+            L = deberta.max_length
+            lengths = rs.randint(3, L + 1, B)
+            lengths[0] = L
+            mask = (np.arange(L)[None] < lengths[:, None]).astype(np.int64)
+            ids = rs.randint(4, deberta.vocab_size, (B, L)) * mask
+            return (torch.from_numpy(ids), torch.from_numpy(mask))
+        return (torch.from_numpy(rs.rand(B, image_size, image_size,
+                                         3).astype(np.float32)),)
+    out = {}
+    for name in modules:
+        t0 = time.perf_counter()
+        is_deberta = name.startswith("deberta")
+        row = {"card_vs_cpu": fwd_bwd_card_vs_cpu(
+            built(name), inputs(name, check_batch if is_deberta
+                                else lib_batch), device, seed=seed),
+            "check_batch": check_batch if is_deberta else lib_batch}
+        B = deberta_batch if is_deberta else lib_batch
+        module = built(name)(device)
+        args = [a.to(device) for a in inputs(name, B)]
+        sync = torch.cuda.synchronize if on_card else (lambda: None)
+        with torch.no_grad():
+            module(*args)
+            sync()
+            fa.reset_launch_counts()
+            t = time.perf_counter()
+            res = module(*args)
+            sync()
+            row["forward_ms"] = (time.perf_counter() - t) * 1e3
+            row["forward_launches"] = dict(fa.launch_counts)
+        fa.reset_launch_counts()
+        t = time.perf_counter()
+        res = module(*args)
+        (res["tokens"].float().sum() + res["pooled"].float().sum()).backward()
+        sync()
+        row["fwd_bwd_ms"] = (time.perf_counter() - t) * 1e3
+        row["fwd_bwd_launches"] = dict(fa.launch_counts)
+        calls = want_calls[name] if on_card else 0
+        want_fwd = {n: 0 for n in row["forward_launches"]}
+        want_fwd["flash_attn_fwd"] = calls
+        want_bwd = {n: calls for n in TRAIN_KERNELS}
+        want_bwd["flash_attn_fwd"] = 0
+        if row["forward_launches"] != want_fwd \
+                or row["fwd_bwd_launches"] != want_bwd \
+                or not bool(torch.isfinite(res["tokens"]).all()):
+            raise AssertionError(f"{name}: launches {row}")
+        row.update(batch=B, params=sum(p.numel()
+                                        for p in module.parameters()),
+                   tokens_shape=list(res["tokens"].shape),
+                   seconds=time.perf_counter() - t0)
+        out[name] = row
+        print(f"[zoo] {name}: {row['params'] / 1e6:.1f}M parameters, "
+              f"forward {row['forward_ms']:.2f} ms, forward and backward "
+              f"{row['fwd_bwd_ms']:.2f} ms at batch {B}; card vs CPU "
+              f"grad cosine {row['card_vs_cpu']['grad_cosine']:.4f}",
+              flush=True)
+    return out
+
+
+def zoo_phase(device: str = "cuda") -> dict:
+    """The model zoo's paths at full width, bf16, seeded weights (phase
+    13), each path's launch counts set to 0 just before it and read just
+    after: ``ZOO_PATHS`` (``zoo_model_path``; Swin-B's step profiled and
+    its window attention's share of the step by the profiler), the
+    classification CLI with ``--visual-backbone swin --fusion qformer``,
+    bench_serving's generative model with the sparse MoE, and the library
+    encoders. (``zoo_kernel_phase`` holds the kernels at its shapes.)"""
+    t0 = time.perf_counter()
+    paths = {}
+    for name, config, calls in ZOO_PATHS:
+        baseline = name in ("swin_b", "resnet50")   # BASELINE.json's own
+        paths[name] = zoo_model_path(name, config(), calls, device,
+                                     serve_batches=2 if baseline else 1,
+                                     steps=2 if baseline else 1,
+                                     profile=name == "swin_b")
+    window = window_attention_profile(swin_b_config())
+    busy = paths["swin_b"]["training"]["profile"]["device_busy_ms"]
+    window["share_of_step_device_busy"] = window["per_step"]["fwd_bwd_ms"] \
+        / busy
+    window["step_device_busy_ms"] = busy
+    print(f"[zoo] Swin-B window attention: "
+          f"{window['per_step']['fwd_bwd_ms']:.3f} ms of a step's "
+          f"{busy:.1f} device-busy ms at batch {window['batch']} "
+          f"({100 * window['share_of_step_device_busy']:.1f}%); SDPA with "
+          f"an additive mask {window['per_step']['library_fwd_bwd_ms']:.3f}"
+          f" ms; bound {window['per_step']['bound_fwd_bwd_ms']:.3f} ms",
+          flush=True)
+    swin = swin_b_config()          # the CLI's flags turn the ViT to Swin
+    cli = zoo_cli_phase(swin.replace(visual=swin.visual.replace(
+        backbone="clip")), device)
+    tok = gen_tokenizer()
+    gen_cfg = gen_training_config(tok).replace(
+        moe=bench_serving.serving_config().moe.replace(use_moe=True,
+                                                       moe_type="sparse"))
+    gen = zoo_gen_phase(gen_cfg, tok, device)
+    library = zoo_library_phase(device)
+    return {"paths": paths, "window_attention": window, "cli": cli,
+            "generative": gen, "library": library,
+            "seconds": time.perf_counter() - t0}
+
+
 def path_check_phase(launched: dict) -> dict:
     """``launched``: {path: the launch keys its run recorded}. Each key no
     kernel check held yet is held now against the plain version on inputs
@@ -4126,7 +4854,7 @@ def kernels_line(rows: dict, launches: int, generative: dict,
                  ptxas: dict, gen_rows: dict, gen_training: dict,
                  cls_pipeline: dict, gen_cli: dict, abl_totals: dict,
                  ablation: dict, rag_tot: dict, rag: dict,
-                 trainer: dict) -> dict:
+                 trainer: dict, zoo_kernels: dict, zoo: dict) -> dict:
     """One entry per kernel. The forward's numbers are for one flagship
     forward at batch 8 (its 36 calls of the five serving shapes, each
     shape's time times its calls), and, under ``generate``, for one beam
@@ -4151,7 +4879,12 @@ def kernels_line(rows: dict, launches: int, generative: dict,
     rag phase's runs; ``trainer`` each kernel's launches in the trainer
     phase's runs (the gradual_unfreeze trainer, the checkpointed trainer,
     the generative CLI with ``--freeze-visual``) with the step's time by
-    CUDA events."""
+    CUDA events, and the kernel phase's time, bound and SDPA's time over
+    a trainer step at batch 32 (the training kernels) or a validation
+    forward at batch 32 (the forward); ``zoo`` each kernel's at the
+    zoo's new shapes (time, bound, SDPA's time), its totals and launches
+    per forward or step of each zoo path, and its launches in the zoo's
+    runs."""
     abl_launches = {name: sum(r[name] for r in ablation["launches"].values())
                     for name in fa.launch_counts}
     rag_cli = rag["cli"]["launches"]
@@ -4214,7 +4947,12 @@ def kernels_line(rows: dict, launches: int, generative: dict,
     def trainer_entry(name):
         profiles = {r: trainer[r]["profile"]["attention_device_ms"][name]
                     for r in ("gradual_unfreeze", "checkpointing")}
-        return {"launches": {r: v["launches"][name] for r, v in runs.items()},
+        timed = zoo_kernels["trainer_forward"] if name == "flash_attn_fwd" \
+            else {k: v for k, v in
+                  zoo_kernels["per_step"]["trainer"][name].items()
+                  if k != "by_case_ms"}
+        return {**timed,
+                "launches": {r: v["launches"][name] for r, v in runs.items()},
                 "checkpointed_step_launches":
                     trainer["checkpointing"]["step_launches"][name],
                 "profiled_ms_per_step": profiles,
@@ -4223,8 +4961,55 @@ def kernels_line(rows: dict, launches: int, generative: dict,
                     for r in ("gradual_unfreeze", "checkpointing")},
                 "per": trainer_per + "; profiled_ms_per_step: the kernel's "
                        "device ms in one profiled step at batch 32 (every "
-                       "tower training; checkpointed with freeze_visual)"}
+                       "tower training; checkpointed with freeze_visual); "
+                       "ms, bound_ms, library_ms: the kernel phase's over "
+                       + ("a validation forward" if name == "flash_attn_fwd"
+                          else "a step") + " at batch 32"}
+
+    def zoo_entry(name):
+        """The kernel at each new shape and its totals per zoo path."""
+        if name == "flash_attn_fwd":
+            shapes = {n: {k: r[k] for k in (
+                "B", "H", "Lq", "Lk", "mask", "kernel_ms", "plain_ms",
+                "library_ms", "bound_us", "bound_by", "max_abs_err_bf16")}
+                for n, r in zoo_kernels["forward"].items()}
+            totals = zoo_kernels["per_forward"]
+            launches = {n: p["serving"]["launches_per_forward"]
+                        for n, p in zoo["paths"].items()}
+            launches["vision_token_embedding"] = \
+                zoo["library"]["vision_token"]["forward_launches"][name]
+            launches["cli_swin_qformer"] = {
+                m: r[name] for m, r in zoo["cli"]["launches"].items()}
+            launches["generative_sparse_greedy_generate"] = \
+                zoo["generative"]["launches_per_generate"]
+            per = (f"per serving forward at batch {ZOO_SERVE_BATCH} (the "
+                   f"vision-token embedding at {ZOO_LIB_BATCH}), bf16")
+        else:
+            shapes = {n: {"B": r["B"], "H": r["H"], "Lq": r["Lq"],
+                          "Lk": r["Lk"], "mask": r["mask"],
+                          "dropout": r["dropout"],
+                          **{k: r[name][k] for k in (
+                              "kernel_ms", "plain_ms", "library_ms",
+                              "bound_ms", "bound_by")}}
+                      for n, r in zoo_kernels["training"].items()}
+            totals = {p: {k: v for k, v in t[name].items()
+                          if k != "by_case_ms"}
+                      for p, t in zoo_kernels["per_step"].items()}
+            launches = {n: p["training"]["launches_per_step"][name]
+                        for n, p in zoo["paths"].items()}
+            launches["vision_token_embedding"] = \
+                zoo["library"]["vision_token"]["fwd_bwd_launches"][name]
+            launches["cli_swin_qformer"] = zoo["cli"]["launches"][
+                "train"][name]
+            launches["generative_sparse_step"] = zoo["generative"][
+                "train_check"]["card_launches"][name]
+            per = (f"per train step at batch {ZOO_BATCH} (the "
+                   f"vision-token embedding's forward and backward at "
+                   f"{ZOO_LIB_BATCH}), bf16, at each call's dropout")
+        return {"shapes": shapes, "per_path": totals, "launches": launches,
+                "per": per}
     entries[0]["trainer"] = trainer_entry("flash_attn_fwd")
+    entries[0]["zoo"] = zoo_entry("flash_attn_fwd")
     totals = step_totals(train_rows)
     gen_totals = step_totals(gen_rows)
     replaces = {
@@ -4292,7 +5077,8 @@ def kernels_line(rows: dict, launches: int, generative: dict,
                        f"generative_step one generative step at batch "
                        f"{GEN_TRAIN_BATCH} over a {RAG_MEMORY}-token "
                        f"memory, bf16"},
-            "trainer": trainer_entry(name)})
+            "trainer": trainer_entry(name),
+            "zoo": zoo_entry(name)})
     return {"kernels": entries}
 
 
@@ -4563,6 +5349,29 @@ def main() -> int:
           f" steps, {trainer['gen_cli']['launches_per_step']} launches a "
           f"step on {card} ({time.perf_counter() - t_start:.1f} s)",
           flush=True)
+    t_zoo = time.perf_counter()
+    zoo_kernels = zoo_kernel_phase(rows)
+    emit({"zoo_attention": {k: zoo_kernels[k] for k in (
+        "per_forward", "per_step", "trainer_forward")}, "card": card})
+    with recording_launches(launched.setdefault("zoo", set())):
+        zoo = zoo_phase()
+    emit({"zoo": zoo, "card": card})
+    window = zoo["window_attention"]
+    print("[zoo] launches a forward (a step): " + ", ".join(
+        f"{n} {p['serving']['launches_per_forward']:.0f} "
+        f"({p['training']['launches_per_step']['flash_attn_fwd_lse']:.0f})"
+        for n, p in zoo["paths"].items())
+        + f"; Swin-B window attention "
+          f"{100 * window['share_of_step_device_busy']:.1f}% of a step's "
+          f"device time; CLI --visual-backbone swin --fusion "
+          f"qformer train {zoo['cli']['run_seconds']['train']:.1f} s, "
+          f"evaluate {zoo['cli']['run_seconds']['evaluate']:.1f} s; "
+          f"generative sparse MoE {zoo['generative']['launches_per_generate']}"
+          f" launches a greedy generate; library encoders "
+          + ", ".join(f"{n} {r['fwd_bwd_ms']:.1f} ms" for n, r in
+                      zoo["library"].items())
+          + f" on {card} ({time.perf_counter() - t_zoo:.1f} s of the zoo, "
+            f"{time.perf_counter() - t_start:.1f} s)", flush=True)
     paths = path_check_phase(launched)
     emit({"path_check": paths})
     print(f"[path_check] launch keys by path {paths['launch_keys']}: "
@@ -4573,7 +5382,7 @@ def main() -> int:
     emit(kernels_line(rows, serving["launches"]["flash_attn_fwd"],
                       generative, train_rows, training["launches"], ptxas,
                       gen_rows, gen_training, cls, gen_cli, abl_totals, abl,
-                      rag_tot, rag, trainer))
+                      rag_tot, rag, trainer, zoo_kernels, zoo))
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

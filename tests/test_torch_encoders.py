@@ -2,19 +2,21 @@
 
 from __future__ import annotations
 
+import jax
 import numpy as np
 import pytest
 import torch
 
 from test_torch_support import (F32_TOL, assert_close,
                                 assert_close_bf16, jax_params,
-                                padding_mask, port_with)
+                                padding_mask, port_with, shape_tree)
 from vivqa_tpu.models import config as JC
 from vivqa_tpu.models.encoders import create_text_encoder as j_text
 from vivqa_tpu.models.encoders import create_visual_encoder as j_visual
 from vivqa_tpu_torch.models import config as PC
 from vivqa_tpu_torch.models.encoders import (create_text_encoder,
                                              create_visual_encoder)
+from vivqa_tpu_torch.models.from_jax import check_one_to_one
 
 torch.set_num_threads(1)
 
@@ -79,8 +81,24 @@ def test_text_encoder(case):
 
 @pytest.mark.parametrize("backbone", ["resnet", "swin"])
 def test_unported_visual_backbones_raise(backbone):
-    with pytest.raises(NotImplementedError, match="Queue A item 13"):
-        create_visual_encoder(PC.VisualEncoderConfig(backbone=backbone))
+    """ResNet and Swin, which raised until the encoder zoo was ported
+    (tests/test_torch_encoder_zoo.py holds their numerics), build through
+    the factory with the JAX encoder's leaves and run on the CPU to the
+    JAX encoder's output shapes."""
+    kw = dict(backbone=backbone, image_size=32, resnet_width=32,
+              resnet_stages=(1, 1), swin_window=4, swin_depths=(2, 2),
+              swin_heads=(2, 4), swin_embed_dim=16, dtype="float32")
+    px = np.zeros((1, 32, 32, 3), np.float32)
+    jm = j_visual(JC.VisualEncoderConfig(**kw))
+    shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), px))
+    want = jax.eval_shape(lambda v: jm.apply(v, px), shapes)
+    port = create_visual_encoder(PC.VisualEncoderConfig(**kw))
+    assert type(port).__name__ == type(jm).__name__
+    check_one_to_one(port, shape_tree(shapes["params"]))
+    with torch.no_grad():
+        got = port(torch.from_numpy(px))
+    for key in ("pooled", "tokens"):
+        assert tuple(got[key].shape) == want[key].shape, key
 
 
 def test_unknown_backbones_raise():

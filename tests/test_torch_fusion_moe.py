@@ -11,16 +11,19 @@ import torch
 
 from test_torch_support import (F32_TOL, assert_close,
                                 assert_close_bf16, jax_params,
-                                padding_mask, port_with)
+                                padding_mask, port_with, shape_tree)
 from vivqa_tpu.models import config as JC
 from vivqa_tpu.models.fusion.mcan import AttFlat as JAttFlat
 from vivqa_tpu.models.fusion.mcan import MCANFusion as JMCAN
 from vivqa_tpu.models.moe import config as JMC
 from vivqa_tpu.models.moe import routers as JR
+from vivqa_tpu.models.fusion import create_fusion as jcreate_fusion
 from vivqa_tpu.models.moe.layer import MOELayer as JMOE
+from vivqa_tpu.models.moe.layer import create_moe_layer as jcreate_moe
 from vivqa_tpu_torch.models import config as PC
 from vivqa_tpu_torch.models.fusion import create_fusion
 from vivqa_tpu_torch.models.fusion.mcan import AttFlat
+from vivqa_tpu_torch.models.from_jax import check_one_to_one
 from vivqa_tpu_torch.models.moe import config as PMC
 from vivqa_tpu_torch.models.moe import routers as PR
 from vivqa_tpu_torch.models.moe.layer import MOELayer, create_moe_layer
@@ -67,8 +70,26 @@ def test_mcan_fusion():
 
 
 def test_unported_fusion_raises():
-    with pytest.raises(NotImplementedError, match="Queue A item 13"):
-        create_fusion(PC.FusionConfig(fusion_type="qformer"), 8, 8)
+    """The Q-Former, which raised until the fusion zoo was ported
+    (tests/test_torch_fusion_zoo.py holds its numerics), builds through
+    the factory with the JAX fusion's leaves and runs on the CPU to the
+    JAX fusion's output shapes and mask."""
+    cfg = dict(fusion_type="qformer", hidden_dim=16, num_heads=2,
+               num_layers=1, num_query_tokens=4)
+    visual = {"tokens": _rand((2, 5, 8), 1)}
+    text = {"tokens": _rand((2, 6, 8), 2), "mask": padding_mask((6, 2), 6)}
+    jm = jcreate_fusion(JC.FusionConfig(**cfg))
+    shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), visual,
+                                            text))
+    want = jax.eval_shape(lambda v: jm.apply(v, visual, text), shapes)
+    port = create_fusion(PC.FusionConfig(**cfg), 8, 8)
+    check_one_to_one(port, shape_tree(shapes["params"]))
+    with torch.no_grad():
+        got = port({"tokens": torch.from_numpy(visual["tokens"])},
+                   {k: torch.from_numpy(v) for k, v in text.items()})
+    for key in ("pooled", "tokens", "mask"):
+        assert tuple(got[key].shape) == want[key].shape, key
+    np.testing.assert_array_equal(got["mask"].numpy(), np.ones((2, 4)))
 
 
 def test_topk_dense_breaks_ties_toward_lower_index():
@@ -138,7 +159,25 @@ def test_moe_layer(case):
 
 
 def test_unported_moe_parts_raise():
-    with pytest.raises(NotImplementedError):
-        create_moe_layer(PMC.MoEConfig(moe_type="sparse"))
-    with pytest.raises(NotImplementedError):
-        create_moe_layer(PMC.MoEConfig(moe_type="hierarchical"))
+    """The sparse and hierarchical layers, which raised until the MoE zoo
+    was ported (tests/test_torch_fusion_zoo.py holds their numerics),
+    build through the factory with the JAX layers' leaves and run on the
+    CPU to their output shapes; an unknown type still raises."""
+    x = _rand((2, 5, 16), 3)
+    for moe_type in ("sparse", "hierarchical"):
+        def cfg(mod):
+            return mod.MoEConfig(num_experts=4, input_dim=16,
+                                 expert=mod.ExpertConfig(hidden_dim=8),
+                                 moe_type=moe_type)
+        jm = jcreate_moe(cfg(JMC))
+        shapes = jax.eval_shape(lambda x: jm.init(jax.random.PRNGKey(0), x),
+                                x)
+        want, _ = jax.eval_shape(lambda v, x: jm.apply(v, x), shapes, x)
+        port = create_moe_layer(cfg(PMC))
+        check_one_to_one(port, shape_tree(shapes["params"]))
+        with torch.no_grad():
+            y, aux = port(torch.from_numpy(x))
+        assert tuple(y.shape) == want.shape
+        assert np.isfinite(float(aux["aux_loss"]))
+    with pytest.raises(ValueError, match="unknown moe_type"):
+        create_moe_layer(PMC.MoEConfig(moe_type="nope"))

@@ -30,7 +30,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_support import kept_prng_impl
+from test_torch_support import kept_prng_impl, shape_tree
 from vivqa_tpu.data import fastloader as JF
 from vivqa_tpu.metrics import (BLEUScore as JBLEU, CIDErScore as JCIDEr,
                                ExactMatchAccuracy as JEM,
@@ -547,15 +547,49 @@ def test_cli_freezes_and_runs_the_resource_manager(corpus, tmp_path,
     (["--use-moe", "--moe-type", "sparse"], "item 13"),
     (["--pretrained-visual", "openai/clip-vit-base-patch32"], "item 13"),
     (["--pretrained-text", "vinai/phobert-base"], "item 13")], ids=str)
-def test_unported_options_name_their_item(corpus, tmp_path, argv, item):
+def test_unported_options_name_their_item(corpus, tmp_path, monkeypatch,
+                                          argv, item):
+    """The pretrained towers (the HF import) still name their ROADMAP
+    item. ``--use-moe --moe-type sparse``, which named it too until the
+    sparse layer was ported, now trains an epoch on the CPU: the fusion's
+    MoE is the capacity-dispatch layer with the leaves of the JAX
+    package's layer for the same config, and the loss is finite."""
     csv, imgs = corpus
-    with pytest.raises(NotImplementedError, match=item):
-        PGP.main(argv + ["--mode", "train", "--device", "cpu",
-                         "--csv-path", csv, "--image-dir", imgs,
-                         "--batch-size", "8",
-                         "--max-question-length", "8",
-                         "--max-answer-length", "6",
-                         "--output-dir", str(tmp_path)])
+    if "sparse" not in argv:
+        with pytest.raises(NotImplementedError, match=item):
+            PGP.main(argv + ["--mode", "train", "--device", "cpu",
+                             "--csv-path", csv, "--image-dir", imgs,
+                             "--batch-size", "8",
+                             "--max-question-length", "8",
+                             "--max-answer-length", "6",
+                             "--output-dir", str(tmp_path)])
+        return
+    from vivqa_tpu.models.moe.layer import create_moe_layer as j_moe
+    from vivqa_tpu.models.vqa_model import moe_config_from_model as j_cfg
+    from vivqa_tpu_torch.models.from_jax import check_one_to_one
+    from vivqa_tpu_torch.models.moe.layer import SparseMOELayer
+    path = tmp_path / "cfg.yaml"
+    _port_config(csv, imgs, tmp_path).to_yaml(path)
+    seen = {}
+    real = PGT.GenerativeTrainingPipeline.run
+
+    def run(self, model, *args):
+        seen["model"] = model
+        return real(self, model, *args)
+    monkeypatch.setattr(PGT.GenerativeTrainingPipeline, "run", run)
+    out = PGP.main(argv + ["--config", str(path), "--device", "cpu",
+                           "--epochs", "1", "--mode", "train",
+                           "--checkpoint-dir", str(tmp_path / "ck"),
+                           "--output-dir", str(tmp_path / "out")])
+    model = seen["model"]
+    assert model.config.moe.moe_type == "sparse"
+    assert isinstance(model.fusion.moe, SparseMOELayer)
+    jcfg = JC.GenerativeVQAConfig.from_dict(model.config.to_dict())
+    D = jcfg.fusion_dim
+    shapes = jax.eval_shape(lambda x: j_moe(j_cfg(jcfg, D)).init(
+        jax.random.PRNGKey(0), x), np.zeros((1, 4, D), np.float32))
+    check_one_to_one(model.fusion.moe, shape_tree(shapes["params"]))
+    assert np.isfinite(out["history"][0]["train_loss"])
 
 
 # -- the stopwatch ---------------------------------------------------------------

@@ -1449,3 +1449,149 @@ def test_device_monitor_reads_the_card():
     assert d1["used_gb"] - d0["used_gb"] >= 1.0
     assert d1["allocated_gb"] - d0["allocated_gb"] >= 1.07
     assert d1["limit_gb"] > 70
+
+
+# -- the model zoo ------------------------------------------------------------
+ZOO_CASES = [  # (B, H, Lq, Lk, D, mask kind)
+    (8, 8, 32, 32, 64, None),             # Q-Former self-attention
+    (8, 8, 32, 50, 64, None),             # Q-Former to the ViT's tokens
+    (32, 8, 32, 49, 64, None),            # Q-Former to Swin's or ResNet's
+    (32, 8, 32, 64, 64, "key"),           # Q-Former to the question
+    (8, 8, 115, 115, 64, "stream"),       # single-stream [CLS; 50; 64]
+    (8, 4, 32, 784, 64, None),            # VisionTokenEmbedding, 28 x 28
+]
+
+
+def _zoo_mask(kind, B, Lq, Lk, seed=0):
+    """The Q-Former's make_attention_mask(ones, question mask) and
+    single-stream's query-AND-key mask over [1 CLS + 50 image tokens, all
+    real; 64 question tokens, 3-64 real]."""
+    from vivqa_tpu_torch.models.layers import make_attention_mask
+    if kind is None:
+        return None
+    lens = np.random.RandomState(seed).randint(3, 65, B)
+    question = torch.from_numpy(padding_mask(lens, 64))
+    if kind == "key":
+        return make_attention_mask(torch.ones(B, Lq, dtype=torch.int32),
+                                   question).cuda()
+    stream = torch.cat([torch.ones(B, Lk - 64, dtype=torch.int32),
+                        question], 1)
+    return make_attention_mask(stream, stream).cuda()
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["no_dropout", "dropout"])
+@pytest.mark.parametrize("case", ZOO_CASES, ids=str)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_zoo_shapes_match_plain_versions(case, dtype, rate):
+    """The serving forward and the three training kernels at the zoo's
+    new shapes against their plain versions, forward and backward: the
+    Q-Former's 32 queries over 32, 49, 50 and 64 keys, single-stream's
+    115 tokens (two 64-query tiles, the second 51 wide) under its padded
+    query rows, and 784 keys over 4 heads (13 key tiles)."""
+    _need_card()
+    B, H, Lq, Lk, D, kind = case
+    gen = torch.Generator().manual_seed(23)
+    q, k, v, do = (torch.randn(B, H, L, D, generator=gen).to("cuda", dtype)
+                   for L in (Lq, Lk, Lk, Lq))
+    mask = _zoo_mask(kind, B, Lq, Lk)
+    got = fa.flash_attention_cuda(q, k, v, mask)
+    key = fa.dropout_key(2512, 3)
+    o, m, l = fa.flash_attention_fwd_lse_cuda(q, k, v, mask, False, rate, key)
+    grads = fa.flash_attention_bwd_cuda(q, k, v, o, m, l, do, mask, False,
+                                        rate, key)
+    want = fa.attention_reference(q, k, v, mask)
+    o_ref, m_ref, l_ref = fa.attention_forward_lse_reference(
+        q, k, v, mask, False, rate, key)
+    grads_ref = fa.attention_backward_reference(q, k, v, o, m, l, do, mask,
+                                                False, rate, key)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    _assert_rel(o, o_ref, TOL[dtype], "o")
+    torch.testing.assert_close(m, m_ref, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(l, l_ref, atol=1e-5, rtol=1e-5)
+    for name, g, ref in zip(("dq", "dk", "dv"), grads, grads_ref):
+        assert g.dtype == dtype and g.shape == ref.shape
+        assert torch.isfinite(g).all(), name
+        _assert_rel(g, ref, GRAD_TOL[dtype], name)
+
+
+def _zoo_config(visual, fusion, moe_type, use_moe=True):
+    """A zoo model at width 64 (head dim 32 for the kernels), 32 px."""
+    vis = dict(image_size=32, patch_size=16, hidden_dim=64, num_layers=1,
+               num_heads=2, swin_embed_dim=32, swin_depths=(2, 2),
+               swin_heads=(2, 4), swin_window=4, resnet_width=32,
+               resnet_stages=(1, 1))
+    return PC.VQAModelConfig(
+        visual=PC.VisualEncoderConfig(backbone=visual, **vis),
+        text=PC.TextEncoderConfig(vocab_size=100, hidden_dim=64,
+                                  num_layers=1, num_heads=2, max_length=16),
+        fusion=PC.FusionConfig(fusion_type=fusion, hidden_dim=64,
+                               num_heads=2, num_layers=1,
+                               num_query_tokens=8),
+        moe=PC.MoEModelConfig(use_moe=use_moe, moe_type=moe_type,
+                              num_experts=4, top_k=2, expert_hidden_dim=64),
+        num_answers=10)
+
+
+@pytest.mark.parametrize("zoo", [("swin", "qformer", "sparse"),
+                                 ("resnet", "single_stream", "hierarchical"),
+                                 ("clip", "mutan", "standard")], ids=str)
+def test_zoo_model_on_card_matches_cpu(zoo):
+    """Each zoo path's model: its f32 logits on the card against the same
+    weights on the CPU (to 1e-4 of the largest; TF32 is off), its
+    launches a forward (the text layer's and the fusion's, none from
+    Swin or ResNet), and the sparse layer's dropped fraction equal."""
+    _need_card()
+    from vivqa_tpu_torch.device import resolve_device
+    resolve_device("cuda")
+    cfg = _zoo_config(*zoo)
+    cfg = cfg.replace(visual=cfg.visual.replace(dtype="float32"),
+                      text=cfg.text.replace(dtype="float32"),
+                      dtype="float32")
+    cpu = create_vqa_model(cfg, device="cpu")
+    card = create_vqa_model(cfg, device="cuda")
+    for m in (cpu, card):       # the forced-bf16 fusions and head in f32
+        for mod in m.modules():
+            if getattr(mod, "dtype", None) == torch.bfloat16:
+                mod.dtype = torch.float32
+    rs = np.random.RandomState(3)
+    mask = torch.from_numpy(padding_mask([16, 9, 3], 16)).long()
+    args = (torch.from_numpy(rs.rand(3, 32, 32, 3).astype(np.float32)),
+            torch.from_numpy(rs.randint(4, 100, (3, 16))) * mask, mask)
+    before = fa.launch_counts["flash_attn_fwd"]
+    with torch.no_grad():
+        got = card(*(a.cuda() for a in args))
+        want = cpu(*args)
+    calls = {"qformer": 3 + 1, "single_stream": 1 + 1, "mutan": 1 + 1}[
+        zoo[1]]
+    assert fa.launch_counts["flash_attn_fwd"] - before == calls
+    scale = float(want["logits"].abs().max())
+    torch.testing.assert_close(got["logits"].cpu(), want["logits"],
+                               atol=1e-4 * scale, rtol=0)
+    if zoo[2] == "sparse":
+        assert float(got["moe_metrics"]["dropped_token_fraction"]) == \
+            float(want["moe_metrics"]["dropped_token_fraction"])
+
+
+def test_swin_window_attention_on_card_matches_cpu():
+    """``swin.window_attention`` (outside the kernels) in bf16 on the card
+    against the CPU, shifted windows, forward and backward."""
+    _need_card()
+    from vivqa_tpu_torch.models.encoders.swin import (_shift_attn_mask,
+                                                      window_attention)
+    gen = torch.Generator().manual_seed(29)
+    nW, h, L, hd = 4, 2, 16, 32
+    q, k, v, do = (torch.randn(2 * nW, h, L, hd, generator=gen)
+                   .to(torch.bfloat16) for _ in range(4))
+    bias = torch.randn(h, L, L, generator=gen)
+    mask = torch.from_numpy(_shift_attn_mask(8, 8, 4, 2))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        leaves = [t.to(dev).requires_grad_(True) for t in (q, k, v)]
+        o = window_attention(*leaves, bias.to(dev), mask.to(dev))
+        outs[dev] = [o] + list(torch.autograd.grad(o, leaves, do.to(dev)))
+    for name, a, b in zip(("o", "dq", "dk", "dv"), outs["cuda"],
+                          outs["cpu"]):
+        _assert_rel(a.cpu(), b, 2e-2, name)

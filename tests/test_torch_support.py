@@ -25,11 +25,13 @@ F32_TOL = dict(atol=1e-5, rtol=1e-5)
 
 
 def jax_params(module, *args, seed: int = 0, noise: float = 0.05,
-               rngs=None, **kwargs):
-    """Init ``module`` with JAX, then add seeded normal noise to every leaf."""
+               rngs=None, jit: bool = False, **kwargs):
+    """Init ``module`` with JAX (jitted with ``jit``: faster for a whole
+    model than op by op), then add seeded normal noise to every leaf."""
     import jax      # here, so that the card's tests import this file without JAX
     key = jax.random.PRNGKey(seed)
-    variables = module.init(rngs or key, *args, **kwargs)
+    init = jax.jit(module.init) if jit else module.init
+    variables = init(rngs or key, *args, **kwargs)
     rs = np.random.RandomState(seed + 1)
     return jax.tree.map(
         lambda p: np.asarray(p, np.float32)
@@ -279,3 +281,63 @@ def small_cls_params(batch: dict, seed: int = 0):
         lambda p: np.asarray(p, np.float32)
         + 0.05 * rs.standard_normal(np.shape(p)).astype(np.float32),
         jax.device_get(variables["params"]))
+
+
+def shape_tree(tree, prefix: str = "") -> dict:
+    """{flax path: shape} of a tree of arrays or ``jax.eval_shape``
+    structs, for ``check_one_to_one`` without running an init."""
+    out = {}
+    for key, value in tree.items():
+        path = f"{prefix}/{key}" if prefix else key
+        out.update(shape_tree(value, path) if isinstance(value, dict)
+                   else {path: tuple(value.shape)})
+    return out
+
+
+def grads_against_jax(j_outputs, params, p_outputs, port: torch.nn.Module,
+                      seed: int = 0):
+    """The gradient of sum_i <out_i, c_i> (seeded normal cotangents c_i)
+    with respect to every parameter, from ``jax.grad`` of
+    ``j_outputs(params)`` (a list of JAX arrays, jitted once) and from
+    autograd of ``p_outputs()`` (the same list from ``port``, which holds
+    ``params``). Returns (port's outputs, JAX's outputs, port's gradient,
+    JAX's gradient), the gradients as {flax path: f32 array}."""
+    import jax
+    import jax.numpy as jnp
+    from vivqa_tpu_torch.models.from_jax import to_flax
+    rs = np.random.RandomState(seed)
+    got_outs = p_outputs()
+    cots = [rs.standard_normal(tuple(o.shape)).astype(np.float32)
+            for o in got_outs]
+
+    def loss(p):
+        outs = j_outputs(p)
+        return sum(jnp.sum(o.astype(jnp.float32) * c)
+                   for o, c in zip(outs, cots)), outs
+    (_, want_outs), want = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+        params)
+    want = flatten_params(jax.device_get(want))
+    port.zero_grad()
+    sum((o.float() * torch.from_numpy(c)).sum()
+        for o, c in zip(got_outs, cots)).backward()
+    got = to_flax(port, {n: p.grad if p.grad is not None
+                         else torch.zeros_like(p)
+                         for n, p in port.named_parameters()},
+                  {k: v.shape for k, v in want.items()})
+    return ([o.detach() for o in got_outs],
+            [np.asarray(o, np.float32) for o in want_outs], got, want)
+
+
+def assert_grads_close(got: dict, want: dict, rtol: float = 1e-5,
+                       floor: float = 1e-5):
+    """Every leaf to ``rtol`` of its own largest element. A leaf whose
+    exact gradient is 0 (an attention key bias: a softmax ignores a
+    shift) holds rounding noise only, so no leaf is held tighter than
+    ``floor`` of the largest element of all."""
+    assert sorted(got) == sorted(want)
+    top = max(float(np.abs(np.asarray(w)).max()) for w in want.values())
+    for path, w in want.items():
+        w = np.asarray(w)
+        tol = max(rtol * float(np.abs(w).max()), floor * top)
+        diff = float(np.abs(got[path] - w).max())
+        assert diff <= tol, f"{path}: max |diff| {diff} > {tol}"

@@ -13,16 +13,25 @@ name by the module's type:
 - ``Conv2d``: ``kernel`` HWIO -> ``weight`` OIHW; ``Conv1d`` (the
   segmentation expert's convolutions over the token axis): ``kernel``
   (K, in, out) -> ``weight`` (out, in, K);
-- ``LayerNorm``: ``scale`` -> ``weight``; ``Embed``: ``embedding`` ->
-  ``weight``;
+- ``LayerNorm`` and ``GroupNorm``: ``scale`` -> ``weight``; ``Embed``:
+  ``embedding`` -> ``weight``;
 - any other parameter (``cls_token``, ``pos_embed``, LayerScale gains,
-  the stacked ``experts_*`` of ``MOELayer``, the specialized experts'
-  query slots, ``order_embed`` and ``relation_embeddings``) keeps its
-  name and layout.
+  the stacked ``experts_*`` of ``MOELayer`` and the bias-free ones of
+  ``SparseMOELayer``, the specialized experts' query slots,
+  ``order_embed`` and ``relation_embeddings``, ResNet's ``FrozenAffine``
+  ``scale`` and ``bias``, Swin's ``rel_pos_bias``, DeBERTa's
+  ``rel_embeddings``, the ``query_tokens`` of the Q-Former and of
+  ``VisionTokenEmbedding``, single-stream's ``modality_embed``) keeps
+  its name and layout.
 
 A ``ModuleDict`` key is a path segment like any other, so the VQA-MoE's
 ``experts`` dict of ``vision_0``, ``specialized_3_ocr``... maps onto the
-flax names ``experts/vision_0``, ``experts/specialized_3_ocr``. The
+flax names ``experts/vision_0``, ``experts/specialized_3_ocr``; a
+``ModuleList`` index is one too, so the hierarchical MoE's ``group.1``
+maps onto ``group_1`` and its ``group_router`` by name. Modules whose
+flax names hold an index (ResNet's ``stage2_block0``, Swin's
+``stage1_block1`` and ``merge0``, the zoo's ``stage0_conv``) are
+attributes of those names. The
 knowledge modules carry the flax names too (``knowledge_attn/k_proj``,
 ``knowledge_attn/context_attn/{query,key,value,out}``, ``knowledge_proj``,
 ``knowledge_ln``; ``ContextAttention``'s ``k_proj``, ``q_proj``,
@@ -64,7 +73,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from vivqa_tpu_torch.models.layers import (Dense, LayerNorm,
+from vivqa_tpu_torch.models.layers import (Dense, GroupNorm, LayerNorm,
                                            MultiHeadDotProductAttention)
 from vivqa_tpu_torch.ops.embedding import Embed
 
@@ -73,6 +82,7 @@ _LEAF = {  # (module type, torch leaf) -> flax leaf
     (nn.Conv2d, "weight"): "kernel",
     (nn.Conv1d, "weight"): "kernel",
     (LayerNorm, "weight"): "scale",
+    (GroupNorm, "weight"): "scale",
     (Embed, "weight"): "embedding",
 }
 

@@ -12,8 +12,15 @@ Numerics follow flax, not torch's defaults:
   (E[x^2] - E[x]^2, clipped at 0) and eps 1e-6, then casts to its dtype;
 - ``nn.gelu`` in flax is the tanh form ("gelu_tanh").
 
-All attention goes through ``vivqa_tpu_torch.ops.flash_attention``: the
-plain version for CPU tensors, the CUDA kernels for tensors on the card.
+Attention goes through ``vivqa_tpu_torch.ops.flash_attention`` (the
+plain version for CPU tensors, the CUDA kernels for tensors on the
+card), with two exceptions that compute it as the JAX package does, f32
+score products, a softmax and a product with v in the compute dtype,
+because each adds a term to the scores that the kernels' boolean masks
+cannot carry: Swin's window attention (a learned relative-position bias,
+``encoders/swin.py``) and DeBERTa's disentangled attention (the
+content-to-position and position-to-content terms,
+``encoders/deberta.py``).
 
 Training mode is flax's ``deterministic=False``: every module takes an
 optional ``rng`` (a ``DropoutRNG``), and applies its dropouts only when
@@ -155,6 +162,36 @@ class LayerNorm(nn.Module):
                           min=0.0)
         mul = torch.rsqrt(var + self.eps) * self.weight.float()
         return ((xf - mean) * mul + self.bias.float()).to(self.dtype or x.dtype)
+
+
+class GroupNorm(nn.Module):
+    """flax ``nn.GroupNorm`` over NCHW activations: per sample and group,
+    f32 statistics with flax's fast variance (E[x^2] - E[x]^2, clipped at
+    0) and eps 1e-6, the per-channel scale and bias, output in dtype."""
+
+    def __init__(self, channels: int, num_groups: int = 32,
+                 dtype: torch.dtype = torch.bfloat16, eps: float = 1e-6):
+        super().__init__()
+        if channels % num_groups:
+            raise ValueError(f"{channels} channels do not divide into "
+                             f"{num_groups} groups")
+        self.num_groups = num_groups
+        self.dtype = dtype
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, C = x.shape[:2]
+        G = self.num_groups
+        xf = x.float().reshape(B, G, C // G, -1)
+        mean = xf.mean((2, 3), keepdim=True)
+        var = torch.clamp((xf * xf).mean((2, 3), keepdim=True) - mean * mean,
+                          min=0.0)
+        mul = torch.rsqrt(var + self.eps) * \
+            self.weight.float().view(1, G, C // G, 1)
+        y = (xf - mean) * mul + self.bias.float().view(1, G, C // G, 1)
+        return y.reshape(x.shape).to(self.dtype)
 
 
 class MlpBlock(nn.Module):
@@ -392,25 +429,32 @@ def make_causal_mask(ids: torch.Tensor) -> torch.Tensor:
 
 
 # the learned query slots and tables of the specialized MoE experts
-# (models/moe/specialized.py), drawn from normal(0.02) as in flax
+# (models/moe/specialized.py), the Q-Former's and VisionTokenEmbedding's
+# queries, single-stream's modality rows, Swin's relative-position bias
+# and DeBERTa's relative-position table, drawn from normal(0.02) as in
+# flax
 _TABLES = ("mask_tokens", "object_queries", "text_queries", "scene_tokens",
-           "count_queries", "order_embed", "relation_embeddings")
+           "count_queries", "order_embed", "relation_embeddings",
+           "query_tokens", "modality_embed", "rel_pos_bias",
+           "rel_embeddings")
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded random weights in the spirit of the flax initialisers: Dense
     and Conv kernels normal with variance 1/fan_in (lecun), embedding and
-    position tables and the experts' query slots normal(0.02), biases and
-    the CLS token 0, LayerNorm scale 1, LayerScale gains left at their
-    init value."""
+    position tables and the query slots normal(0.02), biases and the CLS
+    token 0, LayerNorm and GroupNorm scales and ResNet's frozen affine
+    scale 1, LayerScale gains left at their init value."""
     with torch.no_grad():
         for mod in module.modules():
             for leaf, p in mod.named_parameters(recurse=False):
                 if isinstance(mod, Embed) or leaf == "pos_embed" \
                         or leaf in _TABLES:
                     p.normal_(0.0, 0.02, generator=generator)
-                elif isinstance(mod, LayerNorm):
+                elif isinstance(mod, (LayerNorm, GroupNorm)):
                     p.fill_(1.0 if leaf == "weight" else 0.0)
+                elif leaf == "scale":
+                    p.fill_(1.0)
                 elif "bias" in leaf or leaf == "cls_token":
                     p.zero_()
                 elif leaf in ("ls1_scale", "ls2_scale"):

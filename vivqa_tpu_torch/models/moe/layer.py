@@ -12,10 +12,27 @@
   (B, L, E, D), combined densely by the router's weights and
   LayerNormed. A masked expert is still computed (its weight is 0).
 
+- ``SparseMOELayer``: capacity dispatch, compute in k/E of the dense
+  layer's. Each token takes its top-k experts by the router's combine
+  weights (ties to the lower index); the T*k assignments are sorted by
+  expert with a stable sort, so within an expert the earlier token comes
+  first; an exclusive cumsum of the experts' counts gives each its place
+  in its expert's queue, and an assignment past ``max(1, int(cf*T*k/E))``
+  goes to a trash row at ``E*cap`` and is dropped (the residual carries
+  the token). The kept rows are gathered into (E, cap, D), run through
+  the bias-free stacked experts (no GLU, no dropout) and added back to
+  their tokens, weighted by their gates, with ``index_add``.
+  ``metrics["dropped_token_fraction"]`` joins the router's metrics.
+- ``HierarchicalMoE``: a top-1 ``group_router`` over G groups, each a
+  dense ``MOELayer`` of E/G experts (``group_{g}``) given its slice of
+  ``expert_mask``, so an ablation's mask indexes the experts in group
+  order; the groups' outputs are combined by the group router's weights,
+  the aux losses summed, the metrics the group router's.
+
 The experts live in a ``ModuleDict`` named ``experts`` whose keys are the
 flax names after ``experts/`` (``vision_0``, ``specialized_3_ocr``), so
-``from_jax.py`` maps them by path. The sparse and hierarchical layers
-wait for ROADMAP.md Queue A item 13.
+``from_jax.py`` maps them by path; the hierarchical layer's groups are a
+``ModuleList`` named ``group``, whose ``group.0`` maps to ``group_0``.
 """
 
 from __future__ import annotations
@@ -24,6 +41,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+import torch.nn.functional as F
 
 from vivqa_tpu_torch.models.layers import (DropoutRNG, LayerNorm, dropout,
                                            gelu_tanh)
@@ -31,7 +49,7 @@ from vivqa_tpu_torch.models.moe.config import (ExpertConfig, MoEConfig,
                                                VQAMoEConfig)
 from vivqa_tpu_torch.models.moe.experts import (MultimodalExpert, TextExpert,
                                                 VisionExpert, create_expert)
-from vivqa_tpu_torch.models.moe.routers import create_router
+from vivqa_tpu_torch.models.moe.routers import _top_k, create_router
 
 
 class MOELayer(nn.Module):
@@ -107,13 +125,97 @@ class VQAMoELayer(nn.Module):
         return y, {"aux_loss": rout.aux_loss, "metrics": rout.metrics}
 
 
+class SparseMOELayer(nn.Module):
+    def __init__(self, config: MoEConfig):
+        super().__init__()
+        cfg = config
+        E, H, D = cfg.num_experts, cfg.expert.hidden_dim, cfg.input_dim
+        self.config = cfg
+        self.router = create_router(cfg.router, E, D)
+        self.experts_w_in = nn.Parameter(torch.empty(E, D, H))
+        self.experts_w_out = nn.Parameter(torch.empty(E, H, D))
+        self.ln_out = LayerNorm(D, dtype=None)     # in x's dtype
+
+    def forward(self, x: torch.Tensor,
+                expert_mask: Optional[torch.Tensor] = None,
+                rng: Optional[DropoutRNG] = None):
+        cfg = self.config
+        B, L, D = x.shape
+        E, k = cfg.num_experts, min(cfg.router.top_k, cfg.num_experts)
+        T, dt, dev = B * L, x.dtype, x.device
+        cap = max(1, int(cfg.router.capacity_factor * T * k / E))
+        rout = self.router(x, expert_mask, rng)
+        gates, top_idx = _top_k(rout.combine_weights.reshape(T, E).float(), k)
+        expert_flat = top_idx.reshape(T * k)
+        order = torch.sort(expert_flat, stable=True).indices
+        sorted_e = expert_flat[order]
+        sorted_t = torch.arange(T, device=dev).repeat_interleave(k)[order]
+        sorted_g = gates.reshape(T * k)[order]
+        counts = F.one_hot(expert_flat, E).sum(0)       # no host sync
+        seg_start = torch.cumsum(counts, 0) - counts
+        pos = torch.arange(T * k, device=dev) - seg_start[sorted_e]
+        keep = pos < cap
+        dest = torch.where(keep, sorted_e * cap + pos, E * cap)
+        # slot -> the token row that fills it; row T is a zero row, the
+        # source of the empty slots (the trash row at E*cap is cut off)
+        slot_token = torch.full((E * cap + 1,), T, dtype=torch.long,
+                                device=dev)
+        slot_token[dest] = sorted_t
+        rows = torch.cat([x.reshape(T, D), x.new_zeros(1, D)])
+        expert_in = rows[slot_token[:E * cap]].view(E, cap, D)
+        h = gelu_tanh(torch.einsum("ecd,edh->ech", expert_in,
+                                   self.experts_w_in.to(dt)))
+        expert_out = torch.einsum("ech,ehd->ecd", h,
+                                  self.experts_w_out.to(dt)).reshape(
+                                      E * cap, D)
+        contrib = expert_out[torch.where(keep, dest, 0)] * \
+            (sorted_g * keep.float())[:, None].to(dt)
+        y = x.new_zeros(T, D).index_add(0, sorted_t, contrib)
+        y = self.ln_out(y.view(B, L, D) + x)
+        metrics = dict(rout.metrics)
+        metrics["dropped_token_fraction"] = \
+            1.0 - keep.sum().float() / max(T * k, 1)
+        return y, {"aux_loss": rout.aux_loss, "metrics": metrics}
+
+
+class HierarchicalMoE(nn.Module):
+    def __init__(self, config: MoEConfig):
+        super().__init__()
+        cfg = config
+        G = cfg.num_groups
+        self.config = cfg
+        self.per_group = cfg.num_experts // G
+        self.group_router = create_router(cfg.router.replace(top_k=1), G,
+                                          cfg.input_dim)
+        self.group = nn.ModuleList(
+            MOELayer(cfg.replace(num_experts=self.per_group,
+                                 moe_type="standard"))
+            for _ in range(G))
+
+    def forward(self, x: torch.Tensor,
+                expert_mask: Optional[torch.Tensor] = None,
+                rng: Optional[DropoutRNG] = None):
+        g_out = self.group_router(x, None, rng)
+        total_aux, ys = g_out.aux_loss, []
+        for g, sub in enumerate(self.group):
+            sub_mask = None if expert_mask is None else expert_mask[
+                g * self.per_group:(g + 1) * self.per_group]
+            y_g, aux_g = sub(x, sub_mask, rng)
+            total_aux = total_aux + aux_g["aux_loss"]
+            ys.append(y_g)
+        ys = torch.stack(ys, dim=2)                             # (B, L, G, D)
+        y = torch.einsum("blg,blgd->bld", g_out.combine_weights.to(ys.dtype),
+                         ys)
+        return y, {"aux_loss": total_aux, "metrics": g_out.metrics}
+
+
+_LAYERS = {"standard": MOELayer, "sparse": SparseMOELayer,
+           "hierarchical": HierarchicalMoE}
+
+
 def create_moe_layer(config: MoEConfig | VQAMoEConfig) -> nn.Module:
     if isinstance(config, VQAMoEConfig):
         return VQAMoELayer(config)
-    if config.moe_type == "standard":
-        return MOELayer(config)
-    if config.moe_type in ("sparse", "hierarchical"):
-        raise NotImplementedError(
-            f"moe_type '{config.moe_type}' is not ported yet "
-            "(ROADMAP.md Queue A item 13)")
-    raise ValueError(f"unknown moe_type '{config.moe_type}'")
+    if config.moe_type not in _LAYERS:
+        raise ValueError(f"unknown moe_type '{config.moe_type}'")
+    return _LAYERS[config.moe_type](config)

@@ -21,9 +21,10 @@ import torch
 from torch import nn
 
 from vivqa_tpu_torch.device import resolve_device
-from vivqa_tpu_torch.models.config import VQAModelConfig
+from vivqa_tpu_torch.models.config import VisualEncoderConfig, VQAModelConfig
 from vivqa_tpu_torch.models.encoders import (create_text_encoder,
-                                             create_visual_encoder)
+                                             create_visual_encoder,
+                                             visual_out_dim)
 from vivqa_tpu_torch.models.fusion import create_fusion
 from vivqa_tpu_torch.models.heads import AnswerHead
 from vivqa_tpu_torch.models.layers import (Dense, DropoutRNG,
@@ -68,6 +69,11 @@ def moe_config_from_model(cfg, input_dim: int) -> MoEConfig | VQAMoEConfig:
 
 
 def encoder_out_dim(enc_cfg) -> int:
+    """The width of an encoder's output: ``visual_out_dim`` for a visual
+    config (ResNet's and Swin's last stage, not ``hidden_dim``), the
+    projection's or ``hidden_dim`` for a text config."""
+    if isinstance(enc_cfg, VisualEncoderConfig):
+        return visual_out_dim(enc_cfg)
     return enc_cfg.output_dim or enc_cfg.hidden_dim
 
 
