@@ -169,13 +169,31 @@ Phases, in order; any failure exits non-zero:
    411 launches); DeBERTa-v3-base and the three image representations
    forward and backward card against CPU (the vision-token embedding: 2
    launches of each kernel);
-14. path shapes: each wrapper call of phases 4-13 is recorded by its
+14. pretrained HF towers (``hf_import``): the forward kernel at the
+   towers' new shapes (ViT-B/16's 197 tokens, DINOv2-B's 1,370 at 518 px,
+   BARTpho's 16 heads over 64 masked tokens) against its plain version
+   in f32, f16 and bf16, timed beside SDPA with its bound; seeded
+   checkpoints of CLIP ViT-B/32, PhoBERT-base, ViT-B/16, DINOv2-B and
+   BARTpho-syllable's encoder written at their published sizes in the HF
+   layout (safetensors by the script's own writer, ``pytorch_model.bin``,
+   safetensors shards with their index) and read by the port's reader
+   without ``transformers``; ``ModelPipeline`` with
+   ``pretrained_visual`` / ``pretrained_text`` on the card and the CPU:
+   every grafted tower parameter bit-equal to the files' tensors (mapped
+   by hand), 36 launches a forward, the card's logits against the CPU's;
+   the classification CLI with ``--pretrained-visual`` and
+   ``--pretrained-text`` (one epoch of 4 steps at batch 32, evaluate), the
+   generative CLI with the same towers (2 steps, a greedy evaluate) and
+   the resumed model's greedy generate at 16 (411 launches); ViT-B/16,
+   DINOv2-B at 518 px and the BARTpho encoder card against CPU at batch
+   1-2 (one launch a layer);
+15. path shapes: each wrapper call of phases 4-14 is recorded by its
    kernel, dtype, shapes, mask layout, causal, dropout rate and tile
    rows; each such launch the kernel phases did not hold against the
    plain version (the classification pipeline's batches of 32, 2 and 1,
    say) is held now on random inputs of that kind, and the script fails
    if any launch of a main path stays unchecked;
-15. the card line (nvidia-smi's name and power limit), the kernels line,
+16. the card line (nvidia-smi's name and power limit), the kernels line,
    and the device line, which is the last line.
 
 Each path's launch counts are set to 0 just before it runs and read just
@@ -4151,7 +4169,6 @@ def trainer_phase(cfg: VQAModelConfig, gen_cfg: GenerativeVQAConfig,
     return out
 
 
-# -- phase 13: every launch shape of the main paths held ---------------------
 # -- phase 13: the model zoo -------------------------------------------------
 ZOO_BATCH = 32              # the zoo's train steps
 ZOO_SERVE_BATCH = 8         # its serving forwards
@@ -4802,6 +4819,664 @@ def zoo_phase(device: str = "cuda") -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+# -- phase 14: pretrained HF towers ------------------------------------------
+HF_CLI_CORPUS = 160         # 128 / 16 / 16 samples: 4 train steps of 32
+HF_GEN_CORPUS = 80          # 64 / 8 / 8 samples: 2 train steps of 32
+HF_BATCH = 32               # both CLIs' batch
+HF_SERVE_BATCH = 8          # the classification forward whose launches count
+HF_CHECK_BATCH = 4          # the grafted model's logits card against CPU
+HF_GEN_BATCH = 16           # the greedy generate's
+HF_TOWER_BATCH = {"vit_b16": 2, "dinov2_b_518": 1, "bartpho_encoder": 2}
+# the published architectures, as their public config.json gives them
+# (only the fields the port reads, and the model type): CLIP ViT-B/32,
+# PhoBERT-base, ViT-B/16, DINOv2-B at its 518 px, BARTpho-syllable's
+# mBART (of which the encoder and the shared table are written)
+HF_MODELS = {
+    "openai/clip-vit-base-patch32": {
+        "model_type": "clip", "architectures": ["CLIPModel"],
+        "projection_dim": 512,
+        "vision_config": {"model_type": "clip_vision_model",
+                          "hidden_size": 768, "intermediate_size": 3072,
+                          "num_hidden_layers": 12,
+                          "num_attention_heads": 12, "image_size": 224,
+                          "patch_size": 32, "hidden_act": "quick_gelu",
+                          "layer_norm_eps": 1e-5}},
+    "vinai/phobert-base": {
+        "model_type": "roberta", "architectures": ["RobertaForMaskedLM"],
+        "vocab_size": 64001, "hidden_size": 768, "num_hidden_layers": 12,
+        "num_attention_heads": 12, "intermediate_size": 3072,
+        "max_position_embeddings": 258, "type_vocab_size": 1,
+        "pad_token_id": 1, "hidden_act": "gelu", "layer_norm_eps": 1e-5},
+    "google/vit-base-patch16-224": {
+        "model_type": "vit", "architectures": ["ViTForImageClassification"],
+        "hidden_size": 768, "num_hidden_layers": 12,
+        "num_attention_heads": 12, "intermediate_size": 3072,
+        "image_size": 224, "patch_size": 16, "hidden_act": "gelu",
+        "layer_norm_eps": 1e-12},
+    "facebook/dinov2-base": {
+        "model_type": "dinov2", "architectures": ["Dinov2Model"],
+        "hidden_size": 768, "num_hidden_layers": 12,
+        "num_attention_heads": 12, "mlp_ratio": 4, "patch_size": 14,
+        "image_size": 518, "layerscale_value": 1.0,
+        "layer_norm_eps": 1e-6},
+    "vinai/bartpho-syllable": {
+        "model_type": "mbart",
+        "architectures": ["MBartForConditionalGeneration"],
+        "vocab_size": 40030, "d_model": 1024, "encoder_layers": 12,
+        "decoder_layers": 12, "encoder_attention_heads": 16,
+        "decoder_attention_heads": 16, "encoder_ffn_dim": 4096,
+        "decoder_ffn_dim": 4096, "max_position_embeddings": 1024,
+        "activation_function": "gelu", "scale_embedding": False,
+        "pad_token_id": 1},
+}
+# how each is written: the script's own safetensors writer, torch.save's
+# pytorch_model.bin, or safetensors shards with their index
+HF_FORMATS = {"openai/clip-vit-base-patch32": "safetensors",
+              "vinai/phobert-base": "bin",
+              "google/vit-base-patch16-224": "safetensors",
+              "facebook/dinov2-base": "bin",
+              "vinai/bartpho-syllable": "sharded_safetensors"}
+# the forward kernel's new shapes at the tower checks' batches: ViT-B/16's
+# 197 tokens, DINOv2-B's 1,370 at 518 px, BARTpho's 16 heads over the
+# question's 64 tokens under its padding mask
+HF_FWD_CASES = [
+    ("hf_vit_b16", HF_TOWER_BATCH["vit_b16"], 12, 197, 197, 64, None),
+    ("hf_dinov2_518", HF_TOWER_BATCH["dinov2_b_518"], 12, 1370, 1370, 64,
+     None),
+    ("hf_bartpho", HF_TOWER_BATCH["bartpho_encoder"], 16, 64, 64, 64,
+     "query_key"),
+]
+
+
+def _hf_state(name: str, cfg: dict, gen: torch.Generator) -> dict:
+    """Seeded tensors under the HF key names of ``name``'s architecture:
+    weights and tables normal(0.02), LayerNorm scales 1 + normal(0.02),
+    LayerScale gains 1 + normal(0.02), biases normal(0.02)."""
+    out = {}
+
+    def w(key, *shape, base=0.0):
+        out[key] = base + 0.02 * torch.randn(shape, generator=gen)
+
+    def linear(p, n_out, n_in):
+        w(p + ".weight", n_out, n_in)
+        w(p + ".bias", n_out)
+
+    def ln(p, d):
+        w(p + ".weight", d, base=1.0)
+        w(p + ".bias", d)
+    mt = cfg["model_type"]
+    if mt == "clip":
+        v = cfg["vision_config"]
+        D, F_, p = v["hidden_size"], v["intermediate_size"], "vision_model."
+        n = (v["image_size"] // v["patch_size"]) ** 2 + 1
+        w(p + "embeddings.class_embedding", D)
+        w(p + "embeddings.patch_embedding.weight", D, 3, v["patch_size"],
+          v["patch_size"])
+        w(p + "embeddings.position_embedding.weight", n, D)
+        ln(p + "pre_layrnorm", D)
+        for i in range(v["num_hidden_layers"]):
+            q = f"{p}encoder.layers.{i}."
+            for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                linear(q + "self_attn." + proj, D, D)
+            ln(q + "layer_norm1", D)
+            linear(q + "mlp.fc1", F_, D)
+            linear(q + "mlp.fc2", D, F_)
+            ln(q + "layer_norm2", D)
+        ln(p + "post_layernorm", D)
+        w("visual_projection.weight", cfg["projection_dim"], D)
+        out["logit_scale"] = torch.tensor(2.6592)
+    elif mt == "roberta":
+        D, F_, p = cfg["hidden_size"], cfg["intermediate_size"], "roberta."
+        w(p + "embeddings.word_embeddings.weight", cfg["vocab_size"], D)
+        w(p + "embeddings.position_embeddings.weight",
+          cfg["max_position_embeddings"], D)
+        w(p + "embeddings.token_type_embeddings.weight",
+          cfg["type_vocab_size"], D)
+        ln(p + "embeddings.LayerNorm", D)
+        # an old checkpoint's buffer, which the reader ignores
+        out[p + "embeddings.position_ids"] = torch.arange(
+            cfg["max_position_embeddings"])[None]
+        for i in range(cfg["num_hidden_layers"]):
+            q = f"{p}encoder.layer.{i}."
+            for proj in ("query", "key", "value"):
+                linear(q + "attention.self." + proj, D, D)
+            linear(q + "attention.output.dense", D, D)
+            ln(q + "attention.output.LayerNorm", D)
+            linear(q + "intermediate.dense", F_, D)
+            linear(q + "output.dense", D, F_)
+            ln(q + "output.LayerNorm", D)
+        w("lm_head.bias", cfg["vocab_size"])        # the MLM head: ignored
+    elif mt in ("vit", "dinov2"):
+        D = cfg["hidden_size"]
+        F_ = cfg.get("intermediate_size") or int(D * cfg["mlp_ratio"])
+        p = "vit." if mt == "vit" else ""
+        ps = cfg["patch_size"]
+        n = (cfg["image_size"] // ps) ** 2 + 1
+        w(p + "embeddings.cls_token", 1, 1, D)
+        w(p + "embeddings.position_embeddings", 1, n, D)
+        w(p + "embeddings.patch_embeddings.projection.weight", D, 3, ps, ps)
+        w(p + "embeddings.patch_embeddings.projection.bias", D)
+        if mt == "dinov2":
+            w("embeddings.mask_token", 1, D)
+        for i in range(cfg["num_hidden_layers"]):
+            q = f"{p}encoder.layer.{i}."
+            for proj in ("query", "key", "value"):
+                linear(q + "attention.attention." + proj, D, D)
+            linear(q + "attention.output.dense", D, D)
+            if mt == "vit":
+                ln(q + "layernorm_before", D)
+                ln(q + "layernorm_after", D)
+                linear(q + "intermediate.dense", F_, D)
+                linear(q + "output.dense", D, F_)
+            else:
+                ln(q + "norm1", D)
+                ln(q + "norm2", D)
+                linear(q + "mlp.fc1", F_, D)
+                linear(q + "mlp.fc2", D, F_)
+                w(q + "layer_scale1.lambda1", D, base=cfg["layerscale_value"])
+                w(q + "layer_scale2.lambda1", D, base=cfg["layerscale_value"])
+        ln(p + "layernorm", D)
+        if mt == "vit":
+            linear("classifier", 1000, D)           # the head: ignored
+    elif mt == "mbart":
+        D, F_ = cfg["d_model"], cfg["encoder_ffn_dim"]
+        w("shared.weight", cfg["vocab_size"], D)     # tied: no embed_tokens
+        w("encoder.embed_positions.weight",
+          cfg["max_position_embeddings"] + 2, D)
+        ln("encoder.layernorm_embedding", D)
+        for i in range(cfg["encoder_layers"]):
+            q = f"encoder.layers.{i}."
+            for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                linear(q + "self_attn." + proj, D, D)
+            ln(q + "self_attn_layer_norm", D)
+            linear(q + "fc1", F_, D)
+            linear(q + "fc2", D, F_)
+            ln(q + "final_layer_norm", D)
+        ln("encoder.layer_norm", D)
+    return out
+
+
+_SAFE_NAMES = {torch.float32: "F32", torch.int64: "I64"}
+
+
+def write_safetensors(path, tensors: dict) -> None:
+    """The safetensors layout: a little-endian u64 header length, a JSON
+    header (dtype, shape, byte offsets of each tensor), the raw bytes."""
+    header, blobs, offset = {"__metadata__": {"format": "pt"}}, [], 0
+    for key, t in tensors.items():
+        raw = t.contiguous().reshape(-1).view(torch.uint8).numpy()
+        header[key] = {"dtype": _SAFE_NAMES[t.dtype], "shape": list(t.shape),
+                       "data_offsets": [offset, offset + raw.size]}
+        blobs.append(raw)
+        offset += raw.size
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for raw in blobs:
+            f.write(memoryview(raw))
+
+
+def write_hf_checkpoints(root: str, seed: int = 0,
+                         models: dict = HF_MODELS) -> dict:
+    """Each of ``models`` (name: its config.json) as a local HF model
+    directory under ``root`` (config.json and its weights in
+    ``HF_FORMATS``' form), its tensors from ``seed``. Returns {name:
+    (directory, tensors by key)}."""
+    out = {}
+    for i, (name, cfg) in enumerate(models.items()):
+        state = _hf_state(name, cfg, torch.Generator().manual_seed(seed + i))
+        d = Path(root) / name.replace("/", "--")
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "config.json").write_text(json.dumps(cfg))
+        form = HF_FORMATS[name]
+        if form == "bin":
+            torch.save(state, d / "pytorch_model.bin")
+        elif form == "safetensors":
+            write_safetensors(d / "model.safetensors", state)
+        else:
+            keys = list(state)
+            half = len(keys) // 2
+            shards = {"model-00001-of-00002.safetensors": keys[:half],
+                      "model-00002-of-00002.safetensors": keys[half:]}
+            for shard, ks in shards.items():
+                write_safetensors(d / shard, {k: state[k] for k in ks})
+            (d / "model.safetensors.index.json").write_text(json.dumps({
+                "metadata": {"total_size": sum(
+                    t.numel() * t.element_size() for t in state.values())},
+                "weight_map": {k: s for s, ks in shards.items()
+                               for k in ks}}))
+        out[name] = (str(d), state)
+    return out
+
+
+def grafted_tower_mismatches(model, clip: dict, phobert: dict) -> dict:
+    """Every tower parameter of a grafted classification model against
+    the files' tensors under their HF names, mapped by hand (the port's
+    Dense weights are HF's (out, in) Linear weights; CLIP's class
+    embedding and position table gain leading axes, its patch conv has no
+    bias; PhoBERT's positions start at row 2 with its one type row added):
+    {parameter: max |diff|} of those that are not bit-equal, and the
+    count checked."""
+    v, t = "vision_model.", "roberta."
+    L = model.config.text.max_length
+    want = {
+        "visual_encoder.cls_token":
+            clip[v + "embeddings.class_embedding"].reshape(1, 1, -1),
+        "visual_encoder.pos_embed":
+            clip[v + "embeddings.position_embedding.weight"][None],
+        "visual_encoder.patch_embed.weight":
+            clip[v + "embeddings.patch_embedding.weight"],
+        "visual_encoder.patch_embed.bias":
+            torch.zeros(model.config.visual.hidden_dim),
+        "text_encoder.token_embed.weight":
+            phobert[t + "embeddings.word_embeddings.weight"],
+        "text_encoder.pos_embed.weight":
+            phobert[t + "embeddings.position_embeddings.weight"][2: 2 + L]
+            + phobert[t + "embeddings.token_type_embeddings.weight"][0],
+    }
+    for a, b in (("ln_pre", "pre_layrnorm"), ("ln_final", "post_layernorm")):
+        for leaf in ("weight", "bias"):
+            want[f"visual_encoder.{a}.{leaf}"] = clip[f"{v}{b}.{leaf}"]
+    for leaf in ("weight", "bias"):
+        want[f"text_encoder.ln_embed.{leaf}"] = \
+            phobert[f"{t}embeddings.LayerNorm.{leaf}"]
+    clip_names = {"self_attn.query": "self_attn.q_proj",
+                  "self_attn.key": "self_attn.k_proj",
+                  "self_attn.value": "self_attn.v_proj",
+                  "self_attn.out": "self_attn.out_proj",
+                  "mlp.wi": "mlp.fc1", "mlp.wo": "mlp.fc2",
+                  "ln1": "layer_norm1", "ln2": "layer_norm2"}
+    text_names = {"self_attn.query": "attention.self.query",
+                  "self_attn.key": "attention.self.key",
+                  "self_attn.value": "attention.self.value",
+                  "self_attn.out": "attention.output.dense",
+                  "mlp.wi": "intermediate.dense", "mlp.wo": "output.dense",
+                  "ln1": "attention.output.LayerNorm",
+                  "ln2": "output.LayerNorm"}
+    for i in range(model.config.visual.num_layers):
+        for ours, theirs in clip_names.items():
+            for leaf in ("weight", "bias"):
+                want[f"visual_encoder.layers.{i}.{ours}.{leaf}"] = \
+                    clip[f"{v}encoder.layers.{i}.{theirs}.{leaf}"]
+    for i in range(model.config.text.num_layers):
+        for ours, theirs in text_names.items():
+            for leaf in ("weight", "bias"):
+                want[f"text_encoder.layers.{i}.{ours}.{leaf}"] = \
+                    phobert[f"{t}encoder.layer.{i}.{theirs}.{leaf}"]
+    params = {n: p for n, p in model.named_parameters()
+              if n.startswith(("visual_encoder.", "text_encoder."))}
+    if set(params) != set(want):
+        raise AssertionError(f"grafted towers' parameters "
+                             f"{sorted(set(params) ^ set(want))[:4]} are "
+                             f"not the files' tensors")
+    bad = {n: float((p.detach().cpu() - want[n]).abs().max())
+           for n, p in params.items()
+           if not torch.equal(p.detach().cpu(), want[n])}
+    return {"checked": len(params), "not_bit_equal": bad}
+
+
+def hf_cli_phase(cfg: VQAModelConfig, clip: str, phobert: str,
+                 device: str = "cuda", n: int = HF_CLI_CORPUS,
+                 image_size: int = 224, batch: int = HF_BATCH,
+                 seed: int = 0) -> dict:
+    """The classification CLI (``vqa_pipeline.main``) with
+    ``--pretrained-visual`` and ``--pretrained-text`` over a YAML config
+    that holds ``cfg`` (its towers re-derived from the checkpoints):
+    train (one epoch, a validation, the final evaluation on the best
+    checkpoint) and evaluate from the checkpoint, each with its launches
+    (a forward's: the config's count; a step's: as many of each training
+    kernel)."""
+    from vivqa_tpu_torch.pipelines import vqa_pipeline
+    on_card = device == "cuda"
+    per_forward = attention_calls_per_forward(cfg) if on_card else 0
+    with tempfile.TemporaryDirectory() as tmp:
+        csv, imgs = generate_synthetic_vivqa(f"{tmp}/data", n=n,
+                                             image_size=image_size,
+                                             learnable=True, seed=seed)
+        ckpt_dir, out_dir = f"{tmp}/ckpt", f"{tmp}/out"
+        vcfg = VQAPipelineConfig(
+            data=DataPipelineConfig(
+                csv_path=str(csv), image_dir=str(imgs),
+                image_size=image_size,
+                max_question_length=cfg.text.max_length, batch_size=batch,
+                augmentation_strength="medium", seed=seed),
+            model=ModelPipelineConfig(model=cfg, device=device, seed=seed),
+            training=TrainingPipelineConfig(num_epochs=1,
+                                            checkpoint_dir=ckpt_dir,
+                                            log_every=4, seed=seed),
+            output_dir=out_dir, seed=seed)
+        path = f"{tmp}/hf.yaml"
+        vcfg.to_yaml(path)
+        flags = ["--config", path, "--pretrained-visual", clip,
+                 "--pretrained-text", phobert, "--device", device]
+        runs = {}
+        for mode, extra in (("train", []), ("evaluate",
+                                            ["--resume", ckpt_dir])):
+            fa.reset_launch_counts()
+            t0 = time.perf_counter()
+            summary = vqa_pipeline.main(flags + ["--mode", mode] + extra)
+            runs[mode] = {"seconds": time.perf_counter() - t0,
+                          "launches": dict(fa.launch_counts),
+                          "summary": summary}
+        data = DataPipeline(vcfg.data).run()
+        steps = len(data.train_loader)
+        val_batches = math.ceil(len(data.val_loader.dataset) / batch)
+        test_batches = math.ceil(len(data.test_loader.dataset) / batch)
+    train, evaluate = runs["train"]["summary"], runs["evaluate"]["summary"]
+    zero = {name: 0 for name in TRAIN_KERNELS}
+    want = {"train": {**{name: per_forward * steps
+                         for name in TRAIN_KERNELS},
+                      "flash_attn_fwd": per_forward * (1 + 2 * val_batches)},
+            "evaluate": {**zero,
+                         "flash_attn_fwd": per_forward * (1 + test_batches)}}
+    history = train["history"]
+    finite = [h["train_loss"] for h in history] + \
+        [h["val_loss"] for h in history] + list(evaluate["metrics"].values())
+    problems = [f"{m} launches {runs[m]['launches']} != {w}"
+                for m, w in want.items() if runs[m]["launches"] != w]
+    if len(history) != 1 or not all(math.isfinite(x) for x in finite):
+        problems.append(f"history {history}, metrics {evaluate['metrics']}")
+    if problems:
+        raise AssertionError(f"hf_import classification CLI: {problems}")
+    return {"flags": flags[2:6], "corpus": n, "batch": batch,
+            "steps": steps, "attention_calls_per_forward": per_forward,
+            "run_seconds": {m: r["seconds"] for m, r in runs.items()},
+            "launches": {m: r["launches"] for m, r in runs.items()},
+            "history": history, "evaluate_metrics": evaluate["metrics"]}
+
+
+def hf_gen_phase(cfg: GenerativeVQAConfig, clip: str, phobert: str,
+                 device: str = "cuda", n: int = HF_GEN_CORPUS,
+                 image_size: int = 224, batch: int = HF_BATCH,
+                 gen_batch: int = HF_GEN_BATCH, new_tokens: int = 32,
+                 seed: int = 0) -> dict:
+    """The generative CLI (``generative_vqa_pipeline.main``) with the same
+    towers: train (one epoch of 2 steps, a greedy validation, a
+    checkpoint) and a greedy evaluate from ``--resume``, each held to
+    the config's launches (a step's, a generate's encoder and decode
+    steps as the model counted them); then the resumed model's greedy
+    generate at ``gen_batch`` over ``new_tokens`` without early exit (411
+    launches at bench_serving's config)."""
+    from vivqa_tpu_torch.pipelines import generative_vqa_pipeline as gvp
+    on_card = device == "cuda"
+    per_step = gen_calls_per_step(cfg)
+    enc_calls = attention_calls_per_generate(cfg, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        csv, imgs = generate_synthetic_vivqa(
+            f"{tmp}/data", n=n, image_size=image_size, learnable=True,
+            seq_answers=True, seed=seed)
+        ckpt, out = f"{tmp}/ckpt", f"{tmp}/out"
+        pcfg = gvp.GenerativeVQAPipelineConfig(
+            data=DataPipelineConfig(
+                csv_path=str(csv), image_dir=str(imgs),
+                image_size=image_size,
+                max_question_length=cfg.text.max_length,
+                max_answer_length=cfg.max_answer_length, batch_size=batch,
+                augmentation_strength="medium", generative=True, seed=seed),
+            model=cfg.replace(dropout=GEN_DROPOUT, label_smoothing=0.0),
+            training=GenerativeTrainingConfig(
+                num_epochs=1, label_smoothing=0.0, checkpoint_dir=ckpt,
+                optimizer=OptimizerConfig(learning_rate=1e-3,
+                                          weight_decay=0.01),
+                log_every=1, seed=seed),
+            device=device, output_dir=out, seed=seed,
+            pretrained_visual=clip, pretrained_text=phobert)
+        yaml_path = f"{tmp}/hf_gen.yaml"
+        pcfg.to_yaml(yaml_path)
+        runs = {}
+        for mode, extra in (("train", []),
+                            ("evaluate", ["--resume", ckpt, "--decode",
+                                          "greedy"])):
+            counts = {"generates": 0, "decode_steps": 0}
+            fa.reset_launch_counts()
+            t0 = time.perf_counter()
+            with counting_decode(counts):
+                summary = gvp.main(["--config", yaml_path, "--mode", mode]
+                                   + extra)
+            runs[mode] = {"seconds": time.perf_counter() - t0,
+                          "launches": dict(fa.launch_counts), **counts,
+                          "summary": summary}
+        pipe = gvp.GenerativeVQAPipeline(pcfg.replace(resume=ckpt))
+        data, model = pipe._setup()
+        steps = len(data.train_loader)
+    px, q = (torch.from_numpy(a).to(device) for a in
+             bench_serving.synthetic_requests(model.config, gen_batch))
+    generate = build_generate_fn(model, bench_serving.decode_config(
+        "greedy", new_tokens))
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    seqs, scores = generate(px, q)
+    if on_card:
+        torch.cuda.synchronize()
+    generate_ms = (time.perf_counter() - t0) * 1e3
+    gen_launches = dict(fa.launch_counts)
+    zero = {name: 0 for name in TRAIN_KERNELS}
+
+    def fwd(mode):
+        r = runs[mode]
+        return (enc_calls * r["generates"]
+                + 2 * cfg.decoder_layers * r["decode_steps"]) if on_card \
+            else 0
+    want = {mode: {**zero, "flash_attn_fwd": fwd(mode)} for mode in runs}
+    want["train"].update({name: per_step * steps if on_card else 0
+                          for name in TRAIN_KERNELS})
+    per_generate = attention_calls_per_generate(cfg, new_tokens)
+    want_gen = {**zero, "flash_attn_fwd": per_generate if on_card else 0}
+    problems = [f"{m} launches {runs[m]['launches']} != {w}"
+                for m, w in want.items() if runs[m]["launches"] != w]
+    if gen_launches != want_gen:
+        problems.append(f"greedy generate launches {gen_launches} != "
+                        f"{want_gen}")
+    history = runs["train"]["summary"]["history"]
+    metrics = runs["evaluate"]["summary"]["metrics"]
+    if len(history) != 1 or not math.isfinite(history[0]["train_loss"]) \
+            or runs["evaluate"]["generates"] < 1 \
+            or seqs.shape != (gen_batch, new_tokens) \
+            or not bool(torch.isfinite(scores).all()):
+        problems.append(f"history {history}, evaluate generates "
+                        f"{runs['evaluate']['generates']}, sequences "
+                        f"{tuple(seqs.shape)}")
+    if problems:
+        raise AssertionError("hf_import generative CLI: "
+                             + "; ".join(problems))
+    return {"steps": steps, "batch": batch,
+            "run_seconds": {m: r["seconds"] for m, r in runs.items()},
+            "launches": {m: r["launches"] for m, r in runs.items()},
+            "generates": {m: r["generates"] for m, r in runs.items()},
+            "decode_steps": {m: r["decode_steps"] for m, r in runs.items()},
+            "history": history, "evaluate_metrics": metrics,
+            "text_vocab": model.config.text.vocab_size,
+            "greedy_generate": {"batch": gen_batch,
+                                "new_tokens": new_tokens, "ms": generate_ms,
+                                "launches": gen_launches["flash_attn_fwd"]}}
+
+
+def hf_tower_check(name: str, path: str, device: str = "cuda",
+                   seed: int = 0, batch: int | None = None,
+                   max_length: int = 64) -> dict:
+    """One published tower at its own size, loaded from ``path`` by the
+    port's loader in bf16 (DINOv2 at 518 px, which the loader keeps from
+    the config it is given): its forward on the CPU and on the card at
+    ``HF_TOWER_BATCH`` on the same inputs (each output held to 5% of its
+    largest value, ``compare_logits``' rule) and the card's launches (one
+    a layer)."""
+    from vivqa_tpu_torch.models.config import TextEncoderConfig
+    from vivqa_tpu_torch.models.convert import (
+        load_pretrained_text_encoder, load_pretrained_visual_encoder)
+    from vivqa_tpu_torch.models.from_jax import load_flax_params
+    B = batch or HF_TOWER_BATCH[name]
+    rs = np.random.RandomState(seed + B)
+    t0 = time.perf_counter()
+    if name == "bartpho_encoder":
+        enc, tree = load_pretrained_text_encoder(
+            path, TextEncoderConfig(max_length=max_length))
+        L = enc.config.max_length
+        lengths = rs.randint(5, L + 1, B)
+        lengths[0] = L
+        mask = (np.arange(L)[None] < lengths[:, None]).astype(np.int64)
+        ids = rs.randint(4, enc.config.vocab_size, (B, L)) * mask
+        inputs = (torch.from_numpy(ids), torch.from_numpy(mask))
+    else:
+        with open(Path(path) / "config.json") as f:
+            size = json.load(f)["image_size"]
+        enc, tree = load_pretrained_visual_encoder(
+            path, VisualEncoderConfig(image_size=size))
+        inputs = (torch.from_numpy(rs.rand(B, size, size, 3).astype(
+            np.float32)),)
+    load_flax_params(enc, tree)
+    load_s = time.perf_counter() - t0
+    outs = {}
+    for label, dev in (("cpu", "cpu"), ("card", device)):
+        module = copy.deepcopy(enc).to(dev).eval()
+        fa.reset_launch_counts()
+        t = time.perf_counter()
+        with torch.no_grad():
+            res = module(*(a.to(dev) for a in inputs))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        outs[label] = {"seconds": time.perf_counter() - t,
+                       "launches": dict(fa.launch_counts),
+                       **{k: res[k].float().cpu() for k in
+                          ("tokens", "pooled")}}
+    result = {"batch": B, "config": {
+        k: getattr(enc.config, k) for k in (
+            "hidden_dim", "num_layers", "num_heads") if hasattr(enc.config,
+                                                               k)},
+        "tokens": list(outs["card"]["tokens"].shape),
+        "load_seconds": load_s, "outputs": {},
+        "card_launches": outs["card"]["launches"],
+        "seconds": {k: v["seconds"] for k, v in outs.items()}}
+    for k in ("tokens", "pooled"):
+        a, b = outs["card"][k], outs["cpu"][k]
+        diff = float((a - b).abs().max())
+        tol = 0.05 * float(b.abs().max())
+        result["outputs"][k] = {"max_abs_diff": diff, "tolerance": tol}
+        if not math.isfinite(diff) or diff > tol:
+            raise AssertionError(f"hf_import {name}: card vs CPU {k} "
+                                 f"{diff} > {tol}")
+    layers = enc.config.num_layers
+    want = {n: 0 for n in outs["card"]["launches"]}
+    want["flash_attn_fwd"] = layers if device == "cuda" else 0
+    if outs["card"]["launches"] != want:
+        raise AssertionError(f"hf_import {name}: launches "
+                             f"{outs['card']['launches']} != {want}")
+    return result
+
+
+def hf_kernel_phase() -> dict:
+    """The forward kernel at the pretrained towers' new shapes
+    (``attention_case``: f32, f16 and bf16 at every tile size against the
+    plain version, timed beside SDPA with its bound)."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    return {name: attention_case(name, B, H, Lq, Lk, D, kind, False, gen)
+            for name, B, H, Lq, Lk, D, kind in HF_FWD_CASES}
+
+
+def hf_import_phase(device: str = "cuda", seed: int = 0,
+                    models: dict = HF_MODELS,
+                    cfg: VQAModelConfig | None = None,
+                    gen_cfg: GenerativeVQAConfig | None = None,
+                    image_size: int = 224, cli_n: int = HF_CLI_CORPUS,
+                    gen_n: int = HF_GEN_CORPUS, batch: int = HF_BATCH,
+                    serve_batch: int = HF_SERVE_BATCH,
+                    check_batch: int = HF_CHECK_BATCH,
+                    gen_batch: int = HF_GEN_BATCH, new_tokens: int = 32,
+                    tower_batch: int | None = None) -> dict:
+    """Pretrained HF towers through the user's entry points (phase 14):
+    seeded checkpoints of the five published architectures written in
+    the HF layout (safetensors by ``write_safetensors``, a
+    ``pytorch_model.bin``, safetensors shards), read back by the port's
+    reader (no ``transformers`` on the card's machine); the grafted
+    classification model's towers bit-equal to the files' tensors, its
+    forward's launches (36 at the flagship's structure) and its logits
+    against the CPU's; both CLIs with ``--pretrained-visual`` CLIP
+    ViT-B/32 and ``--pretrained-text`` PhoBERT-base; ViT-B/16, DINOv2-B at
+    518 px and BARTpho's encoder at the tower level, card against CPU."""
+    t0 = time.perf_counter()
+    on_card = device == "cuda"
+    cfg = cfg or flagship_config()
+    gen_cfg = gen_cfg or bench_serving.serving_config()
+    with tempfile.TemporaryDirectory() as tmp:
+        files = write_hf_checkpoints(tmp, seed, models)
+        write_s = time.perf_counter() - t0
+        clip_dir, clip = files["openai/clip-vit-base-patch32"]
+        pho_dir, pho = files["vinai/phobert-base"]
+        sizes = {name: {"files": sorted(p.name for p in Path(d).iterdir()),
+                        "bytes": sum(p.stat().st_size
+                                     for p in Path(d).iterdir()),
+                        "tensors": len(state)}
+                 for name, (d, state) in files.items()}
+
+        # the grafted model on the card and on the CPU, from one seed
+        built = {}
+        for label, dev in (("card", device), ("cpu", "cpu")):
+            fa.reset_launch_counts()
+            out = ModelPipeline(ModelPipelineConfig(
+                model=cfg, device=dev, seed=seed,
+                pretrained_visual=clip_dir,
+                pretrained_text=pho_dir)).run(num_answers=cfg.num_answers)
+            built[label] = out.model
+        card_model = built["card"]
+        graft = grafted_tower_mismatches(card_model, clip, pho)
+        if graft["not_bit_equal"]:
+            raise AssertionError(f"hf_import: grafted towers differ from "
+                                 f"the files: {graft['not_bit_equal']}")
+        grafted_cfg = card_model.config
+        calls = attention_calls_per_forward(grafted_cfg)
+        b = trainer_batch(grafted_cfg, serve_batch, seed)
+        args = [torch.from_numpy(b[k]).to(device) for k in (
+            "pixel_values", "input_ids", "attention_mask")]
+        fa.reset_launch_counts()
+        with torch.no_grad():
+            logits = card_model(*args)["logits"]
+        forward_launches = dict(fa.launch_counts)
+        want = {n: 0 for n in forward_launches}
+        want["flash_attn_fwd"] = calls if on_card else 0
+        if forward_launches != want \
+                or calls != attention_calls_per_forward(cfg):
+            raise AssertionError(f"hf_import forward launches "
+                                 f"{forward_launches} != {want}")
+        cb = trainer_batch(grafted_cfg, check_batch, seed + 1)
+        with torch.no_grad():
+            got = {label: m(*[torch.from_numpy(cb[k]).to(
+                next(m.parameters()).device) for k in (
+                    "pixel_values", "input_ids", "attention_mask")])[
+                        "logits"].float().cpu().numpy()
+                for label, m in built.items()}
+        logits_check = compare_logits(got["card"], got["cpu"])
+        del built, card_model
+        print(f"[hf_import] checkpoints written in {write_s:.1f} s; grafted "
+              f"towers: {graft['checked']} parameters bit-equal to the "
+              f"files; a forward {forward_launches['flash_attn_fwd']} "
+              f"launches; logits card/CPU max diff "
+              f"{logits_check['max_abs_logit_diff']:.3g} (tolerance "
+              f"{logits_check['tolerance']:.3g})", flush=True)
+
+        cli = hf_cli_phase(cfg, clip_dir, pho_dir, device, n=cli_n,
+                           image_size=image_size, batch=batch, seed=seed)
+        gen = hf_gen_phase(gen_cfg, clip_dir, pho_dir, device, n=gen_n,
+                           image_size=image_size, batch=batch,
+                           gen_batch=gen_batch, new_tokens=new_tokens,
+                           seed=seed)
+        towers = {
+            name: hf_tower_check(name, files[hub][0], device, seed,
+                                 tower_batch, cfg.text.max_length)
+            for name, hub in (("vit_b16", "google/vit-base-patch16-224"),
+                              ("dinov2_b_518", "facebook/dinov2-base"),
+                              ("bartpho_encoder", "vinai/bartpho-syllable"))}
+    return {"checkpoints": sizes, "write_seconds": write_s,
+            "graft": {"checked": graft["checked"], "bit_equal": True},
+            "grafted_config": {"visual": grafted_cfg.visual.to_dict(),
+                               "text": grafted_cfg.text.to_dict()},
+            "forward_launches": forward_launches,
+            "logits_card_vs_cpu": logits_check, "cli": cli,
+            "generative": gen, "towers": towers,
+            "seconds": time.perf_counter() - t0}
+
+
+# -- phase 15: every launch shape of the main paths held ---------------------
 def path_check_phase(launched: dict) -> dict:
     """``launched``: {path: the launch keys its run recorded}. Each key no
     kernel check held yet is held now against the plain version on inputs
@@ -4854,7 +5529,8 @@ def kernels_line(rows: dict, launches: int, generative: dict,
                  ptxas: dict, gen_rows: dict, gen_training: dict,
                  cls_pipeline: dict, gen_cli: dict, abl_totals: dict,
                  ablation: dict, rag_tot: dict, rag: dict,
-                 trainer: dict, zoo_kernels: dict, zoo: dict) -> dict:
+                 trainer: dict, zoo_kernels: dict, zoo: dict,
+                 hf_rows: dict, hf: dict) -> dict:
     """One entry per kernel. The forward's numbers are for one flagship
     forward at batch 8 (its 36 calls of the five serving shapes, each
     shape's time times its calls), and, under ``generate``, for one beam
@@ -4884,7 +5560,10 @@ def kernels_line(rows: dict, launches: int, generative: dict,
     forward at batch 32 (the forward); ``zoo`` each kernel's at the
     zoo's new shapes (time, bound, SDPA's time), its totals and launches
     per forward or step of each zoo path, and its launches in the zoo's
-    runs."""
+    runs; ``hf_import`` each kernel's with the pretrained towers: the
+    forward at their new shapes (time, plain version, bound, SDPA's time)
+    with its launches a forward, a greedy generate and a tower's forward,
+    and each kernel's launches in both CLIs' runs."""
     abl_launches = {name: sum(r[name] for r in ablation["launches"].values())
                     for name in fa.launch_counts}
     rag_cli = rag["cli"]["launches"]
@@ -5010,6 +5689,35 @@ def kernels_line(rows: dict, launches: int, generative: dict,
                 "per": per}
     entries[0]["trainer"] = trainer_entry("flash_attn_fwd")
     entries[0]["zoo"] = zoo_entry("flash_attn_fwd")
+
+    def hf_entry(name):
+        """The kernel with the pretrained towers."""
+        out = {"cls_cli_launches": {m: r[name] for m, r in
+                                    hf["cli"]["launches"].items()},
+               "gen_cli_launches": {m: r[name] for m, r in
+                                    hf["generative"]["launches"].items()}}
+        if name == "flash_attn_fwd":
+            out.update(
+                shapes={n: {k: r[k] for k in (
+                    "B", "H", "Lq", "Lk", "mask", "kernel_ms", "plain_ms",
+                    "library_ms", "bound_us", "bound_by",
+                    "max_abs_err_bf16")} for n, r in hf_rows.items()},
+                launches_per_forward=hf["forward_launches"][name],
+                launches_per_greedy_generate=hf["generative"][
+                    "greedy_generate"]["launches"],
+                launches_per_tower_forward={
+                    n: r["card_launches"][name]
+                    for n, r in hf["towers"].items()},
+                per=f"per call at each tower's batch "
+                    f"({HF_TOWER_BATCH}), bf16; a classification forward "
+                    f"at batch {HF_SERVE_BATCH}, a greedy generate at "
+                    f"{HF_GEN_BATCH}")
+        else:
+            out["per"] = (f"the CLIs' train runs at batch {HF_BATCH} "
+                          f"({hf['cli']['steps']} and "
+                          f"{hf['generative']['steps']} steps)")
+        return out
+    entries[0]["hf_import"] = hf_entry("flash_attn_fwd")
     totals = step_totals(train_rows)
     gen_totals = step_totals(gen_rows)
     replaces = {
@@ -5078,7 +5786,8 @@ def kernels_line(rows: dict, launches: int, generative: dict,
                        f"{GEN_TRAIN_BATCH} over a {RAG_MEMORY}-token "
                        f"memory, bf16"},
             "trainer": trainer_entry(name),
-            "zoo": zoo_entry(name)})
+            "zoo": zoo_entry(name),
+            "hf_import": hf_entry(name)})
     return {"kernels": entries}
 
 
@@ -5372,6 +6081,29 @@ def main() -> int:
                       zoo["library"].items())
           + f" on {card} ({time.perf_counter() - t_zoo:.1f} s of the zoo, "
             f"{time.perf_counter() - t_start:.1f} s)", flush=True)
+    t_hf = time.perf_counter()
+    hf_rows = hf_kernel_phase()
+    with recording_launches(launched.setdefault("hf_import", set())):
+        hf = hf_import_phase()
+    emit({"hf_import": hf, "card": card})
+    print("[hf_import] classification CLI with CLIP ViT-B/32 + PhoBERT-base"
+          f" train {hf['cli']['run_seconds']['train']:.1f} s "
+          f"({hf['cli']['steps']} steps, "
+          f"{hf['cli']['launches']['train']['flash_attn_fwd_lse']} launches "
+          f"of each training kernel), evaluate "
+          f"{hf['cli']['run_seconds']['evaluate']:.1f} s; generative CLI "
+          f"train {hf['generative']['run_seconds']['train']:.1f} s, greedy "
+          f"evaluate {hf['generative']['run_seconds']['evaluate']:.1f} s, a "
+          f"greedy generate {hf['generative']['greedy_generate']['launches']}"
+          f" launches; towers card/CPU " + ", ".join(
+              f"{n} {r['outputs']['tokens']['max_abs_diff']:.3g} (tolerance "
+              f"{r['outputs']['tokens']['tolerance']:.3g})"
+              for n, r in hf["towers"].items())
+          + "; forward kernel " + ", ".join(
+              f"{n} {r['kernel_ms'] * 1e3:.2f} us (SDPA "
+              f"{r['library_ms'] * 1e3:.2f})" for n, r in hf_rows.items())
+          + f" on {card} ({time.perf_counter() - t_hf:.1f} s of the phase, "
+            f"{time.perf_counter() - t_start:.1f} s)", flush=True)
     paths = path_check_phase(launched)
     emit({"path_check": paths})
     print(f"[path_check] launch keys by path {paths['launch_keys']}: "
@@ -5382,7 +6114,8 @@ def main() -> int:
     emit(kernels_line(rows, serving["launches"]["flash_attn_fwd"],
                       generative, train_rows, training["launches"], ptxas,
                       gen_rows, gen_training, cls, gen_cli, abl_totals, abl,
-                      rag_tot, rag, trainer, zoo_kernels, zoo))
+                      rag_tot, rag, trainer, zoo_kernels, zoo, hf_rows,
+                      hf))
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

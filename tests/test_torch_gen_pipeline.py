@@ -549,14 +549,19 @@ def test_cli_freezes_and_runs_the_resource_manager(corpus, tmp_path,
     (["--pretrained-text", "vinai/phobert-base"], "item 13")], ids=str)
 def test_unported_options_name_their_item(corpus, tmp_path, monkeypatch,
                                           argv, item):
-    """The pretrained towers (the HF import) still name their ROADMAP
-    item. ``--use-moe --moe-type sparse``, which named it too until the
-    sparse layer was ported, now trains an epoch on the CPU: the fusion's
-    MoE is the capacity-dispatch layer with the leaves of the JAX
-    package's layer for the same config, and the loss is finite."""
+    """The options that once named ROADMAP item 13 (the ids keep it) now
+    run. The pretrained towers read a local HF directory or the local HF
+    cache only: a hub name absent from the cache raises ``OSError``, as
+    the JAX pipeline's ``AutoModel.from_pretrained(...,
+    local_files_only=True)`` does (``tests/test_torch_hf_pipelines.py``
+    runs the CLI with towers saved to disk). ``--use-moe --moe-type
+    sparse`` trains an epoch on the CPU: the fusion's MoE is the
+    capacity-dispatch layer with the leaves of the JAX package's layer
+    for the same config, and the loss is finite."""
     csv, imgs = corpus
     if "sparse" not in argv:
-        with pytest.raises(NotImplementedError, match=item):
+        monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path / "hub"))
+        with pytest.raises(OSError, match="local Hugging Face cache"):
             PGP.main(argv + ["--mode", "train", "--device", "cpu",
                              "--csv-path", csv, "--image-dir", imgs,
                              "--batch-size", "8",

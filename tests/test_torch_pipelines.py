@@ -38,6 +38,7 @@ from vivqa_tpu.models.vqa_model import VietnameseVQAModel as JModel
 from vivqa_tpu.parallel import MeshConfig, create_mesh
 from vivqa_tpu.pipelines import common as JCOMMON
 from vivqa_tpu.pipelines import data_pipeline as JDP
+from vivqa_tpu.pipelines import model_pipeline as JMP
 from vivqa_tpu.pipelines import training_pipeline as JTP
 from vivqa_tpu.pipelines import vqa_pipeline as JVP
 from vivqa_tpu.train import OptimizerConfig as JOpt
@@ -263,11 +264,15 @@ def test_training_pipeline_mid_run_resume(corpus, tmp_path):
     assert [h["epoch"] for h in out1.history] == [0, 1]
     ckpt = CheckpointManager(CheckpointConfig(directory=str(tmp_path / "ck")))
     before = ckpt.all_steps()
+    # the epoch the best saved checkpoint holds (which of the two is best
+    # follows the seeded init's training)
+    best = ckpt.restore_best()[1]["epoch"]
+    assert best in (0, 1)
     out2 = chunk(4)
-    assert [h["epoch"] for h in out2.history] == [2, 3]
+    assert [h["epoch"] for h in out2.history] == list(range(best + 1, 4))
     assert out2.history[-1]["train_loss"] < out1.history[0]["train_loss"]
     assert all(s > before[-1] for s in set(ckpt.all_steps()) - set(before))
-    assert out2.state.step == 2 * len(data.train_loader)
+    assert out2.state.step == (3 - best) * len(data.train_loader)
 
 
 # -- the CLI ----------------------------------------------------------------
@@ -403,13 +408,25 @@ def test_config_yaml_and_overrides_match_jax(tmp_path):
         got.training
 
 
-# -- what is not ported names its ROADMAP item --------------------------------
+# -- what once named its ROADMAP item -----------------------------------------
 @pytest.mark.parametrize("field", ["pretrained_visual", "pretrained_text"])
-def test_model_pipeline_pretrained_towers_name_their_item(field):
+def test_model_pipeline_pretrained_towers_name_their_item(field, tmp_path,
+                                                          monkeypatch):
+    """Pretrained towers (once ROADMAP item 13) come from a local HF
+    directory or the local HF cache only: a hub name absent from the
+    cache raises ``OSError`` before any model is built, as the JAX
+    pipeline's ``AutoModel.from_pretrained(..., local_files_only=True)``
+    does (``tests/test_torch_hf_pipelines.py`` grafts towers saved to
+    disk)."""
+    monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path / "hub"))
     pipe = PMP.ModelPipeline(PMP.ModelPipelineConfig(
         device="cpu", **{field: "vinai/phobert-base"}))
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(OSError, match="local Hugging Face cache"):
         pipe.run(num_answers=3)
+    with pytest.raises(OSError):
+        JMP.ModelPipeline(JMP.ModelPipelineConfig(
+            validate_forward=False,
+            **{field: "vinai/phobert-base"})).run(num_answers=3)
 
 
 def test_vqa_pipeline_knowledge_names_its_item(corpus, tmp_path):

@@ -437,18 +437,54 @@ _TABLES = ("mask_tokens", "object_queries", "text_queries", "scene_tokens",
            "count_queries", "order_embed", "relation_embeddings",
            "query_tokens", "modality_embed", "rel_pos_bias",
            "rel_embeddings")
+# flax's lecun_normal: a normal truncated at two of its standard
+# deviations, scaled by 1 / (the truncated law's std) so that the drawn
+# std is exactly sqrt(1 / fan_in)
+_TRUNC_STD = 0.87962566103423978
+_PHI = (0.5 * (1 + math.erf(-2 / math.sqrt(2))),
+        0.5 * (1 + math.erf(2 / math.sqrt(2))))
+
+
+def lecun_normal_(p: torch.Tensor, fan_in: int,
+                  generator: torch.Generator) -> torch.Tensor:
+    """Fill ``p`` in place with flax's ``lecun_normal`` by the inverse
+    CDF: 2u - 1 uniform on [2 Phi(-2) - 1, 2 Phi(2) - 1], then
+    sqrt(2) erfinv of it, so every draw lies within 2 of the unit normal
+    and the law is the normal's restricted there (no mass piled on the
+    bounds)."""
+    p.uniform_(2 * _PHI[0] - 1, 2 * _PHI[1] - 1, generator=generator)
+    return p.erfinv_().mul_(math.sqrt(2.0) / math.sqrt(fan_in) / _TRUNC_STD)
+
+
+def _fan_in(mod: nn.Module, p: torch.Tensor) -> int:
+    """flax's fan_in of the leaf: a Dense kernel's input width (a
+    DenseGeneral's flattened input axes), a Conv kernel's receptive field
+    times its input channels (torch (O, I, k...) and flax (k..., I, O)
+    agree), and for a stacked expert tensor (E, in, out) the product of
+    every axis but the last, E * in, as ``lecun_normal`` reads a 3-D
+    shape."""
+    if p.dim() == 3 and not isinstance(mod, nn.Conv1d):
+        return p.shape[0] * p.shape[1]
+    return math.prod(p.shape[1:])
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
-    """Seeded random weights in the spirit of the flax initialisers: Dense
-    and Conv kernels normal with variance 1/fan_in (lecun), embedding and
-    position tables and the query slots normal(0.02), biases and the CLS
-    token 0, LayerNorm and GroupNorm scales and ResNet's frozen affine
-    scale 1, LayerScale gains left at their init value."""
+    """Seeded random weights by the flax initialisers' laws, drawn from
+    ``generator`` on the device where the weights live: Dense, Conv and
+    stacked-expert kernels ``lecun_normal`` (truncated, ``_fan_in``);
+    embedding and position tables and the query slots normal(0.02); the
+    text encoder's ``type_embed`` (an ``nn.Embed`` with flax's default
+    init) normal with std 1/sqrt(D); biases and the CLS token 0; LayerNorm
+    and GroupNorm scales and ResNet's frozen affine scale 1; LayerScale
+    gains left at their init value."""
     with torch.no_grad():
-        for mod in module.modules():
+        for name, mod in module.named_modules():
             for leaf, p in mod.named_parameters(recurse=False):
-                if isinstance(mod, Embed) or leaf == "pos_embed" \
+                if isinstance(mod, Embed) and name.rpartition(".")[2] \
+                        == "type_embed":
+                    p.normal_(0.0, 1.0 / math.sqrt(p.shape[1]),
+                              generator=generator)
+                elif isinstance(mod, Embed) or leaf == "pos_embed" \
                         or leaf in _TABLES:
                     p.normal_(0.0, 0.02, generator=generator)
                 elif isinstance(mod, (LayerNorm, GroupNorm)):
@@ -461,8 +497,5 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                     continue
                 else:
                     # Linear (out, in), Conv (O, I, k...), stacked experts
-                    # (E, in, out): the input width is dim 1
-                    fan_in = p.shape[1] if p.dim() == 3 and not isinstance(
-                        mod, nn.Conv1d) else math.prod(p.shape[1:])
-                    p.normal_(0.0, 1.0 / math.sqrt(fan_in),
-                              generator=generator)
+                    # (E, in, out)
+                    lecun_normal_(p, _fan_in(mod, p), generator)

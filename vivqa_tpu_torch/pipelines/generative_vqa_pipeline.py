@@ -20,8 +20,12 @@ loaders, and the model appends the K retrieved contexts to its memory;
 train, evaluate and inference pass them to the model, the demo does not
 (the JAX package's behaviour). ``--enable-resource-management`` starts
 the module's ``ResourceManager`` (``resources/``) before the mode and
-stops it after, as the JAX pipeline does. The pretrained towers wait for
-ROADMAP.md Queue A item 13.
+stops it after, as the JAX pipeline does. ``--pretrained-visual`` /
+``--pretrained-text`` (a local HF model directory or a model in the local
+HF cache, read without ``transformers`` by ``models/convert.py``)
+re-derive the encoder sub-configs from the HF architecture and graft the
+converted weights over the seeded model's ``visual_encoder`` and
+``question_encoder``.
 """
 
 from __future__ import annotations
@@ -39,6 +43,9 @@ from vivqa_tpu_torch.data.augmentation import ImageAugmentation
 from vivqa_tpu_torch.device import resolve_device
 from vivqa_tpu_torch.knowledge.provider import KnowledgeProviderConfig
 from vivqa_tpu_torch.models.config import GenerativeVQAConfig
+from vivqa_tpu_torch.models.convert import (graft_pretrained,
+                                            load_pretrained_text_encoder,
+                                            load_pretrained_visual_encoder)
 from vivqa_tpu_torch.models.decoding import DecodeConfig, build_generate_fn
 from vivqa_tpu_torch.models.generative import create_generative_vqa_model
 from vivqa_tpu_torch.pipelines.common import count_parameters
@@ -75,22 +82,17 @@ class GenerativeVQAPipelineConfig(ConfigBase):
     resume: str = ""
     use_resource_manager: bool = False
     seed: int = 42
-    # HF name-or-path of pretrained towers (not ported yet: ROADMAP.md
-    # Queue A item 13)
+    # HF name-or-path of pretrained towers (converted through
+    # models/convert.py); empty = random init
     pretrained_visual: str = ""
     pretrained_text: str = ""
 
 
-def _check_ported(cfg: GenerativeVQAPipelineConfig) -> None:
-    """Raise for the options whose modules the port does not have yet,
-    naming their ROADMAP item, before any work is done."""
+def _check_mode(cfg: GenerativeVQAPipelineConfig) -> None:
+    """Raise for an unknown mode before any work is done."""
     if cfg.mode not in MODES:
         raise ValueError(f"unknown mode '{cfg.mode}' (choices: "
                          f"{', '.join(MODES)})")
-    if cfg.pretrained_visual or cfg.pretrained_text:
-        raise NotImplementedError(
-            "pretrained towers (pretrained_visual / pretrained_text) need "
-            "the HF import, not ported yet (ROADMAP.md Queue A item 13)")
 
 
 class GenerativeVQAPipeline:
@@ -121,6 +123,35 @@ class GenerativeVQAPipeline:
             text=cfg.model.text.replace(
                 max_length=data.max_question_length,
                 vocab_size=tok.vocab_size))
+
+        # pretrained towers: re-derive the encoder sub-configs from the
+        # HF architecture, keep the converted weights for grafting after
+        # the seeded init (reference generative_vqa_model.py:119-190)
+        pre_visual = pre_text = None
+        if cfg.pretrained_visual:
+            enc, pre_visual = load_pretrained_visual_encoder(
+                cfg.pretrained_visual, model_cfg.visual)
+            if enc.config.image_size != data.image_size:
+                raise ValueError(
+                    f"pretrained visual encoder expects image_size="
+                    f"{enc.config.image_size} but the data pipeline "
+                    f"produces {data.image_size} — set data.image_size "
+                    f"to match")
+            model_cfg = model_cfg.replace(visual=enc.config)
+            self.log.success(f"pretrained visual: {cfg.pretrained_visual}")
+        if cfg.pretrained_text:
+            enc, pre_text = load_pretrained_text_encoder(
+                cfg.pretrained_text, model_cfg.text)
+            enc_cfg = enc.config.replace(
+                max_length=data.max_question_length)
+            if enc_cfg.vocab_size != tok.vocab_size:
+                self.log.warning(
+                    f"pretrained text encoder vocab "
+                    f"({enc_cfg.vocab_size}) != question tokenizer vocab "
+                    f"({tok.vocab_size}) — use the matching HF tokenizer "
+                    f"(data.tokenizer_name) or ids will not line up")
+            model_cfg = model_cfg.replace(text=enc_cfg)
+            self.log.success(f"pretrained text: {cfg.pretrained_text}")
         # knowledge/RAG stage: retrieved contexts become extra memory
         # tokens for the decoder
         if model_cfg.knowledge.use_knowledge:
@@ -136,6 +167,10 @@ class GenerativeVQAPipeline:
         model = create_generative_vqa_model(
             model_cfg, device=device,
             generator=torch.Generator().manual_seed(cfg.seed))
+        if pre_visual is not None:
+            graft_pretrained(model, "visual_encoder", pre_visual, self.log)
+        if pre_text is not None:
+            graft_pretrained(model, "question_encoder", pre_text, self.log)
         self._log_architecture(model_cfg, model)
         if cfg.resume:
             # torch.load gives CPU tensors; partial_load copies them into
@@ -164,7 +199,7 @@ class GenerativeVQAPipeline:
     # ----- run ---------------------------------------------------------------
     def run(self) -> dict:
         cfg = self.config
-        _check_ported(cfg)
+        _check_mode(cfg)
         log = self.log
         t0 = time.time()
         log.section("GENERATIVE VQA PIPELINE (PyTorch)")

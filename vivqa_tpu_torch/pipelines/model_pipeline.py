@@ -7,8 +7,12 @@ param-count table -> dummy forward validation. ``load_checkpoint`` infers
 num_answers from the checkpoint's metadata or its answer-head bias and
 merges the weights by name and shape (``train/checkpoint.py:
 partial_load``). The JAX package's mesh field becomes ``device``: the
-card unless the caller asks for the CPU. Pretrained towers wait for the
-HF import (ROADMAP.md Queue A item 13).
+card unless the caller asks for the CPU. Pretrained towers
+(``pretrained_visual`` / ``pretrained_text``: a local HF model directory
+or a model in the local HF cache, read without ``transformers`` by
+``models/convert.py``) re-derive their encoder sub-configs from the HF
+architecture; the model is built and seeded, then the converted weights
+are grafted over its towers.
 """
 
 from __future__ import annotations
@@ -21,6 +25,9 @@ import torch
 from vivqa_tpu_torch.config.base import ConfigBase
 from vivqa_tpu_torch.device import resolve_device
 from vivqa_tpu_torch.models.config import VQAModelConfig
+from vivqa_tpu_torch.models.convert import (graft_pretrained,
+                                            load_pretrained_text_encoder,
+                                            load_pretrained_visual_encoder)
 from vivqa_tpu_torch.models.vqa_model import (VietnameseVQAModel,
                                               create_vqa_model)
 from vivqa_tpu_torch.pipelines.common import count_parameters
@@ -38,8 +45,11 @@ class ModelPipelineConfig(ConfigBase):
     device: str = "cuda"
     seed: int = 42
     validate_forward: bool = True
-    # HF name-or-path of pretrained towers to initialize from; empty =
-    # random init (not ported yet: ROADMAP.md Queue A item 13)
+    # HF name-or-path of pretrained towers to initialize from (converted
+    # through models/convert.py; the encoder sub-configs are re-derived
+    # from the HF architecture). Empty = random init. Counterpart of the
+    # reference's AutoModel-backed encoders (src/core/
+    # model_pipeline.py:303, vqa_model.py:83-98)
     pretrained_visual: str = ""
     pretrained_text: str = ""
 
@@ -59,11 +69,6 @@ class ModelPipeline:
     def run(self, num_answers: Optional[int] = None) -> ModelPipelineOutput:
         cfg = self.config
         log = self.log
-        if cfg.pretrained_visual or cfg.pretrained_text:
-            raise NotImplementedError(
-                "pretrained towers (pretrained_visual / pretrained_text) "
-                "need the HF import, not ported yet (ROADMAP.md Queue A "
-                "item 13)")
         log.start_stage("model_pipeline")
 
         # 1. device setup
@@ -72,10 +77,37 @@ class ModelPipeline:
                     + (f" ({torch.cuda.get_device_name(device)})"
                        if device.type == "cuda" else ""))
 
-        # 2. config assembly
+        # 2. config assembly: pretrained towers re-derive their encoder
+        # sub-config from the HF architecture so the model's leaves match
+        # the converted weights exactly
         model_cfg = cfg.model
         if num_answers is not None:
             model_cfg = model_cfg.replace(num_answers=num_answers)
+        pre_visual = pre_text = None
+        if cfg.pretrained_visual:
+            enc, pre_visual = load_pretrained_visual_encoder(
+                cfg.pretrained_visual, model_cfg.visual)
+            if (enc.config.backbone in ("vit", "clip", "dino")
+                    and enc.config.image_size
+                    != model_cfg.visual.image_size):
+                raise ValueError(
+                    f"pretrained visual encoder expects image_size="
+                    f"{enc.config.image_size} but the pipeline is "
+                    f"configured for {model_cfg.visual.image_size} — "
+                    f"set data.image_size to match")
+            model_cfg = model_cfg.replace(visual=enc.config)
+            log.success(f"pretrained visual: {cfg.pretrained_visual} "
+                        f"({enc.config.backbone}, "
+                        f"{enc.config.num_layers}l x "
+                        f"{enc.config.hidden_dim}d)")
+        if cfg.pretrained_text:
+            enc, pre_text = load_pretrained_text_encoder(
+                cfg.pretrained_text, model_cfg.text)
+            model_cfg = model_cfg.replace(text=enc.config)
+            log.success(f"pretrained text: {cfg.pretrained_text} "
+                        f"({enc.config.num_layers}l x "
+                        f"{enc.config.hidden_dim}d, "
+                        f"vocab {enc.config.vocab_size})")
         log.success(f"step 2/7 config: visual={model_cfg.visual.backbone} "
                     f"text={model_cfg.text.backbone} "
                     f"fusion={model_cfg.fusion.fusion_type} "
@@ -88,6 +120,12 @@ class ModelPipeline:
             generator=torch.Generator().manual_seed(cfg.seed))
         log.success("step 3/7 model created")
         log.success("step 4/7 params initialized")
+
+        # 4b. graft pretrained tower weights over the random init
+        if pre_visual is not None:
+            graft_pretrained(model, "visual_encoder", pre_visual, log)
+        if pre_text is not None:
+            graft_pretrained(model, "text_encoder", pre_text, log)
 
         # 5. param counts
         counts = count_parameters(model)
