@@ -1,6 +1,7 @@
 """Drive the PyTorch port (vivqa_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                # every phase
+    python3 chip_smoke.py --phase mesh   # the build and phases 15-16 alone
 
 Phases, in order; any failure exits non-zero:
 
@@ -160,7 +161,9 @@ Phases, in order; any failure exits non-zero:
    (24, 12, 36, 28 and 24 launches a forward, predicted from the
    configs), train steps at batch 32 (as many of each training kernel),
    the card's logits against the CPU's (and the sparse layer's dropped
-   fraction equal), two steps card against CPU; Swin-B's window
+   fraction equal), two steps card against CPU (at the same widths,
+   every layer stack cut to 2: the CPU half was most of the phase);
+   Swin-B's window
    attention (outside the kernels: it adds a learned bias) by the
    profiler against its step, beside SDPA with an additive mask; the
    classification CLI with ``--visual-backbone swin --fusion qformer``
@@ -187,13 +190,29 @@ Phases, in order; any failure exits non-zero:
    the resumed model's greedy generate at 16 (411 launches); ViT-B/16,
    DINOv2-B at 518 px and the BARTpho encoder card against CPU at batch
    1-2 (one launch a layer);
-15. path shapes: each wrapper call of phases 4-14 is recorded by its
+15. the ('data', 'model') mesh: the four kernels at the (1, 2) mesh's
+   per-rank shapes (batch 32, half the heads: ViT and text 6 of 12,
+   MCAN 4 of 8) against their plain versions in f32, f16 and bf16, timed
+   beside SDPA with their bounds; then two ranks on the one card over a
+   gloo group (NCCL refuses two ranks on one device; the kernels built
+   here, loaded there): the flagship at full width (bf16, dropout 0) on
+   the (2, 1) and (1, 2) meshes, 2 steps each of a global batch of 32
+   from the same seeded weights as rank 0's one-process steps, held to
+   train_check's tolerances, a 2-layer f32 copy held to 1e-4, 36
+   launches of each training kernel a step and of the forward an
+   evaluation forward on each rank; bench_serving's generative model on
+   (1, 2): a greedy generate of 32 tokens at batch 16 (411 launches a
+   rank), its teacher-forced logits against one process
+   (``compare_logits``); step ms per rank by CUDA events, the
+   collectives' host ms and bytes a step, peak memory per rank (two
+   ranks on one card: not a multi-card figure);
+16. path shapes: each wrapper call of phases 4-15 is recorded by its
    kernel, dtype, shapes, mask layout, causal, dropout rate and tile
    rows; each such launch the kernel phases did not hold against the
    plain version (the classification pipeline's batches of 32, 2 and 1,
    say) is held now on random inputs of that kind, and the script fails
    if any launch of a main path stays unchecked;
-16. the card line (nvidia-smi's name and power limit), the kernels line,
+17. the card line (nvidia-smi's name and power limit), the kernels line,
    and the device line, which is the last line.
 
 Each path's launch counts are set to 0 just before it runs and read just
@@ -204,12 +223,14 @@ device it prints no result and exits 2.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import copy
 import inspect
 import json
 import math
 import re
+import statistics
 import sys
 import tempfile
 import time
@@ -255,6 +276,7 @@ from vivqa_tpu_torch.models.layers import (init_weights,
                                            make_attention_mask,
                                            make_causal_mask)
 from vivqa_tpu_torch.models.vqa_model import (SPECIALIZED_ORDER,
+                                              VietnameseVQAModel,
                                               create_vqa_model)
 from vivqa_tpu_torch.ops import batch_mix, cuda_build
 from vivqa_tpu_torch.ops import flash_attention as fa
@@ -4460,6 +4482,28 @@ def window_attention_profile(cfg: VQAModelConfig, batch: int = ZOO_BATCH,
             "blocks": sum(r["blocks"] for r in rows)}
 
 
+ZOO_CHECK_LAYERS = 2            # the depth of the card-vs-CPU train check
+
+
+def check_depth(cfg: VQAModelConfig,
+                layers: int = ZOO_CHECK_LAYERS) -> VQAModelConfig:
+    """``cfg`` at its widths with every layer stack cut to ``layers``
+    (Swin's stages each to ``layers`` blocks; ResNet's stages as they
+    are): the config of a zoo path's card-vs-CPU train check, whose CPU
+    half is most of the phase at full depth."""
+    v = cfg.visual
+    if v.backbone in ("vit", "clip", "dino"):
+        v = v.replace(num_layers=min(v.num_layers, layers))
+    elif v.backbone == "swin":
+        v = v.replace(swin_depths=tuple(min(d, layers)
+                                        for d in v.swin_depths))
+    return cfg.replace(
+        visual=v, text=cfg.text.replace(num_layers=min(cfg.text.num_layers,
+                                                       layers)),
+        fusion=cfg.fusion.replace(num_layers=min(cfg.fusion.num_layers,
+                                                 layers)))
+
+
 def zoo_model_path(name: str, cfg: VQAModelConfig, calls: int,
                    device: str = "cuda", serve_batches: int = 2,
                    steps: int = 2, batch: int = ZOO_BATCH,
@@ -4473,7 +4517,7 @@ def zoo_model_path(name: str, cfg: VQAModelConfig, calls: int,
     kernel a step; with ``profile`` one step profiled), from one CPU
     model built from ``seed``, and ``train_check`` (two steps card against
     CPU at its batch of 4, its bounds: the first step's warmup moves no
-    weight)."""
+    weight) on ``check_depth(cfg)``."""
     on_card = device == "cuda"
     predicted = attention_calls_per_forward(cfg)
     if predicted != calls:
@@ -4493,7 +4537,10 @@ def zoo_model_path(name: str, cfg: VQAModelConfig, calls: int,
                               calls_per_step=calls,
                               profile=profile and on_card, base=base)
     seconds["training"] = time.perf_counter() - t0 - sum(seconds.values())
-    check = train_check(cfg, device, seed=seed, calls_per_step=calls)
+    check_cfg = check_depth(cfg)
+    check = train_check(check_cfg, device, seed=seed,
+                        calls_per_step=attention_calls_per_forward(check_cfg))
+    check["depth"] = ZOO_CHECK_LAYERS
     seconds["train_check"] = time.perf_counter() - t0 - sum(seconds.values())
     out = {"config": name, "attention_calls_per_forward": calls,
            "params": serving["params"],
@@ -5476,7 +5523,362 @@ def hf_import_phase(device: str = "cuda", seed: int = 0,
             "seconds": time.perf_counter() - t0}
 
 
-# -- phase 15: every launch shape of the main paths held ---------------------
+# -- phase 15: the ('data', 'model') mesh -------------------------------------
+MESH_BATCH = 32                 # the global batch of the mesh's train steps
+MESH_SHAPES = ((2, 1), (1, 2))
+MESH_STEPS = 2
+MESH_SMALL_LAYERS = 2           # the f32 copy's depth
+MESH_GEN_BATCH = 16
+# The flagship's attention at the per-rank shapes of the (1, 2) mesh: all
+# MESH_BATCH rows, half the heads (ViT and text 6 of 12, MCAN 4 of 8);
+# (name, B, H, Lq, Lk, D, mask kind, causal, calls per step and per
+# forward). The (2, 1) mesh's calls (16 rows, every head) and the
+# generative model's are held by path_check.
+MESH_CASES = [
+    ("mesh_vit_self_h6", MESH_BATCH, 6, 50, 50, 64, None, False, 12),
+    ("mesh_text_self_h6", MESH_BATCH, 6, 64, 64, 64, "query_key", False, 12),
+    ("mesh_mcan_enc_self_h4", MESH_BATCH, 4, 64, 64, 64, "query_key", False,
+     4),
+    ("mesh_mcan_dec_self_h4", MESH_BATCH, 4, 49, 49, 64, None, False, 4),
+    ("mesh_mcan_cross_h4", MESH_BATCH, 4, 49, 64, 64, "key", False, 4),
+]
+
+
+def mesh_kernel_phase() -> dict:
+    """The four kernels at the (1, 2) mesh's per-rank shapes against their
+    plain versions in f32, f16 and bf16, timed beside SDPA with their
+    bounds: the forward (``attention_case``, as an evaluation forward
+    calls it) and the three training kernels at dropout 0 (the mesh runs
+    its steps at dropout 0). Rows keyed by case."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    rows = {}
+    for name, B, H, Lq, Lk, D, kind, causal, calls in MESH_CASES:
+        fwd = attention_case(name, B, H, Lq, Lk, D, kind, causal, gen,
+                             calls_per_forward=calls)
+        errs = {}
+        for dtype in (torch.float32, torch.float16, torch.bfloat16):
+            q, k, v, mask = attention_inputs(B, H, Lq, Lk, D, kind, dtype,
+                                             gen)
+            do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+            errs[dtype] = check_train_kernels(q, k, v, do, mask, causal,
+                                              0.0, None)
+        row = {"case": name, "B": B, "H": H, "Lq": Lq, "Lk": Lk, "D": D,
+               "mask": kind, "causal": causal, "dropout": 0.0,
+               "calls_per_step": calls,
+               "max_err_bf16": errs[torch.bfloat16],
+               "max_err_f16": errs[torch.float16],
+               "max_err_f32": errs[torch.float32],
+               **time_train_kernels(q, k, v, do, mask, causal, 0.0, None)}
+        emit({"mesh_training_attention_case": row})
+        rows[name] = {"forward": fwd, "training": row}
+    return rows
+
+
+def mesh_totals(rows: dict) -> dict:
+    """Each kernel's time, plain version's, bound and SDPA's time over one
+    rank's evaluation forward (the forward) or train step (the training
+    kernels) on the (1, 2) mesh: each shape's number times its calls."""
+    fwd = {n: r["forward"] for n, r in rows.items()}
+    out = {"flash_attn_fwd": {
+        k: v for k, v in _path_totals(fwd, "calls_per_forward").items()
+        if k != "ms_by_tile_rows"}}
+    out.update(step_totals({n: r["training"] for n, r in rows.items()}))
+    return out
+
+
+def mesh_flagship(cfg: VQAModelConfig, seed: int,
+                  device: str = "cuda") -> torch.nn.Module:
+    """The model of ``cfg`` on ``device`` with seeded weights drawn there
+    (the same on every rank of the card), dropout 0."""
+    model = VietnameseVQAModel(cfg).to(device)
+    init_weights(model, torch.Generator(device=device).manual_seed(seed))
+    return no_dropout(model)
+
+
+def mesh_batch(cfg: VQAModelConfig, seed: int = 0,
+               batch: int = MESH_BATCH) -> dict:
+    """The global batch: train_check's ragged questions (64, 40, 17, 5
+    tokens) repeated over MESH_BATCH rows, so that every rank's rows hold
+    padded, fully masked query rows."""
+    S, L = cfg.visual.image_size, cfg.text.max_length
+    rs = np.random.RandomState(seed + 7)
+    lengths = np.resize(np.minimum([L, 40, 17, 5], L), batch)
+    mask = (np.arange(L)[None] < lengths[:, None]).astype(np.int64)
+    return {"pixel_values": rs.rand(batch, S, S, 3).astype(np.float32),
+            "input_ids": rs.randint(4, cfg.text.vocab_size - 1,
+                                    (batch, L)) * mask,
+            "attention_mask": mask,
+            "labels": rs.randint(0, cfg.num_answers, (batch,))}
+
+
+def _f32_everywhere(model: torch.nn.Module) -> torch.nn.Module:
+    for m in model.modules():
+        if getattr(m, "dtype", None) in (torch.bfloat16, torch.float16):
+            m.dtype = torch.float32
+    return model
+
+
+def mesh_train(cfg: VQAModelConfig, mesh, data: dict, seed: int,
+               device: str = "cuda", f32: bool = False,
+               keys: set | None = None) -> dict:
+    """MESH_STEPS steps of the global batch on ``mesh`` (None: one
+    process): per step the loss, the grad norm, the CUDA-event ms and the
+    collectives' host ms and bytes; the launches of each kernel; the peak
+    memory; then one evaluation forward's launches. The update (after -
+    before, whole: gathered over 'model') stays on the card for the
+    caller."""
+    from vivqa_tpu_torch.parallel.collectives import reset_stats, stats
+    from vivqa_tpu_torch.parallel.mesh import full_tensor, local_rows
+    from vivqa_tpu_torch.train.state import ShardedStep, place_state
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    model = mesh_flagship(cfg, seed, device)
+    if f32:
+        _f32_everywhere(model)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    state = TrainState.create(model, bench_optimizer(model, 1), seed=seed)
+    if mesh is not None:
+        place_state(state, mesh)
+        step = ShardedStep(mesh, make_train_step(
+            classification_loss_fn())).compile(state)[0]
+    else:
+        step = make_train_step(classification_loss_fn())
+    batch = batch_to_device(data, torch.device(device))
+    out = {"loss": [], "grad_norm": [], "step_event_ms": [],
+           "collective_host_ms": [], "collective_bytes": [],
+           "collective_calls": []}
+    fa.reset_launch_counts()
+    with recording_launches(keys if keys is not None else set()):
+        for _ in range(MESH_STEPS):
+            reset_stats()
+            t0 = time.perf_counter()
+            if cuda:
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                start.record()
+            state, metrics = step(state, batch)
+            if cuda:
+                end.record()
+                torch.cuda.synchronize()
+            out["loss"].append(float(metrics["loss"]))
+            out["grad_norm"].append(float(metrics["grad_norm"]))
+            out["step_event_ms"].append(
+                start.elapsed_time(end) if cuda
+                else (time.perf_counter() - t0) * 1e3)
+            out["collective_host_ms"].append(stats["seconds"] * 1e3)
+            out["collective_bytes"].append(stats["bytes"])
+            out["collective_calls"].append(stats["calls"])
+        out["launches_per_step"] = {n: fa.launch_counts[n] / MESH_STEPS
+                                    for n in TRAIN_KERNELS}
+        fa.reset_launch_counts()
+        model.eval()
+        local = local_rows(batch, mesh) if mesh is not None else batch
+        with torch.no_grad():
+            model(local["pixel_values"], local["input_ids"],
+                  local["attention_mask"])
+        out["launches_per_forward"] = fa.launch_counts["flash_attn_fwd"]
+    out["attention_calls"] = attention_calls_per_forward(cfg)
+    out["max_memory_allocated_gib"] = (
+        torch.cuda.max_memory_allocated() / 2**30 if cuda else None)
+    placements = state.sharding.placements if state.sharding else {}
+    out["update"] = {
+        n: (full_tensor(p.detach(), placements[n], mesh) if n in placements
+            else p.detach()) - before[n]
+        for n, p in model.named_parameters()}
+    del state, model, before
+    return out
+
+
+def mesh_compare(got: dict, ref: dict, loss_rel: float, norm_rel: float,
+                 cosine_min: float) -> dict:
+    """A mesh run against the one-process run: each step's loss and grad
+    norm (relative), the cosine of the two updates over all weights."""
+    rel = lambda a, b: max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    dot = n_got = n_ref = 0.0
+    for n, u in ref["update"].items():
+        g = got["update"][n].float()
+        dot += float((g * u.float()).sum())
+        n_got += float(g.square().sum())
+        n_ref += float(u.float().square().sum())
+    out = {"loss": got["loss"], "loss_one_process": ref["loss"],
+           "grad_norm": got["grad_norm"],
+           "grad_norm_one_process": ref["grad_norm"],
+           "loss_rel_diff": rel(got["loss"], ref["loss"]),
+           "grad_norm_rel_diff": rel(got["grad_norm"], ref["grad_norm"]),
+           "update_cosine": dot / max(math.sqrt(n_got * n_ref), 1e-30),
+           "tolerance": {"loss_rel": loss_rel, "grad_norm_rel": norm_rel,
+                         "update_cosine_min": cosine_min}}
+    if not (out["loss_rel_diff"] <= loss_rel
+            and out["grad_norm_rel_diff"] <= norm_rel
+            and out["update_cosine"] >= cosine_min):
+        raise AssertionError(f"mesh step against one process: {out}")
+    return out
+
+
+def mesh_gen_inputs(cfg: GenerativeVQAConfig, batch: int) -> tuple:
+    """bench_serving's requests at ``batch``, and a fixed answer of
+    max_answer_length tokens for the teacher-forced logits."""
+    px, q = bench_serving.synthetic_requests(cfg, batch)
+    dec = np.random.RandomState(3).randint(
+        3, cfg.vocab_size, (batch, cfg.max_answer_length))
+    dec[:, 0] = 0
+    return px, q, dec
+
+
+def mesh_generate(cfg: GenerativeVQAConfig, mesh, seed: int,
+                  device: str = "cuda", keys: set | None = None,
+                  batch: int = MESH_GEN_BATCH) -> dict:
+    """bench_serving's model (bf16) with its heads and MLPs split over
+    the mesh's 'model' axis (None: one process): a greedy generate of 32
+    tokens at MESH_GEN_BATCH (its launches), and the teacher-forced
+    logits of a fixed answer."""
+    from vivqa_tpu_torch.models.generative import GenerativeVQAModel
+    from vivqa_tpu_torch.parallel.mesh import logical_to_mesh
+    model = GenerativeVQAModel(cfg).to(device)
+    init_weights(model, torch.Generator(device=device).manual_seed(seed))
+    model.eval()
+    if mesh is not None:
+        logical_to_mesh(model, mesh)
+    px, q, dec = (torch.from_numpy(np.asarray(a)).to(device)
+                  for a in mesh_gen_inputs(cfg, batch))
+    generate = build_generate_fn(model, bench_serving.decode_config(
+        "greedy", cfg.max_answer_length))
+    fa.reset_launch_counts()
+    with recording_launches(keys if keys is not None else set()):
+        seqs, _ = generate(px, q)
+        launches = fa.launch_counts["flash_attn_fwd"]
+        with torch.no_grad():
+            logits = model(px, q, dec)["logits"]
+    out = {"launches_per_generate": launches,
+           "logits": logits.float().cpu().numpy(),
+           "seqs": seqs.cpu().numpy()}
+    del model
+    return out
+
+
+def mesh_rank(rank: int, cfg: VQAModelConfig, gen_cfg: GenerativeVQAConfig,
+              seed: int, device: str = "cuda", batch: int = MESH_BATCH,
+              gen_batch: int = MESH_GEN_BATCH) -> dict:
+    """One rank of the mesh phase (two ranks sharing cuda:0 over gloo).
+    Rank 0 first runs the one-process references (and keeps only their
+    updates, on the card); then both ranks run each mesh."""
+    import torch.distributed as dist
+    from vivqa_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+    torch.set_num_threads(4)
+    resolve_device(device)
+    # dropout 0 (the text encoder's embedding dropout reads its config)
+    cfg = cfg.replace(text=cfg.text.replace(dropout=0.0),
+                      fusion=cfg.fusion.replace(dropout=0.0),
+                      head=cfg.head.replace(dropout=0.0))
+    data = mesh_batch(cfg, seed, batch)
+    small = cfg.replace(
+        visual=cfg.visual.replace(num_layers=MESH_SMALL_LAYERS),
+        text=cfg.text.replace(num_layers=MESH_SMALL_LAYERS),
+        fusion=cfg.fusion.replace(num_layers=MESH_SMALL_LAYERS))
+    out, keys, refs = {"rank": rank, "runs": {}}, set(), {}
+    t0 = time.perf_counter()
+    if rank == 0:
+        refs = {"flagship": mesh_train(cfg, None, data, seed, device),
+                "f32": mesh_train(small, None, data, seed, device, f32=True),
+                "generative": mesh_generate(gen_cfg, None, seed, device,
+                                            batch=gen_batch)}
+    out["reference_s"] = time.perf_counter() - t0
+    dist.barrier()
+    for shape in MESH_SHAPES:
+        mesh = create_mesh(MeshConfig(*shape), device)
+        out["backend"] = mesh.backend
+        t1 = time.perf_counter()
+        run = {"flagship": mesh_train(cfg, mesh, data, seed, device,
+                                      keys=keys),
+               "f32": mesh_train(small, mesh, data, seed, device, f32=True,
+                                 keys=keys)}
+        if shape == (1, 2):
+            run["generative"] = mesh_generate(gen_cfg, mesh, seed, device,
+                                              keys, gen_batch)
+        if rank == 0:
+            run["flagship"]["against_one_process"] = mesh_compare(
+                run["flagship"], refs["flagship"], 2e-2, 5e-2, 0.9)
+            run["f32"]["against_one_process"] = mesh_compare(
+                run["f32"], refs["f32"], 1e-4, 1e-4, 1 - 1e-4)
+            if "generative" in run:
+                run["generative"]["against_one_process"] = compare_logits(
+                    run["generative"]["logits"].reshape(
+                        -1, gen_cfg.vocab_size),
+                    refs["generative"]["logits"].reshape(
+                        -1, gen_cfg.vocab_size))
+                run["generative"]["reference_launches_per_generate"] = \
+                    refs["generative"]["launches_per_generate"]
+        for r in run.values():
+            r.pop("update", None)
+            r.pop("logits", None)
+            r.pop("seqs", None)
+        run["seconds"] = time.perf_counter() - t1
+        out["runs"][str(shape)] = run
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    out["launch_keys"] = sorted(keys, key=str)
+    return out
+
+
+def mesh_phase(device: str = "cuda", seed: int = 0,
+               cfg: VQAModelConfig | None = None,
+               gen_cfg: GenerativeVQAConfig | None = None,
+               batch: int = MESH_BATCH,
+               gen_batch: int = MESH_GEN_BATCH) -> dict:
+    """Two ranks on the one card over a gloo group (NCCL refuses two ranks
+    on one device): the flagship at full width (bf16, dropout 0) on the
+    (2, 1) and (1, 2) meshes, MESH_STEPS steps each of a global batch of
+    MESH_BATCH, from the same seeded weights as rank 0's one-process
+    steps, held to train_check's tolerances; a copy of MESH_SMALL_LAYERS
+    layers in f32 held to 1e-4; bench_serving's generative model on
+    (1, 2): a greedy generate of 32 tokens at MESH_GEN_BATCH (411
+    launches on each rank) and its teacher-forced logits against one
+    process (``compare_logits``). The attention kernels launch 36 times a
+    step and 36 a forward on every rank. The kernels were built by this
+    process; the ranks load them. Returns the ranks' reports and
+    ``launch_keys`` for path_check."""
+    from vivqa_tpu_torch.parallel.launch import run_ranks
+    t0 = time.perf_counter()
+    gen_cfg = gen_cfg or bench_serving.serving_config()
+    ranks = run_ranks(mesh_rank, 2, cfg or flagship_config(), gen_cfg, seed,
+                      device, batch, gen_batch, timeout=900)
+    cuda = device == "cuda"
+    per_generate = attention_calls_per_generate(
+        gen_cfg, gen_cfg.max_answer_length) if cuda else 0
+    keys = {tuple(tuple(x) if isinstance(x, list) else x for x in k)
+            for r in ranks for k in r["launch_keys"]}
+    for r in ranks:
+        print(f"[mesh] rank {r['rank']}: references {r['reference_s']:.1f} s, "
+              + ", ".join(f"{s} {run['seconds']:.1f} s"
+                          for s, run in r["runs"].items()), flush=True)
+    for r in ranks:
+        for shape, run in r["runs"].items():
+            for part in ("flagship", "f32"):
+                got = run[part]
+                calls = got["attention_calls"] * cuda
+                if got["launches_per_forward"] != calls or \
+                        any(got["launches_per_step"][n] != calls
+                            for n in TRAIN_KERNELS):
+                    raise AssertionError(
+                        f"mesh {shape} rank {r['rank']} {part}: launches "
+                        f"{got['launches_per_step']} a step, "
+                        f"{got['launches_per_forward']} a forward")
+            g = run.get("generative")
+            if g is not None and g["launches_per_generate"] != per_generate:
+                raise AssertionError(f"mesh {shape} rank {r['rank']}: "
+                                     f"{g['launches_per_generate']} "
+                                     f"launches a generate")
+    for r in ranks:
+        r.pop("launch_keys")
+    return {"ranks": ranks, "launch_keys": keys,
+            "seconds": time.perf_counter() - t0,
+            "global_batch": batch, "steps": MESH_STEPS,
+            "note": "two ranks share one card over gloo: the step times "
+                    "are not multi-card figures"}
+
+
+# -- phase 16: every launch shape of the main paths held ---------------------
 def path_check_phase(launched: dict) -> dict:
     """``launched``: {path: the launch keys its run recorded}. Each key no
     kernel check held yet is held now against the plain version on inputs
@@ -5530,7 +5932,8 @@ def kernels_line(rows: dict, launches: int, generative: dict,
                  cls_pipeline: dict, gen_cli: dict, abl_totals: dict,
                  ablation: dict, rag_tot: dict, rag: dict,
                  trainer: dict, zoo_kernels: dict, zoo: dict,
-                 hf_rows: dict, hf: dict) -> dict:
+                 hf_rows: dict, hf: dict, mesh_rows: dict, mesh_tot: dict,
+                 mesh: dict) -> dict:
     """One entry per kernel. The forward's numbers are for one flagship
     forward at batch 8 (its 36 calls of the five serving shapes, each
     shape's time times its calls), and, under ``generate``, for one beam
@@ -5563,7 +5966,11 @@ def kernels_line(rows: dict, launches: int, generative: dict,
     runs; ``hf_import`` each kernel's with the pretrained towers: the
     forward at their new shapes (time, plain version, bound, SDPA's time)
     with its launches a forward, a greedy generate and a tower's forward,
-    and each kernel's launches in both CLIs' runs."""
+    and each kernel's launches in both CLIs' runs; ``mesh`` each kernel's
+    on the ('data', 'model') mesh (two ranks on the card): per call at the
+    (1, 2) mesh's per-rank shapes (half the heads) and per rank's step or
+    evaluation forward there (time, plain version, bound, SDPA's time),
+    and its launches per rank a step and a forward on each mesh."""
     abl_launches = {name: sum(r[name] for r in ablation["launches"].values())
                     for name in fa.launch_counts}
     rag_cli = rag["cli"]["launches"]
@@ -5718,6 +6125,41 @@ def kernels_line(rows: dict, launches: int, generative: dict,
                           f"{hf['generative']['steps']} steps)")
         return out
     entries[0]["hf_import"] = hf_entry("flash_attn_fwd")
+
+    def mesh_entry(name):
+        """The kernel on the mesh phase's two ranks."""
+        part = "forward" if name == "flash_attn_fwd" else "training"
+        keys = (("kernel_ms", "plain_ms", "library_ms", "bound_us",
+                 "bound_by", "max_abs_err_bf16") if part == "forward"
+                else ())
+        shapes = {n: {"B": r[part]["B"], "H": r[part]["H"],
+                      "Lq": r[part]["Lq"], "Lk": r[part]["Lk"],
+                      "mask": r[part]["mask"],
+                      **({k: r[part][k] for k in keys} if keys else
+                         {k: r[part][name][k] for k in (
+                             "kernel_ms", "plain_ms", "library_ms",
+                             "bound_ms", "bound_by")})}
+                  for n, r in mesh_rows.items()}
+        launches = {
+            f"rank{r['rank']} {shape} {part_}": (
+                run[part_]["launches_per_forward"] if name == "flash_attn_fwd"
+                else run[part_]["launches_per_step"][name])
+            for r in mesh["ranks"] for shape, run in r["runs"].items()
+            for part_ in ("flagship", "f32")}
+        if name == "flash_attn_fwd":
+            launches.update({
+                f"rank{r['rank']} (1, 2) generate":
+                    r["runs"]["(1, 2)"]["generative"]["launches_per_generate"]
+                for r in mesh["ranks"]})
+        return {**{k: v for k, v in mesh_tot[name].items()
+                   if k != "by_case_ms"},
+                "shapes": shapes, "launches": launches,
+                "per": ("a rank's evaluation forward" if part == "forward"
+                        else "a rank's train step") + f" on the (1, 2) mesh "
+                       f"(global batch {MESH_BATCH}, half the heads a rank),"
+                       f" bf16; launches a forward (a step, a generate) per "
+                       f"rank"}
+    entries[0]["mesh"] = mesh_entry("flash_attn_fwd")
     totals = step_totals(train_rows)
     gen_totals = step_totals(gen_rows)
     replaces = {
@@ -5787,7 +6229,8 @@ def kernels_line(rows: dict, launches: int, generative: dict,
                        f"memory, bf16"},
             "trainer": trainer_entry(name),
             "zoo": zoo_entry(name),
-            "hf_import": hf_entry(name)})
+            "hf_import": hf_entry(name),
+            "mesh": mesh_entry(name)})
     return {"kernels": entries}
 
 
@@ -5843,7 +6286,66 @@ def forward_entry(rows: dict, launches: int, ptxas: dict) -> dict:
                f"({ATTN_CALLS_PER_FORWARD} calls), bf16"}
 
 
-def main() -> int:
+def mesh_report(card: str, t_start: float, launched: dict) -> tuple:
+    """Phase 15 with its report: the kernels at the per-rank shapes, then
+    the ranks; the ranks' launch keys go into ``launched['mesh']``.
+    Returns (kernel rows, their totals, the ranks' results)."""
+    t_mesh = time.perf_counter()
+    mesh_rows = mesh_kernel_phase()
+    mesh_tot = mesh_totals(mesh_rows)
+    emit({"mesh_attention": mesh_tot, "card": card})
+    mesh = mesh_phase()
+    launched["mesh"] = mesh.pop("launch_keys")
+    emit({"mesh": mesh, "card": card})
+    runs = mesh["ranks"][0]["runs"]
+    print("[mesh] two ranks on one card over " + mesh["ranks"][0]["backend"]
+          + "; " + "; ".join(
+        f"{shape}: flagship steps " + " / ".join(
+            ", ".join(f"{ms:.1f}" for ms in
+                      r["runs"][shape]["flagship"]["step_event_ms"])
+            for r in mesh["ranks"]) + " ms by events (ranks 0 / 1), "
+        f"collectives " + ", ".join(
+            f"{ms:.1f}" for ms in run["flagship"]["collective_host_ms"])
+        + f" host ms and "
+        f"{run['flagship']['collective_bytes'][-1] / 2**20:.1f} MiB a step, "
+        f"peak " + "/".join(
+            f"{r['runs'][shape]['flagship']['max_memory_allocated_gib']:.2f}"
+            for r in mesh["ranks"]) + " GiB, loss/grad-norm rel diff "
+        f"{run['flagship']['against_one_process']['loss_rel_diff']:.2e}/"
+        f"{run['flagship']['against_one_process']['grad_norm_rel_diff']:.2e}"
+        f" cosine {run['flagship']['against_one_process']['update_cosine']:.5f}"
+        f", f32 copy loss rel diff "
+        f"{run['f32']['against_one_process']['loss_rel_diff']:.2e}"
+        for shape, run in runs.items())
+        + f"; generative (1, 2) logits max diff "
+          f"{runs['(1, 2)']['generative']['against_one_process']['max_abs_logit_diff']:.3g}"
+          f" (tolerance "
+          f"{runs['(1, 2)']['generative']['against_one_process']['tolerance']:.3g}),"
+          f" {runs['(1, 2)']['generative']['launches_per_generate']} launches "
+          f"a generate; attention per rank step on (1, 2) " + ", ".join(
+              f"{n} {t['ms']:.3f} ms" for n, t in mesh_tot.items())
+        + f" on {card} ({time.perf_counter() - t_mesh:.1f} s of the phase, "
+          f"{mesh['seconds']:.1f} s of it the ranks; "
+          f"{time.perf_counter() - t_start:.1f} s)", flush=True)
+    return mesh_rows, mesh_tot, mesh
+
+
+def path_report(launched: dict) -> None:
+    """Phase 16 with its report."""
+    paths = path_check_phase(launched)
+    emit({"path_check": paths})
+    print(f"[path_check] launch keys by path {paths['launch_keys']}: "
+          f"{paths['held_by_kernel_phases']} held by the kernel phases, "
+          f"{len(paths['held_here'])} held here", flush=True)
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description="Drive the port on one "
+                                     "CUDA card (see the module docstring).")
+    parser.add_argument("--phase", choices=("all", "mesh"), default="all",
+                        help="'mesh': the build and phases 15-16 alone "
+                             "(no kernels line and no device line)")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
@@ -5856,6 +6358,13 @@ def main() -> int:
           f"{torch.version.cuda} | nvidia-smi: {card}", flush=True)
 
     ptxas = build_phase()
+    if args.phase == "mesh":
+        launched = {}
+        mesh_report(card, t_start, launched)
+        path_report(launched)
+        print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
+        print(card)
+        return 0
     rows = kernel_phase()
     tiles = tile_rows_line(rows)
     emit(tiles)
@@ -6104,18 +6613,15 @@ def main() -> int:
               f"{r['library_ms'] * 1e3:.2f})" for n, r in hf_rows.items())
           + f" on {card} ({time.perf_counter() - t_hf:.1f} s of the phase, "
             f"{time.perf_counter() - t_start:.1f} s)", flush=True)
-    paths = path_check_phase(launched)
-    emit({"path_check": paths})
-    print(f"[path_check] launch keys by path {paths['launch_keys']}: "
-          f"{paths['held_by_kernel_phases']} held by the kernel phases, "
-          f"{len(paths['held_here'])} held here", flush=True)
+    mesh_rows, mesh_tot, mesh = mesh_report(card, t_start, launched)
+    path_report(launched)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     emit(kernels_line(rows, serving["launches"]["flash_attn_fwd"],
                       generative, train_rows, training["launches"], ptxas,
                       gen_rows, gen_training, cls, gen_cli, abl_totals, abl,
                       rag_tot, rag, trainer, zoo_kernels, zoo, hf_rows,
-                      hf))
+                      hf, mesh_rows, mesh_tot, mesh))
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

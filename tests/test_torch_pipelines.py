@@ -363,8 +363,8 @@ def _merged(mod, argv):
 
 def _comparable(cfg) -> dict:
     d = cfg.to_dict()
-    d["model"] = {k: v for k, v in d["model"].items()
-                  if k not in ("mesh", "device")}
+    # both configs carry the mesh; the port's device is its own field
+    d["model"] = {k: v for k, v in d["model"].items() if k != "device"}
     return d
 
 

@@ -10,6 +10,10 @@ the card (``--device cuda``, the default) or, at tiny sizes, on the CPU:
         --csv-path data.csv --image-dir images/ --epochs 2 \
         --specialized-experts 6 --vision-experts 0 --text-experts 0 \
         --multimodal-experts 0 --experiments 0-3
+
+It runs on one process: the JAX CLI's ``create_mesh(MeshConfig())`` has
+no counterpart yet, and under a launcher with more than one rank it
+raises (ROADMAP.md, Queue A item 20).
 """
 
 from __future__ import annotations
@@ -196,6 +200,12 @@ def base_model_config(args, cfg: AblationConfig, tok, data_cfg):
 
 
 def main(argv=None):
+    import os
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise NotImplementedError(
+            "the ablation CLI runs on one process; its experiments' "
+            "writes are not yet held to one rank (ROADMAP.md, Queue A "
+            "item 20)")
     args = build_argparser().parse_args(argv)
     cfg = (AblationConfig.from_yaml(args.config) if args.config
            else AblationConfig())

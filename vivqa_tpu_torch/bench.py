@@ -1,7 +1,13 @@
-"""Training benchmark of the port on one card: QA-pairs per second of the
-flagship classification train step (counterpart of the root bench.py).
+"""Training benchmark of the port: QA-pairs per second of the flagship
+classification train step (counterpart of the root bench.py).
 
     python3 -m vivqa_tpu_torch.bench
+    torchrun --standalone --nproc-per-node N -m vivqa_tpu_torch.bench
+
+Under a launcher the step is data-parallel over the N ranks, bench.py's
+``MeshConfig(data_axis=n_chips, model_axis=1)``: a global batch of 128
+per rank, each rank's rows, gradients averaged over 'data'; global rank
+0 prints. One process is the one-card step.
 
 The model, synthetic batch, loss and optimizer are bench.py's
 (bench.py:53-110): CLIP-style ViT-B/32 + PhoBERT-style text encoder +
@@ -30,11 +36,13 @@ from vivqa_tpu_torch.models.config import (FusionConfig, MoEModelConfig,
                                            VQAModelConfig)
 from vivqa_tpu_torch.models.vqa_model import create_vqa_model
 from vivqa_tpu_torch.ops import flash_attention as fa
+from vivqa_tpu_torch.parallel.mesh import MeshConfig, create_mesh
 from vivqa_tpu_torch.train.optimizers import (OptimizerConfig,
                                               SchedulerConfig,
                                               create_optimizer)
-from vivqa_tpu_torch.train.state import (TrainState, classification_loss_fn,
-                                         make_train_step)
+from vivqa_tpu_torch.train.state import (ShardedStep, TrainState,
+                                         classification_loss_fn,
+                                         make_train_step, place_state)
 from vivqa_tpu_torch.utils.profiling import peak_tflops, time_train_steps
 
 TRAIN_KERNELS = ("flash_attn_fwd_lse", "flash_attn_bwd_dq",
@@ -105,13 +113,18 @@ def train_step_flops(cfg: VQAModelConfig, batch: int) -> float:
 
 
 def main(steps: int = 20, warmup: int = 3, batch: int = 128) -> dict:
-    dev = resolve_device("cuda")
+    """``batch`` rows per rank (bench.py's batch per chip)."""
+    mesh = create_mesh(MeshConfig(data_axis=-1, model_axis=1), "cuda")
+    dev = resolve_device(mesh.device)
     cfg = flagship_config()
     model = create_vqa_model(cfg, device=dev,
                              generator=torch.Generator().manual_seed(0))
-    state = TrainState.create(model, bench_optimizer(model), seed=0)
-    train_step = make_train_step(classification_loss_fn())
-    data = synthetic_batch(cfg, batch, dev)
+    state = place_state(TrainState.create(model, bench_optimizer(model),
+                                          seed=0), mesh)
+    train_step = ShardedStep(mesh, make_train_step(
+        classification_loss_fn())).compile(state)[0]
+    n_data = mesh.data.size
+    data = synthetic_batch(cfg, batch * n_data, dev)
     for _ in range(warmup):
         train_step(state, data)
     torch.cuda.synchronize()
@@ -128,9 +141,10 @@ def main(steps: int = 20, warmup: int = 3, batch: int = 128) -> dict:
     flops = train_step_flops(cfg, batch)
     peak = peak_tflops(dev)
     out = {"metric": "train_qa_pairs_per_sec",
-           "value": batch * 1e3 / step_ms,
-           "unit": f"QA-pairs/sec (batch {batch}, median of {steps} "
-                   f"steps by CUDA events)",
+           "value": batch * n_data * 1e3 / step_ms,
+           "unit": f"QA-pairs/sec (batch {batch} a rank on {n_data} "
+                   f"rank(s), median of {steps} steps by CUDA events)",
+           "mesh": mesh.shape, "backend": mesh.backend,
            "step_ms": step_ms, "step_tflops": flops / 1e12,
            "mfu_pct": (100 * flops / (step_ms * 1e-3) / (peak * 1e12)
                        if peak else None),
@@ -139,7 +153,8 @@ def main(steps: int = 20, warmup: int = 3, batch: int = 128) -> dict:
            "attention_calls_per_step": calls,
            "loss_first_last": [losses[0], losses[-1]],
            "device": torch.cuda.get_device_name(dev), "card": card_line()}
-    print(json.dumps(out), flush=True)
+    if mesh.is_main:
+        print(json.dumps(out), flush=True)
     return out
 
 

@@ -37,7 +37,8 @@ from vivqa_tpu_torch.ops.embedding import Embed
 class DecodeCache:
     """The decoder's state between cached steps.
 
-    - ``self_kv``: (layers, 2, B, max_len, H, Dh) in the compute dtype,
+    - ``self_kv``: (layers, 2, B, max_len, H, Dh) in the compute dtype
+      (H this rank's heads on a mesh that splits them),
       K then V of every self-attention layer, zero at the start; step t
       writes position t (flax's ``cached_key``/``cached_value``);
     - ``cross_kv``: (layers, 2, B, Lm, H, Dh), the context K/V of every
@@ -141,10 +142,12 @@ class TransformerDecoder(nn.Module):
                 f"max_answer_length={self.config.max_answer_length}")
         cfg = self.config
         B, dev = encoder_hidden.shape[0], encoder_hidden.device
-        H = cfg.decoder_heads
+        # this rank's heads where a mesh's 'model' axis splits them
+        H = self.layers[0].self_attn.num_heads
         context = encoder_hidden.to(self.dtype)
         self_kv = torch.zeros(
-            (len(self.layers), 2, B, max_length, H, cfg.decoder_dim // H),
+            (len(self.layers), 2, B, max_length, H,
+             cfg.decoder_dim // cfg.decoder_heads),
             dtype=self.dtype, device=dev)
         cross_kv = torch.stack([torch.stack(layer.cross_attn.project_context(
             context)) for layer in self.layers])

@@ -31,6 +31,17 @@ flax's ``decode=True`` (the generative decoder's cached steps) is a
 method of its own, ``decode``, on the self-attention and the decoder
 layer: the cache is not module state but buffers the caller owns
 (``models/decoder.py:DecodeCache``) and passes in.
+
+On a mesh whose 'model' axis splits them (``parallel/mesh.py``), the
+attention and the MLP run Megatron's tensor-parallel form: q/k/v and
+``wi`` are column-parallel (each rank holds H/m heads, or d_ff/m hidden
+units, and the attention kernel sees the H/m heads), ``out`` and ``wo``
+row-parallel with one all-reduce of the partial outputs, reduced in f32
+and cast back. The replicated input enters through ``copy_to_model``. A
+column-parallel bias stays whole in storage, as the JAX package places
+it; each rank adds its slice, and the train step sums its gradient over
+'model'. Dropout of a split activation draws the whole activation's mask
+and keeps its slice, so the masks are the one-process ones.
 """
 
 from __future__ import annotations
@@ -45,6 +56,8 @@ import torch.nn.functional as F
 
 from vivqa_tpu_torch.ops.embedding import Embed
 from vivqa_tpu_torch.ops.flash_attention import dropout_key, flash_attention
+from vivqa_tpu_torch.parallel.collectives import (Axis, copy_to_model,
+                                                  reduce_from_model)
 
 _SEED_MIX = 0x9E3779B97F4A7C15      # odd 64-bit constant (golden ratio)
 
@@ -97,13 +110,23 @@ class DropoutRNG:
 
 
 def dropout(x: torch.Tensor, rate: float,
-            rng: Optional[DropoutRNG]) -> torch.Tensor:
+            rng: Optional[DropoutRNG],
+            split: Optional[tuple[int, Axis]] = None) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability 1 - rate, scale the kept
-    values by 1 / (1 - rate) in x's dtype; the identity without ``rng``."""
+    values by 1 / (1 - rate) in x's dtype; the identity without ``rng``.
+    ``split`` (dim, axis): x is this rank's slice along dim of an
+    activation split over the axis; the whole mask is drawn and sliced."""
     if rng is None or rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=rng.generator,
+    shape = list(x.shape)
+    if split is not None:
+        dim, axis = split
+        shape[dim] *= axis.size
+    keep = torch.rand(shape, generator=rng.generator,
                       device=x.device) < 1.0 - rate
+    if split is not None:
+        n = x.shape[dim]
+        keep = keep.narrow(dim, axis.rank * n, n)
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
                                                            device=x.device))
 
@@ -129,18 +152,54 @@ def sinusoidal_positions(length: int, dim: int) -> np.ndarray:
     return table
 
 
+def runs_split(module: nn.Module, sharded: set) -> bool:
+    """For a module's ``use_mesh``: True when the rules split its
+    ``TP_LEAVES`` (all that it has), False when none; raises on a mix."""
+    present = set()
+    for rel in module.TP_LEAVES:
+        try:
+            if module.get_parameter(rel) is not None:
+                present.add(rel)
+        except AttributeError:
+            pass
+    if sharded and sharded != present:
+        raise NotImplementedError(
+            f"{type(module).__name__}: only {sorted(sharded)} of "
+            f"{sorted(present)} are split")
+    return bool(sharded)
+
+
 class Dense(nn.Linear):
     """``nn.Dense``/``nn.DenseGeneral`` counterpart: f32 params, the
-    product in ``dtype``."""
+    product in ``dtype``. ``split`` makes it this rank's column- or
+    row-parallel part of a layer split over a mesh axis."""
+    parallel: Optional[str] = None      # None | "column" | "row"
+    axis: Optional[Axis] = None
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__(in_features, out_features, bias=bias)
         self.dtype = dtype
 
+    def split(self, parallel: str, axis: Axis) -> set:
+        """Run as the column- (weight rows split) or row-parallel (columns
+        split) part; returns the leaves whose gradient is partial (the
+        column-parallel bias, kept whole and used by its slice)."""
+        self.parallel, self.axis = parallel, axis
+        n = self.weight.shape[0]
+        self.bias_rows = slice(axis.rank * n, (axis.rank + 1) * n)
+        return {"bias"} if parallel == "column" and self.bias is not None \
+            else set()
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, w = x.to(self.dtype), self.weight.to(self.dtype)
         b = None if self.bias is None else self.bias.to(self.dtype)
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
+        if self.parallel == "row":
+            y = reduce_from_model(F.linear(x, w), self.axis)
+            return y if b is None else y + b
+        if self.parallel == "column" and b is not None:
+            b = b[self.bias_rows]
+        return F.linear(x, w, b)
 
 
 class LayerNorm(nn.Module):
@@ -196,6 +255,8 @@ class GroupNorm(nn.Module):
 
 class MlpBlock(nn.Module):
     """Transformer feed-forward block: wi -> act -> dropout -> wo."""
+    TP_LEAVES = ("wi.weight", "wo.weight")
+    axis: Optional[Axis] = None
 
     def __init__(self, dim: int, d_ff: int, out_dim: int = 0,
                  activation: Callable = gelu_tanh,
@@ -206,10 +267,20 @@ class MlpBlock(nn.Module):
         self.wi = Dense(dim, d_ff, dtype=dtype)
         self.wo = Dense(d_ff, out_dim or dim, dtype=dtype)
 
+    def use_mesh(self, mesh, sharded: set) -> set:
+        if not runs_split(self, sharded):
+            return set()
+        self.axis = mesh.model
+        self.wo.split("row", mesh.model)
+        return {f"wi.{n}" for n in self.wi.split("column", mesh.model)}
+
     def forward(self, x: torch.Tensor,
                 rng: Optional[DropoutRNG] = None) -> torch.Tensor:
+        split = None
+        if self.axis is not None:
+            x, split = copy_to_model(x, self.axis), (-1, self.axis)
         return self.wo(dropout(self.activation(self.wi(x)), self.dropout,
-                               rng))
+                               rng, split))
 
 
 class MultiHeadDotProductAttention(nn.Module):
@@ -221,7 +292,12 @@ class MultiHeadDotProductAttention(nn.Module):
     (H*Dh, D_in); ``out`` holds (D, H*Dh). With an ``rng`` the attention
     probabilities drop at ``dropout_rate`` inside the kernel (flax's
     ``broadcast_dropout``: one mask per call for all rows and heads).
+
+    Split over a mesh's 'model' axis (``use_mesh``), ``num_heads`` is
+    this rank's H/m.
     """
+    TP_LEAVES = ("query.weight", "key.weight", "value.weight", "out.weight")
+    axis: Optional[Axis] = None
 
     def __init__(self, dim: int, num_heads: int, kv_dim: int = 0,
                  dtype: torch.dtype = torch.bfloat16,
@@ -237,6 +313,15 @@ class MultiHeadDotProductAttention(nn.Module):
         self.key = Dense(kv_dim, dim, dtype=dtype)
         self.value = Dense(kv_dim, dim, dtype=dtype)
         self.out = Dense(dim, dim, dtype=dtype)
+
+    def use_mesh(self, mesh, sharded: set) -> set:
+        if not runs_split(self, sharded):
+            return set()
+        self.axis = mesh.model
+        self.num_heads //= mesh.model.size
+        self.out.split("row", mesh.model)
+        return {f"{role}.{n}" for role in ("query", "key", "value")
+                for n in getattr(self, role).split("column", mesh.model)}
 
     def _heads(self, dense: Dense, x: torch.Tensor) -> torch.Tensor:
         """(B, L, D_in) -> (B, L, H, Dh)."""
@@ -259,6 +344,10 @@ class MultiHeadDotProductAttention(nn.Module):
     def forward(self, x: torch.Tensor, context: torch.Tensor,
                 mask: Optional[torch.Tensor] = None,
                 rng: Optional[DropoutRNG] = None) -> torch.Tensor:
+        if self.axis is not None:
+            same = context is x
+            x = copy_to_model(x, self.axis)
+            context = x if same else copy_to_model(context, self.axis)
         # q before k and v: autograd sums the gradients of a shared input
         # in the order the uses were recorded
         q = self._heads(self.query, x)

@@ -29,6 +29,18 @@
   order; the groups' outputs are combined by the group router's weights,
   the aux losses summed, the metrics the group router's.
 
+Expert parallelism: on a mesh whose 'model' axis splits the stacked
+experts along E (``parallel/mesh.py``), ``MOELayer`` and
+``SparseMOELayer`` compute this rank's E/m experts for all its tokens;
+the router is replicated and decides on the full logits, the tokens and
+the combine weights enter through ``copy_to_model`` (their gradients sum
+the ranks' parts) and the partial combine is summed over 'model'. Under
+data parallelism the sparse layer's capacity and queue order are the
+global batch's: ``cap = cf * T * k / E`` with T the global token count,
+and each rank's places in an expert's queue follow the preceding ranks'
+tokens (their per-expert counts are all-gathered), so the same tokens
+are dropped as on one device.
+
 The experts live in a ``ModuleDict`` named ``experts`` whose keys are the
 flax names after ``experts/`` (``vision_0``, ``specialized_3_ocr``), so
 ``from_jax.py`` maps them by path; the hierarchical layer's groups are a
@@ -44,15 +56,34 @@ from torch import nn
 import torch.nn.functional as F
 
 from vivqa_tpu_torch.models.layers import (DropoutRNG, LayerNorm, dropout,
-                                           gelu_tanh)
+                                           gelu_tanh, runs_split)
 from vivqa_tpu_torch.models.moe.config import (ExpertConfig, MoEConfig,
                                                VQAMoEConfig)
 from vivqa_tpu_torch.models.moe.experts import (MultimodalExpert, TextExpert,
                                                 VisionExpert, create_expert)
 from vivqa_tpu_torch.models.moe.routers import _top_k, create_router
+from vivqa_tpu_torch.parallel.collectives import (Axis, all_gather,
+                                                  copy_to_model,
+                                                  reduce_from_model)
 
 
-class MOELayer(nn.Module):
+class _ExpertParallel:
+    """The expert-parallel split of a layer with stacked experts: this
+    rank's experts are [e0, e1) of E."""
+    axis: Optional[Axis] = None
+    e0 = 0
+
+    def use_mesh(self, mesh, sharded: set) -> set:
+        if runs_split(self, sharded):
+            self.axis = mesh.model
+            self.e0 = mesh.model.rank * self.experts_w_in.shape[0]
+        return set()
+
+
+class MOELayer(_ExpertParallel, nn.Module):
+    TP_LEAVES = ("experts_w_in", "experts_bias_in", "experts_w_out",
+                 "experts_bias_out", "experts_w_gate")
+
     def __init__(self, config: MoEConfig):
         super().__init__()
         cfg = config
@@ -74,14 +105,21 @@ class MOELayer(nn.Module):
         rout = self.router(x, expert_mask, rng)
         dt = x.dtype
         w = rout.combine_weights.to(dt)                          # (B, L, E)
-        h = torch.einsum("bld,edh->bleh", x, self.experts_w_in.to(dt))
+        xe, split = x, None
+        if self.axis is not None:
+            El = self.experts_w_in.shape[0]
+            xe, split = copy_to_model(x, self.axis), (2, self.axis)
+            w = copy_to_model(w, self.axis)[..., self.e0:self.e0 + El]
+        h = torch.einsum("bld,edh->bleh", xe, self.experts_w_in.to(dt))
         h = gelu_tanh(h + self.experts_bias_in.to(dt))
         if self.experts_w_gate is not None:
             h = h * torch.sigmoid(torch.einsum(
-                "bld,edh->bleh", x, self.experts_w_gate.to(dt)))
-        h = dropout(h, self.dropout, rng)
+                "bld,edh->bleh", xe, self.experts_w_gate.to(dt)))
+        h = dropout(h, self.dropout, rng, split)
         y = torch.einsum("bleh,ehd,ble->bld", h, self.experts_w_out.to(dt), w)
         y = y + torch.einsum("ble,ed->bld", w, self.experts_bias_out.to(dt))
+        if self.axis is not None:
+            y = reduce_from_model(y, self.axis)
         y = self.ln_out(y + x)
         return y, {"aux_loss": rout.aux_loss, "metrics": rout.metrics}
 
@@ -125,7 +163,10 @@ class VQAMoELayer(nn.Module):
         return y, {"aux_loss": rout.aux_loss, "metrics": rout.metrics}
 
 
-class SparseMOELayer(nn.Module):
+class SparseMOELayer(_ExpertParallel, nn.Module):
+    TP_LEAVES = ("experts_w_in", "experts_w_out")
+    data: Optional[Axis] = None
+
     def __init__(self, config: MoEConfig):
         super().__init__()
         cfg = config
@@ -136,16 +177,22 @@ class SparseMOELayer(nn.Module):
         self.experts_w_out = nn.Parameter(torch.empty(E, H, D))
         self.ln_out = LayerNorm(D, dtype=None)     # in x's dtype
 
-    def forward(self, x: torch.Tensor,
-                expert_mask: Optional[torch.Tensor] = None,
-                rng: Optional[DropoutRNG] = None):
-        cfg = self.config
-        B, L, D = x.shape
-        E, k = cfg.num_experts, min(cfg.router.top_k, cfg.num_experts)
-        T, dt, dev = B * L, x.dtype, x.device
-        cap = max(1, int(cfg.router.capacity_factor * T * k / E))
-        rout = self.router(x, expert_mask, rng)
-        gates, top_idx = _top_k(rout.combine_weights.reshape(T, E).float(), k)
+    def use_mesh(self, mesh, sharded: set) -> set:
+        self.data = mesh.data
+        return super().use_mesh(mesh, sharded)
+
+    def dispatch(self, combine_weights: torch.Tensor):
+        """The capacity and each assignment's queue: (cap, sorted_e,
+        sorted_t, sorted_g, pos, keep) for combine weights (T, E), the
+        T*k assignments sorted by expert (stable: earlier tokens first),
+        ``pos`` the place in the expert's queue of the global batch."""
+        T, E = combine_weights.shape
+        k = min(self.config.router.top_k, E)
+        dev = combine_weights.device
+        d = self.data if self.data is not None else Axis("data")
+        cap = max(1, int(self.config.router.capacity_factor * T * d.size
+                         * k / E))
+        gates, top_idx = _top_k(combine_weights.float(), k)
         expert_flat = top_idx.reshape(T * k)
         order = torch.sort(expert_flat, stable=True).indices
         sorted_e = expert_flat[order]
@@ -154,23 +201,45 @@ class SparseMOELayer(nn.Module):
         counts = F.one_hot(expert_flat, E).sum(0)       # no host sync
         seg_start = torch.cumsum(counts, 0) - counts
         pos = torch.arange(T * k, device=dev) - seg_start[sorted_e]
-        keep = pos < cap
+        if d.size > 1:
+            before = all_gather(counts[None], d)[:d.rank].sum(0)
+            pos = pos + before[sorted_e]
+        return cap, sorted_e, sorted_t, sorted_g, pos, pos < cap
+
+    def forward(self, x: torch.Tensor,
+                expert_mask: Optional[torch.Tensor] = None,
+                rng: Optional[DropoutRNG] = None):
+        cfg = self.config
+        B, L, D = x.shape
+        E, k = cfg.num_experts, min(cfg.router.top_k, cfg.num_experts)
+        T, dt, dev = B * L, x.dtype, x.device
+        rout = self.router(x, expert_mask, rng)
+        combine, xe = rout.combine_weights.reshape(T, E), x
+        El, e0 = self.experts_w_in.shape[0], self.e0
+        if self.axis is not None:
+            combine = copy_to_model(combine, self.axis)
+            xe = copy_to_model(x, self.axis)
+        cap, sorted_e, sorted_t, sorted_g, pos, keep = self.dispatch(combine)
         dest = torch.where(keep, sorted_e * cap + pos, E * cap)
         # slot -> the token row that fills it; row T is a zero row, the
         # source of the empty slots (the trash row at E*cap is cut off)
         slot_token = torch.full((E * cap + 1,), T, dtype=torch.long,
                                 device=dev)
         slot_token[dest] = sorted_t
-        rows = torch.cat([x.reshape(T, D), x.new_zeros(1, D)])
-        expert_in = rows[slot_token[:E * cap]].view(E, cap, D)
+        rows = torch.cat([xe.reshape(T, D), x.new_zeros(1, D)])
+        expert_in = rows[slot_token[e0 * cap:(e0 + El) * cap]].view(
+            El, cap, D)
         h = gelu_tanh(torch.einsum("ecd,edh->ech", expert_in,
                                    self.experts_w_in.to(dt)))
         expert_out = torch.einsum("ech,ehd->ecd", h,
                                   self.experts_w_out.to(dt)).reshape(
-                                      E * cap, D)
-        contrib = expert_out[torch.where(keep, dest, 0)] * \
-            (sorted_g * keep.float())[:, None].to(dt)
+                                      El * cap, D)
+        mine = keep & (sorted_e >= e0) & (sorted_e < e0 + El)
+        contrib = expert_out[torch.where(mine, dest - e0 * cap, 0)] * \
+            (sorted_g * mine.float())[:, None].to(dt)
         y = x.new_zeros(T, D).index_add(0, sorted_t, contrib)
+        if self.axis is not None:
+            y = reduce_from_model(y, self.axis)
         y = self.ln_out(y.view(B, L, D) + x)
         metrics = dict(rout.metrics)
         metrics["dropped_token_fraction"] = \

@@ -11,6 +11,14 @@ draws differ from JAX's ``make_rng("router")`` and only its
 deterministic path is compared with the JAX package. Every ``top_k``
 here breaks ties toward the lower index, as ``jax.lax.top_k`` does
 (``torch.topk`` on CUDA promises no order among equal values).
+
+Under data parallelism (a mesh's 'data' axis, ``use_mesh``) the
+load-balance loss is the global batch's: the token fraction and the mean
+probability per expert are averaged over 'data' (the latter with its
+gradient) before their product, as the JAX package's global computation
+takes them. The z-loss is a plain mean and needs nothing more. The
+expert-choice router picks tokens within each row, so it too runs
+unchanged on a rank's rows.
 """
 
 from __future__ import annotations
@@ -24,6 +32,8 @@ import torch.nn.functional as F
 
 from vivqa_tpu_torch.models.layers import Dense, DropoutRNG
 from vivqa_tpu_torch.models.moe.config import RouterConfig
+from vivqa_tpu_torch.parallel.collectives import (Axis, all_reduce,
+                                                  all_reduce_with_grad)
 
 NEG_INF = -1e9
 
@@ -36,12 +46,17 @@ class RouterOutput:
     metrics: dict                   # expert_usage (E,), entropy, ...
 
 
-def load_balance_loss(probs: torch.Tensor,
-                      assignment: torch.Tensor) -> torch.Tensor:
-    """Switch-style load balance: E * sum_e(frac_tokens_e * mean_prob_e)."""
+def load_balance_loss(probs: torch.Tensor, assignment: torch.Tensor,
+                      data: Optional[Axis] = None) -> torch.Tensor:
+    """Switch-style load balance: E * sum_e(frac_tokens_e * mean_prob_e),
+    both means over the global batch when ``data`` splits it (ranks of
+    equal rows)."""
     E = probs.shape[-1]
     frac = assignment.reshape(-1, E).mean(dim=0)
     mean_prob = probs.reshape(-1, E).mean(dim=0)
+    if data is not None and data.size > 1:
+        frac = all_reduce(frac.detach(), data) / data.size
+        mean_prob = all_reduce_with_grad(mean_prob, data) / data.size
     return E * torch.sum(frac * mean_prob)
 
 
@@ -81,12 +96,17 @@ def _topk_dense(probs: torch.Tensor,
 
 class TopKRouter(nn.Module):
     """Bias-free f32 gate -> softmax -> top-k -> renormalize."""
+    data: Optional[Axis] = None
 
     def __init__(self, config: RouterConfig, num_experts: int, dim: int):
         super().__init__()
         self.config = config
         self.num_experts = num_experts
         self.gate = Dense(dim, num_experts, bias=False, dtype=torch.float32)
+
+    def use_mesh(self, mesh, sharded: set) -> set:
+        self.data = mesh.data
+        return set()
 
     def _logits(self, x: torch.Tensor,
                 expert_mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -98,8 +118,8 @@ class TopKRouter(nn.Module):
     def _finish(self, logits: torch.Tensor, weights: torch.Tensor,
                 assignment: torch.Tensor) -> RouterOutput:
         probs = torch.softmax(logits, dim=-1)
-        aux = self.config.load_balance_weight * load_balance_loss(probs,
-                                                                  assignment)
+        aux = self.config.load_balance_weight * load_balance_loss(
+            probs, assignment, self.data)
         if self.config.z_loss_weight:
             aux = aux + self.config.z_loss_weight * router_z_loss(logits)
         return RouterOutput(weights, probs, aux,

@@ -73,10 +73,15 @@ class StepTimer:
         return tot_n / tot_t if tot_t > 0 else 0.0
 
 
-def load_params(model: nn.Module, params: Dict[str, torch.Tensor]) -> None:
+def load_params(model: nn.Module, params: Dict[str, torch.Tensor],
+                sharding=None, mesh=None) -> None:
     """Copy a checkpoint's {parameter name: tensor} into ``model`` in
     place (the optimizer keeps its references); raises unless the names
-    and shapes match the model's exactly."""
+    and shapes match the unplaced model's exactly. A checkpoint holds
+    whole tensors: on a model placed on a mesh (``sharding`` and ``mesh``
+    a placed state's ``TrainState.sharding`` and ``.mesh``) each rank
+    keeps its slice of a split parameter."""
+    from vivqa_tpu_torch.parallel.mesh import Placement, shard_tensor
     own = dict(model.named_parameters())
     if sorted(own) != sorted(params):
         raise ValueError(f"checkpoint parameters do not match the model: "
@@ -84,4 +89,7 @@ def load_params(model: nn.Module, params: Dict[str, torch.Tensor]) -> None:
                          f"unused {sorted(set(params) - set(own))}")
     with torch.no_grad():
         for name, p in own.items():
-            p.copy_(params[name])
+            pl = sharding.placements.get(name, Placement()) if sharding \
+                else Placement()
+            p.copy_(shard_tensor(params[name], pl, mesh) if pl.axis
+                    else params[name])

@@ -1,4 +1,4 @@
-"""Generative (seq2seq) training pipeline on one card (counterpart of
+"""Generative (seq2seq) training pipeline (counterpart of
 vivqa_tpu/pipelines/generative_training_pipeline.py).
 
 AdamW with no-decay groups and the OneCycle schedule by default, the
@@ -16,14 +16,22 @@ model's device by ``data/loader.py:device_prefetch`` (a host thread,
 pinned buffers and copies on a side stream), as the JAX package moves
 them with its prefetcher, with the knowledge arrays a
 ``KnowledgeProvider`` attached, which the step and the validation's
-generate pass to the model. Its mesh and its settled reads (defenses of
-its TPU runtime) have no counterpart here.
+generate pass to the model. The JAX package's settled reads (defenses
+of its TPU runtime) have no counterpart here.
+
+On a mesh (``run``'s ``mesh``, as ``TrainingPipeline`` takes it) the
+state is placed and the step is ``ShardedStep``'s: each rank trains on
+its 'data' rows, the loss divides by the global count of answer tokens,
+``n_tokens`` is the global batch's; validation decodes each rank's rows
+with the model's 'model' shards and gathers the sequences before the
+metrics. Global rank 0 alone writes the checkpoint, from the gathered
+parameters.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 import numpy as np
 import torch
@@ -34,16 +42,21 @@ from vivqa_tpu_torch.metrics import (BLEUScore, CIDErScore,
                                      ExactMatchAccuracy, METEORScore,
                                      PrecisionRecallF1, ROUGEScore)
 from vivqa_tpu_torch.models.decoding import DecodeConfig, build_generate_fn
+from vivqa_tpu_torch.parallel.collectives import all_gather
+from vivqa_tpu_torch.parallel.mesh import Mesh, barrier, local_rows
 from vivqa_tpu_torch.pipelines.common import (EarlyStopping, StepTimer,
                                               load_params)
 from vivqa_tpu_torch.train.checkpoint import (CheckpointConfig,
-                                              CheckpointManager)
+                                              CheckpointManager,
+                                              gathered_params)
 from vivqa_tpu_torch.train.losses import perplexity
 from vivqa_tpu_torch.train.optimizers import (OptimizerConfig,
                                               SchedulerConfig,
                                               create_optimizer)
-from vivqa_tpu_torch.train.state import (TrainState, generative_loss_fn,
-                                         knowledge_of, make_train_step)
+from vivqa_tpu_torch.train.state import (KNOWLEDGE_KEYS, ShardedStep,
+                                         TrainState, generative_loss_fn,
+                                         knowledge_of, make_train_step,
+                                         place_state)
 from vivqa_tpu_torch.train.strategies import trainable_mask
 from vivqa_tpu_torch.utils import get_pipeline_logger
 
@@ -104,11 +117,13 @@ class GenerativeTrainingPipeline:
         self.log = logger or get_pipeline_logger()
 
     def run(self, model, train_loader: Iterable, val_loader: Iterable,
-            tokenizer) -> GenerativeTrainingOutput:
+            tokenizer, mesh: Optional[Mesh] = None
+            ) -> GenerativeTrainingOutput:
         """Train ``model`` (a ``GenerativeVQAModel``, on the device it is
         on) for ``num_epochs`` epochs over ``train_loader`` (an iterable
         of collated batches with a length), validating each epoch over
-        ``val_loader`` with answers decoded by ``tokenizer``."""
+        ``val_loader`` with answers decoded by ``tokenizer``; on ``mesh``
+        when it is given and larger than one rank."""
         cfg = self.config
         log = self.log
         log.start_stage("generative_training")
@@ -126,8 +141,14 @@ class GenerativeTrainingPipeline:
                                     cfg.scheduler.replace(total_steps=total),
                                     freeze),
             seed=cfg.seed)
+        if mesh is not None and mesh.size > 1:
+            place_state(state, mesh)
+        else:
+            mesh = None
         train_step = make_train_step(generative_loss_fn(
             cfg.label_smoothing, cfg.moe_aux_weight, expert_mask))
+        if mesh is not None:
+            train_step = ShardedStep(mesh, train_step).compile(state)[0]
 
         mcfg = model.config
         generate = build_generate_fn(model, DecodeConfig(
@@ -147,7 +168,7 @@ class GenerativeTrainingPipeline:
         start_epoch = 0
         if cfg.resume and ckpt.latest_step() is not None:
             restored, meta = ckpt.restore_best(map_location=device)
-            load_params(model, restored["params"])
+            load_params(model, restored["params"], state.sharding, mesh)
             start_epoch = int((meta or {}).get("epoch", -1)) + 1
             log.info("resumed best checkpoint from %s — continuing at "
                      "epoch %d (fresh optimizer)", cfg.checkpoint_dir,
@@ -159,6 +180,9 @@ class GenerativeTrainingPipeline:
             for i, dev in enumerate(device_prefetch(iter(train_loader),
                                                     device)):
                 timer.tic()
+                if mesh is not None:
+                    dev = {k: v for k, v in dev.items()
+                           if isinstance(v, torch.Tensor)}
                 state, metrics = train_step(state, dev)
                 losses.append(metrics["loss"])     # stays on the device
                 n_tok = int(metrics["n_tokens"]) if i == 0 else n_tok
@@ -172,7 +196,7 @@ class GenerativeTrainingPipeline:
             train_loss = float(np.mean(losses)) if losses else 0.0
 
             val = self._validate(generate, val_loader, tokenizer, device,
-                                 expert_mask)
+                                 expert_mask, mesh)
             val.update(train_loss=train_loss, epoch=epoch,
                        perplexity=float(perplexity(torch.tensor(train_loss))),
                        tokens_per_sec=timer.items_per_sec)
@@ -181,13 +205,15 @@ class GenerativeTrainingPipeline:
 
             metric = val.get(cfg.metric_for_best, 0.0)
             if stopper.update(metric):
-                params = {n: p.detach().cpu()
-                          for n, p in model.named_parameters()}
-                ckpt.save(state.step, {"params": params},
-                          metadata={"epoch": epoch,
-                                    "config": mcfg.to_dict()},
-                          metrics={cfg.metric_for_best: metric})
-                log.log_checkpoint(cfg.checkpoint_dir, state.step, metric)
+                params = gathered_params(model, state.sharding, mesh)
+                if mesh is None or mesh.is_main:
+                    ckpt.save(state.step, {"params": params},
+                              metadata={"epoch": epoch,
+                                        "config": mcfg.to_dict()},
+                              metrics={cfg.metric_for_best: metric})
+                    log.log_checkpoint(cfg.checkpoint_dir, state.step,
+                                       metric)
+                barrier(mesh)
             if stopper.should_stop:
                 log.warning(f"early stopping at epoch {epoch}")
                 break
@@ -198,8 +224,14 @@ class GenerativeTrainingPipeline:
                                         stopper.best or 0.0, final)
 
     def _validate(self, generate, val_loader, tokenizer, device,
-                  expert_mask) -> Dict[str, float]:
+                  expert_mask, mesh: Optional[Mesh] = None
+                  ) -> Dict[str, float]:
+        """The metrics of ``generate``'s answers over ``val_loader``; on a
+        mesh each rank decodes its 'data' rows and the sequences are
+        gathered."""
         cfg = self.config
+        if mesh is not None and mesh.size <= 1:
+            mesh = None
         bleu, meteor, rouge = BLEUScore(), METEORScore(), ROUGEScore()
         cider, em, prf = CIDErScore(), ExactMatchAccuracy(), PrecisionRecallF1()
         n = 0
@@ -209,9 +241,16 @@ class GenerativeTrainingPipeline:
             n += 1
             # decode with the SAME expert composition the model was
             # trained with (ablation masks)
-            seqs, _ = generate(dev["pixel_values"], dev["question_ids"],
-                               dev["question_mask"], expert_mask=expert_mask,
-                               **knowledge_of(dev))
+            x = {k: dev[k] for k in ("pixel_values", "question_ids",
+                                     "question_mask") + KNOWLEDGE_KEYS
+                 if k in dev}
+            if mesh is not None:
+                x = local_rows(x, mesh)
+            seqs, _ = generate(x["pixel_values"], x["question_ids"],
+                               x["question_mask"], expert_mask=expert_mask,
+                               **knowledge_of(x))
+            if mesh is not None:
+                seqs = all_gather(seqs, mesh.data)
             nv = dev.get("_num_valid", len(seqs))
             preds = [tokenizer.decode(s) for s in seqs[:nv].cpu().numpy()]
             refs = dev.get("all_answers", [[t] for t in

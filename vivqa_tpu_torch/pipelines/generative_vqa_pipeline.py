@@ -9,9 +9,14 @@ inference with JSON export:
     python -m vivqa_tpu_torch.pipelines.generative_vqa_pipeline \\
         --mode train|evaluate|inference|demo --config cfg.yaml ...
 
-CLI flags override YAML, which overrides the dataclass defaults. The JAX
-package's mesh field becomes ``device``: the card unless ``--device cpu``
-is given; asking for the card on a host without one raises. ``resume``
+CLI flags override YAML, which overrides the dataclass defaults.
+``device`` is the card unless ``--device cpu`` is given; asking for the
+card on a host without one raises. ``mesh`` (the YAML's, a
+``MeshConfig``, as the JAX package's field; there is no flag, as in the
+JAX CLI) joins the ranks a launcher started (``torchrun
+--nproc-per-node N``; one process: the 1x1 mesh): train and evaluate run
+on it (``GenerativeTrainingPipeline``), inference and the demo run the
+whole model on every rank, and global rank 0 alone logs and writes. ``resume``
 copies the best checkpoint of a port checkpoint directory
 (``train/checkpoint.py``) into the model's parameters on its device.
 With ``--use-knowledge`` a ``KnowledgeProvider`` (from ``--kb-path``,
@@ -33,6 +38,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import logging
 import time
 from pathlib import Path
 
@@ -48,6 +54,8 @@ from vivqa_tpu_torch.models.convert import (graft_pretrained,
                                             load_pretrained_visual_encoder)
 from vivqa_tpu_torch.models.decoding import DecodeConfig, build_generate_fn
 from vivqa_tpu_torch.models.generative import create_generative_vqa_model
+from vivqa_tpu_torch.parallel.mesh import (MeshConfig, create_mesh,
+                                           logical_to_mesh, process_rank)
 from vivqa_tpu_torch.pipelines.common import count_parameters
 from vivqa_tpu_torch.pipelines.data_pipeline import (DataPipeline,
                                                      DataPipelineConfig)
@@ -75,6 +83,7 @@ class GenerativeVQAPipelineConfig(ConfigBase):
     training: GenerativeTrainingConfig = dataclasses.field(
         default_factory=GenerativeTrainingConfig)
     device: str = "cuda"
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     # host-side retrieval stage, active when model.knowledge.use_knowledge
     knowledge: KnowledgeProviderConfig = dataclasses.field(
         default_factory=KnowledgeProviderConfig)
@@ -99,9 +108,16 @@ class GenerativeVQAPipeline:
     def __init__(self, config: GenerativeVQAPipelineConfig):
         self.config = config
         out = Path(config.output_dir)
-        out.mkdir(parents=True, exist_ok=True)
-        self.log = get_pipeline_logger(reset=True, name="generative_vqa",
-                                       log_dir=out / "logs")
+        self.main = process_rank() == 0
+        if self.main:
+            out.mkdir(parents=True, exist_ok=True)
+            self.log = get_pipeline_logger(reset=True, name="generative_vqa",
+                                           log_dir=out / "logs")
+        else:
+            self.log = get_pipeline_logger(
+                reset=True, name=f"generative_vqa_rank{process_rank()}",
+                level=logging.ERROR)
+        self.mesh = None
 
     # ----- setup ------------------------------------------------------------
     def _setup(self):
@@ -110,7 +126,11 @@ class GenerativeVQAPipeline:
         data = cfg.data
         if not data.generative:
             data = data.replace(generative=True)
-        device = resolve_device(cfg.device)
+        self.mesh = create_mesh(cfg.mesh, cfg.device)
+        device = resolve_device(self.mesh.device)
+        self.log.success(f"device {device}, mesh {self.mesh.shape}"
+                         + (f" over {self.mesh.backend}"
+                            if self.mesh.backend else ""))
         data_out = DataPipeline(data, self.log).run()
         tok = data_out.tokenizer
         model_cfg = cfg.model.replace(
@@ -219,17 +239,20 @@ class GenerativeVQAPipeline:
             if cfg.mode == "train":
                 tp = GenerativeTrainingPipeline(cfg.training, log)
                 out = tp.run(model, data_out.train_loader,
-                             data_out.val_loader, data_out.tokenizer)
+                             data_out.val_loader, data_out.tokenizer,
+                             self.mesh)
                 summary["history"] = out.history
                 summary["best_metric"] = out.best_metric
             elif cfg.mode == "evaluate":
                 tp = GenerativeTrainingPipeline(cfg.training, log)
                 mask = cfg.training.expert_mask
+                if self.mesh.size > 1:
+                    logical_to_mesh(model, self.mesh)
                 metrics = tp._validate(
                     build_generate_fn(model, self._decode_cfg(model)),
                     data_out.test_loader, data_out.tokenizer, device,
                     torch.tensor(mask, dtype=torch.float32, device=device)
-                    if mask else None)
+                    if mask else None, self.mesh)
                 summary["metrics"] = metrics
                 log.log_metrics(metrics, prefix="test/")
             elif cfg.mode == "inference":
@@ -242,10 +265,11 @@ class GenerativeVQAPipeline:
                 rm.stop()
 
         summary["wall_seconds"] = time.time() - t0
-        path = Path(cfg.output_dir) / "pipeline_summary.json"
-        path.write_text(json.dumps(summary, indent=2, default=str,
-                                   ensure_ascii=False))
-        log.success(f"summary saved to {path}")
+        if self.main:
+            path = Path(cfg.output_dir) / "pipeline_summary.json"
+            path.write_text(json.dumps(summary, indent=2, default=str,
+                                       ensure_ascii=False))
+            log.success(f"summary saved to {path}")
         return summary
 
     def _decode_cfg(self, model) -> DecodeConfig:
@@ -276,8 +300,10 @@ class GenerativeVQAPipeline:
                     "references": batch["all_answers"][i],
                 })
         path = Path(self.config.output_dir) / "inference_results.json"
-        path.write_text(json.dumps(results, ensure_ascii=False, indent=2))
-        self.log.success(f"wrote {len(results)} generations to {path}")
+        if self.main:
+            path.write_text(json.dumps(results, ensure_ascii=False,
+                                       indent=2))
+            self.log.success(f"wrote {len(results)} generations to {path}")
         return path
 
     def _demo(self, data_out, model, device) -> None:

@@ -6,8 +6,11 @@ setup -> nested config build -> create model with seeded weights ->
 param-count table -> dummy forward validation. ``load_checkpoint`` infers
 num_answers from the checkpoint's metadata or its answer-head bias and
 merges the weights by name and shape (``train/checkpoint.py:
-partial_load``). The JAX package's mesh field becomes ``device``: the
-card unless the caller asks for the CPU. Pretrained towers
+partial_load``). ``device`` is the card unless the caller asks for the
+CPU; ``mesh`` (read from the YAML's ``model.mesh``, as the JAX package's
+field) joins the launched process group (``parallel/mesh.py``; one
+process: the 1x1 mesh) and gives this rank its device. The model is
+built whole on every rank; ``TrainingPipeline`` places it. Pretrained towers
 (``pretrained_visual`` / ``pretrained_text``: a local HF model directory
 or a model in the local HF cache, read without ``transformers`` by
 ``models/convert.py``) re-derive their encoder sub-configs from the HF
@@ -30,6 +33,7 @@ from vivqa_tpu_torch.models.convert import (graft_pretrained,
                                             load_pretrained_visual_encoder)
 from vivqa_tpu_torch.models.vqa_model import (VietnameseVQAModel,
                                               create_vqa_model)
+from vivqa_tpu_torch.parallel.mesh import Mesh, MeshConfig, create_mesh
 from vivqa_tpu_torch.pipelines.common import count_parameters
 from vivqa_tpu_torch.train.checkpoint import (CheckpointConfig,
                                               CheckpointManager,
@@ -43,6 +47,7 @@ HEAD_BIAS = "answer_head.classifier.bias"
 class ModelPipelineConfig(ConfigBase):
     model: VQAModelConfig = dataclasses.field(default_factory=VQAModelConfig)
     device: str = "cuda"
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     seed: int = 42
     validate_forward: bool = True
     # HF name-or-path of pretrained towers to initialize from (converted
@@ -59,6 +64,7 @@ class ModelPipelineOutput:
     model: VietnameseVQAModel
     device: torch.device
     param_counts: dict
+    mesh: Optional[Mesh] = None
 
 
 class ModelPipeline:
@@ -71,11 +77,14 @@ class ModelPipeline:
         log = self.log
         log.start_stage("model_pipeline")
 
-        # 1. device setup
-        device = resolve_device(cfg.device)
+        # 1. mesh and device setup
+        mesh = create_mesh(cfg.mesh, cfg.device)
+        device = resolve_device(mesh.device)
         log.success(f"step 1/7 device {device}"
                     + (f" ({torch.cuda.get_device_name(device)})"
-                       if device.type == "cuda" else ""))
+                       if device.type == "cuda" else "")
+                    + f", mesh {mesh.shape}"
+                    + (f" over {mesh.backend}" if mesh.backend else ""))
 
         # 2. config assembly: pretrained towers re-derive their encoder
         # sub-config from the HF architecture so the model's leaves match
@@ -161,7 +170,7 @@ class ModelPipeline:
                         f"logits={tuple(logits.shape)}")
 
         log.end_stage("model_pipeline")
-        return ModelPipelineOutput(model, device, counts)
+        return ModelPipelineOutput(model, device, counts, mesh)
 
     def load_checkpoint(self, ckpt_dir: str,
                         num_answers: Optional[int] = None):

@@ -1,4 +1,4 @@
-"""Classification training pipeline on one card (counterpart of
+"""Classification training pipeline (counterpart of
 vivqa_tpu/pipelines/training_pipeline.py, with its config fields and
 defaults).
 
@@ -26,6 +26,15 @@ the optimizer's (``optax.MultiSteps``): the schedule spans steps /
 forward; ``strategy`` freezes by the mask of epoch 0 for the whole run,
 as the JAX pipeline does (so ``gradual_unfreeze`` never unlocks an
 encoder here; ``train/trainer.py`` rebuilds per stage).
+
+On a mesh (``ModelPipelineOutput.mesh``, passed to ``run`` and
+``validate``) the state is placed (``train/state.py:place_state``) and
+the step is ``ShardedStep``'s: every rank loads the global batch and
+trains on its 'data' rows; validation runs each rank's rows and gathers
+the logits over 'data' before the metrics, so every rank computes the
+same metrics. A checkpoint holds the gathered, whole parameters, written
+by global rank 0 alone (the single-card format); the others wait for it
+and load their slices of the best one.
 """
 
 from __future__ import annotations
@@ -40,6 +49,9 @@ import torch
 from vivqa_tpu_torch.config.base import ConfigBase
 from vivqa_tpu_torch.data.augmentation import DropoutScheduler
 from vivqa_tpu_torch.data.loader import device_prefetch
+from vivqa_tpu_torch.parallel.collectives import all_gather
+from vivqa_tpu_torch.parallel.mesh import (Mesh, barrier, local_rows,
+                                           logical_to_mesh, mesh_of)
 from vivqa_tpu_torch.metrics import (BLEUScore, CIDErScore,
                                      ExactMatchAccuracy, F1Score,
                                      METEORScore, PrecisionRecallF1,
@@ -48,13 +60,16 @@ from vivqa_tpu_torch.metrics import (BLEUScore, CIDErScore,
 from vivqa_tpu_torch.pipelines.common import (EarlyStopping, StepTimer,
                                               load_params)
 from vivqa_tpu_torch.train.checkpoint import (CheckpointConfig,
-                                              CheckpointManager)
+                                              CheckpointManager,
+                                              gathered_params)
 from vivqa_tpu_torch.train.losses import cross_entropy_loss
 from vivqa_tpu_torch.train.optimizers import (OptimizerConfig,
                                               SchedulerConfig,
                                               create_optimizer)
-from vivqa_tpu_torch.train.state import (TrainState, classification_loss_fn,
-                                         knowledge_of, make_train_step)
+from vivqa_tpu_torch.train.state import (KNOWLEDGE_KEYS, ShardedStep,
+                                         TrainState, classification_loss_fn,
+                                         knowledge_of, make_train_step,
+                                         place_state)
 from vivqa_tpu_torch.train.strategies import trainable_mask
 from vivqa_tpu_torch.utils import get_pipeline_logger
 
@@ -140,20 +155,27 @@ class TrainingPipeline:
 
     # ----- run ------------------------------------------------------------
     def run(self, model: torch.nn.Module, train_loader: Iterable,
-            val_loader: Iterable, id2answer: Dict[int, str]
-            ) -> TrainingPipelineOutput:
+            val_loader: Iterable, id2answer: Dict[int, str],
+            mesh: Optional[Mesh] = None) -> TrainingPipelineOutput:
         """Train ``model`` (a ``VietnameseVQAModel``, on the device it is
         on) over ``train_loader`` (collated batches, with a length),
-        validating each epoch over ``val_loader``."""
+        validating each epoch over ``val_loader``; on ``mesh`` when it is
+        given and larger than one rank."""
         cfg = self.config
         log = self.log
         log.start_stage("training_pipeline")
         device = next(model.parameters()).device
         state = self._build_state(model, len(train_loader))
+        if mesh is not None and mesh.size > 1:
+            place_state(state, mesh)
+        else:
+            mesh = None
         expert_mask = self._expert_mask(device)
         train_step = make_train_step(classification_loss_fn(
             cfg.moe_aux_weight, cfg.label_smoothing, expert_mask,
             cfg.mix_mode, cfg.mix_alpha))
+        if mesh is not None:
+            train_step = ShardedStep(mesh, train_step).compile(state)[0]
 
         ckpt = CheckpointManager(CheckpointConfig(
             directory=cfg.checkpoint_dir, max_to_keep=cfg.max_checkpoints,
@@ -165,7 +187,7 @@ class TrainingPipeline:
         start_epoch = 0
         if cfg.resume and ckpt.latest_step() is not None:
             restored, meta = ckpt.restore_best(map_location=device)
-            load_params(model, restored["params"])
+            load_params(model, restored["params"], state.sharding, mesh)
             start_epoch = int((meta or {}).get("epoch", -1)) + 1
             log.info("resumed best checkpoint from %s — continuing at "
                      "epoch %d (fresh optimizer)", cfg.checkpoint_dir,
@@ -198,6 +220,9 @@ class TrainingPipeline:
             for i, batch in enumerate(device_prefetch(iter(train_loader),
                                                       device)):
                 timer.tic()
+                if mesh is not None:
+                    batch = {k: v for k, v in batch.items()
+                             if isinstance(v, torch.Tensor)}
                 state, metrics = train_step(state, batch)
                 # the loss stays on the device; it is read on log steps
                 # and at the end of the epoch
@@ -214,7 +239,7 @@ class TrainingPipeline:
             train_loss = float(np.mean(losses)) if losses else 0.0
 
             # -- validate epoch ---------------------------------------------
-            val = self.validate(model, val_loader, id2answer)
+            val = self.validate(model, val_loader, id2answer, mesh)
             val["train_loss"] = train_loss
             val["epoch"] = epoch
             val["qa_pairs_per_sec"] = timer.items_per_sec
@@ -224,15 +249,17 @@ class TrainingPipeline:
             # -- checkpoint best --------------------------------------------
             metric = val.get(cfg.metric_for_best, 0.0)
             if stopper.update(metric):
-                params = {n: p.detach().cpu()
-                          for n, p in model.named_parameters()}
-                ckpt.save(state.step, {"params": params},
-                          metadata={"num_answers": len(id2answer),
-                                    "vocabulary": {str(k): v for k, v
-                                                   in id2answer.items()},
-                                    "epoch": epoch},
-                          metrics={cfg.metric_for_best: metric})
-                log.log_checkpoint(cfg.checkpoint_dir, state.step, metric)
+                params = gathered_params(model, state.sharding, mesh)
+                if mesh is None or mesh.is_main:
+                    ckpt.save(state.step, {"params": params},
+                              metadata={"num_answers": len(id2answer),
+                                        "vocabulary": {str(k): v for k, v
+                                                       in id2answer.items()},
+                                        "epoch": epoch},
+                              metrics={cfg.metric_for_best: metric})
+                    log.log_checkpoint(cfg.checkpoint_dir, state.step,
+                                       metric)
+                barrier(mesh)
             if stopper.should_stop:
                 log.warning(f"early stopping at epoch {epoch} "
                             f"(best {stopper.best:.4f})")
@@ -243,8 +270,8 @@ class TrainingPipeline:
         best_step = ckpt.best_step()
         if best_step is not None:
             restored, _ = ckpt.restore_best(map_location=device)
-            load_params(model, restored["params"])
-            final = self.validate(model, val_loader, id2answer)
+            load_params(model, restored["params"], state.sharding, mesh)
+            final = self.validate(model, val_loader, id2answer, mesh)
             log.log_metrics(final, prefix="final/")
         log.end_stage("training_pipeline")
         return TrainingPipelineOutput(state, history,
@@ -253,15 +280,23 @@ class TrainingPipeline:
 
     # ----- validation ------------------------------------------------------
     def validate(self, model: torch.nn.Module, val_loader: Iterable,
-                 id2answer: Dict[int, str]) -> Dict[str, float]:
+                 id2answer: Dict[int, str],
+                 mesh: Optional[Mesh] = None) -> Dict[str, float]:
         """Full metric dict over the validation set (reference :536-741):
         the model in eval mode with no gradient, on its device; the
         metrics from its f32 logits over the first ``_num_valid`` rows
         of each batch. The knowledge arrays a provider attached to the
-        batches reach the model, as in the train step."""
+        batches reach the model, as in the train step. On ``mesh`` (the
+        model placed on it by ``run``, or split here) each rank runs its
+        'data' rows and the logits are gathered before the metrics."""
         cfg = self.config
         device = next(model.parameters()).device
         expert_mask = self._expert_mask(device)
+        if mesh is not None and mesh.size > 1:
+            if mesh_of(model) is None:
+                logical_to_mesh(model, mesh)
+        else:
+            mesh = None
         model.eval()
         vqa_acc, top5 = VQAAccuracy(), TopKAccuracy(5)
         em, f1 = ExactMatchAccuracy(), F1Score("macro")
@@ -271,12 +306,20 @@ class TrainingPipeline:
         losses = []
         shown = 0
         for batch in device_prefetch(iter(val_loader), device):
+            x = {k: batch[k] for k in ("pixel_values", "input_ids",
+                                       "attention_mask") + KNOWLEDGE_KEYS
+                 if k in batch}
+            if mesh is not None:
+                x = local_rows(x, mesh)
             with torch.no_grad():
-                out = model(batch["pixel_values"], batch["input_ids"],
-                            batch["attention_mask"], expert_mask=expert_mask,
-                            **knowledge_of(batch))
+                out = model(x["pixel_values"], x["input_ids"],
+                            x["attention_mask"], expert_mask=expert_mask,
+                            **knowledge_of(x))
+            logits = out["logits"]
+            if mesh is not None:
+                logits = all_gather(logits, mesh.data)
             nv = batch.get("_num_valid", len(batch["labels"]))
-            logits = out["logits"].float().cpu().numpy()[:nv]
+            logits = logits.float().cpu().numpy()[:nv]
             labels = batch["labels"].cpu().numpy()[:nv]
             losses.append(float(cross_entropy_loss(
                 torch.from_numpy(logits), torch.from_numpy(labels))))

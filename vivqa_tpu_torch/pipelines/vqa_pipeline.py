@@ -14,6 +14,12 @@ train, val and test loaders, and the model gains its
 ``KnowledgeAttention`` at the provider's dim. As in the JAX package, the
 training run and ``evaluate`` pass the knowledge arrays to the model, and
 ``inference`` (``VQAPredictor``) does not.
+
+Under ``torchrun --nproc-per-node N`` the YAML's ``model.mesh`` (a
+``MeshConfig``; the default is data-parallel over every rank) places the
+training and the evaluation on the ranks' mesh (``parallel/mesh.py``).
+Global rank 0 alone logs, writes the summary, the statistics and the
+predictions; ``inference`` runs the whole model on every rank.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import logging
 import time
 from pathlib import Path
 
@@ -31,6 +38,7 @@ from vivqa_tpu_torch.device import resolve_device
 from vivqa_tpu_torch.eval.predictor import VQAPredictor
 from vivqa_tpu_torch.knowledge.provider import (KnowledgeProvider,
                                                 KnowledgeProviderConfig)
+from vivqa_tpu_torch.parallel.mesh import process_rank
 from vivqa_tpu_torch.pipelines.data_pipeline import (DataPipeline,
                                                      DataPipelineConfig)
 from vivqa_tpu_torch.pipelines.model_pipeline import (ModelPipeline,
@@ -80,9 +88,15 @@ class VQAPipeline:
     def __init__(self, config: VQAPipelineConfig):
         self.config = config
         out = Path(config.output_dir)
-        out.mkdir(parents=True, exist_ok=True)
-        self.log = get_pipeline_logger(reset=True, name="vqa_pipeline",
-                                       log_dir=out / "logs")
+        self.main = process_rank() == 0
+        if self.main:
+            out.mkdir(parents=True, exist_ok=True)
+            self.log = get_pipeline_logger(reset=True, name="vqa_pipeline",
+                                           log_dir=out / "logs")
+        else:
+            self.log = get_pipeline_logger(
+                reset=True, name=f"vqa_pipeline_rank{process_rank()}",
+                level=logging.ERROR)
 
     def run(self) -> dict:
         cfg = self.config
@@ -141,7 +155,7 @@ class VQAPipeline:
         if cfg.mode == "train":
             train_out = TrainingPipeline(cfg.training, log).run(
                 model_out.model, data_out.train_loader, data_out.val_loader,
-                data_out.id2answer)
+                data_out.id2answer, model_out.mesh)
             summary["history"] = train_out.history
             summary["best_metric"] = train_out.best_metric
             summary["final_metrics"] = train_out.final_metrics
@@ -149,7 +163,8 @@ class VQAPipeline:
             summary["loop_seconds"] = train_out.loop_seconds
         elif cfg.mode == "evaluate":
             metrics = TrainingPipeline(cfg.training, log).validate(
-                model_out.model, data_out.test_loader, data_out.id2answer)
+                model_out.model, data_out.test_loader, data_out.id2answer,
+                model_out.mesh)
             summary["metrics"] = metrics
             log.log_metrics(metrics, prefix="test/")
         else:
@@ -164,15 +179,18 @@ class VQAPipeline:
                     r = predictor.predict_arrays(
                         batch["pixel_values"][i], q)
                     results.append(dataclasses.asdict(r))
-            out_path = Path(cfg.output_dir) / "inference_results.json"
-            out_path.write_text(json.dumps(results, ensure_ascii=False,
-                                           indent=2))
             summary["num_predictions"] = len(results)
-            log.success(f"wrote {len(results)} predictions to {out_path}")
+            if self.main:
+                out_path = Path(cfg.output_dir) / "inference_results.json"
+                out_path.write_text(json.dumps(results, ensure_ascii=False,
+                                               indent=2))
+                log.success(f"wrote {len(results)} predictions to "
+                            f"{out_path}")
 
         summary["wall_seconds"] = time.time() - t0
-        self._save_summary(summary)
-        log.save_stats(Path(cfg.output_dir) / "run_stats.json")
+        if self.main:
+            self._save_summary(summary)
+            log.save_stats(Path(cfg.output_dir) / "run_stats.json")
         return summary
 
     def _save_summary(self, summary: dict) -> None:

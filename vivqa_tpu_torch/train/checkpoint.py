@@ -19,6 +19,14 @@ Nothing is held open between calls, so there is no ``close``; the JAX
 config's ``save_interval_steps``, which its manager never reads, is left
 out.
 
+On a mesh, ``gathered_params`` and ``gathered_optimizer_state`` give the
+whole tensors of a placed state (every rank calls them: they gather the
+shards over 'model'), and the main rank alone saves them, so a
+checkpoint is the single-card format whatever mesh wrote it, and it
+resumes on any mesh: load it into the unplaced model and optimizer, then
+``place_state``, or into a placed model with ``pipelines.common.load_params``
+given the state's sharding and mesh.
+
 ``partial_load`` merges a restored {name: tensor} dict into a model by
 name and shape. ``emergency_save`` writes one state at once, outside any
 manager's policy, into ``<directory>/emergency/`` (``state.pt`` and, with
@@ -193,3 +201,33 @@ def restore_emergency(path: str | Path, map_location=None):
                        weights_only=True)
     meta = path / _METADATA
     return state, json.loads(meta.read_text()) if meta.exists() else {}
+
+
+def gathered_params(model: nn.Module, sharding=None, mesh=None) -> dict:
+    """{name: whole parameter on the host}; ``sharding`` and ``mesh`` are
+    a placed state's (``TrainState.sharding``, ``.mesh``), None for a
+    state on one device."""
+    from vivqa_tpu_torch.parallel.mesh import Placement, full_tensor
+    out = {}
+    for n, p in model.named_parameters():
+        pl = sharding.placements.get(n, Placement()) if sharding \
+            else Placement()
+        out[n] = full_tensor(p.detach(), pl, mesh).cpu()
+    return out
+
+
+def gathered_optimizer_state(optimizer, sharding=None, mesh=None) -> dict:
+    """``optimizer.state_dict()`` with each split parameter's state
+    whole, on the host."""
+    from vivqa_tpu_torch.parallel.mesh import Placement, full_tensor
+    sd = optimizer.state_dict()
+
+    def whole(by_name: dict) -> dict:
+        return {n: full_tensor(t, sharding.placements.get(n, Placement())
+                               if sharding else Placement(), mesh).cpu()
+                for n, t in by_name.items()}
+    out = dict(sd, acc=whole(sd["acc"]),
+               state={f: whole(ts) for f, ts in sd["state"].items()})
+    if "slow" in sd:
+        out["slow"] = whole(sd["slow"])
+    return out

@@ -14,6 +14,8 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from vivqa_tpu_torch.parallel.collectives import Axis, all_reduce
+
 # label of a position the loss leaves out (answer padding); data/dataset.py
 # builds its teacher-forcing targets with it
 IGNORE_INDEX = -100
@@ -22,11 +24,14 @@ IGNORE_INDEX = -100
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        label_smoothing: float = 0.0,
                        ignore_index: Optional[int] = None,
-                       weights: Optional[torch.Tensor] = None
-                       ) -> torch.Tensor:
+                       weights: Optional[torch.Tensor] = None,
+                       data: Optional[Axis] = None) -> torch.Tensor:
     """CE over the last axis, labels int (...,); ``ignore_index``
     positions contribute zero; the sum is divided by the (weighted) count
-    of valid positions, at least 1."""
+    of valid positions, at least 1. With ``data`` (a mesh axis that splits
+    the batch) the count is the global batch's, over ``data.size``: the
+    mean over the ranks of this rank's loss, and of its gradient, is the
+    global batch's mean, however the ignored positions fall."""
     logits = logits.float()
     num_classes = logits.shape[-1]
     labels = labels.long()
@@ -44,6 +49,9 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     if weights is not None:
         nll = nll * weights
         valid = valid * weights
+    if data is not None and data.size > 1:
+        total = all_reduce(valid.sum().detach(), data)
+        return nll.sum() * data.size / torch.clamp(total, min=1.0)
     return nll.sum() / torch.clamp(valid.sum(), min=1.0)
 
 

@@ -33,6 +33,18 @@ than taken from ``torch.optim``, whose variants differ:
   every k-th step applies the chain to that mean and advances the
   schedule's count; the parameters do not move in between.
 
+On a mesh (``use_mesh``, from ``train/state.py:place_state``) the
+parameters are this rank's shards and ``step()`` first makes the
+gradients the global batch's: the column-parallel biases' partial
+gradients summed over 'model', then every gradient averaged over 'data'
+(one flat all-reduce each). The global norm sums each split leaf's
+squares over 'model' and counts each replicated leaf once; LAMB's norms
+per leaf do the same. Adam, AdamW, SGD and RAdam are elementwise and run
+on the shards, as do the layer-wise scales and the lookahead; adafactor
+factors the dimensions of whole flax leaves and refuses split ones
+(ROADMAP.md, Queue A item 18). Under 'data' alone nothing is split and
+every optimizer runs unchanged.
+
 Masks and scales match on each parameter's flax path
 (``models/from_jax.flax_paths``), as the JAX package matches its param
 tree. Adam and AdamW run as a few ``torch._foreach_*`` calls over all
@@ -54,6 +66,7 @@ from vivqa_tpu_torch.config.base import ConfigBase
 from vivqa_tpu_torch.models.from_jax import (check_one_to_one, flax_layouts,
                                              flax_paths, from_flax_view,
                                              to_flax_view)
+from vivqa_tpu_torch.parallel.collectives import all_reduce
 
 OPTIMIZERS = ("adamw", "adam", "sgd", "radam", "lamb", "adafactor")
 MU_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -290,6 +303,7 @@ class Optimizer:
         self.config = config
         named = [(n, p) for n, p in model.named_parameters()
                  if p.requires_grad]
+        self.all_names = [n for n, _ in named]
         self.all_params = [p for _, p in named]
         freeze_mask = freeze_mask or {}
         kept = [(n, p) for n, p in named if freeze_mask.get(n, True)]
@@ -317,6 +331,70 @@ class Optimizer:
         self.slow = ([p.detach().clone() for p in self.params]
                      if config.lookahead else None)
         self.lookahead_count = 0
+        self.mesh = self.sharding = None
+        self.split = [False] * len(self.params)
+
+    def use_mesh(self, mesh, sharding) -> None:
+        """Switch to this rank's shards (``parallel/mesh.py:Sharding``):
+        the per-parameter state keeps the same slices as the parameters,
+        which ``logical_to_mesh`` has already cut."""
+        from vivqa_tpu_torch.parallel.mesh import shard_tensor
+        self.mesh, self.sharding = mesh, sharding
+        self.split = [sharding.sharded(n) for n in self.names]
+        self.all_split = [sharding.sharded(n) for n in self.all_names]
+        self.all_partial = [n in sharding.partial for n in self.all_names]
+        if self.config.name == "adafactor" and any(self.split):
+            raise NotImplementedError(
+                "adafactor factors whole flax leaves; a mesh's 'model' "
+                "axis splits some (ROADMAP.md, Queue A item 18)")
+        for i, (n, p) in enumerate(zip(self.names, self.params)):
+            if not self.split[i]:
+                continue
+            pl = sharding.placements[n]
+            for ts in list(self.state.values()) + [self.slow or [],
+                                                   self.acc]:
+                if i < len(ts) and ts[i] is not None \
+                        and ts[i].shape != p.shape:
+                    ts[i] = shard_tensor(ts[i], pl, mesh)
+
+    def _global_norm(self, grads: list, split: list) -> torch.Tensor:
+        """``global_grad_norm`` of this rank's gradients, each split leaf's
+        squares summed over 'model'."""
+        if self.mesh is None or self.mesh.model.size == 1:
+            return global_grad_norm(grads)
+        sq = [torch.zeros((), device=self.all_params[0].device)] * 2
+        kept = [(g, sp) for g, sp in zip(grads, split) if g is not None]
+        norms = leaf_norms([g for g, _ in kept])
+        for (_, sp), n in zip(kept, norms):
+            sq[sp] = sq[sp] + n * n
+        return torch.sqrt(sq[0] + all_reduce(sq[1], self.mesh.model))
+
+    def _reduce_gradients(self) -> None:
+        """The global batch's gradients: partial ones summed over 'model',
+        then all averaged over 'data' (a missing gradient is a zero)."""
+        m = self.mesh
+        if m.model.size > 1:
+            part = [p for p, f in zip(self.all_params, self.all_partial)
+                    if f and p.grad is not None]
+            if part:
+                flat = all_reduce(torch.cat([p.grad.reshape(-1)
+                                             for p in part]), m.model)
+                self._unflatten(flat, part)
+        if m.data.size > 1:
+            for p in self.all_params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            flat = all_reduce(torch.cat([p.grad.reshape(-1)
+                                         for p in self.all_params]), m.data)
+            self._unflatten(flat / m.data.size, self.all_params)
+
+    @staticmethod
+    def _unflatten(flat: torch.Tensor, params: list) -> None:
+        """Each parameter's gradient: its view of the reduced ``flat``."""
+        offset = 0
+        for p in params:
+            p.grad = flat[offset:offset + p.numel()].view_as(p)
+            offset += p.numel()
 
     # -- state ---------------------------------------------------------------
     def _init_state(self) -> dict:
@@ -387,6 +465,12 @@ class Optimizer:
             own = self.slow if field == "slow" else self.state[field]
             for i, n in enumerate(self.names):
                 src = by_name[n]
+                if self.split[i] and src.dim() == own[i].dim() and \
+                        tuple(src.shape) != tuple(own[i].shape):
+                    # a whole tensor (a checkpoint's) for this rank's slice
+                    from vivqa_tpu_torch.parallel.mesh import shard_tensor
+                    src = shard_tensor(src, self.sharding.placements[n],
+                                       self.mesh)
                 if tuple(src.shape) != tuple(own[i].shape):
                     raise ValueError(f"{field} of {n}: {tuple(src.shape)} "
                                      f"!= {tuple(own[i].shape)}")
@@ -420,7 +504,12 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self) -> torch.Tensor:
-        norm = global_grad_norm(p.grad for p in self.all_params)
+        if self.mesh is not None:
+            self._reduce_gradients()
+            norm = self._global_norm([p.grad for p in self.all_params],
+                                     self.all_split)
+        else:
+            norm = global_grad_norm(p.grad for p in self.all_params)
         clip_norm = norm if not self.frozen else None
         if self.accumulate_steps > 1:
             if not self._accumulate():
@@ -430,7 +519,7 @@ class Optimizer:
                  for p in self.params]
         if self.clip_norm > 0:
             if clip_norm is None:
-                clip_norm = global_grad_norm(grads)
+                clip_norm = self._global_norm(grads, self.split)
             scale = torch.where(clip_norm < self.clip_norm, 1.0,
                                 self.clip_norm / clip_norm)
             torch._foreach_mul_(grads, scale)
@@ -524,13 +613,25 @@ class Optimizer:
         """Adam, decayed weights, then optax.scale_by_trust_ratio:
         u ‖p‖ / ‖u‖ per leaf (u where either norm is 0)."""
         out = self._decayed(self._adam_direction(grads, torch.float32))
-        p_norms = leaf_norms(self.params)
-        u_norms = leaf_norms(out)
+        p_norms = self._leaf_norms(self.params)
+        u_norms = self._leaf_norms(out)
         for u, pn, un in zip(out, p_norms, u_norms):
             zero = (pn == 0.0) | (un == 0.0)
             u.mul_(torch.where(zero, 1.0, pn / un))
         torch._foreach_mul_(out, -lr)
         return out
+
+    def _leaf_norms(self, tensors: list) -> list:
+        """``leaf_norms``, a split leaf's squares summed over 'model'."""
+        norms = leaf_norms(tensors)
+        if self.mesh is None or not any(self.split):
+            return norms
+        idx = [i for i, sp in enumerate(self.split) if sp]
+        sq = all_reduce(torch.stack([norms[i] * norms[i] for i in idx]),
+                        self.mesh.model)
+        for j, i in enumerate(idx):
+            norms[i] = torch.sqrt(sq[j])
+        return norms
 
     def _adafactor(self, grads: list, lr: float) -> list:
         """optax.adafactor as the JAX package builds it: factored RMS (in

@@ -1,13 +1,24 @@
 """Training state and the train/eval steps (counterpart of
-vivqa_tpu/train/state.py) on one card.
+vivqa_tpu/train/state.py).
 
 The JAX package compiles one pure function ``state' = train_step(state,
 batch)``; here the model and the optimizer update in place, eagerly. The
 dropout randomness of step n comes from a ``torch.Generator`` reseeded
 with ``fold_in(seed, n)`` before the step, as the JAX step folds the step
-into ``state.rng``; reseeding is host-side and costs no device sync. The
-mesh sharding (``ShardedStep``, ``place_state``) and the settled-read
-defenses of the JAX package's TPU runtime have no counterpart on one card.
+into ``state.rng``; reseeding is host-side and costs no device sync.
+
+On a ('data', 'model') mesh (``parallel/mesh.py``), ``place_state``
+keeps each rank's shard of the parameters and the optimizer's moments
+and ``ShardedStep`` runs the global step: each rank takes its rows of the
+global batch, the losses divide by the global counts, the optimizer
+averages the gradients over 'data' (``train/optimizers.py``) and the
+metrics come back equal on every rank. The step's loss, gradient norm
+and update are the one-device step's up to the order of the sums. On
+more than one 'data' rank, the dropout stream of step n is
+``fold_in(fold_in(seed, n), data rank)``: the ranks draw different masks
+and a rank repeats its own, but the masks are not the one-device masks'
+rows (ROADMAP.md, Queue C). The settled-read defenses of the JAX
+package's TPU runtime have no counterpart here.
 """
 
 from __future__ import annotations
@@ -19,6 +30,11 @@ import torch
 from torch import nn
 
 from vivqa_tpu_torch.ops.batch_mix import mix_batch, mixed_cross_entropy
+from vivqa_tpu_torch.parallel.collectives import (all_gather, all_reduce,
+                                                  broadcast)
+from vivqa_tpu_torch.parallel.mesh import (Mesh, Sharding, batch_sharding,
+                                           local_rows, logical_to_mesh,
+                                           mesh_of)
 from vivqa_tpu_torch.train.losses import IGNORE_INDEX, cross_entropy_loss
 from vivqa_tpu_torch.train.optimizers import Optimizer
 
@@ -44,6 +60,8 @@ class TrainState:
     seed: int
     generator: torch.Generator
     step: int = 0
+    mesh: Optional[Mesh] = None         # set by place_state
+    sharding: Optional[Sharding] = None
 
     @classmethod
     def create(cls, model: nn.Module, optimizer: Optimizer,
@@ -56,8 +74,12 @@ class TrainState:
         return self.optimizer.schedule
 
     def step_generator(self) -> torch.Generator:
-        """The generator, seeded for the current step."""
-        self.generator.manual_seed(fold_in(self.seed, self.step))
+        """The generator, seeded for the current step (and this rank's
+        'data' index, on a mesh with more than one)."""
+        seed = fold_in(self.seed, self.step)
+        if self.mesh is not None and self.mesh.data.size > 1:
+            seed = fold_in(seed, self.mesh.data.rank)
+        self.generator.manual_seed(seed)
         return self.generator
 
 
@@ -102,7 +124,9 @@ def classification_loss_fn(aux_weight: float = 0.01,
             accuracy = (lam * (preds == labels).float().mean()
                         + (1 - lam) * (preds == labels_b).float().mean())
         else:
-            ce = cross_entropy_loss(out["logits"], labels, label_smoothing)
+            mesh = mesh_of(model)
+            ce = cross_entropy_loss(out["logits"], labels, label_smoothing,
+                                    data=mesh.data if mesh else None)
             accuracy = (preds == labels).float().mean()
         return ce + aux_weight * out["aux_loss"], {
             "ce": ce.detach(), "aux_loss": out["aux_loss"].detach(),
@@ -127,8 +151,10 @@ def generative_loss_fn(label_smoothing: float = 0.1,
                     batch["decoder_input_ids"], batch["question_mask"],
                     batch["decoder_mask"], expert_mask=expert_mask,
                     generator=generator, **knowledge_of(batch))
+        mesh = mesh_of(model)
         ce = cross_entropy_loss(out["logits"], batch["labels"],
-                                label_smoothing, ignore_index=IGNORE_INDEX)
+                                label_smoothing, ignore_index=IGNORE_INDEX,
+                                data=mesh.data if mesh else None)
         n_tokens = (batch["labels"] != IGNORE_INDEX).sum()
         return ce + moe_aux_weight * out["aux_loss"], {
             "ce": ce.detach(), "aux_loss": out["aux_loss"].detach(),
@@ -166,3 +192,102 @@ def make_eval_step(metric_fn: Callable) -> Callable:
         with torch.no_grad():
             return metric_fn(state.model, batch)
     return eval_step
+
+
+def place_state(state: TrainState, mesh: Mesh) -> TrainState:
+    """Put a freshly built (or resumed) state on the mesh: every rank
+    takes global rank 0's parameters, then keeps its slice of each one
+    the rules split, and of its optimizer state (copies), and the modules
+    switch to their parallel forms. A state rebuilt over a model already
+    placed on ``mesh`` (a trainer's new stage) keeps its slices and only
+    its optimizer learns the mesh. On a 1x1 mesh the state is left as it
+    is (the single-card step)."""
+    if mesh.size == 1:
+        return state
+    if mesh_of(state.model) is mesh:
+        sharding = state.model.mesh_sharding
+        state.optimizer.use_mesh(mesh, sharding)
+        state.mesh, state.sharding = mesh, sharding
+        return state
+    params = [p for p in state.model.parameters()]
+    with torch.no_grad():
+        for axis in (mesh.data, mesh.model):
+            flat = torch.cat([p.detach().reshape(-1) for p in params])
+            flat = broadcast(flat, axis)
+            offset = 0
+            for p in params:
+                p.copy_(flat[offset:offset + p.numel()].view_as(p))
+                offset += p.numel()
+    sharding = logical_to_mesh(state.model, mesh)
+    state.optimizer.use_mesh(mesh, sharding)
+    state.mesh, state.sharding = mesh, sharding
+    return state
+
+
+def replicate_metrics(metrics: dict, mesh: Mesh,
+                      rows: Optional[int] = None) -> dict:
+    """A rank's metrics -> the global step's, equal on every rank: 0-d
+    tensors averaged over 'data' (summed for counts, the ``n_*`` keys),
+    tensors of ``rows`` leading rows (a rank's predictions) gathered in
+    rank order, other tensors averaged; dicts recursively."""
+    d = mesh.data
+    if d.size == 1:
+        return metrics
+    out, scalars = {}, []
+    for k, v in metrics.items():
+        if isinstance(v, dict):
+            out[k] = replicate_metrics(v, mesh, rows)
+        elif not isinstance(v, torch.Tensor):
+            out[k] = v
+        elif v.dim() and rows is not None and v.shape[0] == rows:
+            out[k] = all_gather(v, d)
+        else:
+            scalars.append(k)
+    if scalars:
+        flat = torch.cat([metrics[k].detach().double().reshape(-1)
+                          for k in scalars])
+        total = all_reduce(flat, d)
+        offset = 0
+        for k in scalars:
+            v = metrics[k]
+            n = v.numel()
+            t = total[offset:offset + n].view(v.shape)
+            if not k.startswith("n_"):
+                t = t / d.size
+            out[k] = t.to(v.dtype)
+            offset += n
+    return out
+
+
+@dataclasses.dataclass
+class ShardedStep:
+    """A train (and eval) step on a mesh: each rank takes its 'data'
+    rows of the global batch, the gradient averaging and the metrics'
+    reduction make it the global step (counterpart of the JAX package's
+    ``ShardedStep``, which compiles the step with GSPMD shardings)."""
+    mesh: Mesh
+    train_step: Callable
+    eval_step: Optional[Callable] = None
+
+    def compile(self, state: TrainState):
+        """-> (train, eval, placements, batch placement); on one device
+        the plain steps and None, None."""
+        if self.mesh.size == 1:
+            return self.train_step, self.eval_step, None, None
+        if state.mesh is not self.mesh:
+            raise ValueError("place_state(state, mesh) first")
+        mesh = self.mesh
+
+        def train(state: TrainState, batch: dict):
+            state, metrics = self.train_step(state, local_rows(batch, mesh))
+            return state, replicate_metrics(metrics, mesh)
+
+        evaluate = None
+        if self.eval_step is not None:
+            def evaluate(state: TrainState, batch: dict):
+                local = local_rows(batch, mesh)
+                rows = len(next(iter(local.values())))
+                return replicate_metrics(self.eval_step(state, local), mesh,
+                                         rows)
+        return (train, evaluate, state.sharding.placements,
+                batch_sharding(mesh))

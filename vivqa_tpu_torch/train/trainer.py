@@ -1,5 +1,5 @@
-"""Generic VQA trainer (counterpart of vivqa_tpu/train/trainer.py) on one
-card: the configurable trainer with gradient checkpointing, the freezing
+"""Generic VQA trainer (counterpart of vivqa_tpu/train/trainer.py): the
+configurable trainer with gradient checkpointing, the freezing
 strategies per epoch, early stopping, TensorBoard and wandb writers
 behind their import gates, the SIGINT checkpoint, full resume, profiling
 and the resource manager.
@@ -29,6 +29,15 @@ state at the start of both passes. Every attention call runs with
 gradients in both passes, so on the card a checkpointed step launches
 the forward with stats twice per call (72 times for the flagship's 36
 calls) and the backward kernels once.
+
+On a mesh (``mesh``, where the JAX trainer takes its own) every state is
+placed (``train/state.py:place_state``) and the step is ``ShardedStep``'s;
+the evaluation runs each rank's 'data' rows and gathers the logits over
+'data' (the sparse MoE layer's capacity is the global batch's, so every
+forward of a placed model takes a rank's rows); global rank 0 alone
+writes the checkpoint
+(the gathered state, the single-card format: a resume on any mesh
+slices it) and the writers' logs.
 """
 
 from __future__ import annotations
@@ -46,15 +55,20 @@ from torch.utils.checkpoint import checkpoint
 from vivqa_tpu_torch.config.base import ConfigBase
 from vivqa_tpu_torch.data.loader import device_prefetch
 from vivqa_tpu_torch.device import resolve_device
-from vivqa_tpu_torch.pipelines.common import EarlyStopping, StepTimer
+from vivqa_tpu_torch.parallel.collectives import all_gather
+from vivqa_tpu_torch.parallel.mesh import Mesh, barrier, local_rows, mesh_of
+from vivqa_tpu_torch.pipelines.common import (EarlyStopping, StepTimer,
+                                              load_params)
 from vivqa_tpu_torch.train.checkpoint import (CheckpointConfig,
                                               CheckpointManager,
-                                              partial_load)
+                                              gathered_optimizer_state,
+                                              gathered_params, partial_load)
 from vivqa_tpu_torch.train.losses import cross_entropy_loss
 from vivqa_tpu_torch.train.optimizers import (OptimizerConfig,
                                               SchedulerConfig,
                                               create_optimizer)
-from vivqa_tpu_torch.train.state import TrainState, make_train_step
+from vivqa_tpu_torch.train.state import (ShardedStep, TrainState,
+                                         make_train_step, place_state)
 from vivqa_tpu_torch.train.strategies import trainable_mask
 from vivqa_tpu_torch.utils import get_pipeline_logger
 
@@ -105,8 +119,11 @@ class VQATrainer:
 
     def __init__(self, config: TrainerConfig, model: nn.Module,
                  device: str | torch.device | None = None, logger=None,
-                 resource_manager=None):
+                 resource_manager=None, mesh: Optional[Mesh] = None):
         self.config = config
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if self.mesh is not None:
+            device = self.mesh.device
         self.device = (resolve_device(device) if device is not None
                        else next(model.parameters()).device)
         self.model = model.to(self.device)
@@ -114,14 +131,15 @@ class VQATrainer:
         self.rm = resource_manager
         self._interrupted = False
         self._tb = None
-        if config.tensorboard_dir:
+        main = self.mesh is None or self.mesh.is_main
+        if config.tensorboard_dir and main:
             try:
                 from torch.utils.tensorboard import SummaryWriter
                 self._tb = SummaryWriter(config.tensorboard_dir)
             except ImportError:
                 self.log.warning("tensorboard unavailable; writer disabled")
         self._wandb = None
-        if config.wandb_project:
+        if config.wandb_project and main:
             try:
                 import wandb
                 self._wandb = wandb.init(project=config.wandb_project,
@@ -140,8 +158,10 @@ class VQATrainer:
                 out = checkpointed_forward(model, args, generator)
             else:
                 out = model(*args, generator=generator)
+            mesh = mesh_of(model)
             ce = cross_entropy_loss(out["logits"], batch["labels"],
-                                    label_smoothing=cfg.label_smoothing)
+                                    label_smoothing=cfg.label_smoothing,
+                                    data=mesh.data if mesh else None)
             loss = ce + cfg.moe_aux_weight * out["aux_loss"]
             acc = (out["logits"].detach().argmax(-1)
                    == batch["labels"]).float().mean()
@@ -165,7 +185,8 @@ class VQATrainer:
             total_steps=max(1, steps_per_epoch * cfg.num_epochs))
         opt = create_optimizer(cfg.optimizer, self.model, sched,
                                self.freeze_mask(epoch))
-        return TrainState.create(self.model, opt, seed=cfg.seed)
+        state = TrainState.create(self.model, opt, seed=cfg.seed)
+        return state if self.mesh is None else place_state(state, self.mesh)
 
     # -- logging -------------------------------------------------------------
     def _log_step(self, step: int, metrics: Dict[str, float]) -> None:
@@ -204,10 +225,11 @@ class VQATrainer:
     def state_dict(state: TrainState) -> Dict:
         """The full resumable state: parameters, the optimizer's state
         (moments, count, accumulator, lookahead copy), the step and the
-        seed of the dropout stream."""
-        return {"params": {n: p.detach().cpu() for n, p in
-                           state.model.named_parameters()},
-                "optimizer": state.optimizer.state_dict(),
+        seed of the dropout stream; whole (gathered) on a mesh."""
+        return {"params": gathered_params(state.model, state.sharding,
+                                          state.mesh),
+                "optimizer": gathered_optimizer_state(
+                    state.optimizer, state.sharding, state.mesh),
                 "step": state.step, "seed": state.seed}
 
     def _restore_full(self, ckpt: CheckpointManager, state: TrainState):
@@ -219,7 +241,11 @@ class VQATrainer:
         continued."""
         saved, meta = ckpt.restore(map_location=self.device)
         parts = saved if "params" in saved else {"params": saved}
-        partial_load(parts["params"], self.model, self.log)
+        if state.mesh is not None:
+            load_params(self.model, parts["params"], state.sharding,
+                        state.mesh)
+        else:
+            partial_load(parts["params"], self.model, self.log)
         try:
             state.optimizer.load_state_dict(parts["optimizer"])
         except (KeyError, ValueError, TypeError) as e:
@@ -251,6 +277,8 @@ class VQATrainer:
         self._steps_per_epoch = len(train_loader)
         state = self._build_state(len(train_loader))
         train_step = make_train_step(self._loss_fn())
+        if self.mesh is not None:
+            train_step = ShardedStep(self.mesh, train_step).compile(state)[0]
         current_stage = self._unfreeze_stage(0)
 
         ckpt = CheckpointManager(CheckpointConfig(
@@ -295,6 +323,9 @@ class VQATrainer:
                     if cfg.profile_steps and step == cfg.profile_steps[0]:
                         profiler = self._start_profile()
                     timer.tic()
+                    if self.mesh is not None:
+                        batch = {k: v for k, v in batch.items()
+                                 if isinstance(v, torch.Tensor)}
                     state, metrics = train_step(state, batch)
                     losses.append(metrics["loss"])   # stays on the device
                     timer.toc(batch["labels"].shape[0])
@@ -328,10 +359,13 @@ class VQATrainer:
 
                 metric = epoch_metrics.get(cfg.metric_for_best, 0.0)
                 if stopper.update(metric) or self._interrupted:
-                    ckpt.save(state.step, self.state_dict(state),
-                              metadata={"epoch": epoch,
-                                        "interrupted": self._interrupted},
-                              metrics={cfg.metric_for_best: metric})
+                    whole = self.state_dict(state)
+                    if self.mesh is None or self.mesh.is_main:
+                        ckpt.save(state.step, whole,
+                                  metadata={"epoch": epoch,
+                                            "interrupted": self._interrupted},
+                                  metrics={cfg.metric_for_best: metric})
+                    barrier(self.mesh)
                 if self._interrupted:
                     log.warning("interrupt checkpoint saved; stopping")
                     break
@@ -379,10 +413,16 @@ class VQATrainer:
         total, correct, loss_sum = 0, 0.0, 0.0
         self.model.eval()
         for batch in device_prefetch(iter(loader), self.device):
+            x = {k: batch[k] for k in ("pixel_values", "input_ids",
+                                       "attention_mask")}
+            if self.mesh is not None:
+                x = local_rows(x, self.mesh)
             with torch.no_grad():
-                out = self.model(batch["pixel_values"], batch["input_ids"],
-                                 batch["attention_mask"])
+                out = self.model(x["pixel_values"], x["input_ids"],
+                                 x["attention_mask"])
                 logits = out["logits"].float()
+                if self.mesh is not None:
+                    logits = all_gather(logits, self.mesh.data)
                 rows = (logits.argmax(-1) == batch["labels"]).float()
                 logp = torch.log_softmax(logits, -1)
                 nll = -logp.gather(-1, batch["labels"][:, None])[:, 0]
