@@ -14,8 +14,8 @@ Phases, in order; any failure exits non-zero:
    decode calls over the KV cache at several steps and over the encoder
    memory; and a few edge cases), in f32, bf16 and f16 (the serving
    forward's tensor-core template at each of its three tile sizes), one
-   JSON line per case with its time (CUDA-graph replay, and the
-   profiler's sum of kernel durations; at each tile size), the plain
+   JSON line per case with its time (CUDA-graph replay, at each tile
+   size), the plain
    version's, the bound and scaled_dot_product_attention's time as a
    yardstick, and a line with the serving forward's time per flagship
    forward and per generate at each tile size; then the three training
@@ -27,7 +27,9 @@ Phases, in order; any failure exits non-zero:
    seeded random weights behind VQAPredictor, answering batches of 8
    requests with questions of different lengths; every attention call
    must go through the kernel (36 launches per forward), and one batch is
-   checked against the same weights on the CPU (the plain path); then
+   checked on a copy with 2 layers a stack against the same weights on
+   the CPU (the plain path; every card-vs-CPU check below runs such a
+   copy, its card half too); then
    one batch's forward eager, as one CUDA graph, and under torch.profiler
    (the device's busy time and idle share);
 5. generative serving: bench_serving's model (12 + 12 encoder layers, 3
@@ -197,23 +199,30 @@ Phases, in order; any failure exits non-zero:
    gloo group (NCCL refuses two ranks on one device; the kernels built
    here, loaded there): the flagship at full width (bf16, dropout 0) on
    the (2, 1) and (1, 2) meshes, 2 steps each of a global batch of 32
-   from the same seeded weights as rank 0's one-process steps, held to
+   from the same seeded weights as one process's steps, held to
    train_check's tolerances, a 2-layer f32 copy held to 1e-4, 36
    launches of each training kernel a step and of the forward an
-   evaluation forward on each rank; bench_serving's generative model on
-   (1, 2): a greedy generate of 32 tokens at batch 16 (411 launches a
-   rank), its teacher-forced logits against one process
-   (``compare_logits``); step ms per rank by CUDA events, the
-   collectives' host ms and bytes a step, peak memory per rank (two
-   ranks on one card: not a multi-card figure);
+   evaluation forward on each rank; the same with KnowledgeAttention
+   (its ``k_proj`` gathered on (1, 2); 37 launches) and its evaluation
+   logits against one process's; adafactor on (1, 2) (the f32 copy's
+   factored statistics within 1e-3 of one process's); bench_serving's
+   generative model on (1, 2): a greedy generate of 32 tokens at batch
+   16 (411 launches a rank), its teacher-forced logits against one
+   process (``compare_logits``); both CLIs with ``--use-knowledge`` on
+   the YAML's (1, 2) mesh; the ablation CLI on (2, 1), two rows within
+   0.05 of one process's exact match, each result written once by rank
+   0; step ms per rank by CUDA events, the collectives' host ms and bytes
+   a step, peak memory per rank (two ranks on one card: not a
+   multi-card figure);
 16. path shapes: each wrapper call of phases 4-15 is recorded by its
    kernel, dtype, shapes, mask layout, causal, dropout rate and tile
    rows; each such launch the kernel phases did not hold against the
    plain version (the classification pipeline's batches of 32, 2 and 1,
    say) is held now on random inputs of that kind, and the script fails
    if any launch of a main path stays unchecked;
-17. the card line (nvidia-smi's name and power limit), the kernels line,
-   and the device line, which is the last line.
+17. the seconds by phase (``phase_seconds``), the card line (nvidia-smi's
+   name and power limit), the kernels line, and the device line, which
+   is the last line.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.
@@ -270,7 +279,8 @@ from vivqa_tpu_torch.models.encoders.deberta import (DeBERTaConfig,
                                                      DeBERTaEncoder)
 from vivqa_tpu_torch.models.encoders.swin import (SwinEncoder,
                                                   window_attention)
-from vivqa_tpu_torch.models.generative import create_generative_vqa_model
+from vivqa_tpu_torch.models.generative import (GenerativeVQAModel,
+                                              create_generative_vqa_model)
 from vivqa_tpu_torch.models.moe.layer import SparseMOELayer
 from vivqa_tpu_torch.models.layers import (init_weights,
                                            make_attention_mask,
@@ -396,6 +406,10 @@ GEN_HEAD = "beam_b16"          # the generate GEN_CASES' calls describe
 STAT_TOL = 1e-5
 GRAD_TOL = {torch.bfloat16: 1e-2, torch.float16: 1e-2, torch.float32: 1e-4}
 TRAIN_BATCH = 128                     # bench.py's batch per chip
+# the depth of every stack in the card-vs-CPU checks' copies of a model
+# (its widths the path's own): the CPU half at full depth was most of
+# their time
+ZOO_CHECK_LAYERS = 2
 DROPOUT = 0.1                 # text and MCAN (models/config.py:81,97)
 
 # (name, B, H, Lq, Lk, D, mask kind, causal, calls per flagship step, the
@@ -429,6 +443,21 @@ GEN_VAL_BATCH = GEN_CASES[0][1]
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+# seconds by phase (dotted names: a phase's parts), printed on one line
+PHASE_SECONDS: dict = {}
+
+
+@contextlib.contextmanager
+def timed(name: str):
+    """Adds the block's wall seconds to PHASE_SECONDS[name]."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) \
+            + time.perf_counter() - t0
 
 
 def _events_ms(run, reps: int) -> float:
@@ -472,11 +501,13 @@ def profiled(fn, calls: int = 10, tries: int = 5) -> dict:
     """Device time per call of ``fn``: the sum of the durations of the
     kernels it launches, under torch.profiler, over ``calls`` calls (for
     calls whose host side, as autograd's, would set an eager rate). The
-    profiler at times drops kernels, so profiles are taken until two of
-    them hold the most kernels any has held (at most ``tries``); the time
-    is the mean of those that hold the most. Returns ``ms``,
-    ``kernels_per_call`` and ``complete`` (False when no two profiles
-    agreed: the time may then be short)."""
+    profiler at times drops a kernel, which leaves a count that the calls
+    do not divide, so profiles are taken until one holds a whole number
+    of kernels a call (at most ``tries``; a profiler session costs about
+    half a second here); the time is that profile's. Returns ``ms``,
+    ``kernels_per_call`` and ``complete`` (False when no profile held a
+    whole number: the time is then the fullest one's and may be
+    short)."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
@@ -489,16 +520,15 @@ def profiled(fn, calls: int = 10, tries: int = 5) -> dict:
             torch.cuda.synchronize()
         kernels = device_kernels(prof).values()
         seen.append((sum(c for c, _ in kernels), sum(t for _, t in kernels)))
-        most = max(c for c, _ in seen)
-        fullest = [t for c, t in seen if c == most]
-        if most and len(fullest) >= 2:
+        if seen[-1][0] and seen[-1][0] % calls == 0:
             break
-    if not most:
+    count, us = seen[-1] if seen[-1][0] and seen[-1][0] % calls == 0 \
+        else max(seen)
+    if not count:
         raise AssertionError(f"torch.profiler recorded no kernel in "
                              f"{tries} tries")
-    return {"ms": sum(fullest) / len(fullest) / 1e3 / calls,
-            "kernels_per_call": most / calls,
-            "complete": len(fullest) >= 2}
+    return {"ms": us / 1e3 / calls, "kernels_per_call": count / calls,
+            "complete": count % calls == 0}
 
 
 def profiled_ms(fn, calls: int = 10, tries: int = 5) -> float:
@@ -507,17 +537,19 @@ def profiled_ms(fn, calls: int = 10, tries: int = 5) -> float:
 
 
 def device_kernels(prof) -> dict:
-    """{kernel name: [launches, device us]} of a torch.profiler run. User
-    annotations that the profiler also places on the device's timeline
-    (such as ``Optimizer.step#AdamW.step``) span kernels counted already
-    and are left out."""
+    """{kernel name: [launches, device us]} of a torch.profiler run, read
+    from the profiler's raw events (building its function events, CPU
+    operators and all, takes seconds for a train step). User annotations
+    that the profiler also places on the device's timeline (such as
+    ``Optimizer.step#AdamW.step``) span kernels counted already and are
+    left out, as are the events it hides."""
     kernels: dict = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA \
-                and not e.is_user_annotation:
-            k = kernels.setdefault(e.name, [0, 0.0])
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA \
+                and not e.is_user_annotation() and not e.is_hidden_event():
+            k = kernels.setdefault(e.name(), [0, 0.0])
             k[0] += 1
-            k[1] += e.time_range.elapsed_us()
+            k[1] += e.duration_ns() / 1e3
     return kernels
 
 
@@ -686,7 +718,7 @@ def attention_case(name, B, H, Lq, Lk, D, kind, causal, gen,
     """One case: the forward kernel against its plain version in f32, f16
     and bf16 (bf16 and f16 at each tile size; a cache_pos case at each of
     CACHE_INDICES; with ``kind``'s mask and ``check_kind``'s), then, in
-    bf16 with ``kind``'s mask, its time (graph and profiler, at each tile
+    bf16 with ``kind``'s mask, its time (graph replay, at each tile
     size), the plain version's, the bound and SDPA's."""
     errs = {}
     variants = [(kind, cur) for cur in
@@ -736,15 +768,13 @@ def attention_case(name, B, H, Lq, Lk, D, kind, causal, gen,
              (("plain", plain), ("library", library))}
     times.update({f"{label}_eager_ms": eager_ms(fn) for label, fn in
                   (("kernel", kernel), ("library", library))})
-    for label, timer in (("kernel_ms", device_ms),
-                         ("kernel_profiled_ms", profiled_ms)):
-        by_tile = {
-            tile_rows: timer(lambda tile_rows=tile_rows:
+    by_tile = {
+        tile_rows: device_ms(lambda tile_rows=tile_rows:
                              fa.flash_attention_cuda(q, k, v, mask, causal,
                                                      tile_rows))
-            for tile_rows in fa.TILE_ROWS}
-        times[f"{label}_by_tile_rows"] = by_tile
-        times[label] = by_tile[fa.serving_tile_rows(Lq)]
+        for tile_rows in fa.TILE_ROWS}
+    times["kernel_ms_by_tile_rows"] = by_tile
+    times["kernel_ms"] = by_tile[fa.serving_tile_rows(Lq)]
     if kind == "cache_pos":     # the mean over a generate's steps
         works = [attention_work(q, k, cache_pos_mask(Lk, cur), causal)
                  for cur in range(Lk)]
@@ -793,10 +823,9 @@ def kernel_phase() -> dict:
 def _by_tile_sums(rows: dict, calls_key: str) -> dict:
     main = [r for r in rows.values() if r[calls_key]]
     out = {}
-    for label in ("kernel_ms_by_tile_rows",
-                  "kernel_profiled_ms_by_tile_rows"):
-        out[label] = {t: sum(r[label][t] * r[calls_key] for r in main)
-                      for t in fa.TILE_ROWS}
+    label = "kernel_ms_by_tile_rows"
+    out[label] = {t: sum(r[label][t] * r[calls_key] for r in main)
+                  for t in fa.TILE_ROWS}
     ms = out["kernel_ms_by_tile_rows"]
     out["fastest"] = min(ms, key=ms.get)
     out["used_ms"] = sum(r["kernel_ms"] * r[calls_key] for r in main)
@@ -834,8 +863,8 @@ def decode_tile_rule(rows: dict) -> dict:
 
 
 def tile_rows_line(rows: dict) -> dict:
-    """The serving forward's bf16 time at each tile size, graph and
-    profiler: per flagship forward (its 36 calls at the five serving
+    """The serving forward's bf16 time at each tile size by graph
+    replay: per flagship forward (its 36 calls at the five serving
     shapes), per beam generate at batch 16 (its 411 calls), per call at
     each single-query decode shape, and the decode tile rule's sums."""
     out = _by_tile_sums(rows, "calls_per_forward")
@@ -960,13 +989,14 @@ def train_kernel_phase() -> dict:
 
 def time_train_kernels(q, k, v, do, mask, causal, rate, key) -> dict:
     """At bf16, the main path's dtype: each kernel's device time (CUDA
-    graph of 20 calls, CUDA events; and ``profiled_ms``, the sum of its
-    kernel durations, as the yardstick is timed), its plain version's
-    (graph), the bound, and scaled_dot_product_attention through autograd
-    as the yardstick, by its kernels' device time (``profiled_ms``): its
-    forward for the forward kernel, and its backward, which computes dq,
-    dk and dv in one call, for both backward kernels (the same number in
-    both: it is not to be added)."""
+    graph of 20 calls, CUDA events), its plain version's, the bound, and
+    scaled_dot_product_attention through autograd as the yardstick, timed
+    the same way (``device_ms``: a profiler session, which summed its
+    kernels' durations before, costs a third of a second): its
+    forward for the forward kernel, and its backward (the forward and
+    backward less the forward), which computes dq, dk and dv in one call,
+    for both backward kernels (the same number in both: it is not to be
+    added)."""
     o, m, l = fa.flash_attention_fwd_lse_cuda(q, k, v, mask, causal, rate,
                                               key)
     _, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, o, m, l, do, mask,
@@ -995,9 +1025,9 @@ def time_train_kernels(q, k, v, do, mask, causal, rate, key) -> dict:
     def sdpa():
         return F.scaled_dot_product_attention(qg, kg, vg, attn_mask=sdpa_mask,
                                               dropout_p=rate)
-    lib_profiles = {"fwd": profiled(sdpa), "fwd_bwd": profiled(
-        lambda: torch.autograd.grad(sdpa(), (qg, kg, vg), do))}
-    lib_fwd, lib_fwd_bwd = (lib_profiles[k]["ms"] for k in ("fwd", "fwd_bwd"))
+    lib_fwd = device_ms(sdpa)
+    lib_fwd_bwd = device_ms(
+        lambda: torch.autograd.grad(sdpa(), (qg, kg, vg), do))
     library = {"flash_attn_fwd_lse": lib_fwd,
                "flash_attn_bwd_dq": lib_fwd_bwd - lib_fwd,
                "flash_attn_bwd_dkv": lib_fwd_bwd - lib_fwd}
@@ -1009,16 +1039,12 @@ def time_train_kernels(q, k, v, do, mask, causal, rate, key) -> dict:
         t_flops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
         times[name] = {
             "kernel_ms": device_ms(kernels[name]),
-            "profiled_ms": profiled_ms(kernels[name]),
             "plain_ms": device_ms(plains[name]),
             "library_ms": library[name],
             "bytes": nbytes, "flops": flops,
             "bound_ms": max(t_bytes, t_flops),
             "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
     times["library_fwd_bwd_ms"] = lib_fwd_bwd
-    times["library_profiles"] = {
-        k: {"kernels_per_call": p["kernels_per_call"],
-            "complete": p["complete"]} for k, p in lib_profiles.items()}
     return times
 
 
@@ -1125,14 +1151,10 @@ def step_totals(rows: dict) -> dict:
             "calls_per_step": sum(r["calls_per_step"] for r in main),
             "max_abs_err": max(r["max_err_bf16"][k] for r in main
                                for k in err_keys[name]),
-            "ms": total("kernel_ms"), "profiled_ms": total("profiled_ms"),
-            "plain_ms": total("plain_ms"),
+            "ms": total("kernel_ms"), "plain_ms": total("plain_ms"),
             "bound_ms": max(t_bytes, t_flops),
             "bound_by": "bytes" if t_bytes >= t_flops else "operations",
             "library_ms": total("library_ms"),
-            "library_profiles_complete": all(
-                p["complete"] for r in main
-                for p in r["library_profiles"].values()),
             "by_case_ms": {r["case"]: r[name]["kernel_ms"] * r["calls_per_step"]
                            for r in main}}
     return out
@@ -1180,22 +1202,21 @@ def compare_logits(card: np.ndarray, cpu: np.ndarray) -> dict:
 def serving_phase(cfg: VQAModelConfig, device: str, batches: int = 10,
                   batch: int = 8, seed: int = 0,
                   calls_per_forward: int = ATTN_CALLS_PER_FORWARD,
-                  profile: bool = True, base=None) -> dict:
+                  profile: bool = True) -> dict:
     """Answer ``batches`` batches of ``batch`` requests through
     VQAPredictor on ``device``; count kernel launches (``calls_per_forward``
-    a forward); check one batch against the same weights on the CPU (and,
-    where the model has the sparse MoE, the layer's dropped fraction on
-    the CPU model's own MoE input, which must be equal on both); with
-    ``profile``, one batch's forward eager, as a CUDA graph and under the
-    profiler. ``base``: the CPU model to copy (else built from ``seed``)."""
+    a forward); check one batch on a copy of the model with every stack
+    cut to ``check_depth``'s layers, on the card against the same weights
+    on the CPU (and, where the model has the sparse MoE, the layer's
+    dropped fraction on the CPU model's own MoE input, which must be equal
+    on both); with ``profile``, one batch's forward eager, as a CUDA graph
+    and under the profiler."""
     image_size = cfg.visual.image_size
     tok = WhitespaceTokenizer(max_length=cfg.text.max_length)
     tok.build_vocab(WORDS)
     id2answer = {i: f"answer_{i}" for i in range(cfg.num_answers)}
     t0 = time.perf_counter()
-    cpu_model = base if base is not None else create_vqa_model(
-        cfg, device="cpu", generator=torch.Generator().manual_seed(seed))
-    model = copy.deepcopy(cpu_model)
+    model = model_on(cfg, device, seed)
     predictor = VQAPredictor(model, tok, id2answer, image_size=image_size,
                              top_k=5, batch_pad=batch, device=device)
     setup_s = time.perf_counter() - t0
@@ -1229,18 +1250,22 @@ def serving_phase(cfg: VQAModelConfig, device: str, batches: int = 10,
     args = (torch.from_numpy(px), torch.from_numpy(enc["input_ids"]),
             torch.from_numpy(enc["attention_mask"]))
     dev_args = tuple(a.to(predictor.device) for a in args)
+    cpu_model = create_vqa_model(
+        check_depth(cfg), device="cpu",
+        generator=torch.Generator().manual_seed(seed))
+    small = copy.deepcopy(cpu_model).to(predictor.device)
     sparse = isinstance(getattr(cpu_model, "moe", None), SparseMOELayer)
     moe_in = []
     hook = cpu_model.moe.register_forward_hook(
         lambda m, a, out: moe_in.append(a[0])) if sparse else None
     with torch.inference_mode():
-        card_out = model(*dev_args)
+        card_out = small(*dev_args)
         t = time.perf_counter()
         cpu_out = cpu_model(*args)
         cpu_s = time.perf_counter() - t
         if sparse:
             hook.remove()
-            same_input = model.moe(moe_in[0].to(model.moe.ln_out.weight
+            same_input = small.moe(moe_in[0].to(small.moe.ln_out.weight
                                                  .device))[1]["metrics"]
     card_logits = card_out["logits"].float().cpu().numpy()
     cpu_logits = cpu_out["logits"].float().numpy()
@@ -1248,6 +1273,7 @@ def serving_phase(cfg: VQAModelConfig, device: str, batches: int = 10,
             or not np.isfinite(card_logits).all():
         raise AssertionError(f"bad logits {card_logits.shape}")
     check = compare_logits(card_logits, cpu_logits)
+    check["depth"] = ZOO_CHECK_LAYERS
     if sparse:
         # the card's fused tokens differ from the CPU's by bf16 noise, so
         # a token whose top-2 or queue place is within that noise may
@@ -1335,19 +1361,16 @@ def training_phase(cfg: VQAModelConfig, device: str = "cuda",
                    steps: int = 10, warmup: int = 3,
                    batch: int = TRAIN_BATCH, seed: int = 0,
                    calls_per_step: int = ATTN_CALLS_PER_STEP,
-                   profile: bool = True, base=None) -> dict:
+                   profile: bool = True) -> dict:
     """``steps`` timed train steps on ``device`` after ``warmup``; every
     step ends in a synchronize, so step_ms is what a training loop that
     reads its loss pays; ``calls_per_step`` launches of each training
-    kernel a step; with ``profile``, one step under the profiler;
-    ``base``: the CPU model to copy (else built from ``seed``). (On the
+    kernel a step; with ``profile``, one step under the profiler. (On the
     CPU, a rehearsal at a tiny size: no events, launches or profile.)"""
     on_card = device == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     t0 = time.perf_counter()
-    model = copy.deepcopy(base).to(device) if base is not None else \
-        create_vqa_model(cfg, device=device,
-                         generator=torch.Generator().manual_seed(seed))
+    model = model_on(cfg, device, seed)
     state = TrainState.create(model, bench_optimizer(model), seed=seed)
     train_step = make_train_step(classification_loss_fn())
     data = synthetic_batch(cfg, batch, device)
@@ -1452,7 +1475,8 @@ def train_check(cfg: VQAModelConfig, device: str = "cuda", steps: int = 2,
         return TrainState.create(model, bench_optimizer(model, 1), seed=seed)
     out = card_vs_cpu_steps(build, classification_loss_fn(), data, device,
                             steps, calls_per_step)
-    return {"batch": 4, "question_lengths": lengths.tolist(), **out}
+    return {"batch": 4, "question_lengths": lengths.tolist(),
+            "depth": cfg.text.num_layers, **out}
 
 
 def card_vs_cpu_steps(build, loss_fn, data: dict, device: str, steps: int,
@@ -1561,7 +1585,7 @@ def cache_consistency(model, args, seqs, decode_cfg, **knowledge) -> dict:
     return out
 
 
-def generate_profile(generate, args, reps: int = 3) -> dict:
+def generate_profile(generate, args, reps: int = 1) -> dict:
     """One generate eager (host clock to a synchronize, median of
     ``reps``) and under torch.profiler: device busy time, idle share, the
     forward attention kernel's device time, kernels per generate."""
@@ -1593,22 +1617,49 @@ def generate_profile(generate, args, reps: int = 3) -> dict:
                             for n, (c, t) in top]}
 
 
+def model_on(cfg, device: str | torch.device = "cuda", seed: int = 0):
+    """The classification (or, for a ``GenerativeVQAConfig``, generative)
+    model of ``cfg`` in eval mode with seeded weights drawn where it runs:
+    built on ``device`` and initialised there by flax's laws from a
+    generator of that device (a card-vs-CPU check builds its weights on
+    the CPU instead, where drawing a full-width model takes seconds)."""
+    dev = resolve_device(device)
+    with dev:
+        model = (GenerativeVQAModel if isinstance(cfg, GenerativeVQAConfig)
+                 else VietnameseVQAModel)(cfg)
+    model = model.to(dev)
+    init_weights(model, torch.Generator(device=dev).manual_seed(seed))
+    return model.eval()
+
+
+def gen_check_depth(cfg: GenerativeVQAConfig,
+                    layers: int = ZOO_CHECK_LAYERS) -> GenerativeVQAConfig:
+    """``cfg`` at its widths with every layer stack (the towers, the
+    fusion, the decoder) cut to ``layers``: the model of a generative
+    card-vs-CPU check."""
+    return cfg.replace(
+        visual=cfg.visual.replace(num_layers=min(cfg.visual.num_layers,
+                                                 layers)),
+        text=cfg.text.replace(num_layers=min(cfg.text.num_layers, layers)),
+        fusion_layers=min(cfg.fusion_layers, layers),
+        decoder_layers=min(cfg.decoder_layers, layers))
+
+
 def generative_phase(cfg: GenerativeVQAConfig, device: str = "cuda",
                      batches=GEN_BATCHES, new_tokens: int = 32,
-                     windows: int = 3, iters: int = 5, lat_calls: int = 5,
+                     windows: int = 1, iters: int = 5, lat_calls: int = 5,
                      seed: int = 0) -> dict:
     """bench_serving's model with seeded weights on ``device``: greedy and
     beam at each batch through ``build_generate_fn``, timed with the
     port's bench_serving functions (every forward-kernel launch counted,
     none of the training kernels); each call's sequences (B, new_tokens)
     and finite scores; the greedy sequences against teacher forcing on the
-    card; card against CPU at batch 2; one greedy and one beam generate
-    profiled. (On the CPU, a rehearsal at a tiny size.)"""
+    card; card against CPU at batch 2 on a copy of the model with every
+    stack cut to ``gen_check_depth``'s layers; one greedy and one beam
+    generate profiled. (On the CPU, a rehearsal at a tiny size.)"""
     on_card = device == "cuda"
     t0 = time.perf_counter()
-    cpu_model = create_generative_vqa_model(
-        cfg, device="cpu", generator=torch.Generator().manual_seed(seed))
-    model = copy.deepcopy(cpu_model).to(device)
+    model = model_on(cfg, device, seed)
     px, q = (torch.from_numpy(a).to(device) for a in
              bench_serving.synthetic_requests(cfg, max(batches)))
     setup_s = time.perf_counter() - t0
@@ -1642,13 +1693,18 @@ def generative_phase(cfg: GenerativeVQAConfig, device: str = "cuda",
     decode_cfg = bench_serving.decode_config("greedy", new_tokens)
     consistency = cache_consistency(model, (px[:B0], q[:B0]),
                                     outputs[f"greedy_b{B0}"], decode_cfg)
-    # card against CPU at batch 2, teacher-forced on the card's greedy
-    # sequences: compare_logits' rule (5% of max |logit|)
-    seqs2, _ = gens["greedy"](px[:2], q[:2])
+    # card against CPU at batch 2 on the cut copy, teacher-forced on its
+    # greedy sequences on the card: compare_logits' rule (5% of max
+    # |logit|)
+    cpu_model = create_generative_vqa_model(
+        gen_check_depth(cfg), device="cpu",
+        generator=torch.Generator().manual_seed(seed))
+    small = copy.deepcopy(cpu_model).to(device)
+    seqs2, _ = build_generate_fn(small, decode_cfg)(px[:2], q[:2])
     bos = torch.full_like(seqs2[:, :1], decode_cfg.bos_token_id)
     dec_in = torch.cat([bos, seqs2[:, :-1]], dim=1)
     with torch.inference_mode():
-        card = model(px[:2], q[:2], dec_in)["logits"].float().cpu()
+        card = small(px[:2], q[:2], dec_in)["logits"].float().cpu()
         t = time.perf_counter()
         cpu = cpu_model(px[:2].cpu(), q[:2].cpu(), dec_in.cpu())[
             "logits"].float()
@@ -1657,6 +1713,8 @@ def generative_phase(cfg: GenerativeVQAConfig, device: str = "cuda",
     cpu_check = compare_logits(card.reshape(-1, V).numpy(),
                                cpu.reshape(-1, V).numpy())
     cpu_check["cpu_forward_s"] = cpu_s
+    cpu_check["depth"] = ZOO_CHECK_LAYERS
+    del small, cpu_model
     profiles = {key: generate_profile(gens[key.split("_b")[0]],
                                       (px[:B0], q[:B0]))
                 for key in (f"greedy_b{B0}", f"beam_b{B0}")} \
@@ -1739,8 +1797,7 @@ def gen_training_phase(cfg: GenerativeVQAConfig, tok: WhitespaceTokenizer,
     on_card = device == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     t0 = time.perf_counter()
-    model = create_generative_vqa_model(
-        cfg, device=device, generator=torch.Generator().manual_seed(seed))
+    model = model_on(cfg, device, seed)
     state = TrainState.create(model, gen_optimizer(model), seed=seed)
     train_step = make_train_step(generative_loss_fn(label_smoothing=0.0))
     host = gen_train_batch(cfg, tok, batch, seed)
@@ -1804,8 +1861,10 @@ def gen_train_check(cfg: GenerativeVQAConfig, tok: WhitespaceTokenizer,
     keyless rows run their backward), with ``gen_optimizer``'s AdamW at a
     one-step warmup, so the second step moves the weights at lr 1e-3.
     ``train_check``'s tolerances, for the same reasons (a bf16 trunk on
-    both sides, rounded at other points)."""
-    cfg0 = cfg.replace(dropout=0.0, text=cfg.text.replace(dropout=0.0))
+    both sides, rounded at other points). The model is a copy with every
+    stack cut to ``gen_check_depth``'s layers."""
+    cfg0 = gen_check_depth(cfg)
+    cfg0 = cfg0.replace(dropout=0.0, text=cfg0.text.replace(dropout=0.0))
     data = gen_train_batch(cfg0, tok, 4, seed + 7)
     weights = create_generative_vqa_model(
         cfg0, device="cpu", generator=torch.Generator().manual_seed(seed))
@@ -1814,8 +1873,8 @@ def gen_train_check(cfg: GenerativeVQAConfig, tok: WhitespaceTokenizer,
         model = copy.deepcopy(weights).to(dev)
         return TrainState.create(model, gen_optimizer(model, 20), seed=seed)
     out = card_vs_cpu_steps(build, generative_loss_fn(label_smoothing=0.0),
-                            data, device, steps, gen_calls_per_step(cfg))
-    return {"batch": 4,
+                            data, device, steps, gen_calls_per_step(cfg0))
+    return {"batch": 4, "depth": ZOO_CHECK_LAYERS,
             "question_tokens": data["question_mask"].sum(1).tolist(),
             "answer_positions": data["decoder_mask"].sum(1).tolist(), **out}
 
@@ -1838,8 +1897,7 @@ def pipeline_phase(cfg: GenerativeVQAConfig, tok: WhitespaceTokenizer,
     one-batch greedy validation (every attention call of the generate
     through the forward kernel), a checkpoint in a temporary directory
     whose restore_best gives back the model's parameters bit for bit."""
-    model = create_generative_vqa_model(
-        cfg, device=device, generator=torch.Generator().manual_seed(seed))
+    model = model_on(cfg, device, seed)
     train = [gen_train_batch(cfg, tok, batch, seed + 10 + i)
              for i in range(steps)]
     val = [gen_train_batch(cfg, tok, val_batch, seed + 20)]
@@ -2272,7 +2330,7 @@ def gen_cli_phase(cfg: GenerativeVQAConfig, device: str = "cuda",
         host = bench_serving.fitted_batch(fitted_model.config, fitted_batch,
                                           n, f"{tmp}/data")
         fitted = measured("fitted_bench", lambda: bench_serving.bench_fitted(
-            fitted_model, host, [fitted_batch], ["greedy", "beam"], 3,
+            fitted_model, host, [fitted_batch], ["greedy", "beam"], 1,
             fitted_iters, fitted_iters))
         fitted_on_device = all(p.device.type == dev.type
                                for p in fitted_model.parameters())
@@ -2442,13 +2500,14 @@ def attention_calls_per_forward(cfg: VQAModelConfig) -> int:
     Swin's window attention adds its bias to the scores outside the
     kernels), each cross-attention fusion layer four (two per stream),
     MCAN and the Q-Former three per layer, single-stream one, the pooled
-    fusions none, and the VQA-MoE's experts theirs (the other MoE layers
-    none)."""
+    fusions none, the VQA-MoE's experts theirs (the other MoE layers
+    none), and KnowledgeAttention one."""
     visual = cfg.visual.num_layers if cfg.visual.backbone in (
         "vit", "clip", "dino") else 0
     per_layer = {"cross_attention": 4, "mcan": 3, "qformer": 3,
                  "single_stream": 1}.get(cfg.fusion.fusion_type, 0)
-    calls = visual + cfg.text.num_layers + per_layer * cfg.fusion.num_layers
+    calls = visual + cfg.text.num_layers + per_layer * cfg.fusion.num_layers \
+        + int(cfg.knowledge.use_knowledge)
     if cfg.moe.use_moe and cfg.moe.moe_type == "vqa":
         m = cfg.moe
         calls += (m.num_vision_experts + m.num_text_experts
@@ -2523,7 +2582,7 @@ def abl_kernel_phase(cfg: VQAModelConfig, batch: int = ABL_BATCH) -> dict:
     and masks against its plain version in f32 and bf16 (the training
     kernels at the call's dropout, the forward at the serving tile rows),
     then in bf16 the training kernels timed as ``time_train_kernels``
-    times them and the forward by graph replay and the profiler, beside
+    times them and the forward by graph replay, beside
     its plain version, its bound and SDPA's forward."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     rows = {}
@@ -2566,10 +2625,9 @@ def abl_kernel_phase(cfg: VQAModelConfig, batch: int = ABL_BATCH) -> dict:
                    "max_abs_err": fwd_errs[torch.bfloat16],
                    "max_abs_err_f32": fwd_errs[torch.float32],
                    "kernel_ms": device_ms(kernel),
-                   "profiled_ms": profiled_ms(kernel),
                    "plain_ms": device_ms(
                        lambda: fa.attention_reference(q, k, v, mask)),
-                   "library_ms": profiled_ms(
+                   "library_ms": device_ms(
                        lambda: F.scaled_dot_product_attention(
                            q, k, v, attn_mask=mask)),
                    "bytes": nbytes, "flops": flops,
@@ -2593,7 +2651,7 @@ def abl_forward_totals(rows: dict) -> dict:
                                      for r in rows.values()),
             "max_abs_err": max(r["flash_attn_fwd"]["max_abs_err"]
                                for r in rows.values()),
-            "ms": total("kernel_ms"), "profiled_ms": total("profiled_ms"),
+            "ms": total("kernel_ms"),
             "plain_ms": total("plain_ms"), "library_ms": total("library_ms"),
             "bound_ms": max(t_bytes, t_flops),
             "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
@@ -2668,7 +2726,9 @@ def abl_card_vs_cpu(cfg: VQAModelConfig, cli_default: VQAModelConfig,
     train steps with the soft router (a noisy draw differs between the
     devices) and dropout 0 by ``card_vs_cpu_steps``; and eval logits of
     the CLI's default composition (vision, text and multimodal experts:
-    80 x 80 at head dim 32, 80 x 1)."""
+    80 x 80 at head dim 32, 80 x 1). Each model is a copy with every
+    stack cut to ``check_depth``'s layers."""
+    cfg, cli_default = check_depth(cfg), check_depth(cli_default)
     S, L = cfg.visual.image_size, cfg.text.max_length
     rs = np.random.RandomState(seed + 11)
     lengths = np.array([L, 40, 17, 5])
@@ -2702,7 +2762,7 @@ def abl_card_vs_cpu(cfg: VQAModelConfig, cli_default: VQAModelConfig,
         return TrainState.create(model, bench_optimizer(model, 1), seed=seed)
     calls = attention_calls_per_forward(cfg) if device == "cuda" else 0
     return {"batch": 4, "question_lengths": lengths.tolist(),
-            "study_logits": logits(cfg),
+            "depth": ZOO_CHECK_LAYERS, "study_logits": logits(cfg),
             "soft_train_steps": card_vs_cpu_steps(
                 build, classification_loss_fn(), data, device, 2, calls),
             "cli_default_logits": logits(cli_default)}
@@ -2774,8 +2834,7 @@ def ablation_phase(device: str = "cuda", n: int = ABL_CORPUS,
         data = DataPipeline(data_cfg).run()
         base = RA.base_model_config(args, study, data.tokenizer, data_cfg)
         base = base.replace(num_answers=len(data.answer2id))
-        model = create_vqa_model(base, device=device,
-                                 generator=torch.Generator().manual_seed(42))
+        model = model_on(base, device, 42)
         steps = len(data.train_loader)
         tp = TrainingPipeline(TrainingPipelineConfig(
             num_epochs=epochs, optimizer=OptimizerConfig(learning_rate=3e-4),
@@ -3085,31 +3144,34 @@ def rag_cls_phase(cfg: VQAModelConfig, provider, device: str = "cuda",
     train step through ``make_train_step`` at ``batch`` (36 + 1 launches
     of each training kernel a step), timed by
     ``profiling.time_train_steps`` beside the bare flagship step of the
-    same model (the batch without its knowledge arrays: 36 a step), the
-    two in turns, ``steps`` steps each a turn, two turns; one step
+    same model (the batch without its knowledge arrays: 36 a step), one
+    after the other, ``steps`` steps each; one step
     profiled (idle share), peak memory; then two steps card against CPU
-    at batch 4 (``card_vs_cpu_steps``, dropout 0)."""
+    at batch 4 (``card_vs_cpu_steps``, dropout 0). The card-vs-CPU checks
+    run a copy with every stack cut to ``check_depth``'s layers."""
     on_card = device == "cuda"
     dev = torch.device(device)
     kcfg = with_knowledge(cfg, provider.dim)
     per_forward = ATTN_CALLS_PER_FORWARD + 1 if on_card else 0
-    cpu_model = create_vqa_model(kcfg, device="cpu",
-                                 generator=torch.Generator().manual_seed(seed))
-    model = copy.deepcopy(cpu_model).to(dev)
+    model = model_on(kcfg, dev, seed)
     n_params = sum(p.numel() for p in model.parameters())
 
     pair = rag_cls_batch(kcfg, provider, 2, seed + 1)
     inputs = ("pixel_values", "input_ids", "attention_mask")
     know = {k: pair[k] for k in KNOWLEDGE_KEYS}
+    cpu_model = create_vqa_model(check_depth(kcfg), device="cpu",
+                                 generator=torch.Generator().manual_seed(seed))
+    small = copy.deepcopy(cpu_model).to(dev)
     with torch.inference_mode():
-        card = model(*(host_tensor(pair[k]).to(dev) for k in inputs),
+        card = small(*(host_tensor(pair[k]).to(dev) for k in inputs),
                      **{k: host_tensor(v).to(dev) for k, v in know.items()}
                      )["logits"].float().cpu().numpy()
         cpu = cpu_model(*(host_tensor(pair[k]) for k in inputs),
                         **{k: host_tensor(v) for k, v in know.items()}
                         )["logits"].float().numpy()
     cpu_check = compare_logits(card, cpu)
-    del cpu_model
+    cpu_check["depth"] = ZOO_CHECK_LAYERS
+    del cpu_model, small
 
     val = batch_to_device(rag_cls_batch(kcfg, provider, val_batch,
                                         seed + 2), dev)
@@ -3129,11 +3191,10 @@ def rag_cls_phase(cfg: VQAModelConfig, provider, device: str = "cuda",
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    # the two steps in turns (knowledge, bare, knowledge, bare), the
-    # launches of the first turn of each
+    # the two steps in turn (knowledge, bare), with their launches
     host_ms, event_ms, metrics = [], [], []
     bare_host, bare_event, bare_metrics = [], [], []
-    for turn in range(2):
+    for turn in range(1):
         for batch_, out in ((data, (host_ms, event_ms, metrics)),
                             (bare, (bare_host, bare_event, bare_metrics))):
             fa.reset_launch_counts()
@@ -3178,18 +3239,22 @@ def rag_cls_phase(cfg: VQAModelConfig, provider, device: str = "cuda",
     if on_card:
         torch.cuda.empty_cache()
 
-    kcfg0 = kcfg.replace(text=kcfg.text.replace(dropout=0.0),
-                         fusion=kcfg.fusion.replace(dropout=0.0),
-                         head=kcfg.head.replace(dropout=0.0))
+    kcfg0 = check_depth(kcfg)
+    kcfg0 = kcfg0.replace(text=kcfg0.text.replace(dropout=0.0),
+                          fusion=kcfg0.fusion.replace(dropout=0.0),
+                          head=kcfg0.head.replace(dropout=0.0))
     four = rag_cls_batch(kcfg0, provider, 4, seed + 4)
+    weights = create_vqa_model(kcfg0, device="cpu",
+                               generator=torch.Generator().manual_seed(seed))
 
     def build(d):
-        m = create_vqa_model(kcfg0, device=d,
-                             generator=torch.Generator().manual_seed(seed))
+        m = copy.deepcopy(weights).to(d)
         m.moe.dropout = 0.0
         return TrainState.create(m, bench_optimizer(m, 1), seed=seed)
     steps_check = card_vs_cpu_steps(build, classification_loss_fn(), four,
-                                    device, 2, ATTN_CALLS_PER_STEP + 1)
+                                    device, 2,
+                                    attention_calls_per_forward(kcfg0))
+    steps_check["depth"] = ZOO_CHECK_LAYERS
     return {
         "params": n_params,
         "knowledge": {"K": RAG_K, "dim": provider.dim,
@@ -3210,23 +3275,24 @@ def rag_cls_phase(cfg: VQAModelConfig, provider, device: str = "cuda",
         "launches": launches, "bare_launches": bare_launches,
         "validation_launches": val_launches,
         "launches_per_step": {n: launches[n] / steps for n in TRAIN_KERNELS},
-        "max_memory_allocated_gib": peak, "profile": profile, "turns": 2,
+        "max_memory_allocated_gib": peak, "profile": profile, "turns": 1,
         "cpu_check": cpu_check, "train_check": steps_check}
 
 
 def rag_gen_phase(provider, cfg: GenerativeVQAConfig | None = None,
                   device: str = "cuda", batch: int = GEN_VAL_BATCH,
                   train_batch: int = GEN_TRAIN_BATCH, steps: int = 3,
-                  warmup: int = 1, reps: int = 3, seed: int = 0) -> dict:
+                  warmup: int = 1, reps: int = 1, seed: int = 0) -> dict:
     """bench_serving's model in gen_training_config's recipe (``cfg``, if
     given, in its place) with the knowledge memory: greedy and 4-beam
     generates of 32 tokens at ``batch`` with the provider's contexts (27 +
     12 x 32 = 411 forward launches each, the cross calls over 118 keys),
     timed (host clock to a synchronize, median of ``reps``); the greedy
     sequences against the card's own teacher forcing with the knowledge;
-    greedy tokens card against CPU at batch 2 (equal up to the first step
-    whose CPU top-1/top-2 margin is within twice ``compare_logits``'
-    tolerance, and the logits teacher-forced on the CPU's tokens by
+    on a copy with every stack cut to ``gen_check_depth``'s layers, greedy
+    tokens card against CPU at batch 2 (equal up to the first step whose
+    CPU top-1/top-2 margin is within twice ``compare_logits``' tolerance,
+    and the logits teacher-forced on the CPU's tokens by
     ``compare_logits``); then
     the teacher-forced train step at ``train_batch`` (39 launches of each
     training kernel a step), timed by ``profiling.time_train_steps``."""
@@ -3234,9 +3300,7 @@ def rag_gen_phase(provider, cfg: GenerativeVQAConfig | None = None,
     dev = torch.device(device)
     tok = gen_tokenizer()
     cfg = cfg or with_knowledge(gen_training_config(tok), provider.dim)
-    cpu_model = create_generative_vqa_model(
-        cfg, device="cpu", generator=torch.Generator().manual_seed(seed))
-    model = copy.deepcopy(cpu_model).to(dev)
+    model = model_on(cfg, dev, seed)
     host = gen_train_batch(cfg, tok, batch, seed)
     host.update(knowledge_arrays(provider, rag_questions(batch, seed)))
     b = batch_to_device(host, dev)
@@ -3273,7 +3337,12 @@ def rag_gen_phase(provider, cfg: GenerativeVQAConfig | None = None,
     two_know = {k: two[k] for k in KNOWLEDGE_KEYS}
     cpu_args = tuple(a.cpu() for a in two_args)
     cpu_know = {k: v.cpu() for k, v in two_know.items()}
-    card_seqs, _ = gens["greedy"](*two_args, **two_know)
+    cpu_model = create_generative_vqa_model(
+        gen_check_depth(cfg), device="cpu",
+        generator=torch.Generator().manual_seed(seed))
+    small = copy.deepcopy(cpu_model).to(dev)
+    card_seqs, _ = build_generate_fn(small, decode_cfg)(*two_args,
+                                                        **two_know)
     cpu_seqs, _ = build_generate_fn(cpu_model, decode_cfg)(*cpu_args,
                                                            **cpu_know)
     bos = torch.full_like(cpu_seqs[:, :1], decode_cfg.bos_token_id)
@@ -3281,7 +3350,7 @@ def rag_gen_phase(provider, cfg: GenerativeVQAConfig | None = None,
         cpu_logits = cpu_model(*cpu_args[:2], torch.cat(
             [bos, cpu_seqs[:, :-1]], dim=1), cpu_args[2],
             **cpu_know)["logits"].float()
-        card_logits = model(*two_args[:2], torch.cat(
+        card_logits = small(*two_args[:2], torch.cat(
             [bos, cpu_seqs[:, :-1]], dim=1).to(dev), two_args[2],
             **two_know)["logits"].float().cpu()
     V = cpu_logits.shape[-1]
@@ -3298,7 +3367,8 @@ def rag_gen_phase(provider, cfg: GenerativeVQAConfig | None = None,
                              f" {card_seqs.tolist()} {cpu_seqs.tolist()}")
     greedy_check["logits"] = compare_logits(
         card_logits.reshape(-1, V).numpy(), cpu_logits.reshape(-1, V).numpy())
-    del cpu_model
+    greedy_check["depth"] = ZOO_CHECK_LAYERS
+    del cpu_model, small
 
     tb = gen_train_batch(cfg, tok, train_batch, seed + 1)
     tb.update(knowledge_arrays(provider, rag_questions(train_batch,
@@ -3567,38 +3637,45 @@ def rag_dense_phase(cfg: VQAModelConfig, provider, device: str = "cuda",
                     seed: int = 0) -> dict:
     """Dense retrieval through the flagship's text tower at full width
     (12 layers, 64 tokens, seeded weights): ``TextKnowledgeEncoder``
-    encodes the provider's documents and ``queries`` questions on the
-    card (12 forward launches a chunk of ``batch_size``) and on the CPU;
-    the card's embeddings within ``compare_logits``' tolerance (5% of the
-    largest) of the CPU's; a ``DenseRetriever`` over each, whose top-5
-    ids on the card equal the CPU's at every rank whose CPU score margins
-    to its neighbours exceed twice the largest score difference the two
-    embeddings allow (the sum of the largest query and document row
-    differences)."""
+    encodes the provider's documents on the card (12 forward launches a
+    chunk of ``batch_size``, timed); then, on a copy of the tower cut to
+    ``check_depth``'s layers, the documents and ``queries`` questions on
+    the card and on the CPU: the card's embeddings within
+    ``compare_logits``' tolerance (5% of the largest) of the CPU's; a
+    ``DenseRetriever`` over each, whose top-5 ids on the card equal the
+    CPU's at every rank whose CPU score margins to its neighbours exceed
+    twice the largest score difference the two embeddings allow (the sum
+    of the largest query and document row differences)."""
     from vivqa_tpu_torch.models.encoders import create_text_encoder
     from vivqa_tpu_torch.models.layers import init_weights
     dev = torch.device(device)
     tok = WhitespaceTokenizer(max_length=cfg.text.max_length)
     tok.build_vocab(WORDS + [w for d in provider.documents
                              for w in d.content.split()])
-    cpu_tower = create_text_encoder(cfg.text)
+    with dev:
+        tower = create_text_encoder(cfg.text)
+    tower = tower.to(dev)
+    init_weights(tower, torch.Generator(device=dev).manual_seed(seed))
+    tower.eval()
+    cpu_tower = create_text_encoder(check_depth(cfg).text)
     init_weights(cpu_tower, torch.Generator().manual_seed(seed))
     cpu_tower.eval()
     card_tower = copy.deepcopy(cpu_tower).to(dev)
     docs = provider.documents
     texts = [d.content for d in docs]
     qs = rag_questions(queries, seed + 5)
-    enc = {d: TextKnowledgeEncoder(tower, tok, batch_size=batch_size)
-           for d, tower in (("card", card_tower), ("cpu", cpu_tower))}
     fa.reset_launch_counts()
     t0 = time.perf_counter()
-    card_docs = enc["card"].encode(texts)
+    TextKnowledgeEncoder(tower, tok, batch_size=batch_size).encode(texts)
     if device == "cuda":
         torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
     launches = dict(fa.launch_counts)
     chunks = math.ceil(len(texts) / batch_size)
-    card_q = enc["card"].encode(qs)
+    del tower
+    enc = {d: TextKnowledgeEncoder(t, tok, batch_size=batch_size)
+           for d, t in (("card", card_tower), ("cpu", cpu_tower))}
+    card_docs, card_q = enc["card"].encode(texts), enc["card"].encode(qs)
     cpu_docs, cpu_q = enc["cpu"].encode(texts), enc["cpu"].encode(qs)
     diff = max(float(np.abs(card_docs - cpu_docs).max()),
                float(np.abs(card_q - cpu_q).max()))
@@ -3623,6 +3700,7 @@ def rag_dense_phase(cfg: VQAModelConfig, provider, device: str = "cuda",
             "flash_attn_fwd": cfg.text.num_layers * chunks
             if device == "cuda" else 0}
     out = {"documents": len(texts), "queries": len(qs),
+           "check_depth": ZOO_CHECK_LAYERS,
            "chunks": chunks, "launches": launches,
            "launches_per_chunk": launches["flash_attn_fwd"] / chunks,
            "encode_s": card_s, "max_abs_diff": diff, "tolerance": tol,
@@ -3728,8 +3806,7 @@ def trainer_unfreeze_run(cfg: VQAModelConfig, device: str, rm, tmp: str,
     trainer's config)."""
     on_card = device == "cuda"
     calls = ATTN_CALLS_PER_STEP if on_card else 0
-    model = create_vqa_model(cfg, device=device,
-                             generator=torch.Generator().manual_seed(seed))
+    model = model_on(cfg, device, seed)
     start = _weights(model)
     train = ListLoader(trainer_batch(cfg, batch, seed + i)
                        for i in range(steps))
@@ -3842,8 +3919,7 @@ def trainer_checkpoint_run(cfg: VQAModelConfig, device: str, tmp: str,
     on_card = device == "cuda"
     calls = ATTN_CALLS_PER_STEP if on_card else 0
     dev = torch.device(device)
-    model = create_vqa_model(cfg, device=device,
-                             generator=torch.Generator().manual_seed(seed + 1))
+    model = model_on(cfg, device, seed + 1)
     data = batch_to_device(trainer_batch(cfg, batch, seed + 5), dev)
     base = TrainerConfig(strategy="freeze_visual", num_epochs=1,
                          checkpoint_dir=f"{tmp}/trainer_ckpt",
@@ -3932,10 +4008,12 @@ def trainer_mix_check(cfg: VQAModelConfig, device: str, seed: int) -> dict:
     optimizer, its mixed loss) on the same weights at dropout 0, card
     against CPU, on the given draws ``MIX_DRAWS`` (MixUp, then CutMix),
     held to ``train_check``'s tolerances; the visual encoder bit-equal on
-    both."""
-    cfg0 = cfg.replace(text=cfg.text.replace(dropout=0.0),
-                       fusion=cfg.fusion.replace(dropout=0.0),
-                       head=cfg.head.replace(dropout=0.0))
+    both. The model is a copy with every stack cut to ``check_depth``'s
+    layers."""
+    cfg0 = check_depth(cfg)
+    cfg0 = cfg0.replace(text=cfg0.text.replace(dropout=0.0),
+                        fusion=cfg0.fusion.replace(dropout=0.0),
+                        head=cfg0.head.replace(dropout=0.0))
     S, L = cfg.visual.image_size, cfg.text.max_length
     rs = np.random.RandomState(seed + 11)
     lengths = np.array([L, 40, 17, 5]) if L >= 40 else np.array([L, L - 1,
@@ -3959,10 +4037,12 @@ def trainer_mix_check(cfg: VQAModelConfig, device: str, seed: int) -> dict:
         return {k: torch.tensor(v, device=generator.device)
                 for k, v in d.items()}
 
+    weights = create_vqa_model(cfg0, device="cpu",
+                               generator=torch.Generator().manual_seed(seed))
+
     def build(dev):
         drawn["n"] = 0
-        model = create_vqa_model(cfg0, device=dev,
-                                 generator=torch.Generator().manual_seed(seed))
+        model = copy.deepcopy(weights).to(dev)
         model.moe.dropout = 0.0
         built[dev] = (model, _weights(model, ("visual_encoder",)))
         # the pipeline's schedule spans 10 epochs of 1,000 steps here
@@ -3974,9 +4054,10 @@ def trainer_mix_check(cfg: VQAModelConfig, device: str, seed: int) -> dict:
     batch_mix.draw_mix = given_draw
     try:
         out = card_vs_cpu_steps(build, loss_fn, data, device, 2,
-                                ATTN_CALLS_PER_STEP)
+                                attention_calls_per_forward(cfg0))
     finally:
         batch_mix.draw_mix = real
+    out["depth"] = ZOO_CHECK_LAYERS
     frozen = {dev: all(torch.equal(p.detach(), start[n])
                        for n, p in model.named_parameters() if n in start)
               for dev, (model, start) in built.items()}
@@ -3989,11 +4070,13 @@ def trainer_mix_check(cfg: VQAModelConfig, device: str, seed: int) -> dict:
 
 def optimizer_check(cfg: VQAModelConfig, device: str, seed: int) -> dict:
     """One update of each optimizer of ``TRAINER_OPTIMIZERS`` over the
-    flagship's full parameter set, from the same gradients (normal, scale
-    1e-2, seeded), on the card and on the CPU: every element of the two
-    updates (read back as p' - p) within ``OPTIMIZER_TOL`` of the CPU
-    update's largest, past one f32 rounding of p'."""
-    model0 = create_vqa_model(cfg, device="cpu",
+    parameter set of the flagship's copy with every stack cut to
+    ``check_depth``'s layers (every kind of leaf, at the full width),
+    from the same gradients (normal, scale 1e-2, seeded), on the card and
+    on the CPU: every element of the two updates (read back as p' - p)
+    within ``OPTIMIZER_TOL`` of the CPU update's largest, past one f32
+    rounding of p'."""
+    model0 = create_vqa_model(check_depth(cfg), device="cpu",
                               generator=torch.Generator().manual_seed(seed))
     g = torch.Generator().manual_seed(seed + 3)
     grads = {n: torch.randn(p.shape, generator=g) * 1e-2
@@ -4042,6 +4125,7 @@ def optimizer_check(cfg: VQAModelConfig, device: str, seed: int) -> dict:
     if bad:
         raise AssertionError(f"optimizers {bad} card vs CPU: {rows}")
     return {"params": sum(t.numel() for t in start.values()),
+            "depth": ZOO_CHECK_LAYERS,
             "tolerance_of_largest_update": OPTIMIZER_TOL, "optimizers": rows}
 
 
@@ -4362,7 +4446,7 @@ def zoo_kernel_phase(rows: dict) -> dict:
                     lambda: fa.flash_attention_cuda(q, k, v, mask)),
                 "plain_ms": device_ms(
                     lambda: fa.attention_reference(q, k, v, mask)),
-                "library_ms": profiled_ms(
+                "library_ms": device_ms(
                     lambda: F.scaled_dot_product_attention(
                         q, k, v, attn_mask=mask)),
                 "max_abs_err_bf16": err, "bytes": nbytes, "flops": flops,
@@ -4482,7 +4566,6 @@ def window_attention_profile(cfg: VQAModelConfig, batch: int = ZOO_BATCH,
             "blocks": sum(r["blocks"] for r in rows)}
 
 
-ZOO_CHECK_LAYERS = 2            # the depth of the card-vs-CPU train check
 
 
 def check_depth(cfg: VQAModelConfig,
@@ -4514,28 +4597,25 @@ def zoo_model_path(name: str, cfg: VQAModelConfig, calls: int,
     forward, the card's logits against the CPU's, and the sparse layer's
     dropped fraction equal on both), ``training_phase`` (``steps`` steps
     at ``batch`` after one warm-up, ``calls`` launches of each training
-    kernel a step; with ``profile`` one step profiled), from one CPU
-    model built from ``seed``, and ``train_check`` (two steps card against
-    CPU at its batch of 4, its bounds: the first step's warmup moves no
-    weight) on ``check_depth(cfg)``."""
+    kernel a step; with ``profile`` one step profiled), each model built
+    from ``seed``, and ``train_check`` (two steps card against CPU at its
+    batch of 4, its bounds: the first step's warmup moves no weight) on
+    ``check_depth(cfg)``."""
     on_card = device == "cuda"
     predicted = attention_calls_per_forward(cfg)
     if predicted != calls:
         raise AssertionError(f"{name}: the config gives {predicted} "
                              f"attention calls a forward, not {calls}")
     t0 = time.perf_counter()
-    base = create_vqa_model(cfg, device="cpu",
-                            generator=torch.Generator().manual_seed(seed))
-    seconds = {"build": time.perf_counter() - t0}
+    seconds = {}
     serving = serving_phase(cfg, device, batches=serve_batches,
                             batch=serve_batch, seed=seed,
-                            calls_per_forward=calls, profile=False,
-                            base=base)
+                            calls_per_forward=calls, profile=False)
     seconds["serving"] = time.perf_counter() - t0 - sum(seconds.values())
     training = training_phase(cfg, device, steps=steps, warmup=1,
                               batch=batch, seed=seed,
                               calls_per_step=calls,
-                              profile=profile and on_card, base=base)
+                              profile=profile and on_card)
     seconds["training"] = time.perf_counter() - t0 - sum(seconds.values())
     check_cfg = check_depth(cfg)
     check = train_check(check_cfg, device, seed=seed,
@@ -4650,8 +4730,7 @@ def zoo_gen_phase(cfg: GenerativeVQAConfig, tok: WhitespaceTokenizer,
     against teacher forcing."""
     on_card = device == "cuda"
     check = gen_train_check(cfg, tok, device, seed=seed)
-    model = create_generative_vqa_model(
-        cfg, device=device, generator=torch.Generator().manual_seed(seed))
+    model = model_on(cfg, device, seed)
     px, q = (torch.from_numpy(a).to(device) for a in
              bench_serving.synthetic_requests(cfg, batch))
     decode_cfg = bench_serving.decode_config("greedy", new_tokens)
@@ -5529,6 +5608,13 @@ MESH_SHAPES = ((2, 1), (1, 2))
 MESH_STEPS = 2
 MESH_SMALL_LAYERS = 2           # the f32 copy's depth
 MESH_GEN_BATCH = 16
+MESH_KNOWLEDGE_DIM = 256        # the knowledge provider's encoder_dim
+MESH_CLI_CORPUS = 80            # 64 / 8 / 8 samples: 2 train steps of 32
+MESH_CLI_STEPS = 2
+# the ablation phase's rows that the study runs on two ranks: the full
+# model and a post-hoc masked twin of the leave-one-out row
+MESH_ABL_ROWS = ("full__noisy_topk_k2_lb0.01",
+                 "ph_leave_one_out_3__noisy_topk_k2_lb0.01")
 # The flagship's attention at the per-rank shapes of the (1, 2) mesh: all
 # MESH_BATCH rows, half the heads (ViT and text 6 of 12, MCAN 4 of 8);
 # (name, B, H, Lq, Lk, D, mask kind, causal, calls per step and per
@@ -5542,47 +5628,88 @@ MESH_CASES = [
     ("mesh_mcan_dec_self_h4", MESH_BATCH, 4, 49, 49, 64, None, False, 4),
     ("mesh_mcan_cross_h4", MESH_BATCH, 4, 49, 64, 64, "key", False, 4),
 ]
+# KnowledgeAttention on the meshes: one query over RAG_K keys under the
+# knowledge mask, at 4 of 8 heads for all rows on (1, 2) (counted in the
+# (1, 2) rank's totals) and at 8 heads for half the rows on (2, 1)
+MESH_KNOWLEDGE_CASES = [
+    ("mesh_know_attn_h4", MESH_BATCH, 4, 1, RAG_K, 64, "knowledge", False,
+     1),
+    ("mesh_know_attn_b16", MESH_BATCH // 2, 8, 1, RAG_K, 64, "knowledge",
+     False, 0),
+]
+
+
+def mesh_training_row(name, B, H, Lq, Lk, D, kind, causal, calls, rate,
+                      gen) -> dict:
+    """The three training kernels at one per-rank shape against their
+    plain versions in f32, f16 and bf16 at dropout ``rate``, timed in
+    bf16 beside SDPA with their bounds."""
+    key = fa.dropout_key(2031, B * 1000 + H * 10 + Lq) if rate else None
+    errs = {}
+    for dtype in (torch.float32, torch.float16, torch.bfloat16):
+        q, k, v, mask = attention_inputs(B, H, Lq, Lk, D, kind, dtype, gen)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+        errs[dtype] = check_train_kernels(q, k, v, do, mask, causal, rate,
+                                          key)
+    row = {"case": name, "B": B, "H": H, "Lq": Lq, "Lk": Lk, "D": D,
+           "mask": kind, "causal": causal, "dropout": rate,
+           "calls_per_step": calls,
+           "max_err_bf16": errs[torch.bfloat16],
+           "max_err_f16": errs[torch.float16],
+           "max_err_f32": errs[torch.float32],
+           **time_train_kernels(q, k, v, do, mask, causal, rate, key)}
+    emit({"mesh_training_attention_case": row})
+    return row
 
 
 def mesh_kernel_phase() -> dict:
-    """The four kernels at the (1, 2) mesh's per-rank shapes against their
-    plain versions in f32, f16 and bf16, timed beside SDPA with their
-    bounds: the forward (``attention_case``, as an evaluation forward
-    calls it) and the three training kernels at dropout 0 (the mesh runs
-    its steps at dropout 0). Rows keyed by case."""
+    """The four kernels at the mesh phase's per-rank shapes against their
+    plain versions, timed beside SDPA with their bounds: the forward
+    (``attention_case``, as an evaluation forward calls it) and the three
+    training kernels (``mesh_training_row``) at the flagship's shapes on
+    (1, 2) at dropout 0 (the mesh runs its steps at dropout 0); at
+    KnowledgeAttention's on both meshes, the training kernels also at
+    dropout 0.1; and at the ablation study's per-rank batch
+    (``abl_kernel_phase``). {flagship, knowledge: rows keyed by case (and
+    rate), ablation: the study's rows}."""
     gen = torch.Generator(device="cuda").manual_seed(15)
-    rows = {}
-    for name, B, H, Lq, Lk, D, kind, causal, calls in MESH_CASES:
-        fwd = attention_case(name, B, H, Lq, Lk, D, kind, causal, gen,
-                             calls_per_forward=calls)
-        errs = {}
-        for dtype in (torch.float32, torch.float16, torch.bfloat16):
-            q, k, v, mask = attention_inputs(B, H, Lq, Lk, D, kind, dtype,
-                                             gen)
-            do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
-            errs[dtype] = check_train_kernels(q, k, v, do, mask, causal,
-                                              0.0, None)
-        row = {"case": name, "B": B, "H": H, "Lq": Lq, "Lk": Lk, "D": D,
-               "mask": kind, "causal": causal, "dropout": 0.0,
-               "calls_per_step": calls,
-               "max_err_bf16": errs[torch.bfloat16],
-               "max_err_f16": errs[torch.float16],
-               "max_err_f32": errs[torch.float32],
-               **time_train_kernels(q, k, v, do, mask, causal, 0.0, None)}
-        emit({"mesh_training_attention_case": row})
-        rows[name] = {"forward": fwd, "training": row}
+    rows = {"flagship": {}, "knowledge": {}}
+    for part, cases in (("flagship", MESH_CASES),
+                        ("knowledge", MESH_KNOWLEDGE_CASES)):
+        for name, B, H, Lq, Lk, D, kind, causal, calls in cases:
+            fwd = attention_case(name, B, H, Lq, Lk, D, kind, causal, gen,
+                                 calls_per_forward=calls)
+            rates = (0.0,) if part == "flagship" else (0.0, 0.1)
+            for rate in rates:
+                train = mesh_training_row(name, B, H, Lq, Lk, D, kind,
+                                          causal, calls if rate == 0 else 0,
+                                          rate, gen)
+                key = name if part == "flagship" else (name, rate)
+                rows[part][key] = {"forward": fwd, "training": train}
+    rows["ablation"] = abl_kernel_phase(abl_model_config(),
+                                        batch=ABL_BATCH // 2)
     return rows
 
 
 def mesh_totals(rows: dict) -> dict:
     """Each kernel's time, plain version's, bound and SDPA's time over one
     rank's evaluation forward (the forward) or train step (the training
-    kernels) on the (1, 2) mesh: each shape's number times its calls."""
-    fwd = {n: r["forward"] for n, r in rows.items()}
-    out = {"flash_attn_fwd": {
-        k: v for k, v in _path_totals(fwd, "calls_per_forward").items()
-        if k != "ms_by_tile_rows"}}
-    out.update(step_totals({n: r["training"] for n, r in rows.items()}))
+    kernels), each shape's number times its calls: the flagship on the
+    (1, 2) mesh, with KnowledgeAttention (``knowledge``), and the study's
+    full model at its per-rank batch on (2, 1) (``ablation``)."""
+    def totals(part_rows):
+        fwd = {str(n): r["forward"] for n, r in part_rows.items()}
+        out = {"flash_attn_fwd": {
+            k: v for k, v in _path_totals(fwd, "calls_per_forward").items()
+            if k != "ms_by_tile_rows"}}
+        out.update(step_totals({str(n): r["training"]
+                                for n, r in part_rows.items()}))
+        return out
+    out = totals(rows["flagship"])
+    out["knowledge"] = totals({**rows["flagship"], **rows["knowledge"]})
+    out["ablation"] = {"per_step": step_totals(rows["ablation"]),
+                       "per_validation_forward":
+                           abl_forward_totals(rows["ablation"])}
     return out
 
 
@@ -5618,18 +5745,37 @@ def _f32_everywhere(model: torch.nn.Module) -> torch.nn.Module:
     return model
 
 
+def mesh_optimizer(name: str):
+    """The mesh phase's optimizer by name: bench.py's AdamW (a one-step
+    warmup, so the second step moves the weights at lr 1e-4), or
+    adafactor as the JAX package's ``create_optimizer`` builds it at the
+    same rate and schedule."""
+    if name == "adamw":
+        return lambda model: bench_optimizer(model, 1)
+    return lambda model: create_optimizer(
+        OptimizerConfig(name="adafactor", learning_rate=1e-4), model,
+        SchedulerConfig(name="warmup_cosine", warmup_steps=1,
+                        total_steps=10000))
+
+
 def mesh_train(cfg: VQAModelConfig, mesh, data: dict, seed: int,
                device: str = "cuda", f32: bool = False,
-               keys: set | None = None) -> dict:
+               keys: set | None = None, optimizer: str = "adamw",
+               logits: bool = False, statistics: bool = False) -> dict:
     """MESH_STEPS steps of the global batch on ``mesh`` (None: one
     process): per step the loss, the grad norm, the CUDA-event ms and the
     collectives' host ms and bytes; the launches of each kernel; the peak
-    memory; then one evaluation forward's launches. The update (after -
-    before, whole: gathered over 'model') stays on the card for the
-    caller."""
-    from vivqa_tpu_torch.parallel.collectives import reset_stats, stats
+    memory; then one evaluation forward's launches (with ``logits`` its
+    logits, gathered over 'data'). The batch's knowledge arrays reach
+    the model. The update (after - before, whole: gathered over 'model')
+    stays on the card for the caller, and with ``statistics`` the
+    optimizer's factored statistics, whole."""
+    from vivqa_tpu_torch.parallel.collectives import (all_gather,
+                                                      reset_stats, stats)
     from vivqa_tpu_torch.parallel.mesh import full_tensor, local_rows
-    from vivqa_tpu_torch.train.state import ShardedStep, place_state
+    from vivqa_tpu_torch.train.checkpoint import gathered_optimizer_state
+    from vivqa_tpu_torch.train.state import (ShardedStep, knowledge_of,
+                                             place_state)
     cuda = device == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats()
@@ -5637,7 +5783,8 @@ def mesh_train(cfg: VQAModelConfig, mesh, data: dict, seed: int,
     if f32:
         _f32_everywhere(model)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    state = TrainState.create(model, bench_optimizer(model, 1), seed=seed)
+    state = TrainState.create(model, mesh_optimizer(optimizer)(model),
+                              seed=seed)
     if mesh is not None:
         place_state(state, mesh)
         step = ShardedStep(mesh, make_train_step(
@@ -5675,9 +5822,13 @@ def mesh_train(cfg: VQAModelConfig, mesh, data: dict, seed: int,
         model.eval()
         local = local_rows(batch, mesh) if mesh is not None else batch
         with torch.no_grad():
-            model(local["pixel_values"], local["input_ids"],
-                  local["attention_mask"])
+            got = model(local["pixel_values"], local["input_ids"],
+                        local["attention_mask"], **knowledge_of(local))
         out["launches_per_forward"] = fa.launch_counts["flash_attn_fwd"]
+    if logits:
+        got = got["logits"].float()
+        out["logits"] = (all_gather(got, mesh.data) if mesh is not None
+                         else got).cpu().numpy()
     out["attention_calls"] = attention_calls_per_forward(cfg)
     out["max_memory_allocated_gib"] = (
         torch.cuda.max_memory_allocated() / 2**30 if cuda else None)
@@ -5686,7 +5837,34 @@ def mesh_train(cfg: VQAModelConfig, mesh, data: dict, seed: int,
         n: (full_tensor(p.detach(), placements[n], mesh) if n in placements
             else p.detach()) - before[n]
         for n, p in model.named_parameters()}
+    if statistics:
+        whole = gathered_optimizer_state(state.optimizer, state.sharding,
+                                         mesh)["state"]
+        out["statistics"] = {f: {n: t for n, t in whole[f].items()
+                                 if t.numel() > 1}
+                             for f in ("v_row", "v_col")}
     del state, model, before
+    return out
+
+
+def statistics_compare(got: dict, ref: dict, rel: float | None) -> dict:
+    """adafactor's factored statistics on a mesh against one process's:
+    per field, the norm of the difference over all leaves relative to
+    the norm of one process's, held to ``rel`` (None: reported only)."""
+    out = {}
+    for field, want in ref.items():
+        diff = math.sqrt(sum(float((got[field][n].double() - w.double())
+                                   .square().sum())
+                             for n, w in want.items()))
+        norm = math.sqrt(sum(float(w.double().square().sum())
+                             for w in want.values()))
+        out[field] = {"leaves": len(want),
+                      "rel_diff": diff / norm if want else 0.0}
+    out["tolerance"] = rel
+    if rel is not None and not all(v["rel_diff"] <= rel
+                                   for k, v in out.items()
+                                   if k != "tolerance"):
+        raise AssertionError(f"adafactor statistics on the mesh: {out}")
     return out
 
 
@@ -5757,12 +5935,32 @@ def mesh_generate(cfg: GenerativeVQAConfig, mesh, seed: int,
     return out
 
 
+def mesh_knowledge_batch(data: dict, seed: int,
+                         dim: int = MESH_KNOWLEDGE_DIM) -> dict:
+    """``data`` with K = RAG_K retrieved contexts a row of width ``dim``,
+    row b keeping K - (b mod (K + 1)) of them, as ``knowledge_key_mask``
+    (so every count, a fully masked row too)."""
+    n = len(data["labels"])
+    rs = np.random.RandomState(seed + 13)
+    keep = np.array([RAG_K - b % (RAG_K + 1) for b in range(n)])
+    return dict(data, knowledge_embeddings=rs.standard_normal(
+        (n, RAG_K, dim)).astype(np.float32),
+        knowledge_mask=(np.arange(RAG_K)[None] < keep[:, None]).astype(
+            np.int64))
+
+
 def mesh_rank(rank: int, cfg: VQAModelConfig, gen_cfg: GenerativeVQAConfig,
               seed: int, device: str = "cuda", batch: int = MESH_BATCH,
-              gen_batch: int = MESH_GEN_BATCH) -> dict:
+              gen_batch: int = MESH_GEN_BATCH, cli: dict | None = None,
+              study: list | None = None) -> dict:
     """One rank of the mesh phase (two ranks sharing cuda:0 over gloo).
     Rank 0 first runs the one-process references (and keeps only their
-    updates, on the card); then both ranks run each mesh."""
+    updates, on the card); then both ranks run each mesh: the flagship,
+    its f32 copy, the flagship with knowledge, and on (1, 2) the
+    generative model and adafactor; then both CLIs with
+    ``--use-knowledge`` on the YAML's (1, 2) mesh (``cli``: their YAMLs,
+    from ``mesh_cli_configs``), and the ablation CLI on (2, 1) (``study``:
+    its argv)."""
     import torch.distributed as dist
     from vivqa_tpu_torch.parallel.mesh import MeshConfig, create_mesh
     torch.set_num_threads(4)
@@ -5771,20 +5969,42 @@ def mesh_rank(rank: int, cfg: VQAModelConfig, gen_cfg: GenerativeVQAConfig,
     cfg = cfg.replace(text=cfg.text.replace(dropout=0.0),
                       fusion=cfg.fusion.replace(dropout=0.0),
                       head=cfg.head.replace(dropout=0.0))
+    kcfg = with_knowledge(cfg, MESH_KNOWLEDGE_DIM)
     data = mesh_batch(cfg, seed, batch)
+    kdata = mesh_knowledge_batch(data, seed)
     small = cfg.replace(
         visual=cfg.visual.replace(num_layers=MESH_SMALL_LAYERS),
         text=cfg.text.replace(num_layers=MESH_SMALL_LAYERS),
         fusion=cfg.fusion.replace(num_layers=MESH_SMALL_LAYERS))
-    out, keys, refs = {"rank": rank, "runs": {}}, set(), {}
+    out, keys = {"rank": rank, "runs": {}}, set()
+    # the one-process references, half on each rank (both share the
+    # card); each rank holds the runs on the meshes to its own
+    refs = {0: {"flagship": lambda: mesh_train(cfg, None, data, seed,
+                                               device),
+                "f32": lambda: mesh_train(small, None, data, seed, device,
+                                          f32=True),
+                "f32_adafactor": lambda: mesh_train(
+                    small, None, data, seed, device, f32=True,
+                    optimizer="adafactor", statistics=True),
+                "generative": lambda: mesh_generate(gen_cfg, None, seed,
+                                                    device,
+                                                    batch=gen_batch)},
+            1: {"knowledge": lambda: mesh_train(kcfg, None, kdata, seed,
+                                                device, logits=True),
+                "adafactor": lambda: mesh_train(cfg, None, data, seed,
+                                                device,
+                                                optimizer="adafactor",
+                                                statistics=True)}}[rank]
     t0 = time.perf_counter()
-    if rank == 0:
-        refs = {"flagship": mesh_train(cfg, None, data, seed, device),
-                "f32": mesh_train(small, None, data, seed, device, f32=True),
-                "generative": mesh_generate(gen_cfg, None, seed, device,
-                                            batch=gen_batch)}
+    refs = {part: run() for part, run in refs.items()}
     out["reference_s"] = time.perf_counter() - t0
     dist.barrier()
+    # (loss, grad norm, update cosine) limits of each part against one
+    # process: train_check's for the bf16 flagship, 1e-4 for f32
+    limits = {"flagship": (2e-2, 5e-2, 0.9), "knowledge": (2e-2, 5e-2, 0.9),
+              "adafactor": (2e-2, 5e-2, 0.9),
+              "f32": (1e-4, 1e-4, 1 - 1e-4),
+              "f32_adafactor": (1e-4, 1e-4, 1 - 1e-4)}
     for shape in MESH_SHAPES:
         mesh = create_mesh(MeshConfig(*shape), device)
         out["backend"] = mesh.backend
@@ -5792,58 +6012,399 @@ def mesh_rank(rank: int, cfg: VQAModelConfig, gen_cfg: GenerativeVQAConfig,
         run = {"flagship": mesh_train(cfg, mesh, data, seed, device,
                                       keys=keys),
                "f32": mesh_train(small, mesh, data, seed, device, f32=True,
-                                 keys=keys)}
+                                 keys=keys),
+               "knowledge": mesh_train(kcfg, mesh, kdata, seed, device,
+                                       keys=keys, logits=True)}
         if shape == (1, 2):
             run["generative"] = mesh_generate(gen_cfg, mesh, seed, device,
                                               keys, gen_batch)
-        if rank == 0:
-            run["flagship"]["against_one_process"] = mesh_compare(
-                run["flagship"], refs["flagship"], 2e-2, 5e-2, 0.9)
-            run["f32"]["against_one_process"] = mesh_compare(
-                run["f32"], refs["f32"], 1e-4, 1e-4, 1 - 1e-4)
-            if "generative" in run:
-                run["generative"]["against_one_process"] = compare_logits(
-                    run["generative"]["logits"].reshape(
-                        -1, gen_cfg.vocab_size),
-                    refs["generative"]["logits"].reshape(
-                        -1, gen_cfg.vocab_size))
-                run["generative"]["reference_launches_per_generate"] = \
-                    refs["generative"]["launches_per_generate"]
+            run["adafactor"] = mesh_train(cfg, mesh, data, seed, device,
+                                          keys=keys, optimizer="adafactor",
+                                          statistics=True)
+            run["f32_adafactor"] = mesh_train(
+                small, mesh, data, seed, device, f32=True, keys=keys,
+                optimizer="adafactor", statistics=True)
+        for part, ref in refs.items():
+            if part not in run:
+                continue
+            got = run[part]
+            if part == "generative":
+                got["against_one_process"] = compare_logits(
+                    got["logits"].reshape(-1, gen_cfg.vocab_size),
+                    ref["logits"].reshape(-1, gen_cfg.vocab_size))
+                got["reference_launches_per_generate"] = \
+                    ref["launches_per_generate"]
+                continue
+            got["against_one_process"] = mesh_compare(got, ref,
+                                                      *limits[part])
+            if "logits" in ref:
+                got["logits_against_one_process"] = compare_logits(
+                    got["logits"], ref["logits"])
+            if "statistics" in ref:
+                # the f32 copy's are held to 1e-3; the bf16 flagship's
+                # differ by its gradients' roundings and are reported
+                got["statistics_against_one_process"] = statistics_compare(
+                    got["statistics"], ref["statistics"],
+                    1e-3 if part == "f32_adafactor" else None)
         for r in run.values():
-            r.pop("update", None)
-            r.pop("logits", None)
-            r.pop("seqs", None)
+            for k in ("update", "logits", "seqs", "statistics"):
+                r.pop(k, None)
         run["seconds"] = time.perf_counter() - t1
         out["runs"][str(shape)] = run
         if device == "cuda":
             torch.cuda.empty_cache()
+    del refs
+    if cli is not None:
+        t1 = time.perf_counter()
+        with recording_launches(keys):
+            out["cli"] = mesh_cli_rank(cli, device)
+        out["cli"]["seconds"] = time.perf_counter() - t1
+    if study is not None:
+        t1 = time.perf_counter()
+        with recording_launches(keys):
+            out["ablation"] = mesh_ablation_rank(study)
+        out["ablation"]["seconds"] = time.perf_counter() - t1
     out["launch_keys"] = sorted(keys, key=str)
     return out
+
+
+def mesh_cli_configs(tmp: str, cls_cfg: VQAModelConfig,
+                     gen_cfg: GenerativeVQAConfig, device: str = "cuda",
+                     n: int = MESH_CLI_CORPUS, image_size: int = 224,
+                     batch: int = MESH_BATCH, seed: int = 0) -> dict:
+    """Both CLIs' corpora of ``n`` learnable images and YAML configs with
+    ``mesh`` (1, 2), one epoch at ``batch`` (2 steps of the 64 training
+    samples), for ``--use-knowledge`` (``rag_cli_phase``'s recipes; the
+    generative one with ``--kb-path``): {cls, gen, kb: their paths}."""
+    from vivqa_tpu_torch.data import ensure_synthetic_vivqa
+    from vivqa_tpu_torch.parallel.mesh import MeshConfig
+    from vivqa_tpu_torch.pipelines import generative_vqa_pipeline as gvp
+    mesh = MeshConfig(1, 2)
+    Path(tmp).mkdir(parents=True, exist_ok=True)
+    kb = Path(tmp) / "kb.json"
+    kb.write_text(json.dumps([{"content": d.content, "category": d.category}
+                              for d in rag_documents()], ensure_ascii=False))
+    csv, imgs = generate_synthetic_vivqa(f"{tmp}/cls", n=n,
+                                         image_size=image_size,
+                                         learnable=True, seed=seed)
+    VQAPipelineConfig(
+        data=DataPipelineConfig(
+            csv_path=str(csv), image_dir=str(imgs), image_size=image_size,
+            max_question_length=cls_cfg.text.max_length, batch_size=batch,
+            augmentation_strength="medium", seed=seed),
+        model=ModelPipelineConfig(
+            model=cls_cfg.replace(knowledge=cls_cfg.knowledge.replace(
+                num_retrieved=RAG_K)), device=device, seed=seed, mesh=mesh),
+        training=TrainingPipelineConfig(
+            num_epochs=1, checkpoint_dir=f"{tmp}/ck_cls", log_every=4,
+            seed=seed),
+        output_dir=f"{tmp}/out_cls", seed=seed).to_yaml(f"{tmp}/cls.yaml")
+    gcsv, gimgs = ensure_synthetic_vivqa(f"{tmp}/gen", n=n,
+                                         image_size=image_size,
+                                         learnable=True, seq_answers=True)
+    gvp.GenerativeVQAPipelineConfig(
+        data=DataPipelineConfig(
+            csv_path=str(gcsv), image_dir=str(gimgs), image_size=image_size,
+            max_question_length=gen_cfg.text.max_length,
+            max_answer_length=gen_cfg.max_answer_length, batch_size=batch,
+            augmentation_strength="medium", generative=True, seed=seed),
+        model=gen_cfg.replace(dropout=GEN_DROPOUT, label_smoothing=0.0,
+                              knowledge=gen_cfg.knowledge.replace(
+                                  num_retrieved=RAG_K)),
+        training=GenerativeTrainingConfig(
+            num_epochs=1, label_smoothing=0.0,
+            checkpoint_dir=f"{tmp}/ck_gen",
+            optimizer=OptimizerConfig(learning_rate=1e-3, weight_decay=0.01),
+            log_every=1, seed=seed),
+        knowledge=KnowledgeProviderConfig(retriever="sparse"),
+        device=device, output_dir=f"{tmp}/out_gen", seed=seed,
+        mesh=mesh).to_yaml(f"{tmp}/gen.yaml")
+    return {"cls": f"{tmp}/cls.yaml", "gen": f"{tmp}/gen.yaml",
+            "kb": str(kb), "cls_model": cls_cfg, "gen_model": gen_cfg}
+
+
+def mesh_cli_rank(cli: dict, device: str = "cuda") -> dict:
+    """This rank's part of both CLIs' train runs with ``--use-knowledge``
+    on the YAML's (1, 2) mesh, each with the launch counts set to 0 just
+    before it and read just after and held to the counts of
+    ``rag_cli_phase``: 37 of each training kernel a classification step
+    and 37 forward calls a forward (ModelPipeline's dummy forward, the
+    validations), 39 a generative step, 27 a generate and 12 a decode
+    step."""
+    from vivqa_tpu_torch.pipelines import generative_vqa_pipeline as gvp
+    from vivqa_tpu_torch.pipelines import vqa_pipeline as vp
+    on_card = device == "cuda"
+    runs, summaries = {}, {}
+    for name, fn in (
+            ("cls", lambda: vp.main(["--config", cli["cls"],
+                                     "--use-knowledge", "--mode", "train"])),
+            ("gen", lambda: gvp.main(["--config", cli["gen"],
+                                      "--use-knowledge", "--kb-path",
+                                      cli["kb"], "--mode", "train"]))):
+        counts = {"generates": 0, "decode_steps": 0}
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        with counting_decode(counts):
+            summaries[name] = fn()
+        if on_card:
+            torch.cuda.synchronize()
+        runs[name] = {"seconds": time.perf_counter() - t0,
+                      "launches": dict(fa.launch_counts), **counts}
+    cls_cfg, gen_cfg = cli["cls_model"], cli["gen_model"]
+    vcfg = VQAPipelineConfig.from_yaml(cli["cls"])
+    data = DataPipeline(vcfg.data).run()
+    steps, val_batches = len(data.train_loader), len(data.val_loader)
+    gcfg = gvp.GenerativeVQAPipelineConfig.from_yaml(cli["gen"])
+    gen_steps = len(DataPipeline(gcfg.data).run().train_loader)
+    per_fwd = (attention_calls_per_forward(cls_cfg) + 1) if on_card else 0
+    zero = {n: 0 for n in TRAIN_KERNELS}
+    r = runs["gen"]
+    want = {"cls": {**{n: per_fwd * steps for n in TRAIN_KERNELS},
+                    "flash_attn_fwd": per_fwd * (1 + 2 * val_batches)},
+            "gen": {**{n: gen_calls_per_step(gen_cfg) * gen_steps
+                       if on_card else 0 for n in TRAIN_KERNELS},
+                    "flash_attn_fwd": attention_calls_per_generate(
+                        gen_cfg, 0) * r["generates"]
+                    + 2 * gen_cfg.decoder_layers * r["decode_steps"]
+                    if on_card else 0}}
+    problems = [f"{n} launches {runs[n]['launches']} != {w}"
+                for n, w in want.items() if runs[n]["launches"] != w]
+    history = summaries["cls"]["history"] + summaries["gen"]["history"]
+    if len(history) != 2 or not all(math.isfinite(h["train_loss"])
+                                    for h in history) \
+            or steps != MESH_CLI_STEPS or gen_steps != MESH_CLI_STEPS:
+        problems.append(f"history {history}, steps {steps} / {gen_steps}")
+    if problems:
+        raise AssertionError("mesh CLIs with knowledge: "
+                             + "; ".join(problems))
+    return {"steps": {"cls": steps, "gen": gen_steps},
+            "run_seconds": {n: r["seconds"] for n, r in runs.items()},
+            "launches": {n: r["launches"] for n, r in runs.items()},
+            "launches_per_step": {
+                n: {k: runs[n]["launches"][k] / s for k in TRAIN_KERNELS}
+                for n, s in (("cls", steps), ("gen", gen_steps))},
+            "history": history}
+
+
+def mesh_ablation_rank(study: list) -> dict:
+    """This rank's part of the ablation CLI on two ranks: the study
+    (``run_ablation.main`` with ``study``'s argv, whose mesh is (2, 1):
+    every rank on 'data'), each experiment with the launch counts set to
+    0 just before it and read just after, and every file the rank
+    writes; then the same command again (it must train nothing)."""
+    from vivqa_tpu_torch.ablation import run_ablation as RA
+    records, writes = [], []
+    with recording_experiments(records), recording_writes(writes):
+        results = RA.main(study)
+    again = []
+    with recording_experiments(again):
+        resumed = RA.main(study)
+    return {"results": {r.experiment_id: {
+                "status": r.status, "error": r.error[-400:],
+                "exact_match": r.metrics.get("exact_match"),
+                "n_eval": len(r.correct_mask or [])}
+                for r in results},
+            "experiments": {rec["id"]: {
+                "seconds": rec["seconds"], "launches": rec["launches"],
+                "train_steps": rec["train_steps"],
+                "val_batches": rec["val_batches"]} for rec in records},
+            "writes": writes,
+            "resumed": sorted(r.experiment_id for r in resumed),
+            "resume_ran": [rec["id"] for rec in again]}
+
+
+@contextlib.contextmanager
+def recording_writes(writes: list):
+    """Each file written inside (``Path.write_text``, ``open`` for
+    writing, ``torch.save``) appended to ``writes``."""
+    import builtins
+    write_text, open_, save = Path.write_text, builtins.open, torch.save
+
+    def patched_write_text(self, *args, **kwargs):
+        writes.append(str(self))
+        return write_text(self, *args, **kwargs)
+
+    def patched_open(file, mode="r", *args, **kwargs):
+        if any(c in mode for c in "wax"):
+            writes.append(str(file))
+        return open_(file, mode, *args, **kwargs)
+
+    def patched_save(obj, f, *args, **kwargs):
+        writes.append(str(f))
+        return save(obj, f, *args, **kwargs)
+    Path.write_text, builtins.open, torch.save = (
+        patched_write_text, patched_open, patched_save)
+    try:
+        yield writes
+    finally:
+        Path.write_text, builtins.open, torch.save = write_text, open_, save
+
+
+def mesh_study(tmp: str, device: str = "cuda", n: int = ABL_CORPUS,
+               scale: tuple = (), seed: int = 0) -> list:
+    """The ablation CLI's argv for the mesh: the ablation phase's study
+    (its YAML, corpus, round-3 model and flags) cut to MESH_ABL_ROWS,
+    everything under ``tmp`` (the output in ``tmp``/out)."""
+    from vivqa_tpu_torch.ablation import run_ablation as RA
+    image_size = RA.build_argparser().parse_args(
+        [*ABL_SCALE, *scale]).image_size
+    csv, imgs = generate_synthetic_vivqa(f"{tmp}/data", n=n,
+                                         image_size=image_size,
+                                         learnable=True, seed=seed)
+    argv = ["--config", abl_study_config(tmp, f"{tmp}/out"),
+            "--csv-path", str(csv), "--image-dir", str(imgs),
+            "--epochs", str(ABL_EPOCHS), "--batch-size", str(ABL_BATCH),
+            "--device", device, *ABL_SCALE, *scale, *ABL_STUDY]
+    study = RA.AblationConfig.from_yaml(argv[1])
+    matrix = [e.experiment_id for e in study.generate_experiment_matrix()]
+    return argv + ["--experiments",
+                   ",".join(str(matrix.index(e)) for e in MESH_ABL_ROWS)]
+
+
+def mesh_ablation_check(ranks: list, reference: dict, calls: int,
+                        out_dir: str) -> dict:
+    """The two ranks' study against one process's (``reference``: {id:
+    {exact_match, seconds}}): every row completes on both ranks with the
+    same exact match, within 0.05 of one process's; each result file is
+    written once, by rank 0, and parses; the second run trained nothing;
+    each rank launches each training kernel ``calls`` times a step and
+    the forward ``calls`` times a validation forward (as
+    ``ablation_phase`` counts them)."""
+    problems, rows = [], {}
+    for eid in MESH_ABL_ROWS:
+        got = [r["ablation"]["results"].get(eid, {}) for r in ranks]
+        em = [g.get("exact_match") for g in got]
+        ref = reference[eid]["exact_match"]
+        if any(g.get("status") != "completed" for g in got) \
+                or em[0] != em[1] or em[0] is None \
+                or abs(em[0] - ref) > 0.05:
+            problems.append(f"{eid}: {got} against one process's {ref}")
+        recs = [r["ablation"]["experiments"].get(eid) for r in ranks]
+        for rank, rec in enumerate(recs):
+            if rec is None:
+                problems.append(f"{eid}: rank {rank} ran no experiment")
+                continue
+            S, V = rec["train_steps"], rec["val_batches"]
+            if eid.startswith("ph_"):
+                want = {**{k: 0 for k in TRAIN_KERNELS},
+                        "flash_attn_fwd": calls * (V + 1)}
+            else:
+                want = {**{k: calls * S * ABL_EPOCHS for k in TRAIN_KERNELS},
+                        "flash_attn_fwd": calls * (V * (ABL_EPOCHS + 2) + 1)}
+            if rec["launches"] != want:
+                problems.append(f"{eid} rank {rank} launches "
+                                f"{rec['launches']} != {want}")
+        result = Path(out_dir) / "results" / f"{eid}.json"
+        written = [sum(w == str(result) for w in r["ablation"]["writes"])
+                   for r in ranks]
+        try:
+            json.loads(result.read_text())
+        except (OSError, ValueError) as e:
+            problems.append(f"{result}: {e}")
+        if written != [1, 0]:
+            problems.append(f"{eid}: result written {written} times by "
+                            f"ranks 0, 1")
+        rows[eid] = {"exact_match": em[0], "one_process_exact_match": ref,
+                     "seconds_two_ranks": [rec["seconds"] if rec else None
+                                           for rec in recs],
+                     "seconds_one_process": reference[eid]["seconds"],
+                     "launches": recs[0]["launches"] if recs[0] else None,
+                     "launches_per_step": {
+                         k: recs[0]["launches"][k]
+                         / (recs[0]["train_steps"] * ABL_EPOCHS)
+                         for k in TRAIN_KERNELS} if recs[0] else None,
+                     "writes_by_rank": written}
+    for r in ranks:
+        if r["ablation"]["resume_ran"] or \
+                r["ablation"]["resumed"] != sorted(MESH_ABL_ROWS):
+            problems.append(f"rank {r['rank']} resume: ran "
+                            f"{r['ablation']['resume_ran']}, results "
+                            f"{r['ablation']['resumed']}")
+        if r["rank"] == 1 and any(w.startswith(out_dir)
+                                  for w in r["ablation"]["writes"]):
+            problems.append(f"rank 1 wrote {r['ablation']['writes'][:5]}")
+    if problems:
+        raise AssertionError("mesh ablation: " + "; ".join(problems))
+    return rows
+
+
+def mesh_study_reference(study: list, device: str = "cuda") -> dict:
+    """The mesh study's rows on one process (the ``--phase mesh`` run's
+    reference; the whole run takes the ablation phase's)."""
+    from vivqa_tpu_torch.ablation import run_ablation as RA
+    records = []
+    with recording_experiments(records):
+        results = RA.main(study)
+    seconds = {rec["id"]: rec["seconds"] for rec in records}
+    return {r.experiment_id: {"exact_match": r.metrics.get("exact_match"),
+                              "seconds": seconds[r.experiment_id]}
+            for r in results}
 
 
 def mesh_phase(device: str = "cuda", seed: int = 0,
                cfg: VQAModelConfig | None = None,
                gen_cfg: GenerativeVQAConfig | None = None,
                batch: int = MESH_BATCH,
-               gen_batch: int = MESH_GEN_BATCH) -> dict:
+               gen_batch: int = MESH_GEN_BATCH, abl: dict | None = None,
+               cli_n: int = MESH_CLI_CORPUS, cli_image_size: int = 224,
+               abl_n: int = ABL_CORPUS, abl_scale: tuple = ()) -> dict:
     """Two ranks on the one card over a gloo group (NCCL refuses two ranks
     on one device): the flagship at full width (bf16, dropout 0) on the
     (2, 1) and (1, 2) meshes, MESH_STEPS steps each of a global batch of
-    MESH_BATCH, from the same seeded weights as rank 0's one-process
-    steps, held to train_check's tolerances; a copy of MESH_SMALL_LAYERS
-    layers in f32 held to 1e-4; bench_serving's generative model on
+    MESH_BATCH, from the same seeded weights as one process's steps
+    (each rank runs half of them), held to train_check's tolerances; a copy of MESH_SMALL_LAYERS
+    layers in f32 held to 1e-4; the flagship with knowledge (K = RAG_K)
+    on both meshes, held the same way, its evaluation logits by
+    ``compare_logits``; adafactor on (1, 2), on the flagship (held as the
+    flagship; its factored statistics against one process's reported)
+    and on the f32 copy (held as the copy; its factored statistics
+    within 1e-3 of one process's); bench_serving's generative model on
     (1, 2): a greedy generate of 32 tokens at MESH_GEN_BATCH (411
     launches on each rank) and its teacher-forced logits against one
     process (``compare_logits``). The attention kernels launch 36 times a
-    step and 36 a forward on every rank. The kernels were built by this
-    process; the ranks load them. Returns the ranks' reports and
+    step and 36 a forward on every rank (37 with knowledge). Then both
+    CLIs with ``--use-knowledge`` on the YAML's (1, 2) mesh, two steps
+    each, and the ablation CLI on two ranks (MESH_ABL_ROWS of the
+    ablation phase's study, 42 launches a step), each row's exact match
+    within 0.05 of one process's (``abl``: the ablation phase's result;
+    without it one process runs them here first). The kernels were built
+    by this process; the ranks load them. Returns the ranks' reports and
     ``launch_keys`` for path_check."""
     from vivqa_tpu_torch.parallel.launch import run_ranks
     t0 = time.perf_counter()
+    cfg = cfg or flagship_config()
     gen_cfg = gen_cfg or bench_serving.serving_config()
-    ranks = run_ranks(mesh_rank, 2, cfg or flagship_config(), gen_cfg, seed,
-                      device, batch, gen_batch, timeout=900)
     cuda = device == "cuda"
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = mesh_cli_configs(f"{tmp}/cli", cfg, gen_cfg, device, cli_n,
+                               cli_image_size, batch, seed)
+        study = mesh_study(f"{tmp}/abl", device, abl_n, abl_scale, seed)
+        if abl is not None:
+            reference = {eid: abl["experiments"][eid]
+                         for eid in MESH_ABL_ROWS}
+        else:
+            reference = mesh_study_reference(mesh_study(
+                f"{tmp}/abl_one", device, abl_n, abl_scale, seed), device)
+        t_ranks = time.perf_counter()
+        ranks = run_ranks(mesh_rank, 2, cfg, gen_cfg, seed, device, batch,
+                          gen_batch, cli, study, timeout=900)
+        ranks_s = time.perf_counter() - t_ranks
+        abl_calls = attention_calls_per_forward(abl_model_config(abl_scale)) \
+            if cuda else 0
+        abl_rows = mesh_ablation_check(ranks, reference, abl_calls,
+                                       f"{tmp}/abl/out")
+    # each rank held the runs against its own references: both get all
+    held = ("against_one_process", "logits_against_one_process",
+            "statistics_against_one_process",
+            "reference_launches_per_generate")
+    for shape, run in ranks[0]["runs"].items():
+        for part in run:
+            if part == "seconds":
+                continue
+            got = {k: v for r in ranks
+                   for k, v in r["runs"][shape][part].items() if k in held}
+            for r in ranks:
+                r["runs"][shape][part].update(got)
     per_generate = attention_calls_per_generate(
         gen_cfg, gen_cfg.max_answer_length) if cuda else 0
     keys = {tuple(tuple(x) if isinstance(x, list) else x for x in k)
@@ -5851,11 +6412,14 @@ def mesh_phase(device: str = "cuda", seed: int = 0,
     for r in ranks:
         print(f"[mesh] rank {r['rank']}: references {r['reference_s']:.1f} s, "
               + ", ".join(f"{s} {run['seconds']:.1f} s"
-                          for s, run in r["runs"].items()), flush=True)
+                          for s, run in r["runs"].items())
+              + f", CLIs {r['cli']['seconds']:.1f} s, ablation "
+                f"{r['ablation']['seconds']:.1f} s", flush=True)
     for r in ranks:
         for shape, run in r["runs"].items():
-            for part in ("flagship", "f32"):
-                got = run[part]
+            for part, got in run.items():
+                if part in ("generative", "seconds"):
+                    continue
                 calls = got["attention_calls"] * cuda
                 if got["launches_per_forward"] != calls or \
                         any(got["launches_per_step"][n] != calls
@@ -5871,8 +6435,9 @@ def mesh_phase(device: str = "cuda", seed: int = 0,
                                      f"launches a generate")
     for r in ranks:
         r.pop("launch_keys")
-    return {"ranks": ranks, "launch_keys": keys,
-            "seconds": time.perf_counter() - t0,
+        r["ablation"].pop("writes")
+    return {"ranks": ranks, "launch_keys": keys, "ablation": abl_rows,
+            "seconds": time.perf_counter() - t0, "ranks_seconds": ranks_s,
             "global_batch": batch, "steps": MESH_STEPS,
             "note": "two ranks share one card over gloo: the step times "
                     "are not multi-card figures"}
@@ -5940,9 +6505,9 @@ def kernels_line(rows: dict, launches: int, generative: dict,
     generate at batch 16 (its 411 calls); the training kernels' for one
     flagship train step at batch 128 (36 calls each, at the dropout each
     call uses), and, under ``generative_step``, for one generative train
-    step at batch 32 (39 calls each). ``ms`` is CUDA-graph replay,
-    ``profiled_ms`` the profiler's sum of kernel durations (as
-    ``library_ms`` is timed); registers and spills are ptxas' for the
+    step at batch 32 (39 calls each). ``ms`` is CUDA-graph replay
+    (``library_ms`` SDPA's, the same way);
+    registers and spills are ptxas' for the
     template the main path runs. ``cls_pipeline`` holds each kernel's
     launches in the classification CLI pipeline's runs (train, evaluate,
     inference), per train step and per validation forward; ``gen_cli``
@@ -6126,40 +6691,8 @@ def kernels_line(rows: dict, launches: int, generative: dict,
         return out
     entries[0]["hf_import"] = hf_entry("flash_attn_fwd")
 
-    def mesh_entry(name):
-        """The kernel on the mesh phase's two ranks."""
-        part = "forward" if name == "flash_attn_fwd" else "training"
-        keys = (("kernel_ms", "plain_ms", "library_ms", "bound_us",
-                 "bound_by", "max_abs_err_bf16") if part == "forward"
-                else ())
-        shapes = {n: {"B": r[part]["B"], "H": r[part]["H"],
-                      "Lq": r[part]["Lq"], "Lk": r[part]["Lk"],
-                      "mask": r[part]["mask"],
-                      **({k: r[part][k] for k in keys} if keys else
-                         {k: r[part][name][k] for k in (
-                             "kernel_ms", "plain_ms", "library_ms",
-                             "bound_ms", "bound_by")})}
-                  for n, r in mesh_rows.items()}
-        launches = {
-            f"rank{r['rank']} {shape} {part_}": (
-                run[part_]["launches_per_forward"] if name == "flash_attn_fwd"
-                else run[part_]["launches_per_step"][name])
-            for r in mesh["ranks"] for shape, run in r["runs"].items()
-            for part_ in ("flagship", "f32")}
-        if name == "flash_attn_fwd":
-            launches.update({
-                f"rank{r['rank']} (1, 2) generate":
-                    r["runs"]["(1, 2)"]["generative"]["launches_per_generate"]
-                for r in mesh["ranks"]})
-        return {**{k: v for k, v in mesh_tot[name].items()
-                   if k != "by_case_ms"},
-                "shapes": shapes, "launches": launches,
-                "per": ("a rank's evaluation forward" if part == "forward"
-                        else "a rank's train step") + f" on the (1, 2) mesh "
-                       f"(global batch {MESH_BATCH}, half the heads a rank),"
-                       f" bf16; launches a forward (a step, a generate) per "
-                       f"rank"}
-    entries[0]["mesh"] = mesh_entry("flash_attn_fwd")
+    entries[0]["mesh"] = mesh_entry("flash_attn_fwd", mesh_rows, mesh_tot,
+                                    mesh)
     totals = step_totals(train_rows)
     gen_totals = step_totals(gen_rows)
     replaces = {
@@ -6230,8 +6763,75 @@ def kernels_line(rows: dict, launches: int, generative: dict,
             "trainer": trainer_entry(name),
             "zoo": zoo_entry(name),
             "hf_import": hf_entry(name),
-            "mesh": mesh_entry(name)})
+            "mesh": mesh_entry(name, mesh_rows, mesh_tot, mesh)})
     return {"kernels": entries}
+
+
+def mesh_entry(name: str, mesh_rows: dict, mesh_tot: dict,
+               mesh: dict) -> dict:
+    """The kernel ``name`` on the mesh phase's two ranks, for the kernels
+    line: ``mesh_report``'s kernel rows, their totals and the ranks'
+    results."""
+    part = "forward" if name == "flash_attn_fwd" else "training"
+
+    def shape_row(r):
+        r = r[part]
+        row = {"B": r["B"], "H": r["H"], "Lq": r["Lq"], "Lk": r["Lk"],
+               "mask": r["mask"]}
+        if part == "forward":
+            return {**row, **{k: r[k] for k in (
+                "kernel_ms", "plain_ms", "library_ms", "bound_us",
+                "bound_by", "max_abs_err_bf16")}}
+        return {**row, "dropout": r["dropout"], **{k: r[name][k] for k in (
+            "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")}}
+    shapes = {n: shape_row(r) for n, r in mesh_rows["flagship"].items()}
+    shapes.update({f"{n} dropout {rate}": shape_row(r)
+                   for (n, rate), r in mesh_rows["knowledge"].items()
+                   if part == "training" or rate == 0.0})
+    launches = {
+        f"rank{r['rank']} {shape} {part_}": (
+            got["launches_per_forward"] if name == "flash_attn_fwd"
+            else got["launches_per_step"][name])
+        for r in mesh["ranks"] for shape, run in r["runs"].items()
+        for part_, got in run.items()
+        if part_ not in ("generative", "seconds")}
+    if name == "flash_attn_fwd":
+        launches.update({
+            f"rank{r['rank']} (1, 2) generate":
+                r["runs"]["(1, 2)"]["generative"]["launches_per_generate"]
+            for r in mesh["ranks"]})
+    launches.update({
+        f"rank{r['rank']} (1, 2) {cli} CLI with knowledge":
+            r["cli"]["launches"][cli][name]
+        for r in mesh["ranks"] for cli in ("cls", "gen")})
+    launches.update({
+        f"rank{r['rank']} (2, 1) ablation {eid.split('__')[0]}":
+            rec["launches"][name]
+        for r in mesh["ranks"]
+        for eid, rec in r["ablation"]["experiments"].items()})
+    abl_part = ("per_validation_forward" if name == "flash_attn_fwd"
+                else "per_step")
+    abl_tot = mesh_tot["ablation"][abl_part]
+    abl_tot = abl_tot if name == "flash_attn_fwd" else abl_tot[name]
+    return {**{k: v for k, v in mesh_tot[name].items()
+               if k != "by_case_ms"},
+            "shapes": shapes, "launches": launches,
+            "with_knowledge": {k: v for k, v in
+                               mesh_tot["knowledge"][name].items()
+                               if k != "by_case_ms"},
+            "ablation": {k: v for k, v in abl_tot.items()
+                         if k != "by_case_ms"},
+            "per": ("a rank's evaluation forward" if part == "forward"
+                    else "a rank's train step") + f" on the (1, 2) mesh "
+                   f"(global batch {MESH_BATCH}, half the heads a rank),"
+                   f" bf16; with_knowledge: the same with "
+                   f"KnowledgeAttention (1 x {RAG_K}, 4 heads); "
+                   f"ablation: the study's full model at its per-rank "
+                   f"batch {ABL_BATCH // 2} on (2, 1); launches a "
+                   f"forward (a step, a generate) per rank, and each "
+                   f"rank's in the CLIs' train runs and the ablation "
+                   f"experiments"}
 
 
 def _path_totals(rows: dict, calls_key: str) -> dict:
@@ -6245,7 +6845,6 @@ def _path_totals(rows: dict, calls_key: str) -> dict:
     t_flops = total("flops") / PEAK_FLOPS[torch.bfloat16] * 1e3
     return {"max_abs_err": max(r["max_abs_err_bf16"] for r in main),
             "ms": total("kernel_ms"),
-            "profiled_ms": total("kernel_profiled_ms"),
             "plain_ms": total("plain_ms"),
             "bound_ms": max(t_bytes, t_flops),
             "bound_by": "bytes" if t_bytes >= t_flops else "operations",
@@ -6286,18 +6885,29 @@ def forward_entry(rows: dict, launches: int, ptxas: dict) -> dict:
                f"({ATTN_CALLS_PER_FORWARD} calls), bf16"}
 
 
-def mesh_report(card: str, t_start: float, launched: dict) -> tuple:
+def mesh_report(card: str, t_start: float, launched: dict,
+                abl: dict | None = None) -> tuple:
     """Phase 15 with its report: the kernels at the per-rank shapes, then
     the ranks; the ranks' launch keys go into ``launched['mesh']``.
-    Returns (kernel rows, their totals, the ranks' results)."""
+    ``abl``: the ablation phase's result (its rows are the two-rank
+    study's reference). Returns (kernel rows, their totals, the ranks'
+    results)."""
     t_mesh = time.perf_counter()
-    mesh_rows = mesh_kernel_phase()
+    with timed("mesh.kernels"):
+        mesh_rows = mesh_kernel_phase()
     mesh_tot = mesh_totals(mesh_rows)
     emit({"mesh_attention": mesh_tot, "card": card})
-    mesh = mesh_phase()
+    with timed("mesh.ranks"):
+        mesh = mesh_phase(abl=abl)
     launched["mesh"] = mesh.pop("launch_keys")
     emit({"mesh": mesh, "card": card})
     runs = mesh["ranks"][0]["runs"]
+
+    def against(run, part):
+        a = run[part]["against_one_process"]
+        return (f"{part} loss/grad-norm rel diff {a['loss_rel_diff']:.2e}/"
+                f"{a['grad_norm_rel_diff']:.2e} cosine "
+                f"{a['update_cosine']:.5f}")
     print("[mesh] two ranks on one card over " + mesh["ranks"][0]["backend"]
           + "; " + "; ".join(
         f"{shape}: flagship steps " + " / ".join(
@@ -6310,20 +6920,37 @@ def mesh_report(card: str, t_start: float, launched: dict) -> tuple:
         f"{run['flagship']['collective_bytes'][-1] / 2**20:.1f} MiB a step, "
         f"peak " + "/".join(
             f"{r['runs'][shape]['flagship']['max_memory_allocated_gib']:.2f}"
-            for r in mesh["ranks"]) + " GiB, loss/grad-norm rel diff "
-        f"{run['flagship']['against_one_process']['loss_rel_diff']:.2e}/"
-        f"{run['flagship']['against_one_process']['grad_norm_rel_diff']:.2e}"
-        f" cosine {run['flagship']['against_one_process']['update_cosine']:.5f}"
-        f", f32 copy loss rel diff "
-        f"{run['f32']['against_one_process']['loss_rel_diff']:.2e}"
+            for r in mesh["ranks"]) + " GiB, " + ", ".join(
+                against(run, part) for part in ("flagship", "knowledge",
+                                                "adafactor") if part in run)
+        + f", knowledge logits max diff "
+          f"{run['knowledge']['logits_against_one_process']['max_abs_logit_diff']:.3g}"
+          f", f32 copy loss rel diff "
+          f"{run['f32']['against_one_process']['loss_rel_diff']:.2e}"
         for shape, run in runs.items())
+        + "; adafactor statistics rel diff " + "; ".join(
+            f"{part} " + ", ".join(
+                f"{f} {v['rel_diff']:.2e}" for f, v in
+                runs["(1, 2)"][part]["statistics_against_one_process"]
+                .items() if f != "tolerance")
+            for part in ("adafactor", "f32_adafactor"))
         + f"; generative (1, 2) logits max diff "
           f"{runs['(1, 2)']['generative']['against_one_process']['max_abs_logit_diff']:.3g}"
           f" (tolerance "
           f"{runs['(1, 2)']['generative']['against_one_process']['tolerance']:.3g}),"
           f" {runs['(1, 2)']['generative']['launches_per_generate']} launches "
-          f"a generate; attention per rank step on (1, 2) " + ", ".join(
-              f"{n} {t['ms']:.3f} ms" for n, t in mesh_tot.items())
+          f"a generate; CLIs with knowledge on (1, 2) " + ", ".join(
+              f"{n} {t:.1f} s" for n, t in
+              mesh["ranks"][0]["cli"]["run_seconds"].items())
+        + "; ablation on (2, 1): " + ", ".join(
+            f"{eid.split('__')[0]} em {r['exact_match']:.3f} (one process "
+            f"{r['one_process_exact_match']:.3f}), "
+            f"{r['seconds_two_ranks'][0]:.1f} s (one process "
+            f"{r['seconds_one_process']:.1f})"
+            for eid, r in mesh["ablation"].items())
+        + "; attention per rank step on (1, 2) " + ", ".join(
+              f"{n} {mesh_tot[n]['ms']:.3f} ms" for n in
+              ("flash_attn_fwd",) + TRAIN_KERNELS)
         + f" on {card} ({time.perf_counter() - t_mesh:.1f} s of the phase, "
           f"{mesh['seconds']:.1f} s of it the ranks; "
           f"{time.perf_counter() - t_start:.1f} s)", flush=True)
@@ -6357,15 +6984,21 @@ def main(argv=None) -> int:
     print(f"[device] {kind} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | nvidia-smi: {card}", flush=True)
 
-    ptxas = build_phase()
+    with timed("build"):
+        ptxas = build_phase()
     if args.phase == "mesh":
         launched = {}
-        mesh_report(card, t_start, launched)
-        path_report(launched)
+        with timed("mesh"):
+            mesh_report(card, t_start, launched)
+        with timed("path_check"):
+            path_report(launched)
         print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
+        emit({"phase_seconds": {**PHASE_SECONDS,
+                                "total": time.perf_counter() - t_start}})
         print(card)
         return 0
-    rows = kernel_phase()
+    with timed("kernels"):
+        rows = kernel_phase()
     tiles = tile_rows_line(rows)
     emit(tiles)
     print("[kernels] serving forward per flagship forward (bf16): "
@@ -6384,17 +7017,20 @@ def main(argv=None) -> int:
               tiles["serving_tile_rows"]["decode_rule"]
               ["ms_all_configs_by_tile_rows"].items()) + ")",
           flush=True)
-    train_rows = train_kernel_phase()
+    with timed("kernels"):
+        train_rows = train_kernel_phase()
     print(f"[kernels] {time.perf_counter() - t_start:.1f} s", flush=True)
     cfg = flagship_config()
     launched = {}           # path: its launch keys (path_check_phase)
-    with recording_launches(launched.setdefault("serving", set())):
+    with recording_launches(launched.setdefault("serving", set())), \
+            timed("serving"):
         serving = serving_phase(cfg, "cuda")
     emit({"serving": serving, "card": card})
     print(f"[serving] {serving['batches']} batches of {serving['batch']}: "
           f"{serving['mean_batch_latency_ms']:.2f} ms per batch, "
           f"{serving['answers_per_s']:.1f} answers/s on {card}", flush=True)
-    with recording_launches(launched.setdefault("generative", set())):
+    with recording_launches(launched.setdefault("generative", set())), \
+            timed("generative"):
         generative = generative_phase(bench_serving.serving_config())
     emit({"generative": generative, "card": card})
     print("[generative] " + ", ".join(
@@ -6404,7 +7040,8 @@ def main(argv=None) -> int:
         + f"; {generative['launches_per_generate']:.0f} attention launches "
           f"per generate on {card} ({time.perf_counter() - t_start:.1f} s)",
         flush=True)
-    with recording_launches(launched.setdefault("training", set())):
+    with recording_launches(launched.setdefault("training", set())), \
+            timed("training"):
         training = training_phase(cfg)
     emit({"training": training, "card": card})
     print(f"[training] batch {training['batch']}: median step "
@@ -6412,17 +7049,21 @@ def main(argv=None) -> int:
           f"{training['qa_pairs_per_s']:.1f} QA-pairs/s, peak "
           f"{training['max_memory_allocated_gib']:.1f} GiB on {card}",
           flush=True)
-    with recording_launches(launched["training"]):
-        check = train_check(cfg)
+    with recording_launches(launched["training"]), \
+            timed("training.train_check"):
+        check = train_check(check_depth(cfg), calls_per_step=
+                            attention_calls_per_forward(check_depth(cfg)))
     emit({"train_check": check})
     print(f"[training] {time.perf_counter() - t_start:.1f} s", flush=True)
 
     tok = gen_tokenizer()
     gen_cfg = gen_training_config(tok)
-    gen_rows = gen_train_kernel_phase(gen_cfg)
+    with timed("gen_training.kernels"):
+        gen_rows = gen_train_kernel_phase(gen_cfg)
     gen_totals = step_totals(gen_rows)
     emit({"gen_training_attention_per_step": gen_totals, "card": card})
-    with recording_launches(launched.setdefault("gen_training", set())):
+    with recording_launches(launched.setdefault("gen_training", set())), \
+            timed("gen_training"):
         gen_training = gen_training_phase(gen_cfg, tok)
     emit({"gen_training": gen_training, "card": card})
     print(f"[gen_training] batch {gen_training['batch']}: median step "
@@ -6434,16 +7075,19 @@ def main(argv=None) -> int:
           f"per step " + ", ".join(f"{n} {t['ms']:.3f} ms" for n, t in
                                    gen_totals.items())
           + f" on {card}", flush=True)
-    with recording_launches(launched["gen_training"]):
+    with recording_launches(launched["gen_training"]), \
+            timed("gen_training.train_check"):
         gen_check = gen_train_check(gen_cfg, tok)
     emit({"gen_train_check": gen_check})
-    with recording_launches(launched.setdefault("gen_pipeline", set())):
+    with recording_launches(launched.setdefault("gen_pipeline", set())), \
+            timed("gen_pipeline"):
         pipeline = pipeline_phase(gen_cfg, tok)
     emit({"gen_pipeline": pipeline})
     print(f"[gen_pipeline] {pipeline['steps']} steps and a validation in "
           f"{pipeline['seconds']:.1f} s: {pipeline['history'][0]}",
           flush=True)
-    with recording_launches(launched.setdefault("cls_pipeline", set())):
+    with recording_launches(launched.setdefault("cls_pipeline", set())), \
+            timed("cls_pipeline"):
         cls = cls_pipeline_phase(cfg)
     emit({"cls_pipeline": cls, "card": card})
     prof = cls["profile"]
@@ -6466,7 +7110,8 @@ def main(argv=None) -> int:
           f"{prof['validation']['device_idle_share']:.3f} of a profiled "
           f"validation; peak {cls['max_memory_allocated_gib']:.2f} GiB on "
           f"{card}", flush=True)
-    with recording_launches(launched.setdefault("gen_cli", set())):
+    with recording_launches(launched.setdefault("gen_cli", set())), \
+            timed("gen_cli"):
         gen_cli = gen_cli_phase(bench_serving.serving_config())
     emit({"gen_cli": gen_cli, "card": card})
     prof = gen_cli["profile"]
@@ -6488,11 +7133,13 @@ def main(argv=None) -> int:
           + f" on {card} ({time.perf_counter() - t_start:.1f} s)",
         flush=True)
     abl_cfg = abl_model_config()
-    abl_rows = abl_kernel_phase(abl_cfg)
+    with timed("ablation.kernels"):
+        abl_rows = abl_kernel_phase(abl_cfg)
     abl_totals = {"per_step": step_totals(abl_rows),
                   "per_validation_forward": abl_forward_totals(abl_rows)}
     emit({"ablation_attention": abl_totals, "card": card})
-    with recording_launches(launched.setdefault("ablation", set())):
+    with recording_launches(launched.setdefault("ablation", set())), \
+            timed("ablation"):
         abl = ablation_phase()
     emit({"ablation": abl, "card": card})
     prof = abl["profile"]
@@ -6510,15 +7157,21 @@ def main(argv=None) -> int:
               f"{n} {t['ms']:.3f} ms" for n, t in
               abl_totals["per_step"].items())
         + f" on {card} ({time.perf_counter() - t_start:.1f} s)", flush=True)
-    rag_rows = rag_kernel_phase()
+    with timed("rag.kernels"):
+        rag_rows = rag_kernel_phase()
     rag_tot = rag_totals(rag_rows, rows, train_rows, gen_rows)
     emit({"rag_attention": rag_tot, "card": card})
     provider = rag_provider()
+    rag = {}
     with recording_launches(launched.setdefault("rag", set())):
-        rag = {"cls": rag_cls_phase(cfg, provider),
-               "gen": rag_gen_phase(provider),
-               "cli": rag_cli_phase(cfg, bench_serving.serving_config()),
-               "dense": rag_dense_phase(cfg, provider)}
+        for part, run in (
+                ("cls", lambda: rag_cls_phase(cfg, provider)),
+                ("gen", lambda: rag_gen_phase(provider)),
+                ("cli", lambda: rag_cli_phase(
+                    cfg, bench_serving.serving_config())),
+                ("dense", lambda: rag_dense_phase(cfg, provider))):
+            with timed(f"rag.{part}"):
+                rag[part] = run()
     emit({"rag": rag, "card": card})
     retrieval = rag["cli"]["retrieval"]["cls_train"]
     print(f"[rag] classification step with knowledge "
@@ -6537,7 +7190,8 @@ def main(argv=None) -> int:
                       rag_tot["per_step"].items())
           + f" on {card} ({time.perf_counter() - t_start:.1f} s)",
           flush=True)
-    with recording_launches(launched.setdefault("trainer", set())):
+    with recording_launches(launched.setdefault("trainer", set())), \
+            timed("trainer"):
         trainer = trainer_phase(cfg, bench_serving.serving_config())
     emit({"trainer": trainer, "card": card})
     unfreeze, ckpt = trainer["gradual_unfreeze"], trainer["checkpointing"]
@@ -6568,10 +7222,12 @@ def main(argv=None) -> int:
           f"step on {card} ({time.perf_counter() - t_start:.1f} s)",
           flush=True)
     t_zoo = time.perf_counter()
-    zoo_kernels = zoo_kernel_phase(rows)
+    with timed("zoo.kernels"):
+        zoo_kernels = zoo_kernel_phase(rows)
     emit({"zoo_attention": {k: zoo_kernels[k] for k in (
         "per_forward", "per_step", "trainer_forward")}, "card": card})
-    with recording_launches(launched.setdefault("zoo", set())):
+    with recording_launches(launched.setdefault("zoo", set())), \
+            timed("zoo"):
         zoo = zoo_phase()
     emit({"zoo": zoo, "card": card})
     window = zoo["window_attention"]
@@ -6591,8 +7247,10 @@ def main(argv=None) -> int:
           + f" on {card} ({time.perf_counter() - t_zoo:.1f} s of the zoo, "
             f"{time.perf_counter() - t_start:.1f} s)", flush=True)
     t_hf = time.perf_counter()
-    hf_rows = hf_kernel_phase()
-    with recording_launches(launched.setdefault("hf_import", set())):
+    with timed("hf_import.kernels"):
+        hf_rows = hf_kernel_phase()
+    with recording_launches(launched.setdefault("hf_import", set())), \
+            timed("hf_import"):
         hf = hf_import_phase()
     emit({"hf_import": hf, "card": card})
     print("[hf_import] classification CLI with CLIP ViT-B/32 + PhoBERT-base"
@@ -6613,9 +7271,14 @@ def main(argv=None) -> int:
               f"{r['library_ms'] * 1e3:.2f})" for n, r in hf_rows.items())
           + f" on {card} ({time.perf_counter() - t_hf:.1f} s of the phase, "
             f"{time.perf_counter() - t_start:.1f} s)", flush=True)
-    mesh_rows, mesh_tot, mesh = mesh_report(card, t_start, launched)
-    path_report(launched)
+    with timed("mesh"):
+        mesh_rows, mesh_tot, mesh = mesh_report(card, t_start, launched,
+                                                abl)
+    with timed("path_check"):
+        path_report(launched)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
+    emit({"phase_seconds": {**PHASE_SECONDS,
+                            "total": time.perf_counter() - t_start}})
     print(card)
     emit(kernels_line(rows, serving["launches"]["flash_attn_fwd"],
                       generative, train_rows, training["launches"], ptxas,

@@ -16,6 +16,7 @@ from pathlib import Path
 from vivqa_tpu_torch.ablation.analyzer import AblationAnalyzer
 from vivqa_tpu_torch.ablation.evaluator import (AblationEvaluator,
                                                 get_metrics_for_model_type)
+from vivqa_tpu_torch.parallel.mesh import process_rank
 
 
 class AblationReporter:
@@ -198,7 +199,16 @@ class AblationReporter:
 
     # -- bundle -------------------------------------------------------------------
     def save_all_reports(self, output_dir: str | Path) -> dict:
+        """Write the Markdown, CSV, LaTeX and JSON reports under
+        ``output_dir`` and return their paths. Under a launcher only
+        global rank 0 writes; every rank gets the paths."""
         out = Path(output_dir)
+        files = {"report": str(out / "report.md"),
+                 "csv": str(out / "results.csv"),
+                 "latex": str(out / "table.tex"),
+                 "analysis": str(out / "analysis.json")}
+        if process_rank() != 0:
+            return files
         out.mkdir(parents=True, exist_ok=True)
         (out / "report.md").write_text(self.generate_markdown_report())
         self.export_csv(out / "results.csv")
@@ -209,7 +219,4 @@ class AblationReporter:
             [{"experiment_id": r.experiment_id, "status": r.status,
               "metrics": r.metrics, "wall_seconds": r.wall_seconds}
              for r in self.ev.results], indent=2, default=str))
-        return {"report": str(out / "report.md"),
-                "csv": str(out / "results.csv"),
-                "latex": str(out / "table.tex"),
-                "analysis": str(out / "analysis.json")}
+        return files

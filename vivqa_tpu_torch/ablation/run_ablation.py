@@ -11,14 +11,18 @@ the card (``--device cuda``, the default) or, at tiny sizes, on the CPU:
         --specialized-experts 6 --vision-experts 0 --text-experts 0 \
         --multimodal-experts 0 --experiments 0-3
 
-It runs on one process: the JAX CLI's ``create_mesh(MeshConfig())`` has
-no counterpart yet, and under a launcher with more than one rank it
-raises (ROADMAP.md, Queue A item 20).
+Under ``torchrun --nproc-per-node N`` it runs its studies data-parallel
+over the N ranks, as the JAX CLI does over every device
+(``create_mesh(MeshConfig())``: every rank on 'data'); the batch size
+must divide by N. Every rank trains and evaluates every experiment on
+its rows; global rank 0 alone writes the results, checkpoints and
+reports, and the others read what it wrote (``--report-only``, resume).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 from typing import List, Optional
 
 from vivqa_tpu_torch.ablation.config import AblationConfig
@@ -65,11 +69,14 @@ def interactive_select(config: AblationConfig) -> Optional[List[int]]:
         return None
 
 
-def report_only(config: AblationConfig, n_eval: Optional[int] = None):
+def report_only(config: AblationConfig, n_eval: Optional[int] = None,
+                mesh=None):
     """Regenerate reports from persisted result JSONs (no training, no
     device). Mirrors the runner's final evaluate/analyze/report step so a
     finished (or interrupted) study can be re-analyzed offline — e.g.
-    with a different --n-eval or after an analyzer change."""
+    with a different --n-eval or after an analyzer change. On ``mesh``
+    rank 0 writes the reports and every rank waits for them."""
+    from vivqa_tpu_torch.parallel.mesh import barrier
     import json
     from pathlib import Path
 
@@ -93,6 +100,7 @@ def report_only(config: AblationConfig, n_eval: Optional[int] = None):
     an = AblationAnalyzer(ev)
     files = AblationReporter(ev, an, config.expert_label).save_all_reports(
         out / "reports")
+    barrier(mesh)
     log.section(f"REPORT-ONLY: {len(ev.results)} completed results")
     for f in an.generate_key_findings():
         log.info("finding: %s", f)
@@ -199,13 +207,17 @@ def base_model_config(args, cfg: AblationConfig, tok, data_cfg):
         moe=moe)
 
 
+def world_size() -> int:
+    """The ranks of the launch: the process group's, else the launcher's
+    ``WORLD_SIZE``, else 1."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
 def main(argv=None):
-    import os
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(
-            "the ablation CLI runs on one process; its experiments' "
-            "writes are not yet held to one rank (ROADMAP.md, Queue A "
-            "item 20)")
+    from vivqa_tpu_torch.parallel.mesh import MeshConfig, create_mesh
     args = build_argparser().parse_args(argv)
     cfg = (AblationConfig.from_yaml(args.config) if args.config
            else AblationConfig())
@@ -251,7 +263,8 @@ def main(argv=None):
         return None
 
     if args.report_only:
-        return report_only(cfg, n_eval=args.n_eval)
+        return report_only(cfg, n_eval=args.n_eval, mesh=create_mesh(
+            MeshConfig(), args.device) if world_size() > 1 else None)
 
     selected = (parse_experiment_ranges(args.experiments)
                 if args.experiments else None)
@@ -266,7 +279,8 @@ def main(argv=None):
     data_cfg = data_config(args, cfg)
     data_out = DataPipeline(data_cfg).run()
     base = base_model_config(args, cfg, data_out.tokenizer, data_cfg)
-    trainer = AblationTrainer(cfg, base, data_out, args.device)
+    mesh = create_mesh(MeshConfig(), args.device)
+    trainer = AblationTrainer(cfg, base, data_out, args.device, mesh=mesh)
     runner = AblationRunner(cfg, trainer)
     if args.backfill_masks:
         # --rerun forces recomputation of masks that already exist

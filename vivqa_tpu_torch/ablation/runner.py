@@ -8,6 +8,12 @@ with skip-completed / force-rerun, Ctrl-C -> graceful interrupt with
 partial report, per-experiment result JSON + progress.json, incremental
 report after every completion, final evaluate/analyze/report + best-
 experiment summary.
+
+On the trainer's mesh of several ranks every rank runs every experiment
+(their collectives keep them in step), and only global rank 0 writes:
+the manifest, the progress, the result JSONs and the reports. The others
+wait for its writes at a barrier and read the results it wrote when they
+resume.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from vivqa_tpu_torch.ablation.config import AblationConfig, ExperimentConfig
 from vivqa_tpu_torch.ablation.evaluator import AblationEvaluator
 from vivqa_tpu_torch.ablation.reporter import AblationReporter
 from vivqa_tpu_torch.ablation.trainer import AblationTrainer, ExperimentResult
+from vivqa_tpu_torch.parallel.mesh import barrier, process_rank
 from vivqa_tpu_torch.utils import get_pipeline_logger
 
 
@@ -38,13 +45,22 @@ class AblationRunner:
         self.log = logger or get_pipeline_logger()
         self.out = Path(config.output_dir)
         self.results_dir = self.out / "results"
-        self.results_dir.mkdir(parents=True, exist_ok=True)
+        self.mesh = getattr(trainer, "mesh", None)
+        self.main = process_rank() == 0
+        if self.main:
+            self.results_dir.mkdir(parents=True, exist_ok=True)
+
+    def _synced(self) -> None:
+        """Wait until rank 0's writes are done (nothing on one process)."""
+        barrier(self.mesh)
 
     # -- persistence -----------------------------------------------------------
     def _result_path(self, eid: str) -> Path:
         return self.results_dir / f"{eid}.json"
 
     def _save_result(self, r: ExperimentResult) -> None:
+        if not self.main:
+            return
         self._result_path(r.experiment_id).write_text(
             json.dumps(dataclasses.asdict(r), indent=2, default=str))
 
@@ -60,11 +76,15 @@ class AblationRunner:
         return done
 
     def _save_progress(self, done: int, total: int, current: str) -> None:
+        if not self.main:
+            return
         (self.out / "progress.json").write_text(json.dumps({
             "completed": done, "total": total, "current": current,
             "timestamp": time.strftime("%Y-%m-%d %H:%M:%S")}))
 
     def _save_manifest(self, matrix: List[ExperimentConfig]) -> None:
+        if not self.main:
+            return
         (self.out / "manifest.json").write_text(json.dumps({
             "num_experiments": len(matrix),
             "experiments": [{"id": e.experiment_id,
@@ -121,6 +141,7 @@ class AblationRunner:
                 self._save_result(r)
                 updated += 1
         self.log.info("backfilled %d experiments", updated)
+        self._synced()
         results = list(self._load_completed().values())
         self._report(results)
         return results
@@ -137,11 +158,12 @@ class AblationRunner:
         log.section(f"ABLATION STUDY: {len(matrix)} experiments")
 
         completed = {} if (rerun or not resume) else self._load_completed()
-        if rerun:
+        if rerun and self.main:
             for e in matrix:
                 p = self._result_path(e.experiment_id)
                 if p.exists():
                     p.unlink()
+        self._synced()
         if completed:
             log.info("resuming: %d experiments already completed",
                      len(completed))
@@ -166,6 +188,7 @@ class AblationRunner:
                     self._report(results)
                     raise GracefulInterrupt(eid)
                 self._report(results)          # incremental report
+                self._synced()
         except KeyboardInterrupt:
             log.warning("interrupted — writing partial report")
             self._report(results)
@@ -175,6 +198,7 @@ class AblationRunner:
                                  if r.status == "completed"]),
                             len(matrix), "")
         self._report(results)
+        self._synced()
         self._summary(results)
         return results
 

@@ -18,6 +18,14 @@ the model in eval mode, no gradient, and the batch's attention mask
 passed, so they describe the same forward as the reported metrics. As
 in the JAX package a failure of either leaves it ``None`` and the
 experiment still completes; a caller that needs them checks.
+
+On a mesh of several ranks (``mesh``, as the JAX trainer takes it) the
+pipelines train on it, the post-hoc rows place the restored model on it,
+and each rank runs its 'data' rows of every validation batch: the
+predictions are gathered against the global batch's labels, and the
+router telemetry's means are averaged over 'data' (the load imbalance
+then recomputed from the global usage). Only global rank 0 writes the
+epoch files; the pipelines hold their checkpoints to it too.
 """
 
 from __future__ import annotations
@@ -39,6 +47,9 @@ from vivqa_tpu_torch.ablation.modifier import (apply_expert_ablation,
                                                collect_moe_metrics)
 from vivqa_tpu_torch.data.loader import device_prefetch
 from vivqa_tpu_torch.device import resolve_device
+from vivqa_tpu_torch.parallel.collectives import all_gather, all_reduce
+from vivqa_tpu_torch.parallel.mesh import (local_rows, logical_to_mesh,
+                                           process_rank)
 from vivqa_tpu_torch.pipelines.common import load_params
 from vivqa_tpu_torch.train.checkpoint import (CheckpointConfig,
                                               CheckpointManager)
@@ -62,17 +73,32 @@ class ExperimentResult:
 
 class AblationTrainer:
     """Runs one experiment end-to-end against pre-built data loaders on
-    ``device`` (the card unless the caller names the CPU)."""
+    ``device`` (the card unless the caller names the CPU), or on
+    ``mesh`` (``parallel/mesh.py:create_mesh``; its rank's device) when
+    it spans several ranks."""
 
     def __init__(self, config: AblationConfig, base_model_config,
                  data_out, device: str | torch.device = "cuda",
-                 logger=None):
+                 logger=None, mesh=None):
         """data_out: DataPipelineOutput (loaders + vocab + tokenizer)."""
         self.config = config
         self.base_model_config = base_model_config
         self.data = data_out
-        self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.device = (self.mesh.device if self.mesh is not None
+                       else resolve_device(device))
         self.log = logger or get_pipeline_logger()
+        self.main = process_rank() == 0
+
+    def _local(self, batch: dict) -> dict:
+        """This rank's rows of a batch's tensors (all of them on one
+        process)."""
+        x = {k: v for k, v in batch.items() if isinstance(v, torch.Tensor)}
+        return local_rows(x, self.mesh) if self.mesh is not None else x
+
+    def _gathered(self, t: torch.Tensor) -> torch.Tensor:
+        """The global batch's rows of a per-row tensor."""
+        return all_gather(t, self.mesh.data) if self.mesh is not None else t
 
     def _epoch_dir(self, experiment_id: str) -> Path:
         d = Path(self.config.output_dir) / "epoch_results" / experiment_id
@@ -80,10 +106,10 @@ class AblationTrainer:
         return d
 
     def _save_epoch_results(self, experiment_id: str, history: list) -> None:
-        """train/val history CSVs + epoch summary JSON."""
-        d = self._epoch_dir(experiment_id)
-        if not history:
+        """train/val history CSVs + epoch summary JSON (global rank 0)."""
+        if not history or not self.main:
             return
+        d = self._epoch_dir(experiment_id)
         keys = sorted({k for h in history for k in h})
         with open(d / "val_history.csv", "w", newline="") as f:
             w = csv.DictWriter(f, fieldnames=keys)
@@ -150,7 +176,8 @@ class AblationTrainer:
                 expert_mask=mask or (), seed=cfg.seed,
                 resume=True), self.log)
             out = tp.run(model, self.data.train_loader,
-                         self.data.val_loader, self.data.tokenizer)
+                         self.data.val_loader, self.data.tokenizer,
+                         self.mesh)
         else:
             from vivqa_tpu_torch.pipelines.training_pipeline import (
                 TrainingPipeline, TrainingPipelineConfig)
@@ -165,15 +192,17 @@ class AblationTrainer:
             # the pipeline ends with the best checkpoint's params in the
             # model, which the mask and the telemetry then describe
             out = tp.run(model, self.data.train_loader,
-                         self.data.val_loader, self.data.id2answer)
+                         self.data.val_loader, self.data.id2answer,
+                         self.mesh)
         moe_metrics = self._collect_moe_metrics(model, mask)
         correct_mask = self._collect_correct_mask(model, mask)
         return out, moe_metrics, correct_mask
 
     def _moe_metrics(self, model, mask) -> Dict:
-        """Router telemetry on one val batch."""
-        batch = next(device_prefetch(iter(self.data.val_loader),
-                                     self.device))
+        """Router telemetry on one val batch (its means over the global
+        batch on a mesh)."""
+        batch = self._local(next(device_prefetch(iter(self.data.val_loader),
+                                                 self.device)))
         em = self._mask_tensor(mask)
         model.eval()
         with torch.no_grad():
@@ -185,9 +214,30 @@ class AblationTrainer:
             else:
                 res = model(batch["pixel_values"], batch["input_ids"],
                             batch["attention_mask"], expert_mask=em)
-        return collect_moe_metrics(
-            {k: v.float().cpu().numpy() for k, v in
-             res.get("moe_metrics", {}).items()})
+        return collect_moe_metrics(self._data_mean(
+            {k: v.float() for k, v in res.get("moe_metrics", {}).items()}))
+
+    def _data_mean(self, metrics: Dict) -> Dict:
+        """A rank's telemetry (means over its tokens) -> the global
+        batch's: each averaged over 'data' (every rank holds as many
+        tokens), the load imbalance recomputed from the averaged usage
+        as the router computes it. As numpy."""
+        if self.mesh is not None and metrics:
+            keys = sorted(metrics)
+            flat = all_reduce(torch.cat([metrics[k].reshape(-1)
+                                         for k in keys]), self.mesh.data)
+            out, offset = {}, 0
+            for k in keys:
+                n = metrics[k].numel()
+                out[k] = (flat[offset:offset + n] / self.mesh.data.size
+                          ).view(metrics[k].shape)
+                offset += n
+            usage = out.get("expert_usage")
+            if usage is not None and "load_imbalance" in out:
+                out["load_imbalance"] = torch.std(usage, correction=0) / (
+                    torch.mean(usage) + 1e-9)
+            metrics = out
+        return {k: v.cpu().numpy() for k, v in metrics.items()}
 
     def _collect_moe_metrics(self, model, mask):
         """The JAX package's rule: a failure leaves the telemetry out."""
@@ -207,10 +257,11 @@ class AblationTrainer:
         bits = []
         for batch in device_prefetch(iter(self.data.val_loader),
                                      self.device):
+            x = self._local(batch)
             with torch.no_grad():
-                logits = model(batch["pixel_values"], batch["input_ids"],
-                               batch["attention_mask"],
-                               expert_mask=em)["logits"]
+                logits = self._gathered(model(
+                    x["pixel_values"], x["input_ids"], x["attention_mask"],
+                    expert_mask=em)["logits"])
             nv = batch.get("_num_valid", len(batch["labels"]))
             preds = logits.float().argmax(-1).cpu().numpy()[:nv]
             labels = batch["labels"].cpu().numpy()[:nv]
@@ -252,8 +303,10 @@ class AblationTrainer:
         tok = self.data.tokenizer
         for batch in device_prefetch(iter(self.data.val_loader),
                                      self.device):
-            seqs, _ = gen(batch["pixel_values"], batch["question_ids"],
-                          batch["question_mask"], expert_mask=em_mask)
+            x = self._local(batch)
+            seqs, _ = gen(x["pixel_values"], x["question_ids"],
+                          x["question_mask"], expert_mask=em_mask)
+            seqs = self._gathered(seqs)
             nv = batch.get("_num_valid", len(seqs))
             preds = [tok.decode(s) for s in seqs[:nv].cpu().numpy()]
             refs = batch.get("all_answers",
@@ -301,6 +354,8 @@ class AblationTrainer:
             best_metric=self.config.primary_metric))
         restored, _ = ckpt.restore_best(map_location=self.device)
         load_params(model, restored["params"])
+        if self.mesh is not None:
+            logical_to_mesh(model, self.mesh)
         return model, mask
 
     def _run_post_hoc_experiment(self,

@@ -23,7 +23,16 @@ parameter that holds it (a (D, H, Dh) query kernel's H is dimension 0 of
 the (H*Dh, D) weight, an (H, Dh, D) out kernel's H dimension 1 of the
 (D, H*Dh) weight), and ``logical_to_mesh`` keeps each rank's slice and
 tells the modules that own the sharded leaves (``TP_LEAVES``) to run
-their parallel form.
+their parallel form. A split leaf whose module has no parallel form (a
+plain ``Dense`` the rules match, such as ``KnowledgeAttention``'s
+``k_proj``) takes the gathered form, which is what GSPMD does for the
+JAX package: the parameter holds this rank's slice at rest, the owning
+module's forward sees the whole tensor, all-gathered over the leaf's axis
+(``gather_from_model``), and the backward keeps this rank's slice of the
+whole gradient. Every rank of the axis feeds that module the same
+replicated activations, so the whole gradient is the same on each and
+the slice is exact; the optimizer, ``place_state``, the 'data' average
+and the checkpoints see an ordinary split leaf.
 
 ``create_mesh`` with one process and no process group gives a 1x1 mesh
 that needs no launcher: the single-card path, unchanged. With more ranks
@@ -48,7 +57,8 @@ from torch import nn
 from vivqa_tpu_torch.config.base import ConfigBase
 from vivqa_tpu_torch.models.from_jax import flax_layouts, flax_paths
 from vivqa_tpu_torch.models.layers import Dense
-from vivqa_tpu_torch.parallel.collectives import Axis, all_gather
+from vivqa_tpu_torch.parallel.collectives import (Axis, all_gather,
+                                                  gather_from_model)
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -314,12 +324,16 @@ def _owner(model: nn.Module, name: str):
     return None, None
 
 
+def _axis(mesh: Mesh, name: str) -> Axis:
+    return mesh.model if name == MODEL_AXIS else mesh.data
+
+
 def shard_tensor(t: torch.Tensor, placement: Placement,
                  mesh: Mesh) -> torch.Tensor:
     """This rank's slice of a full tensor (a copy)."""
     if placement.axis is None:
         return t.clone()
-    axis = mesh.model if placement.axis == MODEL_AXIS else mesh.data
+    axis = _axis(mesh, placement.axis)
     n = t.shape[placement.dim] // axis.size
     return t.narrow(placement.dim, axis.rank * n, n).clone()
 
@@ -329,31 +343,51 @@ def full_tensor(t: torch.Tensor, placement: Placement,
     """The whole tensor from every rank's slice (an all-gather)."""
     if placement.axis is None:
         return t
-    axis = mesh.model if placement.axis == MODEL_AXIS else mesh.data
-    return all_gather(t.detach(), axis, placement.dim)
+    return all_gather(t.detach(), _axis(mesh, placement.axis),
+                      placement.dim)
+
+
+def gather_in_forward(module: nn.Module, leaf: str, axis: Axis,
+                      dim: int) -> None:
+    """The gathered form of ``module``'s split parameter ``leaf``: for
+    the length of each forward call, ``module.<leaf>`` reads as the whole
+    tensor (this rank's slice all-gathered along ``dim`` over ``axis``,
+    whose backward keeps this rank's slice of the gradient); the
+    parameter itself stays the slice."""
+    def gather(mod, args):
+        # an instance attribute shadows the parameter for attribute reads
+        # (nn.Module looks its parameters up only when that fails)
+        mod.__dict__[leaf] = gather_from_model(mod._parameters[leaf], axis,
+                                               dim)
+
+    def release(mod, args, out):
+        mod.__dict__.pop(leaf, None)
+    module.register_forward_pre_hook(gather)
+    module.register_forward_hook(release, always_call=True)
 
 
 def logical_to_mesh(model: nn.Module, mesh: Mesh,
                     rules: Sequence[tuple[str, tuple]] =
                     DEFAULT_PARTITION_RULES) -> Sharding:
     """Keep this rank's slice of every parameter the rules split (copies)
-    and switch the owning modules to their parallel form; every module
-    with ``use_mesh`` learns the mesh (the routers' and the sparse layer's
-    batch statistics run over 'data'). Raises ``NotImplementedError``
-    for a split parameter whose module has no parallel form."""
+    and switch the owning modules to their parallel form, or a leaf with
+    none to its gathered form (``gather_in_forward``); every module with
+    ``use_mesh`` learns the mesh (the routers' and the sparse layer's
+    batch statistics run over 'data')."""
     placements = shard_pytree_by_rules(model, mesh, rules)
     params = dict(model.named_parameters())
+    modules = dict(model.named_modules())
     by_owner: dict = {}
     for name, pl in placements.items():
         if pl.axis is None:
             continue
         owner, rel = _owner(model, name)
         if owner is None:
-            raise NotImplementedError(
-                f"{name} is split over '{pl.axis}' by the rules, but its "
-                f"module has no tensor-parallel form (ROADMAP.md, Queue "
-                f"A item 17)")
-        by_owner.setdefault(owner, set()).add(rel)
+            mod_name, _, leaf = name.rpartition(".")
+            gather_in_forward(modules[mod_name], leaf, _axis(mesh, pl.axis),
+                              pl.dim)
+        else:
+            by_owner.setdefault(owner, set()).add(rel)
         with torch.no_grad():
             p = params[name]
             p.data = shard_tensor(p.data, pl, mesh)
@@ -377,10 +411,15 @@ def process_rank() -> int:
 
 
 def barrier(mesh: Optional[Mesh]) -> None:
-    """Wait for every rank of the mesh's process group (nothing on one
-    process)."""
-    if mesh is not None and mesh.size > 1:
-        dist.barrier()
+    """Wait for every rank of the mesh (nothing on one process): a
+    barrier over 'data', then one over 'model'. A rank leaves the second
+    only when each rank of its 'model' group has left the first, which
+    every rank of their 'data' groups had to enter."""
+    if mesh is None or mesh.size == 1:
+        return
+    for axis in (mesh.data, mesh.model):
+        if axis.size > 1:
+            dist.barrier(group=axis.group)
 
 
 def mesh_of(model: nn.Module) -> Optional[Mesh]:
@@ -391,6 +430,7 @@ def mesh_of(model: nn.Module) -> Optional[Mesh]:
 __all__ = ["MeshConfig", "Mesh", "Placement", "Sharding", "create_mesh",
            "batch_sharding", "replicated", "local_rows",
            "DEFAULT_PARTITION_RULES", "spec_for_path",
-           "shard_pytree_by_rules", "logical_to_mesh", "mesh_of",
+           "shard_pytree_by_rules", "logical_to_mesh", "gather_in_forward",
+           "mesh_of",
            "process_rank", "barrier",
            "shard_tensor", "full_tensor"]

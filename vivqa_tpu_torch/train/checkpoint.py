@@ -218,16 +218,17 @@ def gathered_params(model: nn.Module, sharding=None, mesh=None) -> dict:
 
 def gathered_optimizer_state(optimizer, sharding=None, mesh=None) -> dict:
     """``optimizer.state_dict()`` with each split parameter's state
-    whole, on the host."""
+    whole, on the host (each field gathered where
+    ``optimizer.state_placement`` says it is split)."""
     from vivqa_tpu_torch.parallel.mesh import Placement, full_tensor
     sd = optimizer.state_dict()
 
-    def whole(by_name: dict) -> dict:
-        return {n: full_tensor(t, sharding.placements.get(n, Placement())
+    def whole(field: str, by_name: dict) -> dict:
+        return {n: full_tensor(t, optimizer.state_placement(field, n)
                                if sharding else Placement(), mesh).cpu()
                 for n, t in by_name.items()}
-    out = dict(sd, acc=whole(sd["acc"]),
-               state={f: whole(ts) for f, ts in sd["state"].items()})
+    out = dict(sd, acc=whole("acc", sd["acc"]),
+               state={f: whole(f, ts) for f, ts in sd["state"].items()})
     if "slow" in sd:
-        out["slow"] = whole(sd["slow"])
+        out["slow"] = whole("slow", sd["slow"])
     return out

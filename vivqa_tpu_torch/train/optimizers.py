@@ -40,10 +40,13 @@ gradients summed over 'model', then every gradient averaged over 'data'
 (one flat all-reduce each). The global norm sums each split leaf's
 squares over 'model' and counts each replicated leaf once; LAMB's norms
 per leaf do the same. Adam, AdamW, SGD and RAdam are elementwise and run
-on the shards, as do the layer-wise scales and the lookahead; adafactor
-factors the dimensions of whole flax leaves and refuses split ones
-(ROADMAP.md, Queue A item 18). Under 'data' alone nothing is split and
-every optimizer runs unchanged.
+on the shards, as do the layer-wise scales and the lookahead. Adafactor
+factors by the dimensions of the whole flax leaf: a statistic that
+averages over the split dimension sums its slice, sums that over 'model'
+and divides by the whole length (so it is whole on every rank), and a
+statistic that keeps the split dimension keeps this rank's slice of it
+(``state_placement``); its elementwise terms run on the shards. Under
+'data' alone nothing is split and every optimizer runs unchanged.
 
 Masks and scales match on each parameter's flax path
 (``models/from_jax.flax_paths``), as the JAX package matches its param
@@ -268,6 +271,23 @@ def _bf16_moment(grads: list, moments: list, decay: float) -> list:
     return out
 
 
+def _whole_layouts(model: nn.Module, layouts: dict) -> dict:
+    """``flax_layouts`` with the whole flax shape of each parameter that
+    a mesh has already split (a model placed by ``logical_to_mesh``)."""
+    sharding = getattr(model, "mesh_sharding", None)
+    if sharding is None:
+        return layouts
+    size = model.mesh.model.size
+    out = dict(layouts)
+    for n, (module, leaf, shape) in layouts.items():
+        pl = sharding.placements.get(n)
+        if pl is not None and pl.axis is not None:
+            out[n] = (module, leaf, tuple(d * size if j == pl.flax_dim
+                                          else d
+                                          for j, d in enumerate(shape)))
+    return out
+
+
 # the optimizer state: per parameter, by optimizer (adafactor's v_row /
 # v_col hold the factored leaves' statistics in the flax layout, v the
 # others'; ema its momentum)
@@ -318,8 +338,11 @@ class Optimizer:
             self.scales = [scales[n] for n in self.names]
         if config.name == "lamb":
             check_one_to_one(model)      # the trust ratio is per flax leaf
-        layouts = flax_layouts(model)
+        layouts = _whole_layouts(model, flax_layouts(model))
         self.layouts = [layouts[n] for n in self.names]
+        # the flax layouts of the tensors this rank holds (``use_mesh``)
+        self.views = list(self.layouts)
+        self.index = {n: i for i, n in enumerate(self.names)}
         self.schedule = schedule
         self.clip_norm = config.grad_clip_norm
         self.count = 0
@@ -336,26 +359,48 @@ class Optimizer:
 
     def use_mesh(self, mesh, sharding) -> None:
         """Switch to this rank's shards (``parallel/mesh.py:Sharding``):
-        the per-parameter state keeps the same slices as the parameters,
-        which ``logical_to_mesh`` has already cut."""
-        from vivqa_tpu_torch.parallel.mesh import shard_tensor
+        the per-parameter state keeps the slices ``state_placement``
+        gives, the parameters' own where it is of their shape (the
+        parameters ``logical_to_mesh`` has already cut)."""
         self.mesh, self.sharding = mesh, sharding
         self.split = [sharding.sharded(n) for n in self.names]
         self.all_split = [sharding.sharded(n) for n in self.all_names]
         self.all_partial = [n in sharding.partial for n in self.all_names]
-        if self.config.name == "adafactor" and any(self.split):
-            raise NotImplementedError(
-                "adafactor factors whole flax leaves; a mesh's 'model' "
-                "axis splits some (ROADMAP.md, Queue A item 18)")
+        fields = dict(self.state, slow=self.slow or [], acc=self.acc)
         for i, (n, p) in enumerate(zip(self.names, self.params)):
             if not self.split[i]:
                 continue
+            module, leaf, whole = self.layouts[i]
             pl = sharding.placements[n]
-            for ts in list(self.state.values()) + [self.slow or [],
-                                                   self.acc]:
-                if i < len(ts) and ts[i] is not None \
-                        and ts[i].shape != p.shape:
-                    ts[i] = shard_tensor(ts[i], pl, mesh)
+            self.views[i] = (module, leaf, tuple(
+                d // mesh.model.size if j == pl.flax_dim else d
+                for j, d in enumerate(whole)))
+            for field, ts in fields.items():
+                if i < len(ts) and ts[i] is not None:
+                    ts[i] = self._own_slice(field, n, ts[i])
+
+    def state_placement(self, field: str, name: str):
+        """Where the ``field`` state of parameter ``name`` lies on the mesh
+        (``parallel/mesh.py:Placement``): the parameter's placement for a
+        tensor of its shape; adafactor's factored statistics (``v_row``
+        averages over the largest dimension of the flax leaf, ``v_col``
+        over the second largest) are whole where they average over the
+        split dimension and split at its place among their own dimensions
+        otherwise; the size-1 placeholders are whole."""
+        from vivqa_tpu_torch.parallel.mesh import Placement
+        pl = (self.sharding.placements.get(name, Placement())
+              if self.sharding is not None else Placement())
+        if pl.axis is None or self.config.name != "adafactor" or \
+                field not in ("v_row", "v_col", "v"):
+            return pl
+        dims = factored_dims(self.layouts[self.index[name]][2])
+        if field == "v" or dims is None:
+            return pl if (field == "v") == (dims is None) else Placement()
+        gone = dims[1] if field == "v_row" else dims[0]
+        if pl.flax_dim == gone:
+            return Placement()
+        d = pl.flax_dim - (pl.flax_dim > gone)
+        return Placement(pl.axis, d, d)
 
     def _global_norm(self, grads: list, split: list) -> torch.Tensor:
         """``global_grad_norm`` of this rank's gradients, each split leaf's
@@ -446,12 +491,31 @@ class Optimizer:
         self.mini_step = int(sd.get("mini_step", 0))
         self.lookahead_count = int(sd.get("lookahead_count", 0))
         acc = sd.get("acc", {})
-        self.acc = [acc[n].to(p.device).clone() if n in acc else None
+        self.acc = [self._own_slice("acc", n, acc[n]).to(p.device).clone()
+                    if n in acc else None
                     for n, p in zip(self.names, self.params)]
         fields = dict(sd["state"])
         if self.slow is not None:
             fields["slow"] = sd["slow"]
         self.load_fields(fields)
+
+    def _own_slice(self, field: str, name: str,
+                   src: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of a whole state tensor (one built over the
+        whole parameter, or a checkpoint's); a tensor already of the
+        slice's size, or of a leaf that is not split, as it is."""
+        pl = self.state_placement(field, name)
+        if pl.axis is None:
+            return src
+        whole = self.layouts[self.index[name]][2]
+        dims = factored_dims(whole)
+        numel = int(np.prod(whole))
+        if field in ("v_row", "v_col") and dims is not None:
+            numel //= whole[dims[1] if field == "v_row" else dims[0]]
+        if src.numel() != numel:
+            return src
+        from vivqa_tpu_torch.parallel.mesh import shard_tensor
+        return shard_tensor(src, pl, self.mesh)
 
     def load_fields(self, fields: dict) -> None:
         """Set per-parameter state from {field: {name: tensor}} (also
@@ -464,13 +528,7 @@ class Optimizer:
                 continue
             own = self.slow if field == "slow" else self.state[field]
             for i, n in enumerate(self.names):
-                src = by_name[n]
-                if self.split[i] and src.dim() == own[i].dim() and \
-                        tuple(src.shape) != tuple(own[i].shape):
-                    # a whole tensor (a checkpoint's) for this rank's slice
-                    from vivqa_tpu_torch.parallel.mesh import shard_tensor
-                    src = shard_tensor(src, self.sharding.placements[n],
-                                       self.mesh)
+                src = self._own_slice(field, n, by_name[n])
                 if tuple(src.shape) != tuple(own[i].shape):
                     raise ValueError(f"{field} of {n}: {tuple(src.shape)} "
                                      f"!= {tuple(own[i].shape)}")
@@ -633,10 +691,20 @@ class Optimizer:
             norms[i] = torch.sqrt(sq[j])
         return norms
 
+    def _mean(self, x: torch.Tensor, dim: int, split: Optional[int],
+              length: int, keepdim: bool = False) -> torch.Tensor:
+        """``x.mean(dim)``; where ``dim`` is the dimension split over
+        'model' (``split``), the slice's sum summed over 'model' and
+        divided by the whole ``length``."""
+        if dim != split:
+            return x.mean(dim, keepdim=keepdim)
+        return all_reduce(x.sum(dim, keepdim=keepdim),
+                          self.mesh.model) / length
+
     def _adafactor(self, grads: list, lr: float) -> list:
         """optax.adafactor as the JAX package builds it: factored RMS (in
-        the flax layout), the learning rate, the momentum EMA, decayed
-        weights, a sign flip."""
+        the flax layout, factored by the whole leaf's dimensions), the
+        learning rate, the momentum EMA, decayed weights, a sign flip."""
         cfg = self.config
         t = np.float32(self.count + 1)
         decay = _f32(np.float32(1.0) - t ** np.float32(-0.8))
@@ -652,13 +720,19 @@ class Optimizer:
                 u = g * v ** -0.5
             else:
                 d1, d0 = dims
-                gf = to_flax_view(lay, g)
+                s = (self.sharding.placements[self.names[i]].flax_dim
+                     if self.split[i] else None)
+                gf = to_flax_view(self.views[i], g)
                 sq = gf * gf + 1e-30
                 v_row, v_col = st["v_row"][i], st["v_col"][i]
-                v_row.mul_(decay).add_(keep * sq.mean(d0))
-                v_col.mul_(decay).add_(keep * sq.mean(d1))
+                v_row.mul_(decay).add_(keep * self._mean(sq, d0, s,
+                                                         lay[2][d0]))
+                v_col.mul_(decay).add_(keep * self._mean(sq, d1, s,
+                                                         lay[2][d1]))
                 reduced = d1 - 1 if d1 > d0 else d1
-                row = (v_row / v_row.mean(reduced, keepdim=True)) ** -0.5
+                row_split = None if s in (None, d0) else s - (s > d0)
+                row = (v_row / self._mean(v_row, reduced, row_split,
+                                          lay[2][d1], keepdim=True)) ** -0.5
                 col = v_col ** -0.5
                 u = from_flax_view(lay, gf * row.unsqueeze(d0)
                                    * col.unsqueeze(d1), p.shape)
