@@ -1,13 +1,16 @@
 """Drive the PyTorch port (vivqa_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py                # every phase
-    python3 chip_smoke.py --phase mesh   # the build and phases 15-16 alone
+    python3 chip_smoke.py --phase mesh   # the build, phase 15 and path_check
+    python3 chip_smoke.py --phase tools  # ... phase 16 (examples: 17)
 
 Phases, in order; any failure exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: every CUDA source of the port with nvcc for sm_90a, all at once,
-   with ptxas' register, spill and shared-memory report;
+2. build: every CUDA source of the port with nvcc for sm_90a, each in
+   the parts ``ops/cuda_build.py:PARTS`` gives it (by dtype and head
+   dim), every part at once, with ptxas' register, spill and
+   shared-memory report (the main path's templates' registers held);
 3. kernels: each kernel against its plain version on the card at the
    shapes the serving paths give it (the classification forward's, the
    generative path's: encoders and fusion at batch 16, the single-query
@@ -214,18 +217,40 @@ Phases, in order; any failure exits non-zero:
    0; step ms per rank by CUDA events, the collectives' host ms and bytes
    a step, peak memory per rank (two ranks on one card: not a
    multi-card figure);
-16. path shapes: each wrapper call of phases 4-15 is recorded by its
+16. the step-budget tools (``vivqa_tpu_torch/tools/``) at the flagship's
+   full width and depth: ``profile_components``' five modes at batch 64
+   (wall ms by CUDA events beside the profiler's busy ms; 36 launches of
+   each training kernel a step, 36 of the forward an eval forward),
+   ``profile_towers``' five towers at batch 128 and
+   ``bench_input_pipeline`` over 256 JPEGs (images/s, PIL and native);
+17. the ten walkthroughs of ``vivqa_tpu_torch/examples/`` on the card,
+   each printing every section title of its JAX file, while
+   ``vivqa_tpu_torch/cli/setup_pipeline.sh --synthetic --skip-eval`` runs
+   its stages in a subprocess whose launches reach this process
+   (``--recorded``);
+18. path shapes: each wrapper call of phases 4-17 is recorded by its
    kernel, dtype, shapes, mask layout, causal, dropout rate and tile
    rows; each such launch the kernel phases did not hold against the
    plain version (the classification pipeline's batches of 32, 2 and 1,
    say) is held now on random inputs of that kind, and the script fails
    if any launch of a main path stays unchecked;
-17. the seconds by phase (``phase_seconds``), the card line (nvidia-smi's
+19. the seconds by phase (``phase_seconds``), the card line (nvidia-smi's
    name and power limit), the kernels line, and the device line, which
    is the last line.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.
+
+Depth cuts: the CLI and plumbing phases' models run at their paths'
+widths with every layer stack cut to CUT_LAYERS (2): phase 8
+(cls_pipeline), 9 (gen_cli), 11's CLIs, 12 (the trainer), 13's zoo
+paths but Swin-B's, its CLI and its generative model, 14's seeded HF
+checkpoints (``hf_models_at``), grafted models and CLIs, and 15's ranks
+and CLIs; their launch counts follow the cut configs. The timed paths
+(4-7, 11's steps and generates, Swin-B's profiled step, 16) and every
+kernel phase's per-step totals stay at full depth; each card-vs-CPU
+check runs a copy of 2 layers a stack whose weights are drawn on the
+card (``cpu_copy``).
 The script imports nothing of JAX or of the JAX package. Without a CUDA
 device it prints no result and exits 2.
 """
@@ -238,8 +263,11 @@ import copy
 import inspect
 import json
 import math
+import os
 import re
+import signal
 import statistics
+import subprocess
 import sys
 import tempfile
 import time
@@ -279,8 +307,7 @@ from vivqa_tpu_torch.models.encoders.deberta import (DeBERTaConfig,
                                                      DeBERTaEncoder)
 from vivqa_tpu_torch.models.encoders.swin import (SwinEncoder,
                                                   window_attention)
-from vivqa_tpu_torch.models.generative import (GenerativeVQAModel,
-                                              create_generative_vqa_model)
+from vivqa_tpu_torch.models.generative import GenerativeVQAModel
 from vivqa_tpu_torch.models.moe.layer import SparseMOELayer
 from vivqa_tpu_torch.models.layers import (init_weights,
                                            make_attention_mask,
@@ -406,10 +433,18 @@ GEN_HEAD = "beam_b16"          # the generate GEN_CASES' calls describe
 STAT_TOL = 1e-5
 GRAD_TOL = {torch.bfloat16: 1e-2, torch.float16: 1e-2, torch.float32: 1e-4}
 TRAIN_BATCH = 128                     # bench.py's batch per chip
-# the depth of every stack in the card-vs-CPU checks' copies of a model
-# (its widths the path's own): the CPU half at full depth was most of
-# their time
-ZOO_CHECK_LAYERS = 2
+# the depth of every layer stack (``check_depth``, ``gen_check_depth``)
+# in the card-vs-CPU checks' copies of a model, whose CPU half at full
+# depth was most of their time, and in the CLI and plumbing phases'
+# models (cls_pipeline, gen_cli, rag's CLIs, trainer, the zoo's paths but
+# Swin-B and its CLI and generative model, hf_import's checkpoints and
+# CLIs, the mesh ranks and CLIs), each of which, built at full depth on
+# the host, wrote or read a 1 GB checkpoint. Their widths, token counts
+# and heads are the paths' own, so the kernels see the same shapes, and
+# their launch counts follow the config. The timed paths (serving,
+# generative, training, gen_training, rag's steps and generates) and the
+# kernels' per-step totals stay at full depth
+CUT_LAYERS = 2
 DROPOUT = 0.1                 # text and MCAN (models/config.py:81,97)
 
 # (name, B, H, Lq, Lk, D, mask kind, causal, calls per flagship step, the
@@ -471,7 +506,7 @@ def _events_ms(run, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def eager_ms(fn, iters: int = 200, warmup: int = 20) -> float:
+def eager_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     """Time per call of ``fn`` issued from Python, from CUDA events over
     ``iters`` back-to-back calls: at these sizes the host's dispatch, not
     the device, sets it."""
@@ -481,17 +516,35 @@ def eager_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return _events_ms(fn, iters)
 
 
+def captured(fn, calls: int = 1) -> torch.cuda.CUDAGraph:
+    """``calls`` calls of ``fn`` captured in one CUDA graph on a side
+    stream. ``torch.cuda.graph`` would also run ``gc.collect()`` and
+    ``empty_cache()`` at each capture, which took 0.1-4 s a capture in a
+    process that holds the models' tensors."""
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        graph.capture_begin()
+        try:
+            for _ in range(calls):
+                fn()
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream().wait_stream(stream)
+    return graph
+
+
 def device_ms(fn, calls: int = 20, replays: int = 20) -> float:
     """Device time per call of ``fn``: ``calls`` calls captured in one CUDA
     graph, replayed ``replays`` times, timed with CUDA events. The host's
-    dispatch drops out; each launch still costs its device-side latency."""
+    dispatch drops out; each launch still costs its device-side latency.
+    Kernels, plain versions and SDPA all take the same calls a graph, so
+    the gap between replays weighs on each alike."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
+    graph = captured(fn, calls)
     graph.replay()
     torch.cuda.synchronize()
     return _events_ms(graph.replay, replays) / calls
@@ -1250,9 +1303,7 @@ def serving_phase(cfg: VQAModelConfig, device: str, batches: int = 10,
     args = (torch.from_numpy(px), torch.from_numpy(enc["input_ids"]),
             torch.from_numpy(enc["attention_mask"]))
     dev_args = tuple(a.to(predictor.device) for a in args)
-    cpu_model = create_vqa_model(
-        check_depth(cfg), device="cpu",
-        generator=torch.Generator().manual_seed(seed))
+    cpu_model = cpu_copy(check_depth(cfg), predictor.device, seed)
     small = copy.deepcopy(cpu_model).to(predictor.device)
     sparse = isinstance(getattr(cpu_model, "moe", None), SparseMOELayer)
     moe_in = []
@@ -1273,7 +1324,7 @@ def serving_phase(cfg: VQAModelConfig, device: str, batches: int = 10,
             or not np.isfinite(card_logits).all():
         raise AssertionError(f"bad logits {card_logits.shape}")
     check = compare_logits(card_logits, cpu_logits)
-    check["depth"] = ZOO_CHECK_LAYERS
+    check["depth"] = CUT_LAYERS
     if sparse:
         # the card's fused tokens differ from the CPU's by bf16 noise, so
         # a token whose top-2 or queue place is within that noise may
@@ -1327,9 +1378,7 @@ def profile_phase(model, args, forwards: int = 3) -> dict:
         torch.cuda.synchronize()
         eager = (time.perf_counter() - t0) * 1e3 / forwards
 
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            forward()
+        graph = captured(forward)
         graph.replay()
         torch.cuda.synchronize()
         graphed = _events_ms(graph.replay, 10)
@@ -1467,8 +1516,7 @@ def train_check(cfg: VQAModelConfig, device: str = "cuda", steps: int = 2,
             "attention_mask": mask,
             "labels": rs.randint(0, cfg.num_answers, (4,))}
 
-    weights = create_vqa_model(cfg0, device="cpu",
-                               generator=torch.Generator().manual_seed(seed))
+    weights = cpu_copy(cfg0, device, seed)
 
     def build(dev):
         model = no_dropout(copy.deepcopy(weights).to(dev))
@@ -1632,11 +1680,20 @@ def model_on(cfg, device: str | torch.device = "cuda", seed: int = 0):
     return model.eval()
 
 
+def cpu_copy(cfg, device: str | torch.device = "cuda", seed: int = 0):
+    """The CPU half of a card-vs-CPU check: ``model_on``'s model of
+    ``cfg``, its weights drawn where ``device`` is, copied to the CPU (the
+    card half copies it back). Drawn on the CPU, a full-width copy took
+    seconds a check: the 64,001-token table and nn.Linear's own default
+    draw before flax's law draws again."""
+    return model_on(cfg, device, seed).cpu()
+
+
 def gen_check_depth(cfg: GenerativeVQAConfig,
-                    layers: int = ZOO_CHECK_LAYERS) -> GenerativeVQAConfig:
+                    layers: int = CUT_LAYERS) -> GenerativeVQAConfig:
     """``cfg`` at its widths with every layer stack (the towers, the
     fusion, the decoder) cut to ``layers``: the model of a generative
-    card-vs-CPU check."""
+    card-vs-CPU check or plumbing phase."""
     return cfg.replace(
         visual=cfg.visual.replace(num_layers=min(cfg.visual.num_layers,
                                                  layers)),
@@ -1696,9 +1753,7 @@ def generative_phase(cfg: GenerativeVQAConfig, device: str = "cuda",
     # card against CPU at batch 2 on the cut copy, teacher-forced on its
     # greedy sequences on the card: compare_logits' rule (5% of max
     # |logit|)
-    cpu_model = create_generative_vqa_model(
-        gen_check_depth(cfg), device="cpu",
-        generator=torch.Generator().manual_seed(seed))
+    cpu_model = cpu_copy(gen_check_depth(cfg), device, seed)
     small = copy.deepcopy(cpu_model).to(device)
     seqs2, _ = build_generate_fn(small, decode_cfg)(px[:2], q[:2])
     bos = torch.full_like(seqs2[:, :1], decode_cfg.bos_token_id)
@@ -1713,7 +1768,7 @@ def generative_phase(cfg: GenerativeVQAConfig, device: str = "cuda",
     cpu_check = compare_logits(card.reshape(-1, V).numpy(),
                                cpu.reshape(-1, V).numpy())
     cpu_check["cpu_forward_s"] = cpu_s
-    cpu_check["depth"] = ZOO_CHECK_LAYERS
+    cpu_check["depth"] = CUT_LAYERS
     del small, cpu_model
     profiles = {key: generate_profile(gens[key.split("_b")[0]],
                                       (px[:B0], q[:B0]))
@@ -1866,15 +1921,14 @@ def gen_train_check(cfg: GenerativeVQAConfig, tok: WhitespaceTokenizer,
     cfg0 = gen_check_depth(cfg)
     cfg0 = cfg0.replace(dropout=0.0, text=cfg0.text.replace(dropout=0.0))
     data = gen_train_batch(cfg0, tok, 4, seed + 7)
-    weights = create_generative_vqa_model(
-        cfg0, device="cpu", generator=torch.Generator().manual_seed(seed))
+    weights = cpu_copy(cfg0, device, seed)
 
     def build(dev):
         model = copy.deepcopy(weights).to(dev)
         return TrainState.create(model, gen_optimizer(model, 20), seed=seed)
     out = card_vs_cpu_steps(build, generative_loss_fn(label_smoothing=0.0),
                             data, device, steps, gen_calls_per_step(cfg0))
-    return {"batch": 4, "depth": ZOO_CHECK_LAYERS,
+    return {"batch": 4, "depth": CUT_LAYERS,
             "question_tokens": data["question_mask"].sum(1).tolist(),
             "answer_positions": data["decoder_mask"].sum(1).tolist(), **out}
 
@@ -2740,9 +2794,9 @@ def abl_card_vs_cpu(cfg: VQAModelConfig, cli_default: VQAModelConfig,
 
     def logits(c):
         out = {}
+        weights = cpu_copy(c, device, seed)
         for dev in ("cpu", device):
-            model = create_vqa_model(
-                c, device=dev, generator=torch.Generator().manual_seed(seed))
+            model = copy.deepcopy(weights).to(dev)
             batch = batch_to_device(data, torch.device(dev))
             with torch.no_grad():
                 out[dev] = model(batch["pixel_values"], batch["input_ids"],
@@ -2762,7 +2816,7 @@ def abl_card_vs_cpu(cfg: VQAModelConfig, cli_default: VQAModelConfig,
         return TrainState.create(model, bench_optimizer(model, 1), seed=seed)
     calls = attention_calls_per_forward(cfg) if device == "cuda" else 0
     return {"batch": 4, "question_lengths": lengths.tolist(),
-            "depth": ZOO_CHECK_LAYERS, "study_logits": logits(cfg),
+            "depth": CUT_LAYERS, "study_logits": logits(cfg),
             "soft_train_steps": card_vs_cpu_steps(
                 build, classification_loss_fn(), data, device, 2, calls),
             "cli_default_logits": logits(cli_default)}
@@ -3159,8 +3213,7 @@ def rag_cls_phase(cfg: VQAModelConfig, provider, device: str = "cuda",
     pair = rag_cls_batch(kcfg, provider, 2, seed + 1)
     inputs = ("pixel_values", "input_ids", "attention_mask")
     know = {k: pair[k] for k in KNOWLEDGE_KEYS}
-    cpu_model = create_vqa_model(check_depth(kcfg), device="cpu",
-                                 generator=torch.Generator().manual_seed(seed))
+    cpu_model = cpu_copy(check_depth(kcfg), dev, seed)
     small = copy.deepcopy(cpu_model).to(dev)
     with torch.inference_mode():
         card = small(*(host_tensor(pair[k]).to(dev) for k in inputs),
@@ -3170,7 +3223,7 @@ def rag_cls_phase(cfg: VQAModelConfig, provider, device: str = "cuda",
                         **{k: host_tensor(v) for k, v in know.items()}
                         )["logits"].float().numpy()
     cpu_check = compare_logits(card, cpu)
-    cpu_check["depth"] = ZOO_CHECK_LAYERS
+    cpu_check["depth"] = CUT_LAYERS
     del cpu_model, small
 
     val = batch_to_device(rag_cls_batch(kcfg, provider, val_batch,
@@ -3244,8 +3297,7 @@ def rag_cls_phase(cfg: VQAModelConfig, provider, device: str = "cuda",
                           fusion=kcfg0.fusion.replace(dropout=0.0),
                           head=kcfg0.head.replace(dropout=0.0))
     four = rag_cls_batch(kcfg0, provider, 4, seed + 4)
-    weights = create_vqa_model(kcfg0, device="cpu",
-                               generator=torch.Generator().manual_seed(seed))
+    weights = cpu_copy(kcfg0, dev, seed)
 
     def build(d):
         m = copy.deepcopy(weights).to(d)
@@ -3254,7 +3306,7 @@ def rag_cls_phase(cfg: VQAModelConfig, provider, device: str = "cuda",
     steps_check = card_vs_cpu_steps(build, classification_loss_fn(), four,
                                     device, 2,
                                     attention_calls_per_forward(kcfg0))
-    steps_check["depth"] = ZOO_CHECK_LAYERS
+    steps_check["depth"] = CUT_LAYERS
     return {
         "params": n_params,
         "knowledge": {"K": RAG_K, "dim": provider.dim,
@@ -3337,9 +3389,7 @@ def rag_gen_phase(provider, cfg: GenerativeVQAConfig | None = None,
     two_know = {k: two[k] for k in KNOWLEDGE_KEYS}
     cpu_args = tuple(a.cpu() for a in two_args)
     cpu_know = {k: v.cpu() for k, v in two_know.items()}
-    cpu_model = create_generative_vqa_model(
-        gen_check_depth(cfg), device="cpu",
-        generator=torch.Generator().manual_seed(seed))
+    cpu_model = cpu_copy(gen_check_depth(cfg), dev, seed)
     small = copy.deepcopy(cpu_model).to(dev)
     card_seqs, _ = build_generate_fn(small, decode_cfg)(*two_args,
                                                         **two_know)
@@ -3367,7 +3417,7 @@ def rag_gen_phase(provider, cfg: GenerativeVQAConfig | None = None,
                              f" {card_seqs.tolist()} {cpu_seqs.tolist()}")
     greedy_check["logits"] = compare_logits(
         card_logits.reshape(-1, V).numpy(), cpu_logits.reshape(-1, V).numpy())
-    greedy_check["depth"] = ZOO_CHECK_LAYERS
+    greedy_check["depth"] = CUT_LAYERS
     del cpu_model, small
 
     tb = gen_train_batch(cfg, tok, train_batch, seed + 1)
@@ -3574,7 +3624,7 @@ def rag_cli_phase(cls_cfg: VQAModelConfig, gen_cfg: GenerativeVQAConfig,
     steps = math.ceil(cls_split[0] / batch)
     val_batches = math.ceil(cls_split[1] / batch)
     test_batches = math.ceil(cls_split[2] / batch)
-    per_fwd = ATTN_CALLS_PER_FORWARD + 1 if on_card else 0
+    per_fwd = attention_calls_per_forward(cls_cfg) + 1 if on_card else 0
     zero = {name: 0 for name in TRAIN_KERNELS}
     enc_calls = attention_calls_per_generate(gen_cfg, 0)
     want = {
@@ -3583,7 +3633,7 @@ def rag_cli_phase(cls_cfg: VQAModelConfig, gen_cfg: GenerativeVQAConfig,
         "cls_evaluate": {**zero,
                          "flash_attn_fwd": per_fwd * (1 + test_batches)},
         "cls_inference": {**zero, "flash_attn_fwd": per_fwd + (
-            ATTN_CALLS_PER_FORWARD if on_card else 0) * cls_split[2]}}
+            per_fwd - 1 if on_card else 0) * cls_split[2]}}
     for mode in ("train", "evaluate", "inference"):
         r = runs[f"gen_{mode}"]
         want[f"gen_{mode}"] = {
@@ -3700,7 +3750,7 @@ def rag_dense_phase(cfg: VQAModelConfig, provider, device: str = "cuda",
             "flash_attn_fwd": cfg.text.num_layers * chunks
             if device == "cuda" else 0}
     out = {"documents": len(texts), "queries": len(qs),
-           "check_depth": ZOO_CHECK_LAYERS,
+           "check_depth": CUT_LAYERS,
            "chunks": chunks, "launches": launches,
            "launches_per_chunk": launches["flash_attn_fwd"] / chunks,
            "encode_s": card_s, "max_abs_diff": diff, "tolerance": tol,
@@ -3805,7 +3855,7 @@ def trainer_unfreeze_run(cfg: VQAModelConfig, device: str, rm, tmp: str,
     validation forward. Returns (its record, the final state, the
     trainer's config)."""
     on_card = device == "cuda"
-    calls = ATTN_CALLS_PER_STEP if on_card else 0
+    calls = attention_calls_per_forward(cfg)
     model = model_on(cfg, device, seed)
     start = _weights(model)
     train = ListLoader(trainer_batch(cfg, batch, seed + i)
@@ -3917,7 +3967,7 @@ def trainer_checkpoint_run(cfg: VQAModelConfig, device: str, tmp: str,
     the serving forward, 36 dQ and 36 dK/dV); then ``VQATrainer`` with
     both options for ``steps`` steps, the visual encoder bit-equal."""
     on_card = device == "cuda"
-    calls = ATTN_CALLS_PER_STEP if on_card else 0
+    calls = attention_calls_per_forward(cfg)
     dev = torch.device(device)
     model = model_on(cfg, device, seed + 1)
     data = batch_to_device(trainer_batch(cfg, batch, seed + 5), dev)
@@ -4037,8 +4087,7 @@ def trainer_mix_check(cfg: VQAModelConfig, device: str, seed: int) -> dict:
         return {k: torch.tensor(v, device=generator.device)
                 for k, v in d.items()}
 
-    weights = create_vqa_model(cfg0, device="cpu",
-                               generator=torch.Generator().manual_seed(seed))
+    weights = cpu_copy(cfg0, device, seed)
 
     def build(dev):
         drawn["n"] = 0
@@ -4057,7 +4106,7 @@ def trainer_mix_check(cfg: VQAModelConfig, device: str, seed: int) -> dict:
                                 attention_calls_per_forward(cfg0))
     finally:
         batch_mix.draw_mix = real
-    out["depth"] = ZOO_CHECK_LAYERS
+    out["depth"] = CUT_LAYERS
     frozen = {dev: all(torch.equal(p.detach(), start[n])
                        for n, p in model.named_parameters() if n in start)
               for dev, (model, start) in built.items()}
@@ -4076,8 +4125,7 @@ def optimizer_check(cfg: VQAModelConfig, device: str, seed: int) -> dict:
     on the CPU: every element of the two updates (read back as p' - p)
     within ``OPTIMIZER_TOL`` of the CPU update's largest, past one f32
     rounding of p'."""
-    model0 = create_vqa_model(check_depth(cfg), device="cpu",
-                              generator=torch.Generator().manual_seed(seed))
+    model0 = cpu_copy(check_depth(cfg), device, seed)
     g = torch.Generator().manual_seed(seed + 3)
     grads = {n: torch.randn(p.shape, generator=g) * 1e-2
              for n, p in model0.named_parameters()}
@@ -4125,7 +4173,7 @@ def optimizer_check(cfg: VQAModelConfig, device: str, seed: int) -> dict:
     if bad:
         raise AssertionError(f"optimizers {bad} card vs CPU: {rows}")
     return {"params": sum(t.numel() for t in start.values()),
-            "depth": ZOO_CHECK_LAYERS,
+            "depth": CUT_LAYERS,
             "tolerance_of_largest_update": OPTIMIZER_TOL, "optimizers": rows}
 
 
@@ -4322,6 +4370,9 @@ def zoo_fusion_config(fusion: str, moe_type: str) -> VQAModelConfig:
 
 # (path, its config, the launches of the forward kernel a forward and of
 # each training kernel a step, predicted from the config before any run)
+# (name, config, launches a forward at full depth); Swin-B's path runs at
+# full depth (its profiled step is the window attention's denominator),
+# the others at CUT_LAYERS
 ZOO_PATHS = [
     ("swin_b", swin_b_config, 24),
     ("resnet50", resnet50_config, 12),
@@ -4495,9 +4546,10 @@ def window_attention_profile(cfg: VQAModelConfig, batch: int = ZOO_BATCH,
     and the bound (q, k, v read, o written, the f32 bias and the mask
     read once; 4 hd flops per pair forward, 8 more backward); summed over
     the encoder's blocks, a forward's and a step's."""
-    enc = SwinEncoder(cfg.visual.replace(dtype="bfloat16"))
-    init_weights(enc, torch.Generator().manual_seed(seed))
-    enc = enc.to("cuda")
+    with torch.device("cuda"):      # buffers made from numpy stay on
+        enc = SwinEncoder(cfg.visual.replace(dtype="bfloat16"))
+    enc = enc.to("cuda")            # the CPU: .to moves them
+    init_weights(enc, torch.Generator(device="cuda").manual_seed(seed))
     gen = torch.Generator(device="cuda").manual_seed(seed)
     shapes = {}
     for names, _ in enc.stages:
@@ -4569,11 +4621,11 @@ def window_attention_profile(cfg: VQAModelConfig, batch: int = ZOO_BATCH,
 
 
 def check_depth(cfg: VQAModelConfig,
-                layers: int = ZOO_CHECK_LAYERS) -> VQAModelConfig:
+                layers: int = CUT_LAYERS) -> VQAModelConfig:
     """``cfg`` at its widths with every layer stack cut to ``layers``
     (Swin's stages each to ``layers`` blocks; ResNet's stages as they
-    are): the config of a zoo path's card-vs-CPU train check, whose CPU
-    half is most of the phase at full depth."""
+    are): the config of a card-vs-CPU check, whose CPU half is most of
+    the phase at full depth, or of a plumbing phase."""
     v = cfg.visual
     if v.backbone in ("vit", "clip", "dino"):
         v = v.replace(num_layers=min(v.num_layers, layers))
@@ -4620,7 +4672,7 @@ def zoo_model_path(name: str, cfg: VQAModelConfig, calls: int,
     check_cfg = check_depth(cfg)
     check = train_check(check_cfg, device, seed=seed,
                         calls_per_step=attention_calls_per_forward(check_cfg))
-    check["depth"] = ZOO_CHECK_LAYERS
+    check["depth"] = CUT_LAYERS
     seconds["train_check"] = time.perf_counter() - t0 - sum(seconds.values())
     out = {"config": name, "attention_calls_per_forward": calls,
            "params": serving["params"],
@@ -4915,7 +4967,15 @@ def zoo_phase(device: str = "cuda") -> dict:
     paths = {}
     for name, config, calls in ZOO_PATHS:
         baseline = name in ("swin_b", "resnet50")   # BASELINE.json's own
-        paths[name] = zoo_model_path(name, config(), calls, device,
+        full = config()
+        if attention_calls_per_forward(full) != calls:
+            raise AssertionError(f"zoo {name}: the config makes "
+                                 f"{attention_calls_per_forward(full)} "
+                                 f"calls a forward, not {calls}")
+        cfg = full if name == "swin_b" else check_depth(full)
+        paths[name] = zoo_model_path(name, cfg,
+                                     attention_calls_per_forward(cfg),
+                                     device,
                                      serve_batches=2 if baseline else 1,
                                      steps=2 if baseline else 1,
                                      profile=name == "swin_b")
@@ -4931,14 +4991,16 @@ def zoo_phase(device: str = "cuda") -> dict:
           f"an additive mask {window['per_step']['library_fwd_bwd_ms']:.3f}"
           f" ms; bound {window['per_step']['bound_fwd_bwd_ms']:.3f} ms",
           flush=True)
-    swin = swin_b_config()          # the CLI's flags turn the ViT to Swin
+    # the CLI's flags turn the YAML's ViT to Swin (its stages cut too)
+    swin = check_depth(swin_b_config())
     cli = zoo_cli_phase(swin.replace(visual=swin.visual.replace(
         backbone="clip")), device)
     tok = gen_tokenizer()
     gen_cfg = gen_training_config(tok).replace(
         moe=bench_serving.serving_config().moe.replace(use_moe=True,
                                                        moe_type="sparse"))
-    gen = zoo_gen_phase(gen_cfg, tok, device)
+    gen = zoo_gen_phase(gen_check_depth(gen_cfg), tok,
+                        device)
     library = zoo_library_phase(device)
     return {"paths": paths, "window_attention": window, "cli": cli,
             "generative": gen, "library": library,
@@ -5142,6 +5204,22 @@ def write_safetensors(path, tensors: dict) -> None:
         f.write(head)
         for raw in blobs:
             f.write(memoryview(raw))
+
+
+def hf_models_at(layers: int) -> dict:
+    """HF_MODELS' config.json dicts with every layer stack cut to
+    ``layers``; widths, heads, vocabularies and image sizes as
+    published."""
+    out = {}
+    for name, cfg in HF_MODELS.items():
+        cfg = copy.deepcopy(cfg)
+        for d in (cfg, cfg.get("vision_config", {})):
+            for key in ("num_hidden_layers", "encoder_layers",
+                        "decoder_layers"):
+                if key in d:
+                    d[key] = min(d[key], layers)
+        out[name] = cfg
+    return out
 
 
 def write_hf_checkpoints(root: str, seed: int = 0,
@@ -6443,7 +6521,234 @@ def mesh_phase(device: str = "cuda", seed: int = 0,
                     "are not multi-card figures"}
 
 
-# -- phase 16: every launch shape of the main paths held ---------------------
+# -- phase 16: the step-budget tools ------------------------------------------
+TOOLS_STEPS = 10            # each mode's and tower's timed window
+TOOLS_BATCH = 64            # profile_components' default batch
+TOWERS_BATCH = 128          # profile_towers' default batch
+INPUT_IMAGES = 256          # bench_input_pipeline's default corpus
+INPUT_SIZE = 224            # and its image size
+
+
+def tools_phase() -> dict:
+    """The port's step-budget tools (``vivqa_tpu_torch/tools/``) as a user
+    runs them, at the flagship's full width and depth: ``profile_components``
+    in its five modes at TOOLS_BATCH (each mode's wall ms by CUDA events,
+    its busy ms by the profiler over a second, profiled window, its
+    launches a call: 36 of each training kernel a full step and a forward
+    and backward, 36 forward launches an eval forward, 36 attention calls
+    a training forward, none an optimizer update), ``profile_towers`` for
+    its five towers at TOWERS_BATCH and the JAX tool's sizes (12 launches
+    a call of each training kernel for the visual, text and trunk towers
+    and the fusion's MCAN, none for the table), and
+    ``bench_input_pipeline`` over INPUT_IMAGES JPEGs (images/s, PIL and
+    the native loader, NaN where its library is absent). Fails if a
+    launch count is off, or a busy time is missing or exceeds its
+    window."""
+    from vivqa_tpu_torch.tools import (bench_input_pipeline,
+                                       profile_components, profile_towers)
+    dev = torch.device("cuda")
+    cfg = flagship_config()
+    sizes = profile_towers.TowerSizes()
+    batch, steps = TOOLS_BATCH, TOOLS_STEPS
+    t0 = time.perf_counter()
+    comp = profile_components.profile(cfg, batch, steps, dev)
+    comp_s = time.perf_counter() - t0
+    zero = {n: 0.0 for n in fa.launch_counts}
+
+    def training(c):
+        return {**zero, **{n: float(c) for n in TRAIN_KERNELS}}
+
+    def forward_only(launches, c):
+        """A training forward with no gradient: each call on the forward
+        kernel (no dropout) or the forward with stats, none backward."""
+        return (launches["flash_attn_fwd"] + launches["flash_attn_fwd_lse"]
+                == c and not launches["flash_attn_bwd_dq"]
+                and not launches["flash_attn_bwd_dkv"])
+    calls = attention_calls_per_forward(cfg)
+    want = {"full": training(calls), "fwd_bwd": training(calls),
+            "fwd_eval": {**zero, "flash_attn_fwd": float(calls)},
+            "opt": zero}
+    modes = comp["modes"]
+    problems = [f"{m} launches {modes[m]['launches_per_call']} != {w}"
+                for m, w in want.items()
+                if modes[m]["launches_per_call"] != w]
+    if not forward_only(modes["fwd"]["launches_per_call"], calls):
+        problems.append(f"fwd launches {modes['fwd']['launches_per_call']}")
+    tower_calls = {"visual": sizes.layers, "text": sizes.layers, "embed": 0,
+                   "trunk": sizes.layers, "fusion": 3 * sizes.fusion_layers}
+    towers = {}
+    t1 = time.perf_counter()
+    for name in profile_towers.TOWERS:
+        r = profile_towers.profile_tower(name, TOWERS_BATCH, steps, dev,
+                                         sizes=sizes)
+        c = tower_calls[name]
+        if r["fwd_bwd"]["launches_per_call"] != training(c) \
+                or not forward_only(r["forward"]["launches_per_call"], c):
+            problems.append(f"tower {name} launches: forward "
+                            f"{r['forward']['launches_per_call']}, forward "
+                            f"and backward {r['fwd_bwd']['launches_per_call']}"
+                            f" (want {c} a call)")
+        towers[name] = r
+    towers_s = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = bench_input_pipeline.make_corpus(Path(tmp), INPUT_IMAGES)
+        loader = bench_input_pipeline.bench(paths, INPUT_SIZE, batch, dev)
+    loader_s = time.perf_counter() - t2
+    timed_runs = [(f"{m}", r) for m, r in modes.items()] + [
+        (f"{t} {p}", r[p]) for t, r in towers.items()
+        for p in ("forward", "fwd_bwd")]
+    for label, r in timed_runs:
+        # one stream: the kernels' summed time cannot exceed their window
+        if not (math.isfinite(r["wall_ms"]) and r["wall_ms"] > 0) \
+                or r["busy_ms"] is None \
+                or not 0 < r["busy_ms"] <= r["profiled_window_ms"]:
+            problems.append(f"{label}: wall {r['wall_ms']} busy "
+                            f"{r['busy_ms']} over a window of "
+                            f"{r['profiled_window_ms']} ms")
+    for mode, r in loader.items():
+        nat = r["native_images_per_s"]
+        if not r["pil_images_per_s"] > 0 or not (math.isnan(nat) or nat > 0):
+            problems.append(f"input pipeline {mode}: {r}")
+    if problems:
+        raise AssertionError("tools phase: " + "; ".join(problems))
+    return {"profile_components": {"batch": batch, "steps": steps, **comp,
+                                   "seconds": comp_s},
+            "profile_towers": {"batch": TOWERS_BATCH, "steps": steps,
+                               "towers": towers, "seconds": towers_s},
+            "bench_input_pipeline": {
+                "n": INPUT_IMAGES, "size": INPUT_SIZE, "batch": batch,
+                "native_available": fastloader.is_available(),
+                "modes": {m: {k: None if math.isnan(v) else v
+                              for k, v in r.items()}
+                          for m, r in loader.items()},
+                "seconds": loader_s}}
+
+
+# -- phase 17: the walkthroughs and the setup script --------------------------
+EXAMPLES = ("complete_vqa_pipeline", "vivqa_examples", "fusion_examples",
+            "generative_decoding_examples", "image_representation_examples",
+            "text_representation_examples", "knowledge_base_examples",
+            "moe_examples", "resource_management_examples",
+            "ablation_study_examples")
+
+
+def recorded_run(log: str, module: str, args: list) -> int:
+    """``python -m module args`` in this process, every kernel launch
+    recorded; the launch keys go to ``log`` as JSON lines, also when the
+    module exits or raises (``chip_smoke.py --recorded LOG -m MODULE
+    ...``: the examples phase reads a subprocess's launches this way)."""
+    import runpy
+    keys: set = set()
+    sys.argv = [module, *args]
+    try:
+        with recording_launches(keys):
+            runpy.run_module(module, run_name="__main__", alter_sys=True)
+    except SystemExit as e:
+        return e.code if isinstance(e.code, int) else int(e.code is not None)
+    finally:
+        with open(log, "a") as f:
+            for k in keys:
+                f.write(json.dumps(k) + "\n")
+    return 0
+
+
+def start_setup(tmp: str, log: str):
+    """``vivqa_tpu_torch/cli/setup_pipeline.sh --synthetic --skip-eval`` at
+    its own sizes on the card, started in ``tmp``: its ``python -m`` runs
+    go through ``recorded_run`` (a ``python`` on the PATH that hands them
+    to this script), so their launches reach ``log``. Returns (the
+    process, its output file)."""
+    here = Path(__file__).resolve()
+    bin_dir = Path(tmp) / "bin"
+    bin_dir.mkdir()
+    wrapper = bin_dir / "python"
+    wrapper.write_text(
+        "#!/bin/sh\n"
+        f'if [ "$1" = "-m" ]; then exec "{sys.executable}" "{here}" '
+        f'--recorded "{log}" "$@"; fi\n'
+        f'exec "{sys.executable}" "$@"\n')
+    wrapper.chmod(0o755)
+    out = open(Path(tmp) / "setup.log", "w")
+    env = {**os.environ, "PATH": f"{bin_dir}:{os.environ.get('PATH', '')}"}
+    proc = subprocess.Popen(
+        ["bash", str(here.parent / "vivqa_tpu_torch" / "cli" /
+                     "setup_pipeline.sh"), "--synthetic", "--skip-eval",
+         "--device", "cuda"], cwd=tmp, env=env, stdout=out,
+        stderr=subprocess.STDOUT, start_new_session=True)
+    return proc, out
+
+
+def examples_phase() -> dict:
+    """The ten walkthroughs of ``vivqa_tpu_torch/examples/`` as ``python3
+    -m vivqa_tpu_torch.examples.<name>`` runs them on the card, in
+    this process (each one's launches counted from 0), each printing every
+    section title of its JAX file (``examples/<name>.py``, read by
+    ``banner_titles``); meanwhile ``setup_pipeline.sh --synthetic
+    --skip-eval`` in a subprocess (``start_setup``), which must pass its
+    four stages. Returns each walkthrough's seconds, sections and
+    launches, the setup's seconds and stages, and ``setup_launch_keys``
+    (its launches' keys, for path_check)."""
+    import importlib
+    import io
+    from vivqa_tpu_torch.examples import banner_titles
+    root = Path(__file__).resolve().parent
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        log = f"{tmp}/setup_launches.jsonl"
+        t_setup = time.perf_counter()
+        proc, setup_out = start_setup(tmp, log)
+        try:
+            for name in EXAMPLES:
+                mod = importlib.import_module(
+                    f"vivqa_tpu_torch.examples.{name}")
+                buf = io.StringIO()
+                fa.reset_launch_counts()
+                t = time.perf_counter()
+                try:
+                    with contextlib.redirect_stdout(buf):
+                        mod.main([])
+                except Exception as e:
+                    raise AssertionError(
+                        f"walkthrough {name}: {e!r}; its output's end:\n"
+                        f"{buf.getvalue()[-3000:]}") from e
+                torch.cuda.synchronize()
+                text = buf.getvalue()
+                titles = banner_titles(root / "examples" / f"{name}.py")
+                missing = [s for s in titles if s not in text]
+                out[name] = {"seconds": time.perf_counter() - t,
+                             "sections": len(titles),
+                             "launches": dict(fa.launch_counts),
+                             "printed_lines": text.count("\n")}
+                if missing or not titles:
+                    raise AssertionError(f"walkthrough {name}: sections "
+                                         f"{missing} not printed")
+            rc = proc.wait(timeout=600)
+            setup_out.close()
+            text = (Path(tmp) / "setup.log").read_text()
+            stages = [f"Stage {i}/5" for i in range(1, 6)
+                      if f"Stage {i}/5" in text]
+            if rc != 0 or len(stages) != 5 \
+                    or "smoke train run OK" not in text:
+                raise AssertionError(f"setup_pipeline.sh rc {rc}:\n"
+                                     f"{text[-4000:]}")
+            keys = set()
+            if Path(log).is_file():
+                keys = {tuple(tuple(x) if isinstance(x, list) else x
+                              for x in json.loads(line))
+                        for line in Path(log).read_text().splitlines()}
+            setup_res = {"seconds": time.perf_counter() - t_setup,
+                         "stages": stages, "launch_keys": len(keys),
+                         "setup_launch_keys": keys}
+        finally:
+            if proc.poll() is None:
+                # the script and the python it runs
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    return {"walkthroughs": out, "setup": setup_res}
+
+
+# -- phase 18: every launch shape of the main paths held ---------------------
 def path_check_phase(launched: dict) -> dict:
     """``launched``: {path: the launch keys its run recorded}. Each key no
     kernel check held yet is held now against the plain version on inputs
@@ -6498,7 +6803,7 @@ def kernels_line(rows: dict, launches: int, generative: dict,
                  ablation: dict, rag_tot: dict, rag: dict,
                  trainer: dict, zoo_kernels: dict, zoo: dict,
                  hf_rows: dict, hf: dict, mesh_rows: dict, mesh_tot: dict,
-                 mesh: dict) -> dict:
+                 mesh: dict, tools: dict, examples: dict) -> dict:
     """One entry per kernel. The forward's numbers are for one flagship
     forward at batch 8 (its 36 calls of the five serving shapes, each
     shape's time times its calls), and, under ``generate``, for one beam
@@ -6535,7 +6840,10 @@ def kernels_line(rows: dict, launches: int, generative: dict,
     on the ('data', 'model') mesh (two ranks on the card): per call at the
     (1, 2) mesh's per-rank shapes (half the heads) and per rank's step or
     evaluation forward there (time, plain version, bound, SDPA's time),
-    and its launches per rank a step and a forward on each mesh."""
+    and its launches per rank a step and a forward on each mesh; ``tools``
+    each kernel's launches a call in profile_components' five modes at
+    batch 64 and profile_towers' towers at batch 128 (forward, forward and
+    backward); ``examples`` its launches in each walkthrough's run."""
     abl_launches = {name: sum(r[name] for r in ablation["launches"].values())
                     for name in fa.launch_counts}
     rag_cli = rag["cli"]["launches"]
@@ -6764,6 +7072,21 @@ def kernels_line(rows: dict, launches: int, generative: dict,
             "zoo": zoo_entry(name),
             "hf_import": hf_entry(name),
             "mesh": mesh_entry(name, mesh_rows, mesh_tot, mesh)})
+    comp, towers = tools["profile_components"], tools["profile_towers"]
+    for e in entries:
+        n = e["name"]
+        e["tools"] = {
+            "profile_components": {m: r["launches_per_call"][n]
+                                   for m, r in comp["modes"].items()},
+            "profile_towers": {t: {p: r[p]["launches_per_call"][n]
+                                   for p in ("forward", "fwd_bwd")}
+                               for t, r in towers["towers"].items()},
+            "per": f"launches a call: profile_components' modes at batch "
+                   f"{comp['batch']}, profile_towers' towers at batch "
+                   f"{towers['batch']}"}
+        e["examples"] = {"launches": {w: r["launches"][n] for w, r in
+                                      examples["walkthroughs"].items()},
+                         "per": "each walkthrough's run on the card"}
     return {"kernels": entries}
 
 
@@ -6898,7 +7221,9 @@ def mesh_report(card: str, t_start: float, launched: dict,
     mesh_tot = mesh_totals(mesh_rows)
     emit({"mesh_attention": mesh_tot, "card": card})
     with timed("mesh.ranks"):
-        mesh = mesh_phase(abl=abl)
+        mesh = mesh_phase(
+            cfg=check_depth(flagship_config()),
+            gen_cfg=gen_check_depth(bench_serving.serving_config()), abl=abl)
     launched["mesh"] = mesh.pop("launch_keys")
     emit({"mesh": mesh, "card": card})
     runs = mesh["ranks"][0]["runs"]
@@ -6957,6 +7282,57 @@ def mesh_report(card: str, t_start: float, launched: dict,
     return mesh_rows, mesh_tot, mesh
 
 
+def tools_report(card: str, launched: dict) -> dict:
+    """Phase 16 with its report; its launch keys go into
+    ``launched['tools']``."""
+    with recording_launches(launched.setdefault("tools", set())), \
+            timed("tools"):
+        tools = tools_phase()
+    emit({"tools": tools, "card": card})
+    comp, towers = tools["profile_components"], tools["profile_towers"]
+
+    def wall_busy(r):
+        return (f"{r['wall_ms']:.1f}/{r['profiled_window_ms']:.1f}/"
+                f"{r['busy_ms']:.1f}")
+    full = comp["modes"]["full"]["launches_per_call"]
+    print(f"[tools] profile_components at batch {comp['batch']}, wall/"
+          f"profiled window/busy ms: " + ", ".join(f"{m} {wall_busy(r)}"
+                              for m, r in comp["modes"].items())
+          + "; implied " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                     comp["implied_ms"].items())
+          + f" ms; launches a full step {full}; profile_towers at batch "
+          f"{towers['batch']}, forward and forward+backward wall/profiled "
+          f"window/busy ms: "
+          + ", ".join(f"{n} {wall_busy(r['forward'])} and "
+                      f"{wall_busy(r['fwd_bwd'])}"
+                      for n, r in towers["towers"].items())
+          + "; input pipeline images/s " + ", ".join(
+              f"{m} PIL {r['pil_images_per_s']:.1f} native "
+              f"{r['native_images_per_s']}" for m, r in
+              tools["bench_input_pipeline"]["modes"].items())
+          + f" on {card}", flush=True)
+    return tools
+
+
+def examples_report(card: str, launched: dict) -> dict:
+    """Phase 17 with its report; the walkthroughs' launch keys and the
+    setup script's go into ``launched['examples']``."""
+    keys = launched.setdefault("examples", set())
+    with recording_launches(keys), timed("examples"):
+        examples = examples_phase()
+    keys |= examples["setup"].pop("setup_launch_keys")
+    emit({"examples": examples, "card": card})
+    setup = examples["setup"]
+    print("[examples] " + ", ".join(
+        f"{n} {r['seconds']:.1f} s ({r['sections']} sections, "
+        f"{sum(r['launches'].values())} launches)"
+        for n, r in examples["walkthroughs"].items())
+        + f"; setup_pipeline.sh --synthetic --skip-eval {setup['seconds']:.1f}"
+          f" s, stages {len(setup['stages'])} of 5 reported, "
+          f"{setup['launch_keys']} launch keys on {card}", flush=True)
+    return examples
+
+
 def path_report(launched: dict) -> None:
     """Phase 16 with its report."""
     paths = path_check_phase(launched)
@@ -6967,11 +7343,16 @@ def path_report(launched: dict) -> None:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--recorded"] and argv[2:3] == ["-m"]:
+        return recorded_run(argv[1], argv[3], argv[4:])
     parser = argparse.ArgumentParser(description="Drive the port on one "
                                      "CUDA card (see the module docstring).")
-    parser.add_argument("--phase", choices=("all", "mesh"), default="all",
-                        help="'mesh': the build and phases 15-16 alone "
-                             "(no kernels line and no device line)")
+    parser.add_argument("--phase", choices=("all", "mesh", "tools",
+                                            "examples"), default="all",
+                        help="'mesh', 'tools' or 'examples': the build, "
+                             "that phase and path_check alone (no kernels "
+                             "line and no device line)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -6986,10 +7367,15 @@ def main(argv=None) -> int:
 
     with timed("build"):
         ptxas = build_phase()
-    if args.phase == "mesh":
+    if args.phase != "all":
         launched = {}
-        with timed("mesh"):
-            mesh_report(card, t_start, launched)
+        if args.phase == "mesh":
+            with timed("mesh"):
+                mesh_report(card, t_start, launched)
+        elif args.phase == "tools":
+            tools_report(card, launched)
+        else:
+            examples_report(card, launched)
         with timed("path_check"):
             path_report(launched)
         print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -7088,7 +7474,7 @@ def main(argv=None) -> int:
           flush=True)
     with recording_launches(launched.setdefault("cls_pipeline", set())), \
             timed("cls_pipeline"):
-        cls = cls_pipeline_phase(cfg)
+        cls = cls_pipeline_phase(check_depth(cfg))
     emit({"cls_pipeline": cls, "card": card})
     prof = cls["profile"]
     print(f"[cls_pipeline] train {cls['run_seconds']['train']:.1f} s "
@@ -7112,7 +7498,8 @@ def main(argv=None) -> int:
           f"{card}", flush=True)
     with recording_launches(launched.setdefault("gen_cli", set())), \
             timed("gen_cli"):
-        gen_cli = gen_cli_phase(bench_serving.serving_config())
+        gen_cli = gen_cli_phase(gen_check_depth(
+            bench_serving.serving_config()))
     emit({"gen_cli": gen_cli, "card": card})
     prof = gen_cli["profile"]
     fitted = gen_cli["fitted"]
@@ -7168,7 +7555,8 @@ def main(argv=None) -> int:
                 ("cls", lambda: rag_cls_phase(cfg, provider)),
                 ("gen", lambda: rag_gen_phase(provider)),
                 ("cli", lambda: rag_cli_phase(
-                    cfg, bench_serving.serving_config())),
+                    check_depth(cfg), gen_check_depth(
+                        bench_serving.serving_config()))),
                 ("dense", lambda: rag_dense_phase(cfg, provider))):
             with timed(f"rag.{part}"):
                 rag[part] = run()
@@ -7192,7 +7580,9 @@ def main(argv=None) -> int:
           flush=True)
     with recording_launches(launched.setdefault("trainer", set())), \
             timed("trainer"):
-        trainer = trainer_phase(cfg, bench_serving.serving_config())
+        trainer = trainer_phase(
+            check_depth(cfg),
+            gen_check_depth(bench_serving.serving_config()))
     emit({"trainer": trainer, "card": card})
     unfreeze, ckpt = trainer["gradual_unfreeze"], trainer["checkpointing"]
     print(f"[trainer] gradual_unfreeze at batch {unfreeze['batch']}: "
@@ -7251,7 +7641,10 @@ def main(argv=None) -> int:
         hf_rows = hf_kernel_phase()
     with recording_launches(launched.setdefault("hf_import", set())), \
             timed("hf_import"):
-        hf = hf_import_phase()
+        hf = hf_import_phase(
+            models=hf_models_at(CUT_LAYERS),
+            cfg=check_depth(cfg),
+            gen_cfg=gen_check_depth(bench_serving.serving_config()))
     emit({"hf_import": hf, "card": card})
     print("[hf_import] classification CLI with CLIP ViT-B/32 + PhoBERT-base"
           f" train {hf['cli']['run_seconds']['train']:.1f} s "
@@ -7274,6 +7667,10 @@ def main(argv=None) -> int:
     with timed("mesh"):
         mesh_rows, mesh_tot, mesh = mesh_report(card, t_start, launched,
                                                 abl)
+    tools = tools_report(card, launched)
+    print(f"[tools] {time.perf_counter() - t_start:.1f} s", flush=True)
+    examples = examples_report(card, launched)
+    print(f"[examples] {time.perf_counter() - t_start:.1f} s", flush=True)
     with timed("path_check"):
         path_report(launched)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -7284,7 +7681,7 @@ def main(argv=None) -> int:
                       generative, train_rows, training["launches"], ptxas,
                       gen_rows, gen_training, cls, gen_cli, abl_totals, abl,
                       rag_tot, rag, trainer, zoo_kernels, zoo, hf_rows,
-                      hf, mesh_rows, mesh_tot, mesh))
+                      hf, mesh_rows, mesh_tot, mesh, tools, examples))
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -24,9 +24,18 @@ def _modules(text: str) -> set:
         set(re.findall(r"from ([\w.]+) import", text))
 
 
+# the root setup scripts' counterparts, beside the wrappers
+# (tests/test_torch_setup_scripts.py)
+ROOT_SCRIPTS = {"setup_pipeline.sh": "setup_vivqa_pipeline.sh",
+                "quick_reference.sh": "QUICK_REFERENCE.sh"}
+
+
 def test_the_port_has_every_jax_script():
     assert len(SCRIPTS) == 8
-    assert sorted(p.name for p in PORT.glob("*.sh")) == SCRIPTS
+    assert sorted(p.name for p in PORT.glob("*.sh")) == sorted(
+        SCRIPTS + list(ROOT_SCRIPTS))
+    assert all((ROOT / jax_name).is_file()
+               for jax_name in ROOT_SCRIPTS.values())
 
 
 @pytest.mark.parametrize("name", SCRIPTS)

@@ -403,15 +403,55 @@ int launch_any(const BwdParams& p, cudaStream_t stream) {
   }
 }
 
+}  // namespace
+
+namespace vivqa::dq {
+
+// The launcher of one (dtype, head dim) pair; the part of the build that
+// holds the pair's kernels defines it.
+template <typename T, int D>
+int launch_pair(const BwdParams& p, cudaStream_t stream);
+
+#if VIVQA_BUILDS_KERNELS
+template <typename T, int D>
+int launch_pair(const BwdParams& p, cudaStream_t stream) {
+  return launch_any<T, D>(p, stream);
+}
+
+// The pairs of head dim D, in f32, bf16 and f16: part 1 builds D = 32,
+// part 2 D = 64, part 3 D = 128.
+#define VIVQA_PAIRS_OF(D)                                                      \
+  template int launch_pair<float, D>(const BwdParams&, cudaStream_t);          \
+  template int launch_pair<__nv_bfloat16, D>(const BwdParams&, cudaStream_t);  \
+  template int launch_pair<__half, D>(const BwdParams&, cudaStream_t);
+#if VIVQA_BUILDS_PART(1)
+VIVQA_PAIRS_OF(32)
+#endif
+#if VIVQA_BUILDS_PART(2)
+VIVQA_PAIRS_OF(64)
+#endif
+#if VIVQA_BUILDS_PART(3)
+VIVQA_PAIRS_OF(128)
+#endif
+#if defined(VIVQA_PART) && VIVQA_PART > 3
+#error "flash_attn_bwd_dq.cu has kernel parts 1-3 (ops/cuda_build.py: PARTS)"
+#endif
+#endif  // VIVQA_BUILDS_KERNELS
+
+}  // namespace vivqa::dq
+
+#if VIVQA_BUILDS_ENTRY
+namespace {
+
 template <typename T>
 int launch(const BwdParams& p, int head_dim, cudaStream_t stream) {
   switch (head_dim) {
     case 32:
-      return launch_any<T, 32>(p, stream);
+      return vivqa::dq::launch_pair<T, 32>(p, stream);
     case 64:
-      return launch_any<T, 64>(p, stream);
+      return vivqa::dq::launch_pair<T, 64>(p, stream);
     case 128:
-      return launch_any<T, 128>(p, stream);
+      return vivqa::dq::launch_pair<T, 128>(p, stream);
     default:
       return -1;
   }
@@ -450,3 +490,4 @@ extern "C" int vivqa_flash_attn_bwd_dq(const void* q, const void* k, const void*
       return -1;
   }
 }
+#endif  // VIVQA_BUILDS_ENTRY

@@ -12,6 +12,22 @@
 #include <math.h>
 #include <stdint.h>
 
+// A source is built either as one translation unit or in parts
+// (ops/cuda_build.py: PARTS), which nvcc compiles at the same time, each
+// with -DVIVQA_PART=<i>, and which are linked into one library. Part 0
+// holds the entry points; part i > 0 holds the kernels of the (dtype,
+// head dim) pairs its source assigns to i (VIVQA_PAIRS_OF). A kernel
+// template compiles to the same device code in either build.
+#ifdef VIVQA_PART
+#define VIVQA_BUILDS_ENTRY (VIVQA_PART == 0)
+#define VIVQA_BUILDS_KERNELS (VIVQA_PART != 0)
+#define VIVQA_BUILDS_PART(i) (VIVQA_PART == (i))
+#else
+#define VIVQA_BUILDS_ENTRY 1
+#define VIVQA_BUILDS_KERNELS 1
+#define VIVQA_BUILDS_PART(i) 1
+#endif
+
 namespace vivqa {
 
 constexpr float kMasked = -1e30f;  // NEG_INF of the JAX kernels

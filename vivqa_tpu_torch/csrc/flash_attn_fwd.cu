@@ -101,16 +101,10 @@
 
 #include "flash_attn_mma.cuh"
 
-namespace {
+namespace vivqa::fwd {
 
-using namespace vivqa;
-
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerWarp = 4;
-constexpr int kBlockQ = kWarps * kRowsPerWarp;  // 16 query rows per block
-constexpr int kBlockK = 32;                     // one key per lane
-
+// Named, not in the anonymous namespace: the parts of the build pass it
+// to each other.
 struct Params {
   const void* q;
   const void* k;
@@ -130,6 +124,26 @@ struct Params {
   float scale;
   Dropout drop;  // training forward only
 };
+
+// The launchers of one (dtype, head dim) pair, serving and training; the
+// part of the build that holds the pair's kernels defines them.
+template <typename T, int D>
+int serve_pair(const Params& p, int tile_rows, cudaStream_t stream);
+template <typename T, int D>
+int train_pair(const Params& p, cudaStream_t stream);
+
+}  // namespace vivqa::fwd
+
+namespace {
+
+using namespace vivqa;
+using fwd::Params;
+
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kRowsPerWarp = 4;
+constexpr int kBlockQ = kWarps * kRowsPerWarp;  // 16 query rows per block
+constexpr int kBlockK = 32;                     // one key per lane
 
 // kTrain: write m and l, apply dropout (vivqa_flash_attn_fwd_lse).
 template <typename T, int D, bool kTrain>
@@ -432,23 +446,11 @@ __global__ void __launch_bounds__(2 * ROWS, (D == 64 ? 3 : 2) * mma::kTileRows /
   fwd_mma_body<T, D, ROWS, false, kMask>(p, o_vec, mask_vec, smem_raw);
 }
 
-template <typename T, bool kTrain>
-int launch(const Params& p, int head_dim, cudaStream_t stream) {
+template <typename T, int D, bool kTrain>
+int launch_simt(const Params& p, cudaStream_t stream) {
   const dim3 grid((p.Lq + kBlockQ - 1) / kBlockQ, p.B * p.H);
   const dim3 block(kThreads);
-  switch (head_dim) {
-    case 32:
-      flash_attn_fwd_kernel<T, 32, kTrain><<<grid, block, 0, stream>>>(p);
-      break;
-    case 64:
-      flash_attn_fwd_kernel<T, 64, kTrain><<<grid, block, 0, stream>>>(p);
-      break;
-    case 128:
-      flash_attn_fwd_kernel<T, 128, kTrain><<<grid, block, 0, stream>>>(p);
-      break;
-    default:
-      return -1;
-  }
+  flash_attn_fwd_kernel<T, D, kTrain><<<grid, block, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -477,20 +479,6 @@ int launch_mma_d(const Params& p, cudaStream_t stream) {
              : launch_fwd_mma<T, D, R>(flash_attn_fwd_lse_mma_kernel<T, D, false>, p, stream);
 }
 
-template <typename T>
-int launch_mma(const Params& p, int head_dim, cudaStream_t stream) {
-  switch (head_dim) {
-    case 32:
-      return launch_mma_d<T, 32>(p, stream);
-    case 64:
-      return launch_mma_d<T, 64>(p, stream);
-    case 128:
-      return launch_mma_d<T, 128>(p, stream);
-    default:
-      return -1;
-  }
-}
-
 template <typename T, int D, int ROWS>
 int launch_serve_rows(const Params& p, cudaStream_t stream) {
   return p.mask != nullptr
@@ -513,15 +501,90 @@ int launch_serve_d(const Params& p, int tile_rows, cudaStream_t stream) {
   }
 }
 
+}  // namespace
+
+namespace vivqa::fwd {
+
+#if VIVQA_BUILDS_KERNELS
+// f32 takes the SIMT template (no TF32 rounding), bf16 and f16 the
+// tensor-core one.
+template <typename T, int D>
+int serve_pair(const Params& p, int tile_rows, cudaStream_t stream) {
+  if constexpr (sizeof(T) == 4) {
+    return launch_simt<T, D, false>(p, stream);
+  } else {
+    return launch_serve_d<T, D>(p, tile_rows, stream);
+  }
+}
+
+template <typename T, int D>
+int train_pair(const Params& p, cudaStream_t stream) {
+  if constexpr (sizeof(T) == 4) {
+    return launch_simt<T, D, true>(p, stream);
+  } else {
+    return launch_mma_d<T, D>(p, stream);
+  }
+}
+
+#define VIVQA_PAIR(T, D)                                                   \
+  template int serve_pair<T, D>(const Params&, int, cudaStream_t);         \
+  template int train_pair<T, D>(const Params&, cudaStream_t);
+// part 1: bf16 and f16 at D = 32; 2 and 3: bf16, f16 at 64; 4 and 5:
+// bf16, f16 at 128; 6: f32 at every D
+#if VIVQA_BUILDS_PART(1)
+VIVQA_PAIR(__nv_bfloat16, 32)
+VIVQA_PAIR(__half, 32)
+#endif
+#if VIVQA_BUILDS_PART(2)
+VIVQA_PAIR(__nv_bfloat16, 64)
+#endif
+#if VIVQA_BUILDS_PART(3)
+VIVQA_PAIR(__half, 64)
+#endif
+#if VIVQA_BUILDS_PART(4)
+VIVQA_PAIR(__nv_bfloat16, 128)
+#endif
+#if VIVQA_BUILDS_PART(5)
+VIVQA_PAIR(__half, 128)
+#endif
+#if VIVQA_BUILDS_PART(6)
+VIVQA_PAIR(float, 32)
+VIVQA_PAIR(float, 64)
+VIVQA_PAIR(float, 128)
+#endif
+#if defined(VIVQA_PART) && VIVQA_PART > 6
+#error "flash_attn_fwd.cu has kernel parts 1-6 (ops/cuda_build.py: PARTS)"
+#endif
+#endif  // VIVQA_BUILDS_KERNELS
+
+}  // namespace vivqa::fwd
+
+#if VIVQA_BUILDS_ENTRY
+namespace {
+
 template <typename T>
-int launch_serve(const Params& p, int head_dim, int tile_rows, cudaStream_t stream) {
+int serve(const Params& p, int head_dim, int tile_rows, cudaStream_t stream) {
   switch (head_dim) {
     case 32:
-      return launch_serve_d<T, 32>(p, tile_rows, stream);
+      return fwd::serve_pair<T, 32>(p, tile_rows, stream);
     case 64:
-      return launch_serve_d<T, 64>(p, tile_rows, stream);
+      return fwd::serve_pair<T, 64>(p, tile_rows, stream);
     case 128:
-      return launch_serve_d<T, 128>(p, tile_rows, stream);
+      return fwd::serve_pair<T, 128>(p, tile_rows, stream);
+    default:
+      return -1;
+  }
+}
+
+template <typename T>
+int train(const Params& p, int head_dim, cudaStream_t stream) {
+  switch (head_dim) {
+    case 32:
+      return fwd::train_pair<T, 32>(p, stream);
+    case 64:
+      return fwd::train_pair<T, 64>(p, stream);
+    case 128:
+      return fwd::train_pair<T, 128>(p, stream);
     default:
       return -1;
   }
@@ -587,11 +650,11 @@ extern "C" int vivqa_flash_attn_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch<float, false>(p, head_dim, s);  // SIMT: no TF32 rounding
+      return serve<float>(p, head_dim, tile_rows, s);  // SIMT: no TF32 rounding
     case 1:
-      return launch_serve<__nv_bfloat16>(p, head_dim, tile_rows, s);
+      return serve<__nv_bfloat16>(p, head_dim, tile_rows, s);
     case 2:
-      return launch_serve<__half>(p, head_dim, tile_rows, s);
+      return serve<__half>(p, head_dim, tile_rows, s);
     default:
       return -1;
   }
@@ -617,12 +680,13 @@ extern "C" int vivqa_flash_attn_fwd_lse(const void* q, const void* k, const void
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch<float, true>(p, head_dim, s);  // SIMT: no TF32 rounding
+      return train<float>(p, head_dim, s);  // SIMT: no TF32 rounding
     case 1:
-      return launch_mma<__nv_bfloat16>(p, head_dim, s);
+      return train<__nv_bfloat16>(p, head_dim, s);
     case 2:
-      return launch_mma<__half>(p, head_dim, s);
+      return train<__half>(p, head_dim, s);
     default:
       return -1;
   }
 }
+#endif  // VIVQA_BUILDS_ENTRY

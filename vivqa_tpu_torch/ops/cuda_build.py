@@ -1,7 +1,8 @@
 """Build and load the port's CUDA C++ kernels.
 
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with
-``nvcc`` for Hopper (``sm_90a``) into a shared library under
+``nvcc`` for Hopper (``sm_90a``) in parts (``PARTS``), into a shared
+library under
 ``vivqa_tpu_torch/_build/`` (listed in ``.gitignore``) on first use, then
 loaded with ``ctypes``. The library's file name carries a hash of the
 source and flags, so an edited source is rebuilt and a stale library is
@@ -28,6 +29,12 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Sources built in parts: the kernel parts each source defines (its
+# VIVQA_BUILDS_PART blocks, by dtype and head dim), besides part 0, the
+# entry points. nvcc compiles every part at once and links them into the
+# one library, so the longest part, not the whole source, sets the build's
+# time. A source not named here builds as one translation unit.
+PARTS = {"flash_attn_fwd": 6, "flash_attn_bwd_dq": 3, "flash_attn_bwd_dkv": 3}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,7 +69,9 @@ def build(name: str) -> BuildResult:
     The library's name hashes the source, every shared header
     (``csrc/*.cuh``) and the flags."""
     source = CSRC_DIR / f"{name}.cu"
-    parts = [source.read_bytes(), " ".join(NVCC_FLAGS).encode()]
+    n_parts = PARTS[name]
+    parts = [source.read_bytes(), " ".join(NVCC_FLAGS).encode(),
+             str(n_parts).encode()]
     parts += [h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh"))]
     digest = hashlib.sha256(b"\0".join(parts)).hexdigest()[:16]
     library = BUILD_DIR / f"lib{name}-{digest}.so"
@@ -73,23 +82,40 @@ def build(name: str) -> BuildResult:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)]
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True,
-                             timeout=900)
-        seconds = time.perf_counter() - t0
-        report = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed for {source.name} (rc {res.returncode}):\n"
-                f"{' '.join(cmd)}\n{report}")
-        log.write_text(report)
-        os.replace(tmp, library)   # atomic: a reader sees all or nothing
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objs:
+        try:
+            compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+            objects = [f"{objs}/part{i}.o" for i in range(n_parts + 1)]
+            report = _run_all(
+                [[nvcc, *compile_flags, "-c", f"-DVIVQA_PART={i}", "-o",
+                  obj, str(source)] for i, obj in enumerate(objects)],
+                source.name)
+            # a pair no part defines fails here, not at load time
+            report += _run_all([[nvcc, "-shared", "-Xlinker", "--no-undefined",
+                                 "-o", tmp, *objects]], source.name)
+            seconds = time.perf_counter() - t0
+            log.write_text(report)
+            os.replace(tmp, library)   # atomic: a reader sees all or nothing
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
     return BuildResult(library, seconds, report)
+
+
+def _run_all(cmds: list, source: str) -> str:
+    """Run the commands at once; their output, in order. Raises with the
+    first failure's command and output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate(timeout=900)[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {source} (rc "
+                               f"{proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    return "".join(outs)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -17,6 +17,10 @@ and nothing is subtracted anywhere.
 - ``time_train_steps``: each train step's host and event time, its
   metrics, and the median step (the stopwatch of ``bench.py`` and
   ``chip_smoke.py``);
+- ``KernelClock``: the device kernels' summed milliseconds over a
+  block, from torch.profiler; ``profiled_window`` enters it as
+  ``within`` of the two timers above, so it reads the window they time,
+  which gives the idle share;
 - ``peak_tflops``: the card's dense bf16 peak, from its name;
 - ``train_step_flops``: the products of one step, counted by
   ``torch.utils.flop_counter.FlopCounterMode`` on the plain path.
@@ -24,10 +28,11 @@ and nothing is subtracted anywhere.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import statistics
 import time
-from typing import Callable, NamedTuple, Optional, Sequence
+from typing import Callable, ContextManager, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -71,12 +76,14 @@ class _Window:
         return time.perf_counter() - self._t0
 
 
-def time_chained(fn: Callable, args: Sequence, steps: int = 20) -> float:
+def time_chained(fn: Callable, args: Sequence, steps: int = 20,
+                 within: ContextManager = contextlib.nullcontext()) -> float:
     """Seconds per call of ``fn(*args)``, from ``steps`` back-to-back calls
     after one warm-up call. Each call's first argument is perturbed by a
     vanishing multiple of an accumulator that every earlier call's whole
     output fed, so each call depends on the last; the window's time is
-    read once, after the last call."""
+    read once, after the last call. ``within`` is entered around the
+    window alone (a ``KernelClock`` reads the calls it times)."""
     first = args[0]
     window = _Window(first.device)
 
@@ -90,10 +97,11 @@ def time_chained(fn: Callable, args: Sequence, steps: int = 20) -> float:
     acc = torch.zeros((), device=first.device)
     with torch.no_grad():
         acc = chained(acc)                        # warm-up
-        window.start()
-        for _ in range(steps):
-            acc = chained(acc)
-        total = window.stop()
+        with within:
+            window.start()
+            for _ in range(steps):
+                acc = chained(acc)
+            total = window.stop()
     return total / steps
 
 
@@ -111,29 +119,84 @@ class StepTimes(NamedTuple):
 
 
 def time_train_steps(train_step: Callable, state, batch: dict,
-                     steps: int = 20) -> StepTimes:
+                     steps: int = 20,
+                     within: ContextManager = contextlib.nullcontext()
+                     ) -> StepTimes:
     """``steps`` steps of ``train_step(state, batch) -> (state, metrics)``
     (the state updates in place, so the steps serialize as in a real
     loop), each ending in a synchronize, as a loop that reads its loss
     does. The JAX version chains its steps inside one jitted loop and
     returns the median of several such windows; eager steps have no such
     loop to fuse, so here the median is taken over single steps
-    (``StepTimes.median_ms``), beside the per-step lists."""
+    (``StepTimes.median_ms``), beside the per-step lists. ``within`` is
+    entered around the steps alone."""
     on_card = batch[next(iter(batch))].device.type == "cuda"
     host_ms, event_ms, metrics = [], [], []
-    for _ in range(steps):
-        t = time.perf_counter()
-        if on_card:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-        metrics.append(train_step(state, batch)[1])
-        if on_card:
-            end.record()
-            torch.cuda.synchronize()
-            event_ms.append(start.elapsed_time(end))
-        host_ms.append((time.perf_counter() - t) * 1e3)
+    with within:
+        for _ in range(steps):
+            t = time.perf_counter()
+            if on_card:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+            metrics.append(train_step(state, batch)[1])
+            if on_card:
+                end.record()
+                torch.cuda.synchronize()
+                event_ms.append(start.elapsed_time(end))
+            host_ms.append((time.perf_counter() - t) * 1e3)
     return StepTimes(host_ms, event_ms, metrics)
+
+
+class KernelClock:
+    """torch.profiler's CUDA activity over the block it is entered for.
+    On exit ``ms`` holds the summed durations of the device kernels it
+    recorded; memory copies and sets are not kernels and are left out.
+    ``ms`` stays None where no card ran the block, or where the profiler
+    recorded no kernel (a session does so at times): a host clock is not a
+    device time. Entered as a timer's ``within``, it reads the very window
+    that timer times; the profiler's own cost is then in that window."""
+
+    def __init__(self):
+        self.ms: Optional[float] = None
+        self._prof = None
+
+    def __enter__(self) -> "KernelClock":
+        if torch.cuda.is_available():
+            from torch.profiler import ProfilerActivity, profile
+            torch.cuda.synchronize()
+            self._prof = profile(activities=[ProfilerActivity.CUDA])
+            self._prof.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._prof is None:
+            return
+        torch.cuda.synchronize()
+        self._prof.__exit__(*exc)
+        # the raw events: building the profiler's function events (CPU
+        # operators and all) takes seconds for a train step
+        us = sum(e.duration_ns() / 1e3
+                 for e in self._prof.profiler.kineto_results.events()
+                 if e.device_type() == torch.autograd.DeviceType.CUDA
+                 and not e.is_user_annotation() and not e.is_hidden_event()
+                 and not e.name().startswith(("Memcpy", "Memset")))
+        self.ms = us / 1e3 if us else None
+
+
+def profiled_window(timer: Callable[[ContextManager], float],
+                    calls: int) -> tuple:
+    """``timer(within)`` times a window of ``calls`` calls with ``within``
+    entered around it and returns its ms a call. Runs it under a
+    ``KernelClock``, up to three times while the profiler records no
+    kernel: (the window's ms a call, the kernels' ms a call), the second
+    None if no try recorded one."""
+    for _ in range(3):
+        clock = KernelClock()
+        window_ms = timer(clock)
+        if clock.ms is not None:
+            break
+    return window_ms, None if clock.ms is None else clock.ms / calls
 
 
 def peak_tflops(device=None, name: Optional[str] = None) -> Optional[float]:
