@@ -21,10 +21,11 @@ Phases, in order; any failure exits non-zero:
    size), the plain
    version's, the bound and scaled_dot_product_attention's time as a
    yardstick, and a line with the serving forward's time per flagship
-   forward and per generate at each tile size; then the three training
-   kernels (forward with stats, dQ, dK/dV) the same way at the training
-   step's shapes (batch 128) and edge cases, with attention dropout on
-   and off, o, m, l, dq, dk and dv checked in f32, bf16 and f16;
+   forward and per generate at each tile size; then the training kernels
+   (forward with stats, the one-pass backward; in f32 the backward is the
+   dQ and dK/dV pair) the same way at the training step's shapes (batch
+   128) and edge cases, with attention dropout on and off, o, m, l, dq, dk
+   and dv checked in f32, bf16 and f16, and two backward calls bit-equal;
 4. serving: the flagship classification model (CLIP-style ViT-B/32,
    PhoBERT-style text encoder, MCAN, dense top-2 MoE, 1,000 answers) with
    seeded random weights behind VQAPredictor, answering batches of 8
@@ -49,7 +50,7 @@ Phases, in order; any failure exits non-zero:
    loss, AdamW with warmup-cosine, decay mask and global-norm clipping),
    dropout on; a few warm-up steps, then timed steps (step ms, QA-pairs/s,
    loss and grad_norm per step, peak memory); every attention call must
-   go through the three training kernels (36 launches of each per step,
+   go through the training kernels (36 launches of each per step,
    none of the inference forward); one step under torch.profiler; then
    two steps of the same weights at dropout 0 on a ragged batch of 4, on
    the card and on the CPU (the plain versions), whose losses, grad norms
@@ -57,7 +58,7 @@ Phases, in order; any failure exits non-zero:
 7. generative training (bench_convergence_gen.py's flagship mode:
    bench_serving's model, dropout 0.05, batch 32, questions of 3-60
    tokens, answers of 1-6 tokens through the port's GenerativeVQADataset
-   targets, AdamW at lr 1e-3 with warmup-cosine): the three training
+   targets, AdamW at lr 1e-3 with warmup-cosine): the training
    kernels at the step's five shapes under its masks (the decoder's
    causal AND padding self-attention, whose rows are mostly keyless, the
    cross-attention's stride-0 query mask, the fusion's 113 x 113 q/k
@@ -345,9 +346,29 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
               torch.float32: 67e12}
 
-KERNEL_SOURCES = ("flash_attn_fwd", "flash_attn_bwd_dq",
+KERNEL_SOURCES = ("flash_attn_fwd", "flash_attn_bwd", "flash_attn_bwd_dq",
                   "flash_attn_bwd_dkv")
 TRAIN_KERNELS = bench.TRAIN_KERNELS
+# the kernels a main path launches; the others (the f32 backward pair, the
+# one-pass backward's long-form dQ sum) launch on a path only where its
+# check names them
+PATH_KERNELS = ("flash_attn_fwd",) + TRAIN_KERNELS
+# the backward of an f32 model (the mesh phase's f32 copies): the SIMT pair
+F32_BACKWARD = ("flash_attn_bwd_dq", "flash_attn_bwd_dkv")
+
+
+def path_counts(counts: dict) -> dict:
+    """``counts`` by launch count name (``fa.launch_counts``, or a
+    profile's ``fa.attention_kernel_counts``) without the kernels off the
+    main paths that did not launch: a check's ``want`` names the path
+    kernels, so any other kernel that launched shows as a key it lacks."""
+    return {n: c for n, c in counts.items()
+            if n in PATH_KERNELS or n == "library" or c}
+
+
+def launch_snapshot() -> dict:
+    """The launch counts as the checks compare them (``path_counts``)."""
+    return path_counts(fa.launch_counts)
 
 # kernel vs plain version on the same inputs. bf16: the plain version
 # rounds the normalised probabilities to bf16 before P.V (as
@@ -360,8 +381,10 @@ ATTN_TOL = {torch.bfloat16: 2e-2, torch.float16: 2e-2, torch.float32: 2e-5}
 
 # The templates each kernel runs on the main paths (bf16, head dim 64; the
 # serving forward at the serving paths' tile sizes, the decoder's masked
-# single-query calls at DECODE_TILE_ROWS; the calls with a mask and those
-# without take separate instantiations), as ptxas names them
+# single-query calls at DECODE_TILE_ROWS; the backward with one and two
+# 64-key tiles a unit (L <= 64 and the 113-118 key shapes) and its long
+# form (the zoo's 784 keys); the calls with a mask and those without take
+# separate instantiations), as ptxas names them
 _BF16_64 = "I13__nv_bfloat16Li64E"
 MAIN_TEMPLATES = {
     "flash_attn_fwd": [
@@ -370,9 +393,9 @@ MAIN_TEMPLATES = {
                         (fa.DECODE_TILE_ROWS, 1))],
     "flash_attn_fwd_lse": [f"flash_attn_fwd_lse_mma_kernel{_BF16_64}Lb{m}EE"
                            for m in (0, 1)],
-    "flash_attn_bwd_dq": [f"flash_attn_bwd_dq_mma_kernel{_BF16_64}"],
-    "flash_attn_bwd_dkv": [f"flash_attn_bwd_dkv_mma_kernel{_BF16_64}Lb{m}EE"
-                           for m in (0, 1)]}
+    "flash_attn_bwd": [f"flash_attn_bwd_kernel{_BF16_64}Li{nkt}ELb{m}ELb{lng}EE"
+                       for nkt, lng in ((1, 0), (2, 0), (1, 1))
+                       for m in (0, 1)]}
 
 # (name, B, H, Lq, Lk, D, mask kind, causal, calls per flagship forward)
 ATTN_CASES = [
@@ -428,8 +451,9 @@ GEN_HEAD = "beam_b16"          # the generate GEN_CASES' calls describe
 # ATTN_TOL, the gradients as GRAD_TOL (f32 differs by summation order
 # only; in bf16 both round their outputs once to bf16, 2**-8 relative).
 # m and l are f32 in both (1e-5, elementwise relative). In bf16 and f16
-# the dQ kernel also rounds dS to the input dtype before dS.K, which the
-# plain version does not (ROADMAP.md, Queue C); the bound holds it.
+# the one-pass backward also rounds p z and dS to the input dtype as
+# product operands (dS once, for dK and dQ), which the plain version does
+# not (ROADMAP.md, Queue C); the bound holds it.
 STAT_TOL = 1e-5
 GRAD_TOL = {torch.bfloat16: 1e-2, torch.float16: 1e-2, torch.float32: 1e-4}
 TRAIN_BATCH = 128                     # bench.py's batch per chip
@@ -607,9 +631,10 @@ def device_kernels(prof) -> dict:
 
 
 # -- what the main paths launch, against what the checks held ----------------
-# The four wrappers, by launch count name
+# The wrappers, by launch count name
 WRAPPERS = {"flash_attn_fwd": "flash_attention_cuda",
             "flash_attn_fwd_lse": "flash_attention_fwd_lse_cuda",
+            "flash_attn_bwd": "flash_attention_bwd_fused_cuda",
             "flash_attn_bwd_dq": "flash_attention_bwd_dq_cuda",
             "flash_attn_bwd_dkv": "flash_attention_bwd_dkv_cuda"}
 # the launch keys of the calls held against the plain versions
@@ -935,26 +960,31 @@ def train_attention_work(q, k, mask, causal) -> dict:
     """Bytes (each input read once, each output written once) and flops of
     each training kernel, for the (query, key) pairs the softmax takes (a
     row with no allowed key takes all Lk): the forward reads q, k, v,
-    writes o, m, l, 4*D flops per pair; dQ reads q, k, v, o, dO, m, l,
-    writes dq and delta, 6*D per pair (s, dP, dQ) and 2*D per row for
-    delta; dK/dV reads q, k, v, dO, m, l, delta, writes dk, dv, 8*D per
-    pair (s, dP, dV, dK). Of k and v each reads only the key rows some
-    query takes (``attention_work``); dk and dv are written whole. The
-    mask, where there is one, is read once as it is stored (a (B, 1, 1,
-    Lk) key mask is B * Lk bytes: the kernels read its query axis with
-    stride 0)."""
+    writes o, m, l, 4*D flops per pair; the one-pass backward reads q, o,
+    dO, m, l and writes dq, reads of k and v only the key rows some query
+    takes (``attention_work``) and writes dk and dv whole, 10*D flops per
+    pair (s, dP, dV, dK, dQ). The long form's f32 dQ partials are that
+    kernel's own traffic, not the function's, and stay out of the bound
+    (``bwd_scratch_bytes``). The mask, where there is one, is read once as
+    it is stored (a (B, 1, 1, Lk) key mask is B * Lk bytes: the kernels
+    read its query axis with stride 0)."""
     B, H, Lq, D = q.shape
     nbytes, flops, key_rows = attention_work(q, k, mask, causal)
     pairs = flops // (4 * D)
     e, nq, nk, nk_read = q.element_size(), q.numel(), k.numel(), key_rows * D
     stats = B * H * Lq * 4
     mask_b = 0 if mask is None else mask.numel()
+    bwd_bytes = (4 * nq + 2 * nk_read + 2 * nk) * e + 2 * stats + mask_b
     return {"flash_attn_fwd_lse": (nbytes + 2 * stats, 4 * D * pairs),
-            "flash_attn_bwd_dq": ((4 * nq + 2 * nk_read) * e + 3 * stats
-                                  + mask_b,
-                                  6 * D * pairs + 2 * D * B * H * Lq),
-            "flash_attn_bwd_dkv": ((2 * nq + 2 * nk_read + 2 * nk) * e
-                                   + 3 * stats + mask_b, 8 * D * pairs)}
+            "flash_attn_bwd": (bwd_bytes, 10 * D * pairs)}
+
+
+def bwd_scratch_bytes(q, k) -> int:
+    """Bytes of the one-pass backward's f32 dQ partials, written and read
+    once: its long form's overhead over the bound (0 in the short form)."""
+    scratch = fa.backward_plan(*q.shape[:3], k.shape[2], q.shape[3])[
+        "scratch"]
+    return 0 if scratch is None else 2 * math.prod(scratch) * 4
 
 
 def _grad_err(got, want) -> float:
@@ -971,28 +1001,36 @@ def _stat_err(got, want) -> float:
 
 
 def train_kernels_once(q, k, v, do, mask, causal, rate, key):
+    """The training forward, then the backward as the model calls it (the
+    one-pass kernel in bf16 and f16, the dQ and dK/dV pair in f32), twice;
+    (o, m, l, dq, dk, dv) and whether the two backward calls agree bit
+    for bit."""
     o, m, l = fa.flash_attention_fwd_lse_cuda(q, k, v, mask, causal, rate,
                                               key)
-    dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, o, m, l, do, mask,
-                                               causal, rate, key)
-    dk, dv = fa.flash_attention_bwd_dkv_cuda(q, k, v, m, l, do, delta, mask,
-                                             causal, rate, key)
-    return o, m, l, dq, dk, dv
+    grads = fa.flash_attention_bwd_cuda(q, k, v, o, m, l, do, mask, causal,
+                                        rate, key)
+    again = fa.flash_attention_bwd_cuda(q, k, v, o, m, l, do, mask, causal,
+                                        rate, key)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(grads, again))
+    return (o, m, l, *grads), same
 
 
 def check_train_kernels(q, k, v, do, mask, causal, rate, key) -> dict:
     """Each training kernel against its plain version on the same inputs;
-    the backward ones get the kernel forward's o, m and l."""
+    the backward gets the kernel forward's o, m and l, and two backward
+    calls must be bit-equal."""
     dtype = q.dtype
     with recording_launches(CHECKED):
-        o, m, l, dq, dk, dv = train_kernels_once(q, k, v, do, mask, causal,
-                                                 rate, key)
+        (o, m, l, dq, dk, dv), same = train_kernels_once(
+            q, k, v, do, mask, causal, rate, key)
+    if not same:
+        raise AssertionError(f"backward ({dtype}, dropout {rate}): two "
+                             f"calls on the same inputs differ")
     o_r, m_r, l_r = fa.attention_forward_lse_reference(q, k, v, mask, causal,
                                                        rate, key)
-    dq_r, delta_r = fa.attention_bwd_dq_reference(q, k, v, o, m, l, do, mask,
-                                                  causal, rate, key)
-    dk_r, dv_r = fa.attention_bwd_dkv_reference(q, k, v, m, l, do, delta_r,
-                                                mask, causal, rate, key)
+    dq_r, dk_r, dv_r = fa.attention_backward_reference(
+        q, k, v, o, m, l, do, mask, causal, rate, key)
     torch.cuda.synchronize()
     errs = {"o": _grad_err(o, o_r),
             "m": _stat_err(m, m_r), "l": _stat_err(l, l_r),
@@ -1047,27 +1085,21 @@ def time_train_kernels(q, k, v, do, mask, causal, rate, key) -> dict:
     the same way (``device_ms``: a profiler session, which summed its
     kernels' durations before, costs a third of a second): its
     forward for the forward kernel, and its backward (the forward and
-    backward less the forward), which computes dq, dk and dv in one call,
-    for both backward kernels (the same number in both: it is not to be
-    added)."""
+    backward less the forward), which like the one-pass kernel computes
+    dq, dk and dv in one call, for the backward (every launch of the
+    kernel's call: two in its long form)."""
     o, m, l = fa.flash_attention_fwd_lse_cuda(q, k, v, mask, causal, rate,
                                               key)
-    _, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, o, m, l, do, mask,
-                                              causal, rate, key)
     kernels = {
         "flash_attn_fwd_lse": lambda: fa.flash_attention_fwd_lse_cuda(
             q, k, v, mask, causal, rate, key),
-        "flash_attn_bwd_dq": lambda: fa.flash_attention_bwd_dq_cuda(
-            q, k, v, o, m, l, do, mask, causal, rate, key),
-        "flash_attn_bwd_dkv": lambda: fa.flash_attention_bwd_dkv_cuda(
-            q, k, v, m, l, do, delta, mask, causal, rate, key)}
+        "flash_attn_bwd": lambda: fa.flash_attention_bwd_fused_cuda(
+            q, k, v, o, m, l, do, mask, causal, rate, key)}
     plains = {
         "flash_attn_fwd_lse": lambda: fa.attention_forward_lse_reference(
             q, k, v, mask, causal, rate, key),
-        "flash_attn_bwd_dq": lambda: fa.attention_bwd_dq_reference(
-            q, k, v, o, m, l, do, mask, causal, rate, key),
-        "flash_attn_bwd_dkv": lambda: fa.attention_bwd_dkv_reference(
-            q, k, v, m, l, do, delta, mask, causal, rate, key)}
+        "flash_attn_bwd": lambda: fa.attention_backward_reference(
+            q, k, v, o, m, l, do, mask, causal, rate, key)}
     Lq, Lk = q.shape[2], k.shape[2]
     sdpa_mask = mask
     if causal:
@@ -1082,8 +1114,7 @@ def time_train_kernels(q, k, v, do, mask, causal, rate, key) -> dict:
     lib_fwd_bwd = device_ms(
         lambda: torch.autograd.grad(sdpa(), (qg, kg, vg), do))
     library = {"flash_attn_fwd_lse": lib_fwd,
-               "flash_attn_bwd_dq": lib_fwd_bwd - lib_fwd,
-               "flash_attn_bwd_dkv": lib_fwd_bwd - lib_fwd}
+               "flash_attn_bwd": lib_fwd_bwd - lib_fwd}
     work = train_attention_work(q, k, mask, causal)
     times = {}
     for name in TRAIN_KERNELS:
@@ -1097,6 +1128,7 @@ def time_train_kernels(q, k, v, do, mask, causal, rate, key) -> dict:
             "bytes": nbytes, "flops": flops,
             "bound_ms": max(t_bytes, t_flops),
             "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
+    times["flash_attn_bwd"]["scratch_bytes"] = bwd_scratch_bytes(q, k)
     times["library_fwd_bwd_ms"] = lib_fwd_bwd
     return times
 
@@ -1149,7 +1181,7 @@ def gen_train_masks(cfg: GenerativeVQAConfig, batch: int, gen) -> dict:
 
 def gen_train_kernel_phase(cfg: GenerativeVQAConfig,
                            batch: int = GEN_TRAIN_BATCH) -> dict:
-    """Rows keyed (case, dropout rate): each of the three training kernels
+    """Rows keyed (case, dropout rate): each of the training kernels
     at the generative step's shapes and masks, against its plain version
     in f32, f16 and bf16, with attention dropout at 0 and at GEN_DROPOUT
     (and at the path's rate where that is another), then timed in bf16
@@ -1189,11 +1221,10 @@ def step_totals(rows: dict) -> dict:
     """Per training kernel, the rows' numbers over one step's calls (each
     shape's number times its calls at the dropout those calls use): ms,
     profiler ms, plain ms, the bound from the summed bytes and flops, and
-    SDPA's time (its backward under both backward kernels)."""
+    SDPA's time (its backward under the backward kernel)."""
     main = [r for r in rows.values() if r["calls_per_step"]]
     err_keys = {"flash_attn_fwd_lse": ("o", "m", "l"),
-                "flash_attn_bwd_dq": ("dq",),
-                "flash_attn_bwd_dkv": ("dk", "dv")}
+                "flash_attn_bwd": ("dq", "dk", "dv")}
     out = {}
     for name in TRAIN_KERNELS:
         def total(key):
@@ -1291,7 +1322,7 @@ def serving_phase(cfg: VQAModelConfig, device: str, batches: int = 10,
             if not (math.isfinite(r.confidence) and 0 < r.confidence <= 1
                     and len(r.top_answers) == 5):
                 raise AssertionError(f"bad prediction {r}")
-    launches = dict(fa.launch_counts)
+    launches = launch_snapshot()
     want = calls_per_forward * batches if device == "cuda" else 0
     if launches["flash_attn_fwd"] != want:
         raise AssertionError(f"attention launches {launches} != {want} "
@@ -1434,7 +1465,7 @@ def training_phase(cfg: VQAModelConfig, device: str = "cuda",
     host_ms, event_ms, metrics = profiling.time_train_steps(train_step,
                                                               state, data,
                                                               steps)
-    launches = dict(fa.launch_counts)
+    launches = launch_snapshot()
     calls = calls_per_step * steps if on_card else 0
     want = {name: calls for name in TRAIN_KERNELS}
     want["flash_attn_fwd"] = 0
@@ -1547,7 +1578,7 @@ def card_vs_cpu_steps(build, loss_fn, data: dict, device: str, steps: int,
         metrics = [train_step(state, batch)[1] for _ in range(steps)]
         runs[dev] = {"loss": [float(m["loss"]) for m in metrics],
                      "grad_norm": [float(m["grad_norm"]) for m in metrics],
-                     "launches": dict(fa.launch_counts),
+                     "launches": launch_snapshot(),
                      "seconds": time.perf_counter() - t0,
                      "update": {n: p.detach().cpu() - before[n]
                                 for n, p in model.named_parameters()}}
@@ -1739,7 +1770,7 @@ def generative_phase(cfg: GenerativeVQAConfig, device: str = "cuda",
                                      f", scores {scores}")
             outputs[key] = seqs
             print(f"[generative] {key}: {results[key]}", flush=True)
-    launches = dict(fa.launch_counts)
+    launches = launch_snapshot()
     want = {name: 0 for name in launches}
     want["flash_attn_fwd"] = per_generate * n_generates if on_card else 0
     if launches != want:
@@ -1846,7 +1877,7 @@ def gen_training_phase(cfg: GenerativeVQAConfig, tok: WhitespaceTokenizer,
     """The generative train step at ``cfg`` on ``device``: ``steps`` timed
     steps after ``warmup`` on one batch (step ms by host clock and CUDA
     events, answer tokens/s and QA-pairs/s, peak memory, launches per
-    step: every attention call through the three training kernels, none
+    step: every attention call through the training kernels, none
     through the forward), then one step under torch.profiler. (On the
     CPU, a rehearsal at a tiny size.)"""
     on_card = device == "cuda"
@@ -1869,7 +1900,7 @@ def gen_training_phase(cfg: GenerativeVQAConfig, tok: WhitespaceTokenizer,
     host_ms, event_ms, metrics = profiling.time_train_steps(train_step,
                                                               state, data,
                                                               steps)
-    launches = dict(fa.launch_counts)
+    launches = launch_snapshot()
     per_step = gen_calls_per_step(cfg)
     want = {name: per_step * steps if on_card else 0
             for name in TRAIN_KERNELS}
@@ -1964,7 +1995,7 @@ def pipeline_phase(cfg: GenerativeVQAConfig, tok: WhitespaceTokenizer,
         t0 = time.perf_counter()
         out = GenerativeTrainingPipeline(pcfg).run(model, train, val, tok)
         seconds = time.perf_counter() - t0
-        launches = dict(fa.launch_counts)
+        launches = launch_snapshot()
         ckpt = CheckpointManager(CheckpointConfig(directory=directory,
                                                   best_metric="bleu"))
         saved, meta = ckpt.restore_best()
@@ -2030,8 +2061,8 @@ def cls_profile(fn, tries: int = 5) -> dict:
         kernels = device_kernels(prof)
         busy = sum(t for _, t in kernels.values()) / 1e3
         seen.append({
-            "kernels": fa.attention_kernel_counts(
-                {n: c for n, (c, _) in kernels.items()}),
+            "kernels": path_counts(fa.attention_kernel_counts(
+                {n: c for n, (c, _) in kernels.items()})),
             "kernels_total": sum(c for c, _ in kernels.values()),
             "device_busy_ms": busy, "host_ms": host_ms,
             "device_idle_share": 1 - busy / host_ms if kernels else None})
@@ -2097,7 +2128,7 @@ def cls_pipeline_phase(cfg: VQAModelConfig, device: str = "cuda",
             with open(f"{out_dir}/run_stats.json") as f:
                 stages = json.load(f)["stages"]
             runs[mode] = {"seconds": time.perf_counter() - t0,
-                          "launches": dict(fa.launch_counts),
+                          "launches": launch_snapshot(),
                           "summary": summary, "stages": stages,
                           "max_memory_allocated_gib":
                               torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2343,7 +2374,7 @@ def gen_cli_phase(cfg: GenerativeVQAConfig, device: str = "cuda",
                 result = fn()
             sync()
             runs[name] = {"seconds": time.perf_counter() - t0,
-                          "launches": dict(fa.launch_counts), **counts,
+                          "launches": launch_snapshot(), **counts,
                           "max_memory_allocated_gib":
                               torch.cuda.max_memory_allocated() / 2 ** 30
                               if on_card else None}
@@ -2742,7 +2773,7 @@ def recording_experiments(records: list):
         result = run_experiment(self, exp)
         sync()
         records[-1].update(seconds=time.perf_counter() - t0,
-                           launches=dict(fa.launch_counts),
+                           launches=launch_snapshot(),
                            train_steps=len(self.data.train_loader),
                            val_batches=len(self.data.val_loader))
         return result
@@ -2877,9 +2908,9 @@ def ablation_phase(device: str = "cuda", n: int = ABL_CORPUS,
         resumed_records = []
         with recording_experiments(resumed_records):
             resumed = RA.main(argv + ["--experiments", selection])
-        resume_launches = dict(fa.launch_counts)
+        resume_launches = launch_snapshot()
         files = RA.main(argv + ["--report-only"])
-        report_launches = dict(fa.launch_counts)
+        report_launches = launch_snapshot()
         written = {k: Path(v).stat().st_size for k, v in files.items()}
         written["manifest"] = Path(f"{out_dir}/manifest.json").stat().st_size
 
@@ -3074,7 +3105,7 @@ def rag_kernel_phase() -> dict:
     """The four kernels at the knowledge path's shapes against their plain
     versions: the forward (``attention_case``: f32, f16 and bf16 at every
     tile size, timed beside its plain version and SDPA) at RAG_FWD_CASES;
-    the three training kernels (``check_train_kernels``: f32, f16, bf16,
+    the training kernels (``check_train_kernels``: f32, f16, bf16,
     at dropout 0 and at the path's rate) at RAG_TRAIN_CASES, timed in
     bf16 by ``time_train_kernels``. Rows keyed by case ((case, rate) for
     the training ones)."""
@@ -3232,7 +3263,7 @@ def rag_cls_phase(cfg: VQAModelConfig, provider, device: str = "cuda",
     with torch.inference_mode():
         logits = model(*(val[k] for k in inputs),
                        **{k: val[k] for k in KNOWLEDGE_KEYS})["logits"]
-    val_launches = dict(fa.launch_counts)
+    val_launches = launch_snapshot()
 
     host = rag_cls_batch(kcfg, provider, batch, seed + 3)
     data = batch_to_device(host, dev)
@@ -3255,11 +3286,11 @@ def rag_cls_phase(cfg: VQAModelConfig, provider, device: str = "cuda",
                     train_step, state, batch_, steps)):
                 acc.extend(got)
             if turn == 0 and batch_ is data:
-                launches = dict(fa.launch_counts)
+                launches = launch_snapshot()
                 peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
                     if on_card else None
             elif turn == 0:
-                bare_launches = dict(fa.launch_counts)
+                bare_launches = launch_snapshot()
     profile = cls_profile(lambda: train_step(state, data)) if on_card \
         else None
 
@@ -3367,7 +3398,7 @@ def rag_gen_phase(provider, cfg: GenerativeVQAConfig | None = None,
     for s in GEN_STRATEGIES:
         fa.reset_launch_counts()
         outputs[s] = gens[s](*args, **know)
-        launches[s] = dict(fa.launch_counts)
+        launches[s] = launch_snapshot()
         times = []
         for _ in range(reps):
             t0 = time.perf_counter()
@@ -3432,7 +3463,7 @@ def rag_gen_phase(provider, cfg: GenerativeVQAConfig | None = None,
     fa.reset_launch_counts()
     host_ms, event_ms, metrics = profiling.time_train_steps(
         train_step, state, data, steps)
-    train_launches = dict(fa.launch_counts)
+    train_launches = launch_snapshot()
 
     per_step = gen_calls_per_step(cfg) if on_card else 0
     want_gen = {**{n: 0 for n in TRAIN_KERNELS},
@@ -3539,7 +3570,7 @@ def rag_cli_phase(cls_cfg: VQAModelConfig, gen_cfg: GenerativeVQAConfig,
             result = fn()
         sync()
         runs[name] = {"seconds": time.perf_counter() - t0,
-                      "launches": dict(fa.launch_counts), **counts,
+                      "launches": launch_snapshot(), **counts,
                       "retrieval": _retrieval_ms(calls),
                       "retrieval_calls": calls}
         return result
@@ -3720,7 +3751,7 @@ def rag_dense_phase(cfg: VQAModelConfig, provider, device: str = "cuda",
     if device == "cuda":
         torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
-    launches = dict(fa.launch_counts)
+    launches = launch_snapshot()
     chunks = math.ceil(len(texts) / batch_size)
     del tower
     enc = {d: TextKnowledgeEncoder(t, tok, batch_size=batch_size)
@@ -3877,7 +3908,7 @@ def trainer_unfreeze_run(cfg: VQAModelConfig, device: str, rm, tmp: str,
     if on_card:
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = dict(fa.launch_counts)
+    launches = launch_snapshot()
     want = {n: calls * steps * TRAINER_EPOCHS for n in TRAIN_KERNELS}
     want["flash_attn_fwd"] = calls * TRAINER_EPOCHS
     stages = trainer.stages
@@ -3993,7 +4024,7 @@ def trainer_checkpoint_run(cfg: VQAModelConfig, device: str, tmp: str,
     c_loss, c_grads = one_step(ckpt_fn)
     if on_card:
         torch.cuda.synchronize()
-    step_launches = dict(fa.launch_counts)
+    step_launches = launch_snapshot()
     loss_spread = max(float((a[0] - b[0]).abs()) for a in plain
                       for b in plain)
     spread = {n: max(float((a[1][n] - b[1][n]).abs().max()) for a in plain
@@ -4004,7 +4035,7 @@ def trainer_checkpoint_run(cfg: VQAModelConfig, device: str, tmp: str,
     over = [n for n in diff if diff[n] > 2 * spread[n]]
     del plain, c_grads
     want_step = {"flash_attn_fwd": 0, "flash_attn_fwd_lse": 2 * calls,
-                 "flash_attn_bwd_dq": calls, "flash_attn_bwd_dkv": calls}
+                 "flash_attn_bwd": calls}
     start = _weights(model, ("visual_encoder",))
     if on_card:
         torch.cuda.reset_peak_memory_stats()
@@ -4016,7 +4047,7 @@ def trainer_checkpoint_run(cfg: VQAModelConfig, device: str, tmp: str,
     if on_card:
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = dict(fa.launch_counts)
+    launches = launch_snapshot()
     want = {n: steps * c for n, c in want_step.items()}
     frozen = all(torch.equal(p.detach(), start[n])
                  for n, p in model.named_parameters() if n in start)
@@ -4240,7 +4271,7 @@ def trainer_gen_cli(cfg: GenerativeVQAConfig, device: str, tmp: str,
     finally:
         GenerativeTrainingPipeline.run = real
         resources.get_resource_manager(reset=True)
-    launches = dict(fa.launch_counts)
+    launches = launch_snapshot()
     steps = seen["steps"]
     per_step = gen_calls_per_step(cfg) if on_card else 0
     enc = attention_calls_per_generate(cfg, 0) if on_card else 0
@@ -4442,7 +4473,7 @@ def zoo_kernel_phase(rows: dict) -> dict:
     """The four kernels at the zoo's new shapes against their plain
     versions: the forward (``attention_case``: f32, f16 and bf16 at every
     tile size, timed beside its plain version and SDPA) at ZOO_FWD_CASES;
-    the three training kernels (``check_train_kernels``: f32, f16 and
+    the training kernels (``check_train_kernels``: f32, f16 and
     bf16 at dropout 0 and at the path's rate; ``time_train_kernels`` at
     the path's rate in bf16) at ZOO_TRAIN_CASES, where each case of the
     flagship's towers also times the forward kernel at batch 32 (the
@@ -4742,7 +4773,7 @@ def zoo_cli_phase(cfg: VQAModelConfig, device: str = "cuda",
             t0 = time.perf_counter()
             summary = vqa_pipeline.main(flags + ["--mode", mode] + extra)
             runs[mode] = {"seconds": time.perf_counter() - t0,
-                          "launches": dict(fa.launch_counts),
+                          "launches": launch_snapshot(),
                           "summary": summary}
         data = DataPipeline(vcfg.data).run()
         steps = len(data.train_loader)
@@ -4793,7 +4824,7 @@ def zoo_gen_phase(cfg: GenerativeVQAConfig, tok: WhitespaceTokenizer,
     if on_card:
         torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    launches = dict(fa.launch_counts)
+    launches = launch_snapshot()
     per_generate = attention_calls_per_generate(cfg, new_tokens)
     want = {name: 0 for name in launches}
     want["flash_attn_fwd"] = per_generate if on_card else 0
@@ -4834,7 +4865,7 @@ def fwd_bwd_card_vs_cpu(build, inputs: tuple, device: str = "cuda",
                      "grads": [torch.zeros(p.shape) if g is None
                                else g.float().cpu() for p, g in
                                zip(module.parameters(), grads)],
-                     "launches": dict(fa.launch_counts)}
+                     "launches": launch_snapshot()}
     cpu, card = runs["cpu"], runs["card"]
     result = {"outputs": {}, "launches": card["launches"]}
     for k, a, b in zip(keys, card["outs"], cpu["outs"]):
@@ -4925,19 +4956,23 @@ def zoo_library_phase(device: str = "cuda",
             res = module(*args)
             sync()
             row["forward_ms"] = (time.perf_counter() - t) * 1e3
-            row["forward_launches"] = dict(fa.launch_counts)
+            row["forward_launches"] = launch_snapshot()
         fa.reset_launch_counts()
         t = time.perf_counter()
         res = module(*args)
         (res["tokens"].float().sum() + res["pooled"].float().sum()).backward()
         sync()
         row["fwd_bwd_ms"] = (time.perf_counter() - t) * 1e3
-        row["fwd_bwd_launches"] = dict(fa.launch_counts)
+        row["fwd_bwd_launches"] = launch_snapshot()
         calls = want_calls[name] if on_card else 0
         want_fwd = {n: 0 for n in row["forward_launches"]}
         want_fwd["flash_attn_fwd"] = calls
         want_bwd = {n: calls for n in TRAIN_KERNELS}
         want_bwd["flash_attn_fwd"] = 0
+        if name == "vision_token" and on_card:
+            # its 32 x 784 calls take the backward's long form: the dQ sum
+            # launches once a call
+            want_bwd["flash_attn_bwd_sum"] = calls
         if row["forward_launches"] != want_fwd \
                 or row["fwd_bwd_launches"] != want_bwd \
                 or not bool(torch.isfinite(res["tokens"]).all()):
@@ -5362,7 +5397,7 @@ def hf_cli_phase(cfg: VQAModelConfig, clip: str, phobert: str,
             t0 = time.perf_counter()
             summary = vqa_pipeline.main(flags + ["--mode", mode] + extra)
             runs[mode] = {"seconds": time.perf_counter() - t0,
-                          "launches": dict(fa.launch_counts),
+                          "launches": launch_snapshot(),
                           "summary": summary}
         data = DataPipeline(vcfg.data).run()
         steps = len(data.train_loader)
@@ -5440,7 +5475,7 @@ def hf_gen_phase(cfg: GenerativeVQAConfig, clip: str, phobert: str,
                 summary = gvp.main(["--config", yaml_path, "--mode", mode]
                                    + extra)
             runs[mode] = {"seconds": time.perf_counter() - t0,
-                          "launches": dict(fa.launch_counts), **counts,
+                          "launches": launch_snapshot(), **counts,
                           "summary": summary}
         pipe = gvp.GenerativeVQAPipeline(pcfg.replace(resume=ckpt))
         data, model = pipe._setup()
@@ -5455,7 +5490,7 @@ def hf_gen_phase(cfg: GenerativeVQAConfig, clip: str, phobert: str,
     if on_card:
         torch.cuda.synchronize()
     generate_ms = (time.perf_counter() - t0) * 1e3
-    gen_launches = dict(fa.launch_counts)
+    gen_launches = launch_snapshot()
     zero = {name: 0 for name in TRAIN_KERNELS}
 
     def fwd(mode):
@@ -5541,7 +5576,7 @@ def hf_tower_check(name: str, path: str, device: str = "cuda",
         if dev == "cuda":
             torch.cuda.synchronize()
         outs[label] = {"seconds": time.perf_counter() - t,
-                       "launches": dict(fa.launch_counts),
+                       "launches": launch_snapshot(),
                        **{k: res[k].float().cpu() for k in
                           ("tokens", "pooled")}}
     result = {"batch": B, "config": {
@@ -5635,7 +5670,7 @@ def hf_import_phase(device: str = "cuda", seed: int = 0,
         fa.reset_launch_counts()
         with torch.no_grad():
             logits = card_model(*args)["logits"]
-        forward_launches = dict(fa.launch_counts)
+        forward_launches = launch_snapshot()
         want = {n: 0 for n in forward_launches}
         want["flash_attn_fwd"] = calls if on_card else 0
         if forward_launches != want \
@@ -5719,7 +5754,7 @@ MESH_KNOWLEDGE_CASES = [
 
 def mesh_training_row(name, B, H, Lq, Lk, D, kind, causal, calls, rate,
                       gen) -> dict:
-    """The three training kernels at one per-rank shape against their
+    """The training kernels at one per-rank shape against their
     plain versions in f32, f16 and bf16 at dropout ``rate``, timed in
     bf16 beside SDPA with their bounds."""
     key = fa.dropout_key(2031, B * 1000 + H * 10 + Lq) if rate else None
@@ -5894,8 +5929,9 @@ def mesh_train(cfg: VQAModelConfig, mesh, data: dict, seed: int,
             out["collective_host_ms"].append(stats["seconds"] * 1e3)
             out["collective_bytes"].append(stats["bytes"])
             out["collective_calls"].append(stats["calls"])
-        out["launches_per_step"] = {n: fa.launch_counts[n] / MESH_STEPS
-                                    for n in TRAIN_KERNELS}
+        out["launches_per_step"] = {n: c / MESH_STEPS for n, c in
+                                    fa.launch_counts.items()
+                                    if n != "flash_attn_fwd"}
         fa.reset_launch_counts()
         model.eval()
         local = local_rows(batch, mesh) if mesh is not None else batch
@@ -6227,7 +6263,7 @@ def mesh_cli_rank(cli: dict, device: str = "cuda") -> dict:
         if on_card:
             torch.cuda.synchronize()
         runs[name] = {"seconds": time.perf_counter() - t0,
-                      "launches": dict(fa.launch_counts), **counts}
+                      "launches": launch_snapshot(), **counts}
     cls_cfg, gen_cfg = cli["cls_model"], cli["gen_model"]
     vcfg = VQAPipelineConfig.from_yaml(cli["cls"])
     data = DataPipeline(vcfg.data).run()
@@ -6499,9 +6535,12 @@ def mesh_phase(device: str = "cuda", seed: int = 0,
                 if part in ("generative", "seconds"):
                     continue
                 calls = got["attention_calls"] * cuda
+                backward = F32_BACKWARD if part.startswith("f32") \
+                    else ("flash_attn_bwd",)
+                want = {n: calls if n in ("flash_attn_fwd_lse",) + backward
+                        else 0 for n in got["launches_per_step"]}
                 if got["launches_per_forward"] != calls or \
-                        any(got["launches_per_step"][n] != calls
-                            for n in TRAIN_KERNELS):
+                        got["launches_per_step"] != want:
                     raise AssertionError(
                         f"mesh {shape} rank {r['rank']} {part}: launches "
                         f"{got['launches_per_step']} a step, "
@@ -6562,8 +6601,8 @@ def tools_phase() -> dict:
         """A training forward with no gradient: each call on the forward
         kernel (no dropout) or the forward with stats, none backward."""
         return (launches["flash_attn_fwd"] + launches["flash_attn_fwd_lse"]
-                == c and not launches["flash_attn_bwd_dq"]
-                and not launches["flash_attn_bwd_dkv"])
+                == c and not any(launches[n] for n in launches
+                                 if n.startswith("flash_attn_bwd")))
     calls = attention_calls_per_forward(cfg)
     want = {"full": training(calls), "fwd_bwd": training(calls),
             "fwd_eval": {**zero, "flash_attn_fwd": float(calls)},
@@ -6718,7 +6757,7 @@ def examples_phase() -> dict:
                 missing = [s for s in titles if s not in text]
                 out[name] = {"seconds": time.perf_counter() - t,
                              "sections": len(titles),
-                             "launches": dict(fa.launch_counts),
+                             "launches": launch_snapshot(),
                              "printed_lines": text.count("\n")}
                 if missing or not titles:
                     raise AssertionError(f"walkthrough {name}: sections "
@@ -6755,7 +6794,7 @@ def path_check_phase(launched: dict) -> dict:
     of that key (normal q, k, v and dO; a mask of the key's stored shape,
     each element kept with probability 0.8; the key's dropout rate): the
     forward at the key's tile rows to ATTN_TOL, a training kernel's key by
-    the three kernels' forward and backward (``check_train_kernels``).
+    the training kernels' forward and backward (``check_train_kernels``).
     Fails if a path launched a key that stays unchecked."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     every = set().union(*launched.values())
@@ -6844,7 +6883,8 @@ def kernels_line(rows: dict, launches: int, generative: dict,
     each kernel's launches a call in profile_components' five modes at
     batch 64 and profile_towers' towers at batch 128 (forward, forward and
     backward); ``examples`` its launches in each walkthrough's run."""
-    abl_launches = {name: sum(r[name] for r in ablation["launches"].values())
+    abl_launches = {name: sum(r.get(name, 0)
+                              for r in ablation["launches"].values())
                     for name in fa.launch_counts}
     rag_cli = rag["cli"]["launches"]
     abl_per = (f"the ablation CLI's {len(ablation['experiments'])} "
@@ -7006,11 +7046,10 @@ def kernels_line(rows: dict, launches: int, generative: dict,
     replaces = {
         "flash_attn_fwd_lse": ("flash_attn_fwd.cu", ":142 (_flash_kernel_lse, "
                                "pallas_call at :206)"),
-        "flash_attn_bwd_dq": ("flash_attn_bwd_dq.cu", ":285 "
-                              "(_flash_bwd_dq_kernel, pallas_call at :377)"),
-        "flash_attn_bwd_dkv": ("flash_attn_bwd_dkv.cu", ":230 "
-                               "(_flash_bwd_dkv_kernel, pallas_call at "
-                               ":351)")}
+        "flash_attn_bwd": ("flash_attn_bwd.cu", ":230 "
+                           "(_flash_bwd_dkv_kernel, pallas_call at :351) "
+                           "and :285 (_flash_bwd_dq_kernel, pallas_call at "
+                           ":377)")}
     for name in TRAIN_KERNELS:
         source, where = replaces[name]
         step = {k: v for k, v in totals[name].items()

@@ -371,3 +371,241 @@ def test_dkv_kernel_rounding_within_card_tolerances(case, rate):
     dk_err, dv_err = _rel_err(got_dk, dk), _rel_err(got_dv, dv)
     assert dk_err <= GRAD_TOL_BF16, dk_err
     assert dv_err <= GRAD_TOL_BF16, dv_err
+
+
+# -- the one-pass backward's schedule ----------------------------------------
+# The card's bf16/f16 backward (csrc/flash_attn_bwd.cu) computes s, p, dP
+# and dS once per (query, key) pair, rounds p z and dS to the input dtype
+# once as the operands of dV, dK and dQ (the same rounded dS for both), sums
+# dQ over each 64-key tile in f32 and adds the tiles' partials in key-tile
+# order (in registers when Lq, Lk <= 128; through an f32 scratch and a sum
+# kernel in the long form), and rounds each output once. This is that
+# schedule on the CPU; with operand_dtype None it is the plain version of
+# the same schedule, all in f32.
+def _one_pass_schedule(q, k, v, o, m, l, do, mask=None, causal=False,
+                       rate=0.0, key=0, operand_dtype=None):
+    acc = torch.float32
+    p, allowed = fa._bwd_probs(q, k, m, l, mask, causal)
+    delta = (do.to(acc) * o.to(acc)).sum(-1)
+    z = fa._bwd_z(q, k, rate, key, acc)
+    ds = fa._bwd_ds(p, allowed, v, do, delta, z)
+    pz = p if z is None else p * z
+    if operand_dtype is not None:
+        pz, ds = pz.to(operand_dtype).to(acc), ds.to(operand_dtype).to(acc)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    dv = torch.einsum("bhqk,bhqd->bhkd", pz, do.to(acc))
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.to(acc)) * scale
+    dq = torch.zeros(q.shape, dtype=acc)
+    for k0 in range(0, k.shape[2], fa.BWD_KEY_TILE):
+        tile = slice(k0, k0 + fa.BWD_KEY_TILE)
+        dq = dq + torch.einsum("bhqk,bhkd->bhqd", ds[..., tile],
+                               k[:, :, tile].to(acc))
+    return (dq * scale).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# (H, Lq, Lk, mask kind, causal): the flagship's five shapes and the
+# generative fusion's 113 (ROUNDING_CASES), a long-key call (4 key tiles,
+# the long form) and a causal one
+ONE_PASS_CASES = [(*c, False) for c in ROUNDING_CASES] + [
+    (2, 32, 200, None, False),
+    (2, 64, 64, None, True),
+]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["no_dropout", "dropout"])
+@pytest.mark.parametrize("case", ONE_PASS_CASES, ids=str)
+def test_one_pass_rounding_within_card_tolerance(case, rate):
+    """bf16 inputs from a numpy seed, batch 2: the one-pass schedule with
+    p z and dS rounded to bf16 (dS once, for dK and dQ), dQ's per-key-tile
+    f32 partials summed in key-tile order and each output rounded once,
+    against the f32-internal plain version fed the same o, m and l,
+    within the card's bf16 gradient tolerance."""
+    H, Lq, Lk, kind, causal = case
+    q, k, v, g = (torch.from_numpy(a).to(torch.bfloat16)
+                  for a in _arrays(2, H, Lq, Lk, 64, seed=8))
+    mask = _mask(kind, 2, Lq, Lk)
+    mask = None if mask is None else torch.from_numpy(mask)
+    key = fa.dropout_key(8, 1)
+    o, m, l = fa.attention_forward_lse_reference(q, k, v, mask, causal, rate,
+                                                 key)
+    want = fa.attention_backward_reference(q, k, v, o, m, l, g, mask, causal,
+                                           rate, key)
+    got = _one_pass_schedule(q, k, v, o, m, l, g, mask, causal, rate, key,
+                             torch.bfloat16)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == b.dtype == torch.bfloat16, name
+        err = _rel_err(a, b)
+        assert err <= GRAD_TOL_BF16, (name, err)
+
+
+# (B, H, Lq, Lk, mask kind, causal) at head dim 32: the one-pass form,
+# with keyless rows and causal both ways, and the long form (Lk or Lq over
+# ONE_PASS_MAX; the causal one skips leading query tiles of late key
+# tiles)
+SCHEDULE_CASES = [
+    (2, 2, 49, 64, "key", False),
+    (2, 2, 64, 64, "query_key", False),
+    (2, 2, 40, 9, None, True),
+    (1, 2, 32, 200, None, False),
+    (1, 2, 150, 150, None, True),
+    (2, 2, 130, 70, "query_key", False),
+]
+
+
+@pytest.fixture(scope="module")
+def schedule_vjps():
+    """jax.vjp of _xla_attention for each SCHEDULE_CASES row, f32, one
+    jitted function a case (the cases' shapes differ)."""
+    out = {}
+    for case in SCHEDULE_CASES:
+        B, H, Lq, Lk, kind, causal = case
+        q, k, v, g = _arrays(B, H, Lq, Lk, 32, seed=9)
+        mask = _mask(kind, B, Lq, Lk)
+
+        @jax.jit
+        def grads(q, k, v, g, mask=None if mask is None
+                  else jnp.asarray(mask), causal=causal):
+            _, vjp = jax.vjp(lambda q, k, v: _xla_attention(
+                q, k, v, mask, causal), q, k, v)
+            return vjp(g)
+        want = grads(*(jnp.asarray(a) for a in (q, k, v, g)))
+        out[case] = ((q, k, v, g, mask), [np.asarray(w) for w in want])
+    return out
+
+
+@pytest.mark.parametrize("case", SCHEDULE_CASES, ids=str)
+def test_one_pass_schedule_matches_jax_vjp(case, schedule_vjps):
+    """The one-pass schedule in f32 (dQ summed over 64-key tiles in key-
+    tile order) against jax.vjp of _xla_attention: a fully masked row
+    feeds dV its 1/Lk share, dS is 0 at every masked entry."""
+    B, H, Lq, Lk, kind, causal = case
+    (q, k, v, g, mask), want = schedule_vjps[case]
+    tq, tk, tv, tg = (torch.from_numpy(a) for a in (q, k, v, g))
+    tm = None if mask is None else torch.from_numpy(mask)
+    o, m, l = fa.attention_forward_lse_reference(tq, tk, tv, tm, causal)
+    got = _one_pass_schedule(tq, tk, tv, o, m, l, tg, tm, causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert np.isfinite(a.numpy()).all(), name
+        assert_close(a, b, msg=name, **GRAD_TOL)
+
+
+@pytest.fixture(scope="module")
+def pallas_backward():
+    """JAX's _flash_backward in Pallas interpret mode, f32, at one
+    one-pass and one long-form shape, fed its own forward's o, m, l."""
+    jfa = importlib.import_module("vivqa_tpu.ops.flash_attention")
+    out = {}
+    jfa._INTERPRET = True
+    try:
+        for B, H, Lq, Lk, causal in ((1, 2, 128, 128, False),
+                                     (1, 1, 128, 256, True)):
+            q, k, v, g = _arrays(B, H, Lq, Lk, 64, seed=10)
+            bq, bk = jfa._pick_blocks(Lq, Lk)
+            jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+            o, m, l = jfa._flash_forward_lse(jq, jk, jv, causal, bq, bk)
+            want = jfa._flash_backward(jq, jk, jv, o, m, l, jnp.asarray(g),
+                                       causal, bq, bk)
+            out[(Lq, Lk, causal)] = (
+                (q, k, v, g), [np.array(a) for a in (o, m, l)],
+                [np.array(w) for w in want])
+    finally:
+        jfa._INTERPRET = False
+    return out
+
+
+@pytest.mark.parametrize("shape", [(128, 128, False), (128, 256, True)],
+                         ids=str)
+def test_one_pass_schedule_matches_pallas_backward(shape, pallas_backward):
+    """The one-pass schedule in f32 against JAX's _flash_backward (the two
+    Pallas kernels, interpret mode), both fed the Pallas forward's o, m
+    and l: at 128 x 128 the one-pass form's two key tiles, at 128 x 256
+    the long form's four."""
+    (q, k, v, g), (o, m, l), want = pallas_backward[shape]
+    causal = shape[2]
+    got = _one_pass_schedule(*(torch.from_numpy(a) for a in (q, k, v, o, m,
+                                                             l, g)),
+                             causal=causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert_close(a, b, msg=name, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("shape, want", [
+    ((128, 12, 50, 50, 64), ("one_pass", 1, 1536, 1, None)),
+    ((128, 8, 49, 64, 64), ("one_pass", 1, 1024, 1, None)),
+    ((32, 8, 113, 113, 64), ("one_pass", 1, 256, 2, None)),
+    ((32, 8, 32, 118, 64), ("one_pass", 1, 256, 2, None)),
+    ((128, 8, 1, 5, 64), ("one_pass", 1, 1024, 1, None)),
+    ((2, 2, 128, 128, 32), ("one_pass", 1, 4, 2, None)),
+    ((8, 4, 32, 784, 64), ("long", 2, 416, 1, (13, 8, 4, 32, 64))),
+    ((2, 8, 1024, 1024, 64), ("long", 2, 256, 1, (16, 2, 8, 1024, 64))),
+    ((2, 2, 129, 64, 128), ("long", 2, 4, 1, (1, 2, 2, 129, 128))),
+], ids=str)
+def test_backward_plan_by_shape(shape, want):
+    """Which form a call takes, its launches, its units, the 64-key tiles
+    a unit's warpgroups take and the long form's f32 dQ scratch: Lq and
+    Lk at most 128 take one launch, a unit per (b, h); anything longer
+    two, a unit per (b, h, 64-key tile), the second summing its f32 dQ
+    partials."""
+    plan = fa.backward_plan(*shape)
+    assert (plan["form"], plan["launches"], plan["units"], plan["key_tiles"],
+            plan["scratch"]) == want
+
+
+# the flagship step's attention calls at batch 128 (bench.py:53-64):
+# (H, Lq, Lk, stored mask shape, calls a step)
+FLAGSHIP_CALLS = [
+    (12, 50, 50, None, 12),
+    (12, 64, 64, (128, 1, 64, 64), 12),
+    (8, 64, 64, (128, 1, 64, 64), 4),
+    (8, 49, 49, None, 4),
+    (8, 49, 64, (128, 1, 1, 64), 4),
+]
+
+
+@pytest.mark.parametrize("call", FLAGSHIP_CALLS, ids=str)
+def test_backward_bound_matches_hand_count(call):
+    """chip_smoke.train_attention_work's bytes and flops of the one-pass
+    backward against a hand count (masks that keep every key, so every
+    pair and key row is taken): q, o, dO and dq, k and v read, dk and dv
+    written, m and l, the mask as stored; 10 D flops a pair."""
+    import chip_smoke
+    H, Lq, Lk, mask_shape, _ = call
+    B, D, e = 128, 64, 2
+    q = torch.empty(B, H, Lq, D, dtype=torch.bfloat16)
+    k = torch.empty(B, H, Lk, D, dtype=torch.bfloat16)
+    mask = None if mask_shape is None else torch.ones(mask_shape,
+                                                      dtype=torch.bool)
+    got = chip_smoke.train_attention_work(q, k, mask, False)["flash_attn_bwd"]
+    rows_q, rows_k = B * H * Lq, B * H * Lk
+    want_bytes = (4 * rows_q * D * e + 4 * rows_k * D * e + 2 * rows_q * 4
+                  + (0 if mask is None else mask.numel()))
+    assert got == (want_bytes, 10 * D * B * H * Lq * Lk)
+
+
+def test_backward_bound_of_the_flagship_step():
+    """The five shapes' bounds over the step's 36 calls at 3.35 TB/s:
+    0.864 ms, the bytes binding (0.104 ms of 10 D flops a pair at the
+    tensor cores' peak); the long form's bound counts the same bytes, its
+    f32 dQ partials (written and read once) a separate overhead."""
+    import chip_smoke
+    total_bytes, total_flops = 0, 0
+    for H, Lq, Lk, mask_shape, calls in FLAGSHIP_CALLS:
+        q = torch.empty(128, H, Lq, 64, dtype=torch.bfloat16)
+        k = torch.empty(128, H, Lk, 64, dtype=torch.bfloat16)
+        mask = None if mask_shape is None else torch.ones(mask_shape,
+                                                          dtype=torch.bool)
+        nbytes, flops = chip_smoke.train_attention_work(
+            q, k, mask, False)["flash_attn_bwd"]
+        total_bytes += calls * nbytes
+        total_flops += calls * flops
+    bytes_ms = total_bytes / chip_smoke.HBM_BYTES_PER_S * 1e3
+    flops_ms = total_flops / chip_smoke.PEAK_FLOPS[torch.bfloat16] * 1e3
+    assert abs(bytes_ms - 0.864) < 5e-4 and flops_ms < bytes_ms / 5
+    q = torch.empty(8, 4, 32, 64, dtype=torch.bfloat16)
+    k = torch.empty(8, 4, 784, 64, dtype=torch.bfloat16)
+    nbytes, _ = chip_smoke.train_attention_work(q, k, None, False)[
+        "flash_attn_bwd"]
+    one_pass_rule = (4 * q.numel() + 4 * k.numel()) * 2 + 2 * 8 * 4 * 32 * 4
+    assert nbytes == one_pass_rule
+    assert chip_smoke.bwd_scratch_bytes(q, k) == 2 * 13 * 8 * 4 * 32 * 64 * 4
+    assert chip_smoke.bwd_scratch_bytes(q[:, :, :, :], q) == 0

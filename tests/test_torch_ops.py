@@ -163,21 +163,31 @@ def test_serving_tile_rows_by_query_count():
 
 def test_attention_kernel_counts_by_device_name():
     """Profiled kernel names map to the launch counts' names (the serving
-    forward apart from the training forward), and library attention is
-    listed, whatever else the profile holds."""
+    forward apart from the training forward, the one-pass backward apart
+    from its long form's dQ sum and from the f32 dQ and dK/dV kernels),
+    and library attention is listed, whatever else the profile holds."""
     from vivqa_tpu_torch.ops import flash_attention as fa
     kernels = {
         "void flash_attn_fwd_mma_kernel<__nv_bfloat16, 64, false>()": 3,
         "void flash_attn_fwd_lse_mma_kernel<__nv_bfloat16, true>()": 2,
-        "void flash_attn_bwd_dq_mma_kernel<__nv_bfloat16>()": 2,
-        "void flash_attn_bwd_dkv_mma_kernel<__nv_bfloat16, true>()": 1,
+        "void vivqa::bwd::flash_attn_bwd_kernel<__nv_bfloat16, 64, 1, true, "
+        "false>(vivqa::bwd::Args)": 2,
+        "void vivqa::bwd::flash_attn_bwd_kernel<__nv_bfloat16, 64, 1, false, "
+        "true>(vivqa::bwd::Args)": 1,
+        "void vivqa::bwd::flash_attn_bwd_sum_kernel<__nv_bfloat16, 64>("
+        "vivqa::BwdParams, float const*, int)": 1,
+        "void (anonymous namespace)::flash_attn_bwd_dq_kernel<float, 64>("
+        "vivqa::BwdParams)": 5,
+        "void (anonymous namespace)::flash_attn_bwd_dkv_kernel<float, 64>("
+        "vivqa::BwdParams)": 4,
         "void pytorch_flash::flash_fwd_kernel<Flash_fwd_kernel_traits>()": 4,
         "fmha_cutlassB_f16_aligned_64x64_k64_sm80": 1,
         "ampere_bf16_s16816gemm_bf16_128x64_ldg8_f2f_tn": 9}
     counts = fa.attention_kernel_counts(kernels)
     assert {k: v for k, v in counts.items() if k != "library"} == {
         "flash_attn_fwd": 3, "flash_attn_fwd_lse": 2,
-        "flash_attn_bwd_dq": 2, "flash_attn_bwd_dkv": 1}
+        "flash_attn_bwd": 3, "flash_attn_bwd_sum": 1,
+        "flash_attn_bwd_dq": 5, "flash_attn_bwd_dkv": 4}
     assert counts["library"] == [
         "fmha_cutlassB_f16_aligned_64x64_k64_sm80",
         "void pytorch_flash::flash_fwd_kernel<Flash_fwd_kernel_traits>()"]

@@ -12,8 +12,9 @@ variant's bf16, head-dim-64 templates, checks it against the plain
 version (except the variants marked timing-only, which drop part of the
 computation) and times it in bf16 at the flagship's five shapes (CUDA-
 graph replay, ``chip_smoke.device_ms``): the serving forward per
-flagship forward at batch 8, dK/dV per train step at batch 128. The
-variants of one source are timed in turns, twice, in opposite orders.
+flagship forward at batch 8, the one-pass backward per train step at
+batch 128. The variants of one source are timed in turns, twice, in
+opposite orders.
 One JSON line per variant and round; needs one CUDA card and nvcc.
 """
 
@@ -45,20 +46,54 @@ VARIANTS = [
     ("serving_mask_unused", "flash_attn_fwd",
      [("!kMask || sM[(g + 8 * (e / 2)) * kMaskPitch + kc] != 0", "true")],
      False),
-    ("dkv_final", "flash_attn_bwd_dkv", [], True),
+    ("bwd_final", "flash_attn_bwd", [], True),
+    # one query-tile stage (and one K/V slot): no unit's loads ahead of
+    # the one in use inside a block
+    ("bwd_ring1", "flash_attn_bwd",
+     [("constexpr int kRing = 2;", "constexpr int kRing = 1;")], True),
+    # three query-tile stages where they fit
+    ("bwd_ring3", "flash_attn_bwd",
+     [("constexpr int kRing = 2;", "constexpr int kRing = 3;")], True),
+    # one block per unit instead of persistent blocks walking the units
+    ("bwd_block_per_unit", "flash_attn_bwd",
+     [("const int grid = a.n_units > resident ? resident : a.n_units;",
+       "const int grid = a.n_units;")],
+     True),
+    # three one-warpgroup blocks an SM (fewer registers a thread)
+    ("bwd_blocks3", "flash_attn_bwd",
+     [("constexpr int kBlocksPerSM = 2;", "constexpr int kBlocksPerSM = 3;")],
+     True),
+    # the scores' exponential by the fast approximate intrinsic
+    ("bwd_fast_exp", "flash_attn_bwd",
+     [("expf((ks == kKept", "__expf((ks == kKept")], True),
     # 64-query tiles in two steps of 32 queries
-    ("dkv_steps32", "flash_attn_bwd_dkv",
-     [("constexpr int QS = 16;", "constexpr int QS = 32;")], True),
-    # the mask tile's byte loads unrolled, as the forward has them
-    ("dkv_mask_bytes_unrolled", "flash_attn_bwd_dkv",
-     [("mma::kThreads, true>", "mma::kThreads>", 2)], True),
-    # ... and the masked instantiation given 168 registers (3 blocks an SM)
-    ("dkv_mask_bytes_unrolled_3_blocks", "flash_attn_bwd_dkv",
-     [("mma::kThreads, true>", "mma::kThreads>", 2),
-      ("D == 64 ? 4 : 2", "D == 64 ? (kMask ? 3 : 4) : 2")], True),
+    ("bwd_steps32", "flash_attn_bwd",
+     [("constexpr int kQS = 16;", "constexpr int kQS = 32;")], True),
+    # the producer waits for its stats and mask copies before it arrives
+    ("bwd_blocking_producer", "flash_attn_bwd",
+     [("mbar_init(full(s), 65);", "mbar_init(full(s), 33);"),
+      ("cp_async_arrive(full(s));  // and its copies, when they land",
+       ""),
+      ("mbar_arrive(full(s));      // this lane's element stores are done",
+       "mma::cp_async_commit(); mma::cp_async_wait_all(); "
+       "mbar_arrive(full(s));")], True),
     # timing only: the staged mask is not applied to the scores
-    ("dkv_mask_unused", "flash_attn_bwd_dkv",
-     [("!kMask || sM[col * kMaskPitch + g + 8 * r] != 0", "true")], False),
+    ("bwd_mask_unused", "flash_attn_bwd",
+     [("!kMask || mrow[kl[r]] != 0", "true")], False),
+    # timing only: the loads, the query records and the stores, no products
+    ("bwd_loads_only", "flash_attn_bwd",
+     [("for (int s0 = 0; s0 < kRows; s0 += kQS) {",
+       "for (int s0 = 0; s0 < 0; s0 += kQS) {"),
+      ("for (int job = warp; job < kJobs;", "for (int job = warp; job < 0;")],
+     False),
+    # timing only: every product, no TMA store of dq, dk or dv
+    ("bwd_no_stores", "flash_attn_bwd",
+     [("cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+       "[%0, {%2, %3, %4, %5}], [%1];", "")], False),
+    # timing only: no dQ (the dS tile is written, dQ = dS K is not computed)
+    ("bwd_no_dq", "flash_attn_bwd",
+     [("for (int job = warp; job < kJobs;", "for (int job = warp; job < 0;")],
+     False),
 ]
 
 
@@ -120,8 +155,8 @@ def main() -> int:
         key = fa.dropout_key(2026, len(train))
         o, m, l = fa.attention_forward_lse_reference(q, k, v, mask, c[7],
                                                      c[9], key)
-        delta = (do.float() * o.float()).sum(-1)
-        train.append((c, (q, k, v, m, l, do, delta, mask, c[7], c[9], key)))
+        train.append((c, (q, k, v, o.to(q.dtype), m, l, do, mask, c[7],
+                          c[9], key)))
 
     def run(name, source, checked):
         per_call, total, err = {}, 0.0, 0.0
@@ -139,9 +174,9 @@ def main() -> int:
         else:
             for c, a in train:
                 def fn(a=a):
-                    return fa.flash_attention_bwd_dkv_cuda(*a)
+                    return fa.flash_attention_bwd_fused_cuda(*a)
                 if checked:
-                    want = fa.attention_bwd_dkv_reference(*a)
+                    want = fa.attention_backward_reference(*a)
                     err = max(err, *(cs._grad_err(g, w)
                                      for g, w in zip(fn(), want)))
                 per_call[c[0]] = cs.device_ms(fn) * 1e3
@@ -152,7 +187,8 @@ def main() -> int:
         return per_call, total, err if checked else None
 
     usage = {n: {t: u for t, u in cs.ptxas_usage(rep).items()
-                 if "mma" in t and "bfloat16Li64E" in t}
+                 if ("mma" in t or "flash_attn_bwd_kernel" in t)
+                 and "bfloat16Li64E" in t}
              for n, (_, rep) in built.items()}
     sources = sorted({v[1] for v in chosen})
     for rnd in range(2):

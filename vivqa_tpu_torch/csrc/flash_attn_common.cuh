@@ -1,8 +1,8 @@
 // Pieces shared by the port's attention kernels (flash_attn_fwd.cu,
-// flash_attn_bwd_dq.cu, flash_attn_bwd_dkv.cu): dtype conversions, the
-// tile loader, the attention-dropout keep hash, and the parameters of the
-// two backward kernels. ops/cuda_build.py hashes this header into every
-// kernel library's name, so editing it rebuilds them all.
+// flash_attn_bwd.cu, flash_attn_bwd_dq.cu, flash_attn_bwd_dkv.cu): dtype
+// conversions, the tile loader, the attention-dropout keep hash, and the
+// parameters of the backward kernels. ops/cuda_build.py hashes this header
+// into every kernel library's name, so editing it rebuilds them all.
 
 #pragma once
 
@@ -97,7 +97,7 @@ struct Tile {
 // Attention-probability dropout, shared by every batch row and head as
 // flax's broadcast_dropout: key (q, k) is kept iff
 //   mix32(mix32(key ^ q) ^ k) >= threshold,
-// a counter-based hash that the forward and both backward kernels
+// a counter-based hash that the forward and the backward kernels
 // regenerate, so nothing of size Lq x Lk is stored. The plain version in
 // ops/flash_attention.py computes the same bits with torch integer ops.
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {  // "lowbias32"
@@ -123,7 +123,7 @@ struct Dropout {
   }
 };
 
-// Parameters of both backward kernels. Element strides (b, h, l) for the
+// Parameters of the backward kernels. Element strides (b, h, l) for the
 // (B, H, L, D) operands (unit stride over D), (b, q, k) for the mask.
 struct BwdParams {
   const void* q;

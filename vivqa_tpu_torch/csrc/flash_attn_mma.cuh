@@ -1,6 +1,7 @@
 // Tensor-core pieces shared by the port's bf16/f16 attention kernels (the
-// serving and training forwards in flash_attn_fwd.cu, the dQ pass in
-// flash_attn_bwd_dq.cu, the dK/dV pass in flash_attn_bwd_dkv.cu):
+// serving and training forwards in flash_attn_fwd.cu, the one-pass
+// backward in flash_attn_bwd.cu, which addresses its TMA-staged tiles
+// through their swizzle itself):
 // inline-PTX wrappers for ldmatrix, mma.sync.m16n8k16 (bf16 or f16
 // operands, f32 accumulators) and cp.async; the tile loader into padded
 // shared memory; the two warp-level products over a tile (or a step of 16
@@ -9,7 +10,7 @@
 // that writes a warp's 16 rows with 16-byte stores.
 //
 // Shapes: each warp owns 16 rows of the operand it keeps (query rows in
-// the forwards and dQ, keys in dK/dV); the streamed operand comes in tiles
+// the forwards, keys in the backward); the streamed operand comes in tiles
 // of 64 rows. A tile of rows is staged in its own dtype with a row pitch
 // of D + 8 elements, so the 8 row addresses of one ldmatrix fall 16 bytes
 // apart along the banks and never conflict.
@@ -134,11 +135,8 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, long long ld, in
 }
 
 // acc[j] += A . B^T for a warp's 16 rows of sA against the first 8 NT
-// rows of sB, over D: S = Q K^T, dP = dO V^T (and, with the roles
-// swapped in dK/dV, S^T = K Q^T, dP^T = V dO^T). acc[j] covers columns
-// 8j .. 8j + 7. The forward and the dQ pass compute S through this one
-// function with the same operands, so they get the same f32 scores bit
-// for bit.
+// rows of sB, over D: the forwards' S = Q K^T. acc[j] covers columns
+// 8j .. 8j + 7.
 template <typename T, int D, int NT>
 __device__ __forceinline__ void gemm_abt(float (&acc)[NT][4], const T* sA, const T* sB,
                                          int lane) {
@@ -160,8 +158,7 @@ __device__ __forceinline__ void gemm_abt(float (&acc)[NT][4], const T* sA, const
 
 // acc[n] += A . B for A = a warp's 16 x 16 KC operand (KC chunks of 16,
 // from to_a_frags) and B = the first 16 KC rows of sB by D columns:
-// O += P V, dQ += dS K, dV += (P z)^T dO, dK += dS^T Q. acc[n] covers
-// columns 8n .. 8n + 7.
+// the forwards' O += P V. acc[n] covers columns 8n .. 8n + 7.
 template <typename T, int D, int KC>
 __device__ __forceinline__ void gemm_ab(float (&acc)[D / 8][4], const uint32_t (&a)[KC][4],
                                         const T* sB, int lane) {
@@ -236,11 +233,7 @@ constexpr int kMaskPitch = 80;
 // n_rows and keys at or past n_cols are 0. vec: the mask's rows start on
 // 16 bytes and its keys have unit stride, so whole 16-byte chunks go by
 // cp.async (which the caller commits and waits for); else byte loads.
-// kRolled: the byte loads as a rolled loop along a pointer, for a caller
-// whose key window is the same in every iteration of its own loop (dK/dV):
-// unrolled, the 16 byte offsets are loop-invariant there and were held in
-// registers across that loop.
-template <int ROWS, int THREADS, bool kRolled = false>
+template <int ROWS, int THREADS>
 __device__ __forceinline__ void load_mask_tile(uint8_t* dst, const uint8_t* mask, long long sq,
                                                long long sk, int row0, int n_rows, int col0,
                                                int n_cols, int vec) {
@@ -254,14 +247,6 @@ __device__ __forceinline__ void load_mask_tile(uint8_t* dst, const uint8_t* mask
     uint8_t* d = dst + r * kMaskPitch + c;
     if (vec && row < n_rows && col + 16 <= n_cols) {
       cp_async16(d, mask + row * sq + col);
-    } else if (kRolled) {
-      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
-      if (row < n_rows) {
-        const uint8_t* src = mask + row * sq + col * sk;
-        const int n = min(16, n_cols - col);
-#pragma unroll 1
-        for (int j = 0; j < n; ++j, src += sk) d[j] = __ldg(src);
-      }
     } else {
       uint4 buf = make_uint4(0u, 0u, 0u, 0u);
       uint8_t* e = reinterpret_cast<uint8_t*>(&buf);

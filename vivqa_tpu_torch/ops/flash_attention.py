@@ -15,10 +15,12 @@ inputs and on whether a gradient is needed:
 - otherwise ``FlashAttention``, the counterpart of the custom VJP
   ``_flash`` / ``_flash_fwd`` / ``_flash_bwd``. On CUDA tensors its
   forward launches the forward-with-stats kernel (``_flash_kernel_lse``)
-  and its backward the dQ kernel then the dK/dV kernel
-  (``_flash_bwd_dq_kernel``, ``_flash_bwd_dkv_kernel``); on CPU tensors
-  it runs their plain versions, ``attention_forward_lse_reference`` and
-  ``attention_backward_reference``, which follow the Pallas math.
+  and its backward, in bf16 and f16, the one-pass backward kernel
+  (``csrc/flash_attn_bwd.cu``, replacing both ``_flash_bwd_dq_kernel``
+  and ``_flash_bwd_dkv_kernel``), in f32 the dQ kernel then the dK/dV
+  kernel; on CPU tensors it runs their plain versions,
+  ``attention_forward_lse_reference`` and ``attention_backward_reference``,
+  which follow the Pallas math.
 
 A CUDA tensor launches a kernel or raises; there is no fallback. Unlike
 the TPU gate (causal or Lk >= 1024, no mask) every call, masked or not and
@@ -46,8 +48,11 @@ NEG_INF = -1e30
 
 # Launches of each kernel of this module. Each wrapper adds one per kernel
 # launch and nothing else does, so a run can show that its attention went
-# through the kernels.
+# through the kernels. The bf16/f16 backward is flash_attn_bwd (and, in its
+# long form, the dQ sum); flash_attn_bwd_dq and flash_attn_bwd_dkv count
+# f32 backward launches only.
 launch_counts = {"flash_attn_fwd": 0, "flash_attn_fwd_lse": 0,
+                 "flash_attn_bwd": 0, "flash_attn_bwd_sum": 0,
                  "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0}
 
 # head dims the kernels are built for: 64 on every flagship path; 32 in
@@ -86,6 +91,8 @@ def reset_launch_counts() -> None:
 # fused attention); no kernel of this module's names holds one of these.
 DEVICE_KERNEL_NAMES = {"flash_attn_fwd": "flash_attn_fwd_mma_kernel",
                        "flash_attn_fwd_lse": "flash_attn_fwd_lse",
+                       "flash_attn_bwd": "flash_attn_bwd_kernel",
+                       "flash_attn_bwd_sum": "flash_attn_bwd_sum_kernel",
                        "flash_attn_bwd_dq": "flash_attn_bwd_dq",
                        "flash_attn_bwd_dkv": "flash_attn_bwd_dkv"}
 LIBRARY_ATTENTION_NAMES = ("fmha", "flash_fwd", "flash_bwd", "sdpa",
@@ -385,6 +392,11 @@ _BWD_ARGS = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
              + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
                 ctypes.c_float, ctypes.c_int, ctypes.c_uint, ctypes.c_uint,
                 ctypes.c_float, ctypes.c_void_p])
+_BWD_FUSED_ARGS = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
+                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+                      ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                      ctypes.c_uint, ctypes.c_uint, ctypes.c_float,
+                      ctypes.c_void_p])
 
 
 def _entry(source: str, symbol: str, argtypes):
@@ -508,13 +520,21 @@ def _launch_bwd(name, q, k, v, o, m, l, do, delta, dq, dk, dv, mask,
     launch_counts[name] += 1
 
 
+def _check_f32(q):
+    if q.dtype != torch.float32:
+        raise ValueError(f"the dQ and dK/dV kernels take float32, got "
+                         f"{q.dtype} (bf16 and f16 take "
+                         f"flash_attention_bwd_fused_cuda)")
+
+
 def flash_attention_bwd_dq_cuda(q, k, v, o, m, l, do, mask=None,
                                 causal=False, dropout_rate=0.0,
                                 dropout_key=None):
-    """Launch the dQ kernel: (dq, delta). dq is allocated as (B, Lq, H, D)
-    and returned as its (B, H, Lq, D) view; delta = rowsum(dO * O),
+    """Launch the f32 dQ kernel: (dq, delta). dq is allocated as (B, Lq, H,
+    D) and returned as its (B, H, Lq, D) view; delta = rowsum(dO * O),
     (B, H, Lq) f32, feeds the dK/dV kernel."""
     m_strides, do = _check_bwd_inputs(q, k, v, o, m, l, do, mask)
+    _check_f32(q)
     B, H, Lq, D = q.shape
     dq = _heads_last(B, Lq, H, D, q)
     delta = torch.empty_like(m)
@@ -526,9 +546,10 @@ def flash_attention_bwd_dq_cuda(q, k, v, o, m, l, do, mask=None,
 def flash_attention_bwd_dkv_cuda(q, k, v, m, l, do, delta, mask=None,
                                  causal=False, dropout_rate=0.0,
                                  dropout_key=None):
-    """Launch the dK/dV kernel: (dk, dv), each allocated as (B, Lk, H, D)
-    and returned as its (B, H, Lk, D) view."""
+    """Launch the f32 dK/dV kernel: (dk, dv), each allocated as (B, Lk, H,
+    D) and returned as its (B, H, Lk, D) view."""
     m_strides, do = _check_bwd_inputs(q, k, v, None, m, l, do, mask)
+    _check_f32(q)
     if delta.dtype != torch.float32 or delta.shape != m.shape \
             or not delta.is_contiguous() or delta.device != q.device:
         raise ValueError("delta must be contiguous f32 (B, H, Lq)")
@@ -540,6 +561,86 @@ def flash_attention_bwd_dkv_cuda(q, k, v, m, l, do, delta, mask=None,
     return dk, dv
 
 
+# The one-pass backward's units: a call whose Lq and Lk are both at most
+# ONE_PASS_MAX takes one launch, a unit per (b, h) with one consumer
+# warpgroup per 64-key tile; any other call the long form: a unit per
+# (b, h, 64-key tile), dQ partials in an f32 scratch summed by a second
+# kernel (two launches).
+ONE_PASS_MAX = 128
+BWD_KEY_TILE = 64
+
+
+def backward_plan(B: int, H: int, Lq: int, Lk: int, D: int) -> dict:
+    """How the one-pass backward kernel takes a call: its ``form``
+    ("one_pass" or "long"), ``launches``, ``units``, ``key_tiles`` (64-key
+    tiles a unit's consumer warpgroups take) and the f32 ``scratch`` shape
+    of the long form's dQ partials (None in the one-pass form)."""
+    n_kt = -(-Lk // BWD_KEY_TILE)
+    if Lq <= ONE_PASS_MAX and Lk <= ONE_PASS_MAX:
+        return {"form": "one_pass", "launches": 1, "units": B * H,
+                "key_tiles": n_kt, "scratch": None}
+    return {"form": "long", "launches": 2, "units": B * H * n_kt,
+            "key_tiles": 1, "scratch": (n_kt, B, H, Lq, D)}
+
+
+def _tma_ready(t: torch.Tensor) -> torch.Tensor:
+    """t, or a contiguous copy where TMA's 16-byte rules fail: the base on
+    16 bytes, every stepped (b, h, l) stride a multiple of 16 bytes."""
+    vec = 16 // t.element_size()
+    if t.data_ptr() % 16 == 0 and all(
+            st % vec == 0 for st, n in zip(t.stride()[:3], t.shape[:3])
+            if n > 1):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def flash_attention_bwd_fused_cuda(q, k, v, o, m, l, do, mask=None,
+                                   causal=False, dropout_rate=0.0,
+                                   dropout_key=None):
+    """Launch the one-pass backward kernel (bf16, f16): (dq, dk, dv), each
+    allocated as (B, L, H, D) and returned as its (B, H, L, D) view.
+
+    q, k, v, o and dO are read by TMA in place where their bases and
+    strides meet its 16-byte rules, else from a contiguous copy. The long
+    form (``backward_plan``) allocates its f32 dQ partials here."""
+    m_strides, do = _check_bwd_inputs(q, k, v, o, m, l, do, mask)
+    if q.dtype not in (torch.bfloat16, torch.float16):
+        raise ValueError(f"the one-pass backward takes bfloat16 and float16, "
+                         f"got {q.dtype} (float32 takes the dQ and dK/dV "
+                         f"kernels)")
+    q, k, v, o, do = (_tma_ready(t) for t in (q, k, v, o, do))
+    B, H, Lq, D = q.shape
+    Lk = k.shape[2]
+    plan = backward_plan(B, H, Lq, Lk, D)
+    long_form = plan["form"] == "long"
+    dq = _heads_last(B, Lq, H, D, q)
+    dk = _heads_last(B, Lk, H, D, k)
+    dv = _heads_last(B, Lk, H, D, v)
+    part = None
+    if long_form:
+        part = torch.empty(plan["scratch"], dtype=torch.float32,
+                           device=q.device)
+    strides = (ctypes.c_longlong * 27)(
+        *_blh(q), *_blh(k), *_blh(v), *_blh(o), *_blh(do), *_blh(dq),
+        *_blh(dk), *_blh(dv), *m_strides)
+    fn = _entry("flash_attn_bwd", "vivqa_flash_attn_bwd", _BWD_FUSED_ARGS)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 do.data_ptr(), m.data_ptr(), l.data_ptr(),
+                 None if part is None else part.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 None if mask is None else mask.data_ptr(),
+                 _DTYPE_CODES[q.dtype], D, B, H, Lq, Lk, strides,
+                 int(causal), int(long_form), 1.0 / math.sqrt(D),
+                 *_dropout_args(dropout_rate, dropout_key), _stream(q))
+    if err != 0:
+        raise RuntimeError(f"flash_attn_bwd launch failed: error {err}")
+    launch_counts["flash_attn_bwd"] += 1
+    if long_form:
+        launch_counts["flash_attn_bwd_sum"] += 1
+    return dq, dk, dv
+
+
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, o: torch.Tensor,
                              m: torch.Tensor, l: torch.Tensor,
@@ -547,14 +648,18 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              mask: Optional[torch.Tensor] = None,
                              causal: bool = False, dropout_rate: float = 0.0,
                              dropout_key: Optional[int] = None):
-    """The backward on the card: the dQ kernel (which also writes delta),
-    then the dK/dV kernel; (dq, dk, dv) as (B, H, L, D) views of
-    (B, L, H, D) storage.
+    """The backward on the card: in bf16 and f16 the one-pass kernel, in
+    f32 the dQ kernel (which also writes delta), then the dK/dV kernel;
+    (dq, dk, dv) as (B, H, L, D) views of (B, L, H, D) storage.
 
     ``do`` may have any strides over (b, h, l); one that is not unit-stride
     over D is copied first. On the model's path autograd hands over the
     (B, H, Lq, D) view of the (B, Lq, H, D) output gradient, read in
     place."""
+    if q.dtype != torch.float32:
+        return flash_attention_bwd_fused_cuda(q, k, v, o, m, l, do, mask,
+                                              causal, dropout_rate,
+                                              dropout_key)
     dq, delta = flash_attention_bwd_dq_cuda(q, k, v, o, m, l, do, mask,
                                             causal, dropout_rate,
                                             dropout_key)
