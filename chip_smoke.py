@@ -15,13 +15,13 @@ Phases, in order; any failure exits non-zero:
    shapes the serving paths give it (the classification forward's, the
    generative path's: encoders and fusion at batch 16, the single-query
    decode calls over the KV cache at several steps and over the encoder
-   memory; and a few edge cases), in f32, bf16 and f16 (the serving
-   forward's tensor-core template at each of its three tile sizes), one
-   JSON line per case with its time (CUDA-graph replay, at each tile
-   size), the plain
-   version's, the bound and scaled_dot_product_attention's time as a
-   yardstick, and a line with the serving forward's time per flagship
-   forward and per generate at each tile size; then the training kernels
+   memory; and a few edge cases), in f32, bf16 and f16 (bf16 and f16 in
+   the form ``flash_attention.forward_plan`` picks; two long-form calls
+   bit-equal), one JSON line per case with its time (CUDA-graph replay),
+   its form, the plain version's, the bound and
+   scaled_dot_product_attention's time as a yardstick, and a line with
+   the serving forward's time per flagship forward, per generate and per
+   decode call beside SDPA's and the bound; then the training kernels
    (forward with stats, the one-pass backward; in f32 the backward is the
    dQ and dK/dV pair) the same way at the training step's shapes (batch
    128) and edge cases, with attention dropout on and off, o, m, l, dq, dk
@@ -380,19 +380,22 @@ def launch_snapshot() -> dict:
 ATTN_TOL = {torch.bfloat16: 2e-2, torch.float16: 2e-2, torch.float32: 2e-5}
 
 # The templates each kernel runs on the main paths (bf16, head dim 64; the
-# serving forward at the serving paths' tile sizes, the decoder's masked
-# single-query calls at DECODE_TILE_ROWS; the backward with one and two
-# 64-key tiles a unit (L <= 64 and the 113-118 key shapes) and its long
-# form (the zoo's 784 keys); the calls with a mask and those without take
-# separate instantiations), as ptxas names them
+# forwards' tile form, 64-query units of one warpgroup over 64-key tiles
+# and, for calls of at most 32 keys, over one 32-key tile, the serving
+# forward's decode form at one query row for the decoder's
+# masked calls; the backward with one and two 64-key tiles a unit (L <= 64
+# and the 113-118 key shapes) and its long form (the zoo's 784 keys); the
+# calls with a mask and those without take separate instantiations), as
+# ptxas names them
 _BF16_64 = "I13__nv_bfloat16Li64E"
 MAIN_TEMPLATES = {
     "flash_attn_fwd": [
-        f"flash_attn_fwd_mma_kernel{_BF16_64}Li{rows}ELb{m}EE"
-        for rows, m in ((fa.SERVING_TILE_ROWS, 0), (fa.SERVING_TILE_ROWS, 1),
-                        (fa.DECODE_TILE_ROWS, 1))],
-    "flash_attn_fwd_lse": [f"flash_attn_fwd_lse_mma_kernel{_BF16_64}Lb{m}EE"
-                           for m in (0, 1)],
+        f"flash_attn_fwd_serve_kernel{_BF16_64}Li{nk}ELi1ELb{m}EE"
+        for nk in (64, 32) for m in (0, 1)]
+    + [f"flash_attn_fwd_serve_dec_kernel{_BF16_64}Li1ELb1EE"],
+    "flash_attn_fwd_lse": [
+        f"flash_attn_fwd_train_kernel{_BF16_64}Li{nk}ELi1ELb{m}EE"
+        for nk in (64, 32) for m in (0, 1)],
     "flash_attn_bwd": [f"flash_attn_bwd_kernel{_BF16_64}Li{nkt}ELb{m}ELb{lng}EE"
                        for nkt, lng in ((1, 0), (2, 0), (1, 1))
                        for m in (0, 1)]}
@@ -641,13 +644,14 @@ WRAPPERS = {"flash_attn_fwd": "flash_attention_cuda",
 CHECKED: set = set()
 
 
-def launch_key(name, q, k, mask, causal, rate, tile_rows) -> tuple:
-    """What a kernel's check depends on: the kernel, the dtype, q's shape,
-    the key count, the mask's stored shape (broadcast dims as 1), causal,
-    the dropout rate and, for the forward, the tile rows."""
+def launch_key(name, q, k, mask, causal, rate) -> tuple:
+    """What a kernel's check depends on: the kernel, the dtype, q's shape
+    (which, with the key count, sets the forward's form), the key count,
+    the mask's stored shape (broadcast dims as 1), causal and the dropout
+    rate."""
     return (name, str(q.dtype).removeprefix("torch."), tuple(q.shape),
             k.shape[2], None if mask is None else tuple(mask.shape),
-            bool(causal), float(rate), tile_rows)
+            bool(causal), float(rate))
 
 
 @contextlib.contextmanager
@@ -665,12 +669,8 @@ def recording_launches(keys: set):
 
         def wrapped(*args, **kwargs):
             a = {**defaults, **dict(zip(names, args)), **kwargs}
-            tile = None
-            if name == "flash_attn_fwd":
-                tile = a["tile_rows"] or fa.serving_tile_rows(
-                    a["q"].shape[2])
             keys.add(launch_key(name, a["q"], a["k"], a["mask"], a["causal"],
-                                a.get("dropout_rate", 0.0), tile))
+                                a.get("dropout_rate", 0.0)))
             return fn(*args, **kwargs)
         return wrapped
     for name, fn in originals.items():
@@ -790,14 +790,33 @@ def attention_work(q, k, mask, causal):
     return nbytes, 4 * D * pairs, key_rows
 
 
+def forward_form(q, k) -> dict:
+    """The forward's form for a bf16/f16 call of q's and k's shapes
+    (``fa.forward_plan``), with its split partials' bytes
+    (``fwd_scratch_bytes``)."""
+    plan = fa.forward_plan(*q.shape[:3], k.shape[2], q.shape[3])
+    return {"form": plan["form"], "launches": plan["launches"],
+            "key_splits": plan["splits"],
+            "scratch_bytes": fwd_scratch_bytes(q, k)}
+
+
+def forward_twice_equal(fn) -> bool:
+    """Two calls of a forward on the same inputs are bit-equal (every
+    output: o, or o, m and l)."""
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    a, b = (x if isinstance(x, tuple) else (x,) for x in (a, b))
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 def attention_case(name, B, H, Lq, Lk, D, kind, causal, gen,
                    calls_per_forward=0, calls_per_generate=0,
                    check_kind=None) -> dict:
     """One case: the forward kernel against its plain version in f32, f16
-    and bf16 (bf16 and f16 at each tile size; a cache_pos case at each of
-    CACHE_INDICES; with ``kind``'s mask and ``check_kind``'s), then, in
-    bf16 with ``kind``'s mask, its time (graph replay, at each tile
-    size), the plain version's, the bound and SDPA's."""
+    and bf16 (a cache_pos case at each of CACHE_INDICES; with ``kind``'s
+    mask and ``check_kind``'s; in the long form two calls bit-equal),
+    then, in bf16 with ``kind``'s mask, its time (graph replay), its
+    form, the plain version's time, the bound and SDPA's."""
     errs = {}
     variants = [(kind, cur) for cur in
                 (CACHE_INDICES if kind == "cache_pos" else (None,))]
@@ -809,20 +828,21 @@ def attention_case(name, B, H, Lq, Lk, D, kind, causal, gen,
             q, k, v, mask = attention_inputs(B, H, Lq, Lk, D, mask_kind,
                                              dtype, gen, cur)
             ref = fa.attention_reference(q, k, v, mask, causal)
-            tiles = (fa.serving_tile_rows(Lq),) \
-                if dtype == torch.float32 else fa.TILE_ROWS
-            for tile_rows in tiles:
-                with recording_launches(CHECKED):
-                    out = fa.flash_attention_cuda(q, k, v, mask, causal,
-                                                  tile_rows)
-                torch.cuda.synchronize()
-                err = float((out.float() - ref.float()).abs().max())
-                if not math.isfinite(err) or err > ATTN_TOL[dtype]:
-                    raise AssertionError(
-                        f"{name} {dtype} mask {mask_kind} tile_rows "
-                        f"{tile_rows} cur_index {cur}: kernel vs plain max "
-                        f"|err| {err} > {ATTN_TOL[dtype]}")
-                errs[dtype] = max(errs[dtype], err)
+            with recording_launches(CHECKED):
+                out = fa.flash_attention_cuda(q, k, v, mask, causal)
+            torch.cuda.synchronize()
+            err = float((out.float() - ref.float()).abs().max())
+            if not math.isfinite(err) or err > ATTN_TOL[dtype]:
+                raise AssertionError(
+                    f"{name} {dtype} mask {mask_kind} cur_index {cur}: "
+                    f"kernel vs plain max |err| {err} > {ATTN_TOL[dtype]}")
+            errs[dtype] = max(errs[dtype], err)
+            if dtype != torch.float32 and fa.forward_plan(
+                    B, H, Lq, Lk, D)["form"] == "long" \
+                    and not forward_twice_equal(lambda: fa.flash_attention_cuda(
+                        q, k, v, mask, causal)):
+                raise AssertionError(f"{name} {dtype}: two long-form calls "
+                                     f"on the same inputs differ")
     # timing and bounds at the main path's dtype and mask, bf16 (a
     # cache_pos case at the middle index, whose mask keeps half the keys)
     q, k, v, mask = attention_inputs(
@@ -843,16 +863,9 @@ def attention_case(name, B, H, Lq, Lk, D, kind, causal, gen,
     def library():
         return F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask)
     times = {f"{label}_ms": device_ms(fn) for label, fn in
-             (("plain", plain), ("library", library))}
+             (("kernel", kernel), ("plain", plain), ("library", library))}
     times.update({f"{label}_eager_ms": eager_ms(fn) for label, fn in
                   (("kernel", kernel), ("library", library))})
-    by_tile = {
-        tile_rows: device_ms(lambda tile_rows=tile_rows:
-                             fa.flash_attention_cuda(q, k, v, mask, causal,
-                                                     tile_rows))
-        for tile_rows in fa.TILE_ROWS}
-    times["kernel_ms_by_tile_rows"] = by_tile
-    times["kernel_ms"] = by_tile[fa.serving_tile_rows(Lq)]
     if kind == "cache_pos":     # the mean over a generate's steps
         works = [attention_work(q, k, cache_pos_mask(Lk, cur), causal)
                  for cur in range(Lk)]
@@ -863,6 +876,7 @@ def attention_case(name, B, H, Lq, Lk, D, kind, causal, gen,
     t_flops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
     row = {"case": name, "B": B, "H": H, "Lq": Lq, "Lk": Lk, "D": D,
            "mask": kind, "mask_checked_also": check_kind, "causal": causal,
+           **forward_form(q, k),
            "calls_per_forward": calls_per_forward,
            "calls_per_generate": calls_per_generate,
            "max_abs_err_bf16": errs[torch.bfloat16],
@@ -884,8 +898,7 @@ def attention_case(name, B, H, Lq, Lk, D, kind, causal, gen,
 
 def kernel_phase() -> dict:
     """Rows keyed by case: the classification serving forward's cases
-    (ATTN_CASES) and the generative path's (GEN_CASES). ``kernel_ms`` is
-    the time at the tile size the paths use (``serving_tile_rows``)."""
+    (ATTN_CASES) and the generative path's (GEN_CASES)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
     for name, B, H, Lq, Lk, D, kind, causal, calls in ATTN_CASES:
@@ -898,61 +911,21 @@ def kernel_phase() -> dict:
     return rows
 
 
-def _by_tile_sums(rows: dict, calls_key: str) -> dict:
-    main = [r for r in rows.values() if r[calls_key]]
-    out = {}
-    label = "kernel_ms_by_tile_rows"
-    out[label] = {t: sum(r[label][t] * r[calls_key] for r in main)
-                  for t in fa.TILE_ROWS}
-    ms = out["kernel_ms_by_tile_rows"]
-    out["fastest"] = min(ms, key=ms.get)
-    out["used_ms"] = sum(r["kernel_ms"] * r[calls_key] for r in main)
-    out["used"] = sorted({fa.serving_tile_rows(r["Lq"]) for r in main})
-    return out
-
-
-def decode_tile_rule(rows: dict) -> dict:
-    """The decode calls of one generate in each of bench_serving's four
-    configurations (new tokens x decoder layers self calls over the
-    cache and as many cross calls over the memory, at B rows for greedy
-    and B x beams for beam) at each tile size, graph replay; their sum
-    over the four, from which DECODE_TILE_ROWS is chosen; and what the
-    tile used gives up in each against that configuration's fastest."""
-    cfg = bench_serving.serving_config()
-    calls = bench_serving.NEW_TOKENS * cfg.decoder_layers
-    beams = bench_serving.decode_config("beam").num_beams
-    by_config = {}
-    for strategy in GEN_STRATEGIES:
-        for B in GEN_BATCHES:
-            R = B * (beams if strategy == "beam" else 1)
-            self_ms, cross_ms = (
-                rows[f"dec_{kind}_{R}"]["kernel_ms_by_tile_rows"]
-                for kind in ("self", "cross"))
-            by_config[f"{strategy}_b{B}"] = {
-                t: calls * (self_ms[t] + cross_ms[t]) for t in fa.TILE_ROWS}
-    total = {t: sum(c[t] for c in by_config.values()) for t in fa.TILE_ROWS}
-    used = fa.DECODE_TILE_ROWS
-    return {"calls_per_generate": 2 * calls,
-            "ms_per_generate_by_tile_rows": by_config,
-            "ms_all_configs_by_tile_rows": total,
-            "fastest_all_configs": min(total, key=total.get), "used": used,
-            "given_up_ms_per_generate": {
-                k: c[used] - min(c.values()) for k, c in by_config.items()}}
-
-
-def tile_rows_line(rows: dict) -> dict:
-    """The serving forward's bf16 time at each tile size by graph
-    replay: per flagship forward (its 36 calls at the five serving
-    shapes), per beam generate at batch 16 (its 411 calls), per call at
-    each single-query decode shape, and the decode tile rule's sums."""
-    out = _by_tile_sums(rows, "calls_per_forward")
-    out["generate"] = _by_tile_sums(rows, "calls_per_generate")
-    out["decode_cases"] = {
-        r["case"]: {"kernel_ms_by_tile_rows": r["kernel_ms_by_tile_rows"],
-                    "library_ms": r["library_ms"]}
-        for r in rows.values() if r["Lq"] == 1}
-    out["decode_rule"] = decode_tile_rule(rows)
-    return {"serving_tile_rows": out}
+def forward_line(rows: dict) -> dict:
+    """The serving forward's bf16 time by graph replay, with SDPA's and
+    the bound beside it: per flagship forward (its 36 calls at the five
+    serving shapes), per beam generate at batch 16 (its 411 calls) and per
+    call at each single-query decode shape."""
+    def per(calls_key):
+        t = _path_totals(rows, calls_key)
+        return {k: t[k] for k in ("ms", "library_ms", "bound_ms", "bound_by")}
+    return {"serving_forward": {
+        "per_flagship_forward": per("calls_per_forward"),
+        "per_beam_generate_b16": per("calls_per_generate"),
+        "decode_calls": {
+            r["case"]: {"ms": r["kernel_ms"], "library_ms": r["library_ms"],
+                        "bound_ms": r["bound_us"] / 1e3, "form": r["form"]}
+            for r in rows.values() if r["Lq"] == 1}}}
 
 
 # -- phase 3, training kernels ----------------------------------------------
@@ -977,6 +950,16 @@ def train_attention_work(q, k, mask, causal) -> dict:
     bwd_bytes = (4 * nq + 2 * nk_read + 2 * nk) * e + 2 * stats + mask_b
     return {"flash_attn_fwd_lse": (nbytes + 2 * stats, 4 * D * pairs),
             "flash_attn_bwd": (bwd_bytes, 10 * D * pairs)}
+
+
+def fwd_scratch_bytes(q, k) -> int:
+    """Bytes of the forward's f32 split partials (o, m and l of every
+    split, batch row, head and query), written and read once: its long
+    form's overhead over the bound where it splits the keys (0
+    otherwise)."""
+    scratch = fa.forward_plan(*q.shape[:3], k.shape[2], q.shape[3])[
+        "scratch"]
+    return 0 if scratch is None else 2 * math.prod(scratch) * 4
 
 
 def bwd_scratch_bytes(q, k) -> int:
@@ -1027,6 +1010,12 @@ def check_train_kernels(q, k, v, do, mask, causal, rate, key) -> dict:
     if not same:
         raise AssertionError(f"backward ({dtype}, dropout {rate}): two "
                              f"calls on the same inputs differ")
+    if dtype != torch.float32 and forward_form(q, k)["form"] == "long" \
+            and not forward_twice_equal(lambda: fa.flash_attention_fwd_lse_cuda(
+                q, k, v, mask, causal, rate, key)):
+        raise AssertionError(f"training forward ({dtype}, dropout {rate}): "
+                             f"two long-form calls on the same inputs "
+                             f"differ")
     o_r, m_r, l_r = fa.attention_forward_lse_reference(q, k, v, mask, causal,
                                                        rate, key)
     dq_r, dk_r, dv_r = fa.attention_backward_reference(
@@ -1128,6 +1117,7 @@ def time_train_kernels(q, k, v, do, mask, causal, rate, key) -> dict:
             "bytes": nbytes, "flops": flops,
             "bound_ms": max(t_bytes, t_flops),
             "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
+    times["flash_attn_fwd_lse"].update(forward_form(q, k))
     times["flash_attn_bwd"]["scratch_bytes"] = bwd_scratch_bytes(q, k)
     times["library_fwd_bwd_ms"] = lib_fwd_bwd
     return times
@@ -2665,7 +2655,8 @@ def abl_masks(cfg: VQAModelConfig, batch: int, gen) -> dict:
 def abl_kernel_phase(cfg: VQAModelConfig, batch: int = ABL_BATCH) -> dict:
     """Rows keyed by case: each of the four kernels at the study's shapes
     and masks against its plain version in f32 and bf16 (the training
-    kernels at the call's dropout, the forward at the serving tile rows),
+    kernels at the call's dropout, the forward as the serving path calls
+    it),
     then in bf16 the training kernels timed as ``time_train_kernels``
     times them and the forward by graph replay, beside
     its plain version, its bound and SDPA's forward."""
@@ -3103,8 +3094,8 @@ def knowledge_key_mask(B: int, Lk: int, kind: str, gen) -> torch.Tensor:
 
 def rag_kernel_phase() -> dict:
     """The four kernels at the knowledge path's shapes against their plain
-    versions: the forward (``attention_case``: f32, f16 and bf16 at every
-    tile size, timed beside its plain version and SDPA) at RAG_FWD_CASES;
+    versions: the forward (``attention_case``: f32, f16 and bf16, timed
+    beside its plain version and SDPA) at RAG_FWD_CASES;
     the training kernels (``check_train_kernels``: f32, f16, bf16,
     at dropout 0 and at the path's rate) at RAG_TRAIN_CASES, timed in
     bf16 by ``time_train_kernels``. Rows keyed by case ((case, rate) for
@@ -4471,8 +4462,8 @@ ZOO_STEP_CALLS["trainer"] = {f"{n}_b32": c for n, c in
 
 def zoo_kernel_phase(rows: dict) -> dict:
     """The four kernels at the zoo's new shapes against their plain
-    versions: the forward (``attention_case``: f32, f16 and bf16 at every
-    tile size, timed beside its plain version and SDPA) at ZOO_FWD_CASES;
+    versions: the forward (``attention_case``: f32, f16 and bf16, timed
+    beside its plain version and SDPA) at ZOO_FWD_CASES;
     the training kernels (``check_train_kernels``: f32, f16 and
     bf16 at dropout 0 and at the path's rate; ``time_train_kernels`` at
     the path's rate in bf16) at ZOO_TRAIN_CASES, where each case of the
@@ -4970,9 +4961,15 @@ def zoo_library_phase(device: str = "cuda",
         want_bwd = {n: calls for n in TRAIN_KERNELS}
         want_bwd["flash_attn_fwd"] = 0
         if name == "vision_token" and on_card:
-            # its 32 x 784 calls take the backward's long form: the dQ sum
-            # launches once a call
+            # its 32 x 784 calls take the backward's long form (the dQ sum
+            # launches once a call) and the forwards' long form, whose key
+            # splits at this batch are merged by a second launch
             want_bwd["flash_attn_bwd_sum"] = calls
+            merges = calls * (fa.forward_plan(B, 4, 32, 784, 64)[
+                "launches"] - 1)
+            if merges:
+                want_fwd["flash_attn_fwd_merge"] = merges
+                want_bwd["flash_attn_fwd_merge"] = merges
         if row["forward_launches"] != want_fwd \
                 or row["fwd_bwd_launches"] != want_bwd \
                 or not bool(torch.isfinite(res["tokens"]).all()):
@@ -5598,6 +5595,17 @@ def hf_tower_check(name: str, path: str, device: str = "cuda",
     layers = enc.config.num_layers
     want = {n: 0 for n in outs["card"]["launches"]}
     want["flash_attn_fwd"] = layers if device == "cuda" else 0
+    if name != "bartpho_encoder" and device == "cuda":
+        # a visual tower's calls over its patch tokens and the class
+        # token; where they take the long form with key splits, each call
+        # also launches the merge
+        cfg = enc.config
+        L = (cfg.image_size // cfg.patch_size) ** 2 + 1
+        merges = layers * (fa.forward_plan(
+            B, cfg.num_heads, L, L, cfg.hidden_dim // cfg.num_heads)[
+                "launches"] - 1)
+        if merges:
+            want["flash_attn_fwd_merge"] = merges
     if outs["card"]["launches"] != want:
         raise AssertionError(f"hf_import {name}: launches "
                              f"{outs['card']['launches']} != {want}")
@@ -5606,8 +5614,8 @@ def hf_tower_check(name: str, path: str, device: str = "cuda",
 
 def hf_kernel_phase() -> dict:
     """The forward kernel at the pretrained towers' new shapes
-    (``attention_case``: f32, f16 and bf16 at every tile size against the
-    plain version, timed beside SDPA with its bound)."""
+    (``attention_case``: f32, f16 and bf16 against the plain version, timed
+    beside SDPA with its bound)."""
     gen = torch.Generator(device="cuda").manual_seed(13)
     return {name: attention_case(name, B, H, Lq, Lk, D, kind, False, gen)
             for name, B, H, Lq, Lk, D, kind in HF_FWD_CASES}
@@ -5812,9 +5820,7 @@ def mesh_totals(rows: dict) -> dict:
     full model at its per-rank batch on (2, 1) (``ablation``)."""
     def totals(part_rows):
         fwd = {str(n): r["forward"] for n, r in part_rows.items()}
-        out = {"flash_attn_fwd": {
-            k: v for k, v in _path_totals(fwd, "calls_per_forward").items()
-            if k != "ms_by_tile_rows"}}
+        out = {"flash_attn_fwd": _path_totals(fwd, "calls_per_forward")}
         out.update(step_totals({str(n): r["training"]
                                 for n, r in part_rows.items()}))
         return out
@@ -6793,7 +6799,7 @@ def path_check_phase(launched: dict) -> dict:
     kernel check held yet is held now against the plain version on inputs
     of that key (normal q, k, v and dO; a mask of the key's stored shape,
     each element kept with probability 0.8; the key's dropout rate): the
-    forward at the key's tile rows to ATTN_TOL, a training kernel's key by
+    forward to ATTN_TOL, a training kernel's key by
     the training kernels' forward and backward (``check_train_kernels``).
     Fails if a path launched a key that stays unchecked."""
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -6803,7 +6809,7 @@ def path_check_phase(launched: dict) -> dict:
     for key in sorted(every - CHECKED, key=str):
         if key in CHECKED:      # held with the training kernels of its call
             continue
-        name, dtype, (B, H, Lq, D), Lk, mask_shape, causal, rate, tile = key
+        name, dtype, (B, H, Lq, D), Lk, mask_shape, causal, rate = key
         dt = getattr(torch, dtype)
         q, k, v, do = (torch.randn(B, H, L, D, generator=gen,
                                    device="cuda").to(dt)
@@ -6812,7 +6818,7 @@ def path_check_phase(launched: dict) -> dict:
             mask_shape, generator=gen, device="cuda") < 0.8
         if name == "flash_attn_fwd":
             with recording_launches(CHECKED):
-                out = fa.flash_attention_cuda(q, k, v, mask, causal, tile)
+                out = fa.flash_attention_cuda(q, k, v, mask, causal)
             ref = fa.attention_reference(q, k, v, mask, causal)
             torch.cuda.synchronize()
             errs = {"o": float((out.float() - ref.float()).abs().max())}
@@ -6832,7 +6838,7 @@ def path_check_phase(launched: dict) -> dict:
             "held_by_kernel_phases": len(held_before),
             "held_here": rows,
             "key": ["kernel", "dtype", "q shape", "Lk", "mask shape",
-                    "causal", "dropout", "tile rows"]}
+                    "causal", "dropout"]}
 
 
 def kernels_line(rows: dict, launches: int, generative: dict,
@@ -7045,7 +7051,8 @@ def kernels_line(rows: dict, launches: int, generative: dict,
     gen_totals = step_totals(gen_rows)
     replaces = {
         "flash_attn_fwd_lse": ("flash_attn_fwd.cu", ":142 (_flash_kernel_lse, "
-                               "pallas_call at :206)"),
+                               "via _flash_forward_lse :196, pallas_call "
+                               "at :206)"),
         "flash_attn_bwd": ("flash_attn_bwd.cu", ":230 "
                            "(_flash_bwd_dkv_kernel, pallas_call at :351) "
                            "and :285 (_flash_bwd_dq_kernel, pallas_call at "
@@ -7059,6 +7066,8 @@ def kernels_line(rows: dict, launches: int, generative: dict,
             "source": f"vivqa_tpu_torch/csrc/{source}",
             "replaces": f"vivqa_tpu/ops/flash_attention.py{where}",
             "launches": train_launches[name], **step, **ptxas[name],
+            **({"design": FORWARD_DESIGN}
+               if name == "flash_attn_fwd_lse" else {}),
             "per": f"one flagship train step at batch {TRAIN_BATCH} "
                    f"({ATTN_CALLS_PER_STEP} calls), bf16; max_abs_err is "
                    f"relative to each tensor's largest value for dq/dk/dv "
@@ -7210,10 +7219,7 @@ def _path_totals(rows: dict, calls_key: str) -> dict:
             "plain_ms": total("plain_ms"),
             "bound_ms": max(t_bytes, t_flops),
             "bound_by": "bytes" if t_bytes >= t_flops else "operations",
-            "library_ms": total("library_ms"),
-            "ms_by_tile_rows": {t: sum(r["kernel_ms_by_tile_rows"][t]
-                                       * r[calls_key] for r in main)
-                                for t in fa.TILE_ROWS}}
+            "library_ms": total("library_ms")}
 
 
 def generate_entry(rows: dict, generative: dict) -> dict:
@@ -7233,16 +7239,25 @@ def generate_entry(rows: dict, generative: dict) -> dict:
                    f" bf16"}
 
 
+FORWARD_DESIGN = ("one Hopper forward for both entries: a TMA-fed, "
+                  "persistent wgmma kernel (tile form for Lk <= 128, over "
+                  "one 32-key tile for Lk <= 32; long form over 64- or "
+                  "128-key tiles, its keys split over units where (b, h, "
+                  "query tile) units are fewer than the SMs, merged by a "
+                  "second kernel; branchless masking and causal rules) and "
+                  "a CUDA-core decode form for Lq <= 4; "
+                  "flash_attention.forward_plan picks the form")
+
+
 def forward_entry(rows: dict, launches: int, ptxas: dict) -> dict:
     totals = _path_totals(rows, "calls_per_forward")
     return {
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "vivqa_tpu_torch/csrc/flash_attn_fwd.cu",
         "replaces": "vivqa_tpu/ops/flash_attention.py:61 (_flash_kernel, "
-                    "pallas_call at :127)",
+                    "via _flash_forward :116, pallas_call at :127)",
         "launches": launches, **totals, **ptxas,
-        "tile_rows": {"Lq > 16": fa.SERVING_TILE_ROWS,
-                      "Lq <= 16": fa.DECODE_TILE_ROWS},
+        "design": FORWARD_DESIGN,
         "per": f"one flagship forward at batch 8 "
                f"({ATTN_CALLS_PER_FORWARD} calls), bf16"}
 
@@ -7424,24 +7439,18 @@ def main(argv=None) -> int:
         return 0
     with timed("kernels"):
         rows = kernel_phase()
-    tiles = tile_rows_line(rows)
-    emit(tiles)
-    print("[kernels] serving forward per flagship forward (bf16): "
-          + ", ".join(f"{t} rows {ms:.4f} ms" for t, ms in
-                      tiles["serving_tile_rows"]["kernel_ms_by_tile_rows"]
-                      .items())
-          + f"; the serving path uses {fa.SERVING_TILE_ROWS}; per beam "
-          f"generate at batch 16: " + ", ".join(
-              f"{t} rows {ms:.4f} ms" for t, ms in
-              tiles["serving_tile_rows"]["generate"]["kernel_ms_by_tile_rows"]
-              .items())
-          + f"; the decoder's single-query calls use {fa.DECODE_TILE_ROWS}"
-          f" (decode calls of the four bench_serving configurations "
-          f"together: " + ", ".join(
-              f"{t} rows {ms:.4f} ms" for t, ms in
-              tiles["serving_tile_rows"]["decode_rule"]
-              ["ms_all_configs_by_tile_rows"].items()) + ")",
-          flush=True)
+    fwd_line = forward_line(rows)
+    emit(fwd_line)
+    line = fwd_line["serving_forward"]
+    print("[kernels] serving forward (bf16): " + "; ".join(
+        f"per {label.replace('_', ' ')} {t['ms']:.4f} ms (SDPA "
+        f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms)"
+        for label, t in (("flagship forward", line["per_flagship_forward"]),
+                         ("beam generate at 16",
+                          line["per_beam_generate_b16"])))
+          + "; decode calls: " + ", ".join(
+              f"{n} {t['ms'] * 1e3:.2f} us (SDPA {t['library_ms'] * 1e3:.2f})"
+              for n, t in line["decode_calls"].items()), flush=True)
     with timed("kernels"):
         train_rows = train_kernel_phase()
     print(f"[kernels] {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -609,3 +609,273 @@ def test_backward_bound_of_the_flagship_step():
     assert nbytes == one_pass_rule
     assert chip_smoke.bwd_scratch_bytes(q, k) == 2 * 13 * 8 * 4 * 32 * 64 * 4
     assert chip_smoke.bwd_scratch_bytes(q[:, :, :, :], q) == 0
+
+
+# -- the forward's schedule ----------------------------------------------------
+# The card's bf16/f16 forward (csrc/flash_attn_fwd.cu), in its tile and
+# long forms, walks each (b, h, 64-query tile)'s keys in tiles of
+# forward_plan's key_tile with an online softmax: the running max m (from
+# -1e30) is raised tile by tile, the earlier sums are rescaled by
+# exp(m_old - m_new), p = exp(s - m) times the dropout multiplier is rounded
+# to the input dtype per tile as the operand of P V, every sum is f32, and
+# l sums p before dropout. Where the plan splits the keys, each split's
+# (o, m, l) is an f32 partial, merged in split order. This is that schedule
+# on the CPU; with operand_dtype None the plain version of the same
+# schedule, all in f32.
+def _forward_schedule(q, k, v, mask=None, causal=False, rate=0.0, key=0,
+                      key_tile=64, splits=1, operand_dtype=None):
+    acc = torch.float32
+    s = fa._masked_logits(q, k, mask, causal).to(acc)
+    z = fa._bwd_z(q, k, rate, key, acc)
+    n_kt = -(-k.shape[2] // key_tile)
+    per_split = -(-n_kt // splits)
+    parts = []
+    for sp in range(splits):
+        m = torch.full(s.shape[:3], fa.NEG_INF, dtype=acc)
+        l = torch.zeros(s.shape[:3], dtype=acc)
+        o = torch.zeros(q.shape, dtype=acc)
+        for kt in range(sp * per_split, min(n_kt, (sp + 1) * per_split)):
+            cols = slice(kt * key_tile, (kt + 1) * key_tile)
+            m_new = torch.maximum(m, s[..., cols].amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s[..., cols] - m_new[..., None])
+            l = alpha * l + p.sum(-1)
+            if z is not None:
+                p = p * z[:, cols]
+            if operand_dtype is not None:
+                p = p.to(operand_dtype).to(acc)
+            o = alpha[..., None] * o + torch.einsum(
+                "bhqk,bhkd->bhqd", p, v[:, :, cols].to(acc))
+            m = m_new
+        parts.append((o, m, l))
+    m = torch.stack([pm for _, pm, _ in parts]).amax(0)
+    o, l = torch.zeros(q.shape, dtype=acc), torch.zeros(m.shape, dtype=acc)
+    for po, pm, pl in parts:     # in split order
+        w = torch.exp(pm - m)
+        o, l = o + w[..., None] * po, l + w * pl
+    l = l.clamp_min(1e-30)
+    return (o / l[..., None]).to(q.dtype), m, l
+
+
+def _planned(B, H, Lq, Lk, D):
+    plan = fa.forward_plan(B, H, Lq, Lk, D)
+    return plan["key_tile"], plan["splits"]
+
+
+def _stat_err(got, want) -> float:
+    """chip_smoke.py's m and l error: |got - want| / (1 + |want|)."""
+    return float(((got - want).abs() / (1 + want.abs())).max())
+
+
+# (H, Lq, Lk, mask kind, causal) at batch 2, head dim 64: the flagship's
+# five shapes and the generative fusion's 113 (the tile form), 80 queries
+# over one 32-key tile, then the long form: 32 queries over 300 keys in 5
+# splits, a causal 150 x 150 in 2 splits of 128-key tiles, and keyless
+# rows over 5 splits
+FORWARD_ROUNDING_CASES = [(*c, False) for c in ROUNDING_CASES] + [
+    (2, 80, 32, "query_key", False),
+    (2, 32, 300, None, False),
+    (2, 150, 150, None, True),
+    (2, 40, 300, "query_key", False),
+]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["no_dropout", "dropout"])
+@pytest.mark.parametrize("case", FORWARD_ROUNDING_CASES, ids=str)
+def test_forward_rounding_within_card_tolerance(case, rate):
+    """bf16 inputs from a numpy seed: the forward's schedule with p z
+    rounded to bf16 per key tile, the running max across tiles and the
+    split partials merged in f32, against the f32-internal plain version:
+    o within the card's bf16 tolerance, m and l within STAT_TOL."""
+    import chip_smoke
+    H, Lq, Lk, kind, causal = case
+    q, k, v, _ = (torch.from_numpy(a).to(torch.bfloat16)
+                  for a in _arrays(2, H, Lq, Lk, 64, seed=12))
+    mask = _mask(kind, 2, Lq, Lk)
+    mask = None if mask is None else torch.from_numpy(mask)
+    key = fa.dropout_key(12, 1)
+    key_tile, splits = _planned(2, H, Lq, Lk, 64)
+    o, m, l = _forward_schedule(q, k, v, mask, causal, rate, key, key_tile,
+                                splits, torch.bfloat16)
+    want_o, want_m, want_l = fa.attention_forward_lse_reference(
+        q, k, v, mask, causal, rate, key)
+    assert o.dtype == torch.bfloat16
+    assert _rel_err(o, want_o) <= ATTN_TOL_BF16
+    assert _stat_err(m, want_m) <= chip_smoke.STAT_TOL
+    assert _stat_err(l, want_l) <= chip_smoke.STAT_TOL
+
+
+@pytest.fixture(scope="module")
+def pallas_forward():
+    """JAX's _flash_forward_lse in Pallas interpret mode, f32, at one
+    two-tile and one causal four-tile shape."""
+    jfa = importlib.import_module("vivqa_tpu.ops.flash_attention")
+    out = {}
+    jfa._INTERPRET = True
+    try:
+        for B, H, Lq, Lk, causal in ((1, 2, 128, 128, False),
+                                     (1, 1, 128, 256, True)):
+            q, k, v, _ = _arrays(B, H, Lq, Lk, 64, seed=13)
+            bq, bk = jfa._pick_blocks(Lq, Lk)
+            want = jfa._flash_forward_lse(*(jnp.asarray(a) for a in (q, k, v)),
+                                          causal, bq, bk)
+            out[(Lq, Lk, causal)] = ((q, k, v), [np.array(w) for w in want])
+    finally:
+        jfa._INTERPRET = False
+    return out
+
+
+@pytest.mark.parametrize("shape, key_tile, splits", [
+    ((128, 128, False), 64, 1), ((128, 128, False), 64, 2),
+    ((128, 256, True), 64, 1), ((128, 256, True), 64, 4)], ids=str)
+def test_forward_schedule_matches_pallas_forward(shape, key_tile, splits,
+                                                 pallas_forward):
+    """The forward's schedule in f32, in one pass over the keys and split,
+    against JAX's _flash_forward_lse (Pallas, interpret mode): o, m, l."""
+    (q, k, v), (o, m, l) = pallas_forward[shape]
+    got = _forward_schedule(*(torch.from_numpy(a) for a in (q, k, v)),
+                            causal=shape[2], key_tile=key_tile, splits=splits)
+    assert_close(got[0], o, msg="o", **GRAD_TOL)
+    assert_close(got[1], m, msg="m", **GRAD_TOL)
+    assert_close(got[2], l, msg="l", atol=1e-4, rtol=2e-5)
+
+
+# (B, H, Lq, Lk, mask kind, causal) at head dim 32, each at its plan: the
+# tile form with keyless rows and causal both ways, the long form split
+FORWARD_SCHEDULE_CASES = [
+    (2, 2, 49, 64, "key", False),
+    (2, 2, 64, 64, "query_key", False),
+    (2, 2, 40, 9, None, True),
+    (1, 2, 32, 200, None, False),
+    (1, 2, 150, 150, None, True),
+    (2, 2, 130, 300, "query_key", False),
+]
+
+
+@pytest.fixture(scope="module")
+def xla_forwards():
+    """_xla_attention for each FORWARD_SCHEDULE_CASES row, f32, one jitted
+    function a case."""
+    out = {}
+    for case in FORWARD_SCHEDULE_CASES:
+        B, H, Lq, Lk, kind, causal = case
+        q, k, v, _ = _arrays(B, H, Lq, Lk, 32, seed=14)
+        mask = _mask(kind, B, Lq, Lk)
+        fwd = jax.jit(lambda q, k, v, mask=None if mask is None
+                      else jnp.asarray(mask), causal=causal:
+                      _xla_attention(q, k, v, mask, causal))
+        want = fwd(*(jnp.asarray(a) for a in (q, k, v)))
+        out[case] = ((q, k, v, mask), np.asarray(want))
+    return out
+
+
+@pytest.mark.parametrize("case", FORWARD_SCHEDULE_CASES, ids=str)
+def test_forward_schedule_matches_xla_attention(case, xla_forwards):
+    """The forward's schedule in f32 at the call's plan (key tiles and
+    splits) against _xla_attention: a row whose keys are all removed is
+    the mean of v."""
+    B, H, Lq, Lk, kind, causal = case
+    (q, k, v, mask), want = xla_forwards[case]
+    key_tile, splits = _planned(B, H, Lq, Lk, 32)
+    got, _, _ = _forward_schedule(
+        *(torch.from_numpy(a) for a in (q, k, v)),
+        None if mask is None else torch.from_numpy(mask), causal,
+        key_tile=key_tile, splits=splits)
+    assert np.isfinite(got.numpy()).all()
+    assert_close(got, want, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("operand_dtype", [None, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_forward_keyless_rows_across_splits(operand_dtype):
+    """A row whose keys are all removed, over 5 key splits: every split's
+    m is -1e30, so the merge weighs each by 1: m is exactly -1e30, l
+    exactly Lk, and o the mean of v."""
+    q, k, v, _ = (torch.from_numpy(a) for a in _arrays(1, 2, 40, 300, 64,
+                                                       seed=15))
+    if operand_dtype is not None:
+        q, k, v = (t.to(operand_dtype) for t in (q, k, v))
+    mask = torch.ones(1, 1, 40, 300, dtype=torch.bool)
+    mask[:, :, :5] = False
+    key_tile, splits = _planned(1, 2, 40, 300, 64)
+    assert splits == 5
+    o, m, l = _forward_schedule(q, k, v, mask, key_tile=key_tile,
+                                splits=splits, operand_dtype=operand_dtype)
+    assert (m[:, :, :5] == fa.NEG_INF).all() and (m[:, :, 5:] > -1e3).all()
+    assert (l[:, :, :5] == 300).all()
+    mean = v.float().mean(2, keepdim=True).expand(1, 2, 5, 64)
+    assert_close(o[:, :, :5].float(), mean,
+                 **(GRAD_TOL if operand_dtype is None
+                    else dict(atol=1e-2, rtol=1e-2)))
+
+
+@pytest.mark.parametrize("shape, want", [
+    # the flagship step's five shapes at batch 128 and the serving batch
+    ((128, 12, 50, 50, 64), ("tile", 1, 1536, 64, 64, 1, None)),
+    ((128, 8, 49, 49, 64), ("tile", 1, 1024, 64, 64, 1, None)),
+    ((128, 12, 64, 64, 64), ("tile", 1, 1536, 64, 64, 1, None)),
+    ((128, 8, 49, 64, 64), ("tile", 1, 1024, 64, 64, 1, None)),
+    ((8, 12, 50, 50, 64), ("tile", 1, 96, 64, 64, 1, None)),
+    # the generative fusion's 113, its decoder's cross call over 118
+    ((16, 8, 113, 113, 64), ("tile", 1, 128, 128, 128, 1, None)),
+    ((32, 8, 32, 118, 64), ("tile", 1, 256, 64, 64, 1, None)),
+    # at most 32 keys: one 32-key tile (the ablation study's experts, the
+    # generative decoder's self calls in training), also past 64 queries
+    ((32, 8, 8, 8, 64), ("tile", 1, 256, 64, 32, 1, None)),
+    ((32, 8, 80, 32, 64), ("tile", 1, 512, 64, 32, 1, None)),
+    ((32, 8, 32, 33, 64), ("tile", 1, 256, 64, 64, 1, None)),
+    # single queries: the decoder's self calls over the cache, its cross
+    # calls over 113, KnowledgeAttention over 5
+    ((64, 8, 1, 32, 64), ("decode", 1, 512, None, None, 1, None)),
+    ((64, 8, 1, 113, 64), ("decode", 1, 512, None, None, 1, None)),
+    ((128, 8, 1, 5, 64), ("decode", 1, 1024, None, None, 1, None)),
+    # long keys: ViT-B/16's 197 (at batch 2 split), the zoo's 32 x 784
+    # (split), long_1024, DINOv2's 1,370, and head dim 128 split
+    ((4, 12, 197, 197, 64), ("long", 1, 96, 128, 128, 1, None)),
+    ((2, 12, 197, 197, 64), ("long", 2, 96, 128, 128, 2,
+                             (2, 2, 12, 197, 66))),
+    ((8, 4, 32, 784, 64), ("long", 2, 224, 64, 64, 7, (7, 8, 4, 32, 66))),
+    ((2, 8, 1024, 1024, 64), ("long", 1, 128, 128, 128, 1, None)),
+    ((1, 12, 1370, 1370, 64), ("long", 1, 132, 128, 128, 1, None)),
+    ((2, 2, 64, 300, 128), ("long", 2, 20, 64, 64, 5, (5, 2, 2, 64, 130))),
+    ((2, 2, 200, 300, 128), ("long", 2, 40, 128, 64, 5,
+                             (5, 2, 2, 200, 130))),
+], ids=str)
+def test_forward_plan_by_shape(shape, want):
+    """The form a call takes, its launches, its units, its query and key
+    tiles, its key splits and the f32 scratch of the split partials: at
+    most 4 queries the decode form, a unit per (b, h); else a unit per
+    (b, h, 64-query tile) over 64-key tiles (one 32-key tile over at most
+    32 keys), one launch while the keys fit 128; more than 64 keys over
+    more than 64 queries take 128-query units, and where long keys leave
+    fewer units than half the H100's 132 SMs, key splits merged by a
+    second launch; the splits' key tiles add up to the call's."""
+    plan = fa.forward_plan(*shape)
+    assert (plan["form"], plan["launches"], plan["units"], plan["query_tile"],
+            plan["key_tile"], plan["splits"], plan["scratch"]) == want
+    if plan["form"] != "decode":
+        n_kt = -(-shape[3] // plan["key_tile"])
+        assert -(-n_kt // plan["tiles_per_split"]) == plan["splits"]
+
+
+def test_forward_plan_splits_by_the_cards_sm_count():
+    """The key splits follow the SM count the wrapper reads from the card:
+    ViT-B/16's 197 tokens at batch 2 (24 units of 128 queries) split in
+    two on the H100's 132 SMs, not at all on a card of 40 SMs, and never
+    into more splits than their two 128-key tiles."""
+    assert [fa.forward_plan(2, 12, 197, 197, 64, sms)["splits"]
+            for sms in (132, 40, 264)] == [2, 1, 2]
+    assert fa.forward_plan(1, 4, 32, 784, 64, 40)["splits"] == 13
+    assert fa.forward_plan(1, 4, 32, 784, 64, 8)["splits"] == 1
+
+
+def test_forward_scratch_bytes_match_hand_count():
+    """chip_smoke.fwd_scratch_bytes: the split partials, f32 o, m and l
+    of every (split, b, h, query), written once and read once; 0 without
+    splits."""
+    import chip_smoke
+    q = torch.empty(8, 4, 32, 64, dtype=torch.bfloat16)
+    k = torch.empty(8, 4, 784, 64, dtype=torch.bfloat16)
+    assert chip_smoke.fwd_scratch_bytes(q, k) == 2 * 7 * 8 * 4 * 32 * 66 * 4
+    q = torch.empty(2, 8, 1024, 64, dtype=torch.bfloat16)
+    assert chip_smoke.fwd_scratch_bytes(q, q) == 0

@@ -81,46 +81,131 @@ def test_kernel_matches_plain_version(case, dtype):
                                rtol=TOL[dtype])
 
 
-# The serving forward's tensor-core template at each tile size, with
-# query counts that leave a last tile of 1, 1 and 17 rows at 16 rows a
-# block: a query-key mask (fully masked rows), causal with Lq = Lk, and
-# causal with Lq > Lk (a tile that mixes rows with and without keys).
-SERVE_TILE_CASES = [  # (B, H, Lq, Lk, D, mask kind, causal)
+# The bf16/f16 forward's forms (``fa.forward_plan``) at their edges: the
+# decode form at 1 and 4 queries (one and four warps a block, keys over
+# 128 in chunks); the tile form at 5 queries, with ragged rows and keys,
+# and over 128-query units; the long form over 64-query units with key
+# splits (16 queries over 129 keys, the zoo's 32 x 784 shape at batch 2)
+# and without, over 128-query units with 128-key tiles (64 at D = 128),
+# split and not; causal where the diagonal leaves splits without keys;
+# query-key masks with keyless rows; more units than the card holds
+# blocks; 32-key tiles at head dims 128 and 32.
+FORM_CASES = [  # (B, H, Lq, Lk, D, mask kind, causal)
+    (4, 3, 1, 5, 64, "key", False),
+    (4, 3, 4, 300, 64, "query_key", False),
+    (4, 3, 5, 60, 64, "query_key", False),
+    (2, 2, 16, 129, 32, None, True),
     (3, 2, 17, 40, 64, "query_key", False),
-    (3, 2, 33, 33, 64, None, True),
     (3, 2, 49, 24, 64, None, True),
-    (3, 2, 17, 40, 32, "query_key", False),
+    (2, 3, 113, 113, 128, "key", False),
+    (2, 4, 32, 784, 64, None, False),
+    (1, 2, 64, 300, 32, "query_key", False),
+    (2, 4, 300, 1024, 64, "key", False),
+    (2, 2, 200, 300, 128, None, True),
+    (1, 2, 150, 150, 64, "query_key", True),
+    (12, 4, 197, 197, 64, None, False),
+    (40, 12, 50, 50, 64, "key", False),
+    (2, 3, 40, 17, 128, "query_key", False),
+    (2, 2, 70, 32, 32, "key", True),
 ]
 
 
-@pytest.mark.parametrize("tile_rows", fa.TILE_ROWS)
-@pytest.mark.parametrize("case", SERVE_TILE_CASES, ids=str)
+def _forward_launches(name, q, k) -> dict:
+    """A forward's launches: one of ``name``'s kernel, and in bf16 and
+    f16 the merge where the plan splits the keys."""
+    plan = fa.forward_plan(*q.shape[:3], k.shape[2], q.shape[3])
+    merges = plan["launches"] - 1 if q.dtype != torch.float32 else 0
+    return {name: 1, **({"flash_attn_fwd_merge": merges} if merges else {})}
+
+
+@pytest.mark.parametrize("case", FORM_CASES, ids=str)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
-def test_serving_kernel_tile_rows(case, dtype, tile_rows):
+def test_forward_forms_match_plain_versions(case, dtype):
+    """Each form against the plain versions, serving and training (dropout
+    0 and 0.1), with its launches; a row whose keys are all removed has m
+    exactly -1e30 and l exactly Lk."""
     _need_card()
     *shape, kind, causal = case
     q, k, v, mask = _inputs(*shape, kind, dtype)
-    got = fa.flash_attention_cuda(q, k, v, mask, causal, tile_rows)
-    want = fa.attention_reference(q, k, v, mask, causal)
+    before = dict(fa.launch_counts)
+    got = fa.flash_attention_cuda(q, k, v, mask, causal)
+    assert {n: c - before[n] for n, c in fa.launch_counts.items()} \
+        == _counts(**_forward_launches("flash_attn_fwd", q, k))
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
-    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
-                               rtol=TOL[dtype])
+    torch.testing.assert_close(got.float(), fa.attention_reference(
+        q, k, v, mask, causal).float(), atol=TOL[dtype], rtol=TOL[dtype])
+    for rate in (0.0, 0.1):
+        key = fa.dropout_key(4321, 1)
+        o, m, l = fa.flash_attention_fwd_lse_cuda(q, k, v, mask, causal, rate,
+                                                  key)
+        o_ref, m_ref, l_ref = fa.attention_forward_lse_reference(
+            q, k, v, mask, causal, rate, key)
+        torch.cuda.synchronize()
+        _assert_rel(o, o_ref, TOL[dtype], f"o, dropout {rate}")
+        torch.testing.assert_close(m, m_ref, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(l, l_ref, atol=1e-5, rtol=1e-5)
+        allowed = fa._allowed(mask, causal, q.shape[2], k.shape[2], "cuda")
+        if allowed is not None:
+            keyless = (~allowed.any(-1)).expand(m.shape)
+            assert (m[keyless] == fa.NEG_INF).all()
+            assert (l[keyless] == k.shape[2]).all()
 
 
+@pytest.mark.parametrize("case", [c for c in FORM_CASES
+                                  if fa.forward_plan(*c[:5])["form"] == "long"],
+                         ids=str)
+def test_long_form_is_bit_deterministic(case):
+    """No atomics: two calls of the long form on the same inputs, split or
+    not, give the same bits (o, and m and l of the training entry)."""
+    _need_card()
+    *shape, kind, causal = case
+    q, k, v, mask = _inputs(*shape, kind, torch.bfloat16)
+    a, b = (fa.flash_attention_cuda(q, k, v, mask, causal) for _ in range(2))
+    assert torch.equal(a, b)
+    key = fa.dropout_key(4321, 2)
+    a, b = (fa.flash_attention_fwd_lse_cuda(q, k, v, mask, causal, 0.1, key)
+            for _ in range(2))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("case", [FORM_CASES[i] for i in (1, 3, 6, 8)],
+                         ids=str)
+def test_forward_in_a_cuda_graph(case):
+    """Captured in a CUDA graph (the tile and long forms' tensor maps are
+    kernel parameters, the split partials the graph pool's) and replayed,
+    each form gives its eager output bit for bit."""
+    _need_card()
+    *shape, kind, causal = case
+    q, k, v, mask = _inputs(*shape, kind, torch.bfloat16)
+    want = fa.flash_attention_cuda(q, k, v, mask, causal)
+    want_lse = fa.flash_attention_fwd_lse_cuda(q, k, v, mask, causal)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = fa.flash_attention_cuda(q, k, v, mask, causal)
+        got_lse = fa.flash_attention_fwd_lse_cuda(q, k, v, mask, causal)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert all(torch.equal(x, y) for x, y in zip(got_lse, want_lse))
+
+
+@pytest.mark.parametrize("L", [1, 37, 300], ids=["decode", "tile", "long"])
 @pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "misaligned"])
-def test_kernel_reads_strided_views(offset):
+def test_kernel_reads_strided_views(offset, L):
     """(B, L, H, D) projections viewed as (B, H, L, D), and a mask
     broadcast over the queries, are read in place; rows that do not start
-    on 16 bytes (offset 1) take the element-wise loads."""
+    on 16 bytes (offset 1) take element-wise loads in the decode form and
+    a contiguous copy for TMA in the tile and long forms."""
     _need_card()
-    B, L, H, D = 4, 37, 6, 64
+    B, H, D = 4, 6, 64
     x = torch.randn(B, L, 3 * H * D + offset, device="cuda",
                     dtype=torch.bfloat16)[..., offset:]
     q, k, v = (t.view(B, L, H, D).transpose(1, 2)
                for t in x.split(H * D, dim=-1))
     key_mask = (torch.arange(L, device="cuda")[None]
-                < torch.tensor([37, 20, 5, 1], device="cuda")[:, None])
+                < torch.tensor([L, 20, 5, 1], device="cuda")[:, None])
     mask = key_mask[:, None, None, :]                    # (B, 1, 1, L)
     got = fa.flash_attention_cuda(q, k, v, mask)
     want = fa.attention_reference(q.contiguous(), k.contiguous(),
@@ -230,7 +315,7 @@ def test_training_kernels_match_plain_versions(case, dtype, rate):
     o, m, l = fa.flash_attention_fwd_lse_cuda(q, k, v, mask, causal, rate, key)
     grads = fa.flash_attention_bwd_cuda(q, k, v, o, m, l, do, mask, causal,
                                         rate, key)
-    launched = {"flash_attn_fwd_lse": 1,
+    launched = {**_forward_launches("flash_attn_fwd_lse", q, k),
                 **_backward_launches(dtype, q.shape[2], k.shape[2])}
     assert {n: c - before[n] for n, c in fa.launch_counts.items()} \
         == _counts(**launched)
@@ -369,15 +454,21 @@ def _bytes_before_unmapped(nbytes: int) -> torch.Tensor:
 
 def masks_at_mapping_end():
     """The training kernels and the serving forward at the demo models'
-    text attention, (32, 4, 12, 12) with head dim 32 and 64, and at 12 x
-    140 keys (the backward's long form), each with its (B, 1, Lq, Lk)
+    text attention, (32, 4, 12, 12) with head dim 32 and 64, at 12 x 140
+    keys (the backward's long form), and at each of the forward's tile and
+    long forms, each with its (B, 1, Lq, Lk)
     padding mask stored so that the last key of the last row is the last
     mapped byte. A row's last key lies inside a 64-key block, whose keys
     past Lk no kernel may read. Runs in a process of its
     own (``test_kernels_read_no_mask_byte_past_the_last_key``), since a
     fault spoils the process's CUDA context."""
     B, H, L = 32, 4, 12
-    shapes = [(B, H, L, L, D) for D in (32, 64)] + [(4, 2, 12, 140, 64)]
+    # the demo text shapes and 12 x 140 take the forward's decode form; 40
+    # x 60 its tile form (a ragged 64-key tile); 40 x 300 and 150 x 200 its
+    # long form, split, over 64- and 128-key tiles
+    shapes = [(B, H, L, L, D) for D in (32, 64)] + [
+        (4, 2, 12, 140, 64), (4, 2, 40, 60, 64), (2, 2, 40, 300, 64),
+        (2, 2, 150, 200, 64)]
     for B, H, Lq, Lk, D in shapes:
         for dtype in DTYPES:
             q, k, v, mask = _inputs(B, H, Lq, Lk, D, "query_key", dtype)
@@ -769,16 +860,14 @@ def _decode_inputs(B, H, Lq, Lk, D, kind, dtype, cur_index):
     return q, k, v, mask.cuda()
 
 
-@pytest.mark.parametrize("tile_rows", fa.TILE_ROWS)
 @pytest.mark.parametrize("case", DECODE_CASES, ids=str)
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-def test_decode_and_fusion_shapes_match_plain_version(case, dtype,
-                                                      tile_rows):
+def test_decode_and_fusion_shapes_match_plain_version(case, dtype):
     _need_card()
     *shape, kind = case
     for cur_index in ((0, 15, 31) if kind == "cache_pos" else (7,)):
         q, k, v, mask = _decode_inputs(*shape, kind, dtype, cur_index)
-        got = fa.flash_attention_cuda(q, k, v, mask, False, tile_rows)
+        got = fa.flash_attention_cuda(q, k, v, mask, False)
         want = fa.attention_reference(q, k, v, mask)
         torch.cuda.synchronize()
         assert torch.isfinite(got).all()

@@ -143,33 +143,39 @@ def test_cuda_wrapper_refuses_cpu_tensors():
         flash_attention_cuda(q, k, v)
 
 
-def test_cuda_wrapper_refuses_unknown_tile_rows():
-    """The serving kernel's tile size is one of the three it was built
-    for; any other raises before anything is launched."""
-    q, k, v = (torch.from_numpy(t) for t in _qkv(1, 2, 5, 7, 64))
-    with pytest.raises(ValueError, match="tile_rows"):
-        flash_attention_cuda(q, k, v, tile_rows=24)
-
-
-def test_serving_tile_rows_by_query_count():
-    """Single-query decode calls (and any call of at most 16 queries)
-    take the decode tile, longer calls the encoders' tile."""
+def test_forward_form_by_query_count():
+    """Calls of at most 4 queries (the decoder's single-query calls,
+    KnowledgeAttention's) take the decode form, any longer call a unit per
+    64-query tile on wgmma: the tile form while the keys fit 128, the long
+    form beyond."""
     from vivqa_tpu_torch.ops import flash_attention as fa
-    assert [fa.serving_tile_rows(Lq) for Lq in (1, 16, 17, 113)] == [
-        fa.DECODE_TILE_ROWS, fa.DECODE_TILE_ROWS, fa.SERVING_TILE_ROWS,
-        fa.SERVING_TILE_ROWS]
-    assert {fa.DECODE_TILE_ROWS, fa.SERVING_TILE_ROWS} <= set(fa.TILE_ROWS)
+    assert [fa.forward_plan(8, 8, Lq, 113, 64)["form"]
+            for Lq in (1, 4, 5, 113)] == ["decode", "decode", "tile", "tile"]
+    assert [fa.forward_plan(8, 8, 64, Lk, 64)["form"]
+            for Lk in (1, 128, 129, 1024)] == ["tile", "tile", "long", "long"]
 
 
 def test_attention_kernel_counts_by_device_name():
     """Profiled kernel names map to the launch counts' names (the serving
-    forward apart from the training forward, the one-pass backward apart
-    from its long form's dQ sum and from the f32 dQ and dK/dV kernels),
-    and library attention is listed, whatever else the profile holds."""
+    forward's forms apart from the training forward's, the long form's
+    merge apart from both, the one-pass backward apart from its long
+    form's dQ sum and from the f32 dQ and dK/dV kernels; the f32 forward
+    kernel is none of them), and library attention is listed, whatever
+    else the profile holds."""
     from vivqa_tpu_torch.ops import flash_attention as fa
     kernels = {
-        "void flash_attn_fwd_mma_kernel<__nv_bfloat16, 64, false>()": 3,
-        "void flash_attn_fwd_lse_mma_kernel<__nv_bfloat16, true>()": 2,
+        "void (anonymous namespace)::flash_attn_fwd_serve_kernel<__nv_bfloat16,"
+        " 64, 64, false>(vivqa::fwd::Args)": 2,
+        "void (anonymous namespace)::flash_attn_fwd_serve_dec_kernel<"
+        "__nv_bfloat16, 64, 1, true>(vivqa::fwd::Params)": 1,
+        "void (anonymous namespace)::flash_attn_fwd_train_kernel<__nv_bfloat16,"
+        " 64, 64, true>(vivqa::fwd::Args)": 1,
+        "void (anonymous namespace)::flash_attn_fwd_train_dec_kernel<"
+        "__nv_bfloat16, 64, 1, true>(vivqa::fwd::Params)": 1,
+        "void (anonymous namespace)::flash_attn_fwd_merge_kernel<__nv_bfloat16,"
+        " 64, false>(vivqa::fwd::Params, float const*, int)": 2,
+        "void (anonymous namespace)::flash_attn_fwd_kernel<float, 64, true>("
+        "vivqa::fwd::Params)": 6,
         "void vivqa::bwd::flash_attn_bwd_kernel<__nv_bfloat16, 64, 1, true, "
         "false>(vivqa::bwd::Args)": 2,
         "void vivqa::bwd::flash_attn_bwd_kernel<__nv_bfloat16, 64, 1, false, "
@@ -186,6 +192,7 @@ def test_attention_kernel_counts_by_device_name():
     counts = fa.attention_kernel_counts(kernels)
     assert {k: v for k, v in counts.items() if k != "library"} == {
         "flash_attn_fwd": 3, "flash_attn_fwd_lse": 2,
+        "flash_attn_fwd_merge": 2,
         "flash_attn_bwd": 3, "flash_attn_bwd_sum": 1,
         "flash_attn_bwd_dq": 5, "flash_attn_bwd_dkv": 4}
     assert counts["library"] == [

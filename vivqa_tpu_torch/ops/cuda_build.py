@@ -34,7 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # entry points. nvcc compiles every part at once and links them into the
 # one library, so the longest part, not the whole source, sets the build's
 # time. A source not named here builds as one translation unit.
-PARTS = {"flash_attn_fwd": 6, "flash_attn_bwd": 6, "flash_attn_bwd_dq": 3,
+PARTS = {"flash_attn_fwd": 13, "flash_attn_bwd": 6, "flash_attn_bwd_dq": 3,
          "flash_attn_bwd_dkv": 3}
 
 

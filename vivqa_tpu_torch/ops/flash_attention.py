@@ -48,10 +48,13 @@ NEG_INF = -1e30
 
 # Launches of each kernel of this module. Each wrapper adds one per kernel
 # launch and nothing else does, so a run can show that its attention went
-# through the kernels. The bf16/f16 backward is flash_attn_bwd (and, in its
-# long form, the dQ sum); flash_attn_bwd_dq and flash_attn_bwd_dkv count
-# f32 backward launches only.
+# through the kernels. flash_attn_fwd and flash_attn_fwd_lse count the
+# forward kernels (every form), flash_attn_fwd_merge the merge that the
+# forward's long form adds where it splits the keys (either entry); the
+# bf16/f16 backward is flash_attn_bwd (and, in its long form, the dQ sum);
+# flash_attn_bwd_dq and flash_attn_bwd_dkv count f32 backward launches only.
 launch_counts = {"flash_attn_fwd": 0, "flash_attn_fwd_lse": 0,
+                 "flash_attn_fwd_merge": 0,
                  "flash_attn_bwd": 0, "flash_attn_bwd_sum": 0,
                  "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0}
 
@@ -60,25 +63,6 @@ launch_counts = {"flash_attn_fwd": 0, "flash_attn_fwd_lse": 0,
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
-# Query rows a block of the serving forward's tensor-core template (bf16,
-# f16) takes, and the ones the serving paths use (chip_smoke.py's kernel
-# phase times all three at every path shape on the H100; PERF.md,
-# Findings): 64 for calls of more than 16 queries, the fastest at the
-# classification forward's five shapes at batch 8; 32 for the decoder's
-# single-query calls, the fastest for the decode calls of bench_serving's
-# four configurations together (at 64 and 256 rows of batch, 64-row
-# blocks, 63 of their rows empty, take up to 1.6x as long; greedy at
-# batch 16, 16 rows of batch, alone is faster at 64 rows, and gives that
-# up).
-TILE_ROWS = (16, 32, 64)
-SERVING_TILE_ROWS = 64
-DECODE_TILE_ROWS = 32
-
-
-def serving_tile_rows(Lq: int) -> int:
-    """The tile size a serving call of ``Lq`` queries takes."""
-    return DECODE_TILE_ROWS if Lq <= 16 else SERVING_TILE_ROWS
-
 
 def reset_launch_counts() -> None:
     for name in launch_counts:
@@ -86,11 +70,15 @@ def reset_launch_counts() -> None:
 
 
 # What each launch count's kernel is called on the device (a part of the
-# names torch.profiler reports), and parts of what a library's attention
-# kernels are called (PyTorch's flash and memory-efficient SDPA, cuDNN's
-# fused attention); no kernel of this module's names holds one of these.
-DEVICE_KERNEL_NAMES = {"flash_attn_fwd": "flash_attn_fwd_mma_kernel",
-                       "flash_attn_fwd_lse": "flash_attn_fwd_lse",
+# names torch.profiler reports; each bf16/f16 forward form's serving and
+# training kernels are named *_serve_* and *_train_*, so no part is a part
+# of another's names; the f32 forward kernel is none of these), and parts
+# of what a library's attention kernels are called (PyTorch's flash and
+# memory-efficient SDPA, cuDNN's fused attention); no kernel of this
+# module's names holds one of these.
+DEVICE_KERNEL_NAMES = {"flash_attn_fwd": "flash_attn_fwd_serve",
+                       "flash_attn_fwd_lse": "flash_attn_fwd_train",
+                       "flash_attn_fwd_merge": "flash_attn_fwd_merge",
                        "flash_attn_bwd": "flash_attn_bwd_kernel",
                        "flash_attn_bwd_sum": "flash_attn_bwd_sum_kernel",
                        "flash_attn_bwd_dq": "flash_attn_bwd_dq",
@@ -381,13 +369,14 @@ def _dropout_args(rate: float, key: Optional[int]):
     return 1, dropout_threshold(rate), key & _M32, 1.0 / (1.0 - rate)
 
 
-_FWD_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+_PLAN_ARGS = [ctypes.c_int] * 2 + [ctypes.c_void_p]   # form, tiles a split
+_FWD_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
              + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
-                ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-_FWD_LSE_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                ctypes.c_float] + _PLAN_ARGS)
+_FWD_LSE_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
                  + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
                     ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_uint,
-                    ctypes.c_uint, ctypes.c_float, ctypes.c_void_p])
+                    ctypes.c_uint, ctypes.c_float] + _PLAN_ARGS)
 _BWD_ARGS = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
              + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
                 ctypes.c_float, ctypes.c_int, ctypes.c_uint, ctypes.c_uint,
@@ -412,40 +401,69 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         mask: Optional[torch.Tensor] = None,
-                         causal: bool = False,
-                         tile_rows: Optional[int] = None) -> torch.Tensor:
-    """Launch the Hopper forward kernel; raise on what it does not take.
-
-    Inputs need a unit stride over D only, so views of (B, L, H, D)
-    projections are read in place. The output is allocated as
-    (B, Lq, H, D) and returned as its (B, H, Lq, D) view. ``tile_rows``
-    (one of ``TILE_ROWS``; None: ``serving_tile_rows(Lq)``) is the query
-    rows a block of the bf16/f16 template takes; f32 runs the SIMT
-    template, which ignores it.
-    """
-    if tile_rows is None:
-        tile_rows = serving_tile_rows(q.shape[2])
-    if tile_rows not in TILE_ROWS:
-        raise ValueError(f"tile_rows {tile_rows} not in {TILE_ROWS}")
+def _launch_forward(name, q, k, v, mask, causal, stats, dropout_rate=0.0,
+                    dropout_key=None):
+    """Launch ``name``'s forward kernel, in bf16 and f16 in the form
+    ``forward_plan`` picks (the tile and long forms read q, k and v by TMA
+    in place where their bases and strides meet its 16-byte rules, else
+    from a contiguous copy; the long form's f32 partials are allocated
+    here), in f32 the SIMT template; raise on what it does not take.
+    Returns o (and m, l when ``stats``)."""
     m_strides = _check_cuda_inputs(q, k, v, mask)
     B, H, Lq, D = q.shape
     Lk = k.shape[2]
+    form, tiles_per_split, part, launches = 0, 0, None, 1
+    if q.dtype != torch.float32:
+        plan = forward_plan(B, H, Lq, Lk, D, _sm_count(q.device))
+        launches = plan["launches"]
+        if plan["form"] != "decode":
+            form = _KERNEL_FORMS[plan["query_tile"], plan["key_tile"]]
+            tiles_per_split = plan["tiles_per_split"]
+            q, k, v = (_tma_ready(t) for t in (q, k, v))
+        if plan["scratch"] is not None:
+            part = torch.empty(math.prod(plan["scratch"]), dtype=torch.float32,
+                               device=q.device)
     out = _heads_last(B, Lq, H, D, q)
     strides = (ctypes.c_longlong * 15)(*_blh(q), *_blh(k), *_blh(v),
                                         *_blh(out), *m_strides)
-    fn = _entry("flash_attn_fwd", "vivqa_flash_attn_fwd", _FWD_ARGS)
+    call = (_DTYPE_CODES[q.dtype], D, B, H, Lq, Lk, strides, int(causal),
+            int(_aligned(q, k, v)), 1.0 / math.sqrt(D))
+    plan_args = (form, tiles_per_split, _stream(q))
+    pointers = (None if part is None else part.data_ptr(),
+                None if mask is None else mask.data_ptr())
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 None if mask is None else mask.data_ptr(),
-                 _DTYPE_CODES[q.dtype], D, B, H, Lq, Lk, strides,
-                 int(causal), int(_aligned(q, k, v)), 1.0 / math.sqrt(D),
-                 tile_rows, _stream(q))
+        if stats:
+            m = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
+            l = torch.empty_like(m)
+            fn = _entry("flash_attn_fwd", "vivqa_flash_attn_fwd_lse",
+                        _FWD_LSE_ARGS)
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     m.data_ptr(), l.data_ptr(), *pointers, *call,
+                     *_dropout_args(dropout_rate, dropout_key), *plan_args)
+        else:
+            fn = _entry("flash_attn_fwd", "vivqa_flash_attn_fwd", _FWD_ARGS)
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     *pointers, *call, *plan_args)
     if err != 0:
-        raise RuntimeError(f"flash_attn_fwd launch failed: error {err}")
-    launch_counts["flash_attn_fwd"] += 1
-    return out
+        raise RuntimeError(f"{name} launch failed: error {err}")
+    launch_counts[name] += 1
+    if launches == 2:
+        launch_counts["flash_attn_fwd_merge"] += 1
+    return (out, m, l) if stats else out
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         mask: Optional[torch.Tensor] = None,
+                         causal: bool = False) -> torch.Tensor:
+    """Launch the Hopper forward kernel; raise on what it does not take.
+
+    Inputs need a unit stride over D only, so views of (B, L, H, D)
+    projections are read in place (or, in the tile and long forms, copied
+    where TMA's 16-byte rules fail). The output is allocated as
+    (B, Lq, H, D) and returned as its (B, H, Lq, D) view. bf16 and f16
+    take the form ``forward_plan`` picks; f32 runs the SIMT template.
+    """
+    return _launch_forward("flash_attn_fwd", q, k, v, mask, causal, False)
 
 
 def flash_attention_fwd_lse_cuda(q: torch.Tensor, k: torch.Tensor,
@@ -456,26 +474,8 @@ def flash_attention_fwd_lse_cuda(q: torch.Tensor, k: torch.Tensor,
                                  dropout_key: Optional[int] = None):
     """Launch the training forward kernel: ``(o, m, l)``, o as
     ``flash_attention_cuda`` (with dropout), m and l (B, H, Lq) f32."""
-    m_strides = _check_cuda_inputs(q, k, v, mask)
-    B, H, Lq, D = q.shape
-    Lk = k.shape[2]
-    out = _heads_last(B, Lq, H, D, q)
-    m = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
-    l = torch.empty_like(m)
-    strides = (ctypes.c_longlong * 15)(*_blh(q), *_blh(k), *_blh(v),
-                                        *_blh(out), *m_strides)
-    fn = _entry("flash_attn_fwd", "vivqa_flash_attn_fwd_lse", _FWD_LSE_ARGS)
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 m.data_ptr(), l.data_ptr(),
-                 None if mask is None else mask.data_ptr(),
-                 _DTYPE_CODES[q.dtype], D, B, H, Lq, Lk, strides,
-                 int(causal), int(_aligned(q, k, v)), 1.0 / math.sqrt(D),
-                 *_dropout_args(dropout_rate, dropout_key), _stream(q))
-    if err != 0:
-        raise RuntimeError(f"flash_attn_fwd_lse launch failed: error {err}")
-    launch_counts["flash_attn_fwd_lse"] += 1
-    return out, m, l
+    return _launch_forward("flash_attn_fwd_lse", q, k, v, mask, causal, True,
+                           dropout_rate, dropout_key)
 
 
 def _check_bwd_inputs(q, k, v, o, m, l, do, mask):
@@ -559,6 +559,64 @@ def flash_attention_bwd_dkv_cuda(q, k, v, m, l, do, delta, mask=None,
     _launch_bwd("flash_attn_bwd_dkv", q, k, v, None, m, l, do, delta, None,
                 dk, dv, mask, m_strides, causal, dropout_rate, dropout_key)
     return dk, dv
+
+
+# The bf16/f16 forward's forms (f32 runs the SIMT template, one launch):
+# a call of at most DECODE_MAX_QUERIES queries takes the decode form, a
+# unit per (b, h) on the CUDA cores; any other call takes units of
+# (b, h, query tile) on wgmma: the tile form while its keys fit
+# TILE_MAX_KEYS, else the long form. A unit is 64 queries over 64-key
+# tiles, or over one 32-key tile where the keys fit NARROW_MAX_KEYS; over
+# more than 64 queries and more than WIDE_MIN_KEYS keys 128 queries (two
+# consumer warpgroups sharing each K/V tile) over 128-key tiles (64 at D =
+# 128).
+# Where a long-form call has fewer units than half the card's SMs, its
+# keys are split over about twice as many units as SMs, whose f32
+# partials a second kernel merges (two launches).
+FWD_QUERY_TILE = 64
+DECODE_MAX_QUERIES = 4
+TILE_MAX_KEYS = 128
+WIDE_MIN_KEYS = 64
+NARROW_MAX_KEYS = 32
+H100_SMS = 132
+# the C entry's form of each (query tile, key tile), bf16/f16 (0: decode)
+_KERNEL_FORMS = {(64, 64): 1, (128, 128): 2, (128, 64): 2, (64, 32): 3}
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def forward_plan(B: int, H: int, Lq: int, Lk: int, D: int,
+                 sms: int = H100_SMS) -> dict:
+    """How the bf16/f16 forward kernel takes a call on a card of ``sms``
+    SMs: its ``form`` ("decode", "tile" or "long"), ``launches``,
+    ``units``, ``query_tile`` and ``key_tile`` (queries a unit, keys a
+    tile: None in the decode form), ``splits`` (key splits of each (b, h,
+    query tile)) of ``tiles_per_split`` key tiles each, and the
+    ``scratch`` shape of the long form's f32 partials where it splits,
+    (splits, B, H, Lq, D + 2): each row's o, m and l (None without
+    splits)."""
+    if Lq <= DECODE_MAX_QUERIES:
+        return {"form": "decode", "launches": 1, "units": B * H,
+                "query_tile": None, "key_tile": None, "splits": 1,
+                "tiles_per_split": None, "scratch": None}
+    form = "tile" if Lk <= TILE_MAX_KEYS else "long"
+    wide = Lq > FWD_QUERY_TILE and Lk > WIDE_MIN_KEYS
+    query_tile = 2 * FWD_QUERY_TILE if wide else FWD_QUERY_TILE
+    key_tile = (128 if wide and D <= 64 else 64 if wide or Lk > NARROW_MAX_KEYS
+                else 32)
+    n_kt = -(-Lk // key_tile)
+    units = B * H * -(-Lq // query_tile)
+    per_split = n_kt
+    if form == "long" and 2 * units < sms:
+        per_split = -(-n_kt // min(n_kt, -(-2 * sms // units)))
+    splits = -(-n_kt // per_split)
+    return {"form": form, "launches": 1 if splits == 1 else 2,
+            "units": units * splits, "query_tile": query_tile,
+            "key_tile": key_tile, "splits": splits,
+            "tiles_per_split": per_split,
+            "scratch": None if splits == 1 else (splits, B, H, Lq, D + 2)}
 
 
 # The one-pass backward's units: a call whose Lq and Lk are both at most
