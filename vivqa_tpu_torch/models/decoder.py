@@ -31,6 +31,7 @@ from vivqa_tpu_torch.models.layers import (CrossAttentionLayer, Dense,
 from vivqa_tpu_torch.models.moe.layer import create_moe_layer
 from vivqa_tpu_torch.models.vqa_model import moe_config_from_model
 from vivqa_tpu_torch.ops.embedding import Embed
+from vivqa_tpu_torch.utils.profiling import count
 
 
 @dataclasses.dataclass
@@ -99,7 +100,10 @@ class TransformerDecoder(nn.Module):
         return x + self.pos_table[start:start + L].to(self.dtype)
 
     def _head(self, x: torch.Tensor, rng: Optional[DropoutRNG] = None):
-        """Decoder MoE, final LayerNorm and f32 logits; (logits, aux)."""
+        """Decoder MoE, final LayerNorm and f32 logits; (logits, aux).
+        Under a profiler the rows projected onto the vocabulary add to
+        the counter ``decoder.positions``."""
+        count("decoder.positions", x.shape[0] * x.shape[1])
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if self.use_moe:
             x, moe_aux = self.decoder_moe(x, None, rng)

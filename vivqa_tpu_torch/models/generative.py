@@ -35,6 +35,7 @@ from vivqa_tpu_torch.models.layers import (Dense, DropoutRNG, EncoderLayer,
 from vivqa_tpu_torch.models.moe.layer import create_moe_layer
 from vivqa_tpu_torch.models.vqa_model import (encoder_out_dim,
                                               moe_config_from_model)
+from vivqa_tpu_torch.utils.profiling import span
 
 
 class CrossModalFusion(nn.Module):
@@ -80,7 +81,8 @@ class CrossModalFusion(nn.Module):
         aux_loss = torch.zeros((), dtype=torch.float32, device=dev)
         moe_metrics = {}
         if self.use_moe:
-            x, aux = self.moe(x, expert_mask, rng)
+            with span("moe"):
+                x, aux = self.moe(x, expert_mask, rng)
             aux_loss, moe_metrics = aux["aux_loss"], aux["metrics"]
         return self.ln_final(x), mask, aux_loss, moe_metrics
 
@@ -110,10 +112,14 @@ class GenerativeVQAModel(nn.Module):
         ``use_knowledge`` and ``knowledge_embeddings`` (B, K, Dk) given,
         the projected contexts follow the fused tokens, under
         ``knowledge_mask`` (B, K), or all-ones when it is None."""
-        visual = self.visual_encoder(pixel_values, rng)
-        text = self.question_encoder(question_ids, question_mask, rng)
-        memory, mask, aux_loss, moe_metrics = self.fusion(
-            visual["tokens"], text["tokens"], text["mask"], expert_mask, rng)
+        with span("vision"):
+            visual = self.visual_encoder(pixel_values, rng)
+        with span("text"):
+            text = self.question_encoder(question_ids, question_mask, rng)
+        with span("fusion"):
+            memory, mask, aux_loss, moe_metrics = self.fusion(
+                visual["tokens"], text["tokens"], text["mask"], expert_mask,
+                rng)
         if self.config.knowledge.use_knowledge \
                 and knowledge_embeddings is not None:
             k = self.knowledge_ln(self.knowledge_proj(
@@ -146,7 +152,9 @@ class GenerativeVQAModel(nn.Module):
                 knowledge_mask: Optional[torch.Tensor] = None) -> dict:
         """Teacher forcing: logits (B, L, vocab) f32 and the aux loss of
         both MoE positions; the knowledge arrays as ``encode`` takes
-        them."""
+        them. Under a profiler the forward is the span ``model`` around
+        ``vision``, ``text``, ``fusion`` (with ``moe`` where the fusion
+        runs it) and ``decoder``."""
         rng = None
         if self.training:
             if generator is None:
@@ -154,13 +162,15 @@ class GenerativeVQAModel(nn.Module):
                     "a training forward needs a torch.Generator for its "
                     "dropout (model.eval() for a deterministic forward)")
             rng = DropoutRNG(generator)
-        enc = self.encode(pixel_values, question_ids, question_mask,
-                          expert_mask, rng,
-                          knowledge_embeddings=knowledge_embeddings,
-                          knowledge_mask=knowledge_mask)
-        logits, decoder_aux = self.decoder(
-            decoder_input_ids, enc["memory"], enc["memory_mask"],
-            decoder_mask, rng, return_aux=True)
+        with span("model"):
+            enc = self.encode(pixel_values, question_ids, question_mask,
+                              expert_mask, rng,
+                              knowledge_embeddings=knowledge_embeddings,
+                              knowledge_mask=knowledge_mask)
+            with span("decoder"):
+                logits, decoder_aux = self.decoder(
+                    decoder_input_ids, enc["memory"], enc["memory_mask"],
+                    decoder_mask, rng, return_aux=True)
         return {"logits": logits, "aux_loss": enc["aux_loss"] + decoder_aux,
                 "moe_metrics": enc["moe_metrics"]}
 

@@ -34,6 +34,7 @@ from vivqa_tpu_torch.models.layers import (Dense, DropoutRNG,
 from vivqa_tpu_torch.models.moe.config import (ExpertConfig, MoEConfig,
                                                RouterConfig, VQAMoEConfig)
 from vivqa_tpu_torch.models.moe.layer import create_moe_layer
+from vivqa_tpu_torch.utils.profiling import span
 
 
 # the VQA-MoE's specialized experts, in the fixed order the ablation's
@@ -141,7 +142,9 @@ class VietnameseVQAModel(nn.Module):
         """``knowledge_embeddings`` (B, K, knowledge_dim) and
         ``knowledge_mask`` (B, K) come from a ``KnowledgeProvider``; they
         are read only when the config's ``use_knowledge`` is set (the JAX
-        model's rule: without embeddings the branch is skipped)."""
+        model's rule: without embeddings the branch is skipped). Under a
+        profiler the forward is the span ``model`` around ``vision``,
+        ``text``, ``fusion``, ``moe`` and ``head``."""
         rng = None
         if self.training:
             if generator is None:
@@ -149,29 +152,36 @@ class VietnameseVQAModel(nn.Module):
                     "a training forward needs a torch.Generator for its "
                     "dropout (model.eval() for a deterministic forward)")
             rng = DropoutRNG(generator)
-        visual = self.visual_encoder(pixel_values, rng)
-        text = self.text_encoder(input_ids, attention_mask, rng)
-        fused = self.fusion(visual, text, rng)
-        pooled, tokens, mask = fused["pooled"], fused["tokens"], fused["mask"]
+        with span("model"):
+            with span("vision"):
+                visual = self.visual_encoder(pixel_values, rng)
+            with span("text"):
+                text = self.text_encoder(input_ids, attention_mask, rng)
+            with span("fusion"):
+                fused = self.fusion(visual, text, rng)
+            pooled, tokens, mask = (fused["pooled"], fused["tokens"],
+                                    fused["mask"])
 
-        aux_loss = torch.zeros((), dtype=torch.float32,
-                               device=pooled.device)
-        moe_metrics = {}
-        if self.config.moe.use_moe:
-            tokens, aux = self.moe(tokens, expert_mask, rng)
-            aux_loss = aux_loss + aux["aux_loss"]
-            moe_metrics = aux["metrics"]
-            m = mask[..., None].to(tokens.dtype)
-            pooled = pooled + (tokens * m).sum(dim=1) / torch.clamp(
-                m.sum(dim=1), min=1e-6)
+            aux_loss = torch.zeros((), dtype=torch.float32,
+                                   device=pooled.device)
+            moe_metrics = {}
+            if self.config.moe.use_moe:
+                with span("moe"):
+                    tokens, aux = self.moe(tokens, expert_mask, rng)
+                    aux_loss = aux_loss + aux["aux_loss"]
+                    moe_metrics = aux["metrics"]
+                    m = mask[..., None].to(tokens.dtype)
+                    pooled = pooled + (tokens * m).sum(dim=1) / torch.clamp(
+                        m.sum(dim=1), min=1e-6)
 
-        if self.config.knowledge.use_knowledge \
-                and knowledge_embeddings is not None:
-            pooled = self.knowledge_attn(
-                pooled, knowledge_embeddings.to(to_dtype(self.config.dtype)),
-                knowledge_mask, rng)
-
-        logits = self.answer_head(pooled, rng)
+            with span("head"):
+                if self.config.knowledge.use_knowledge \
+                        and knowledge_embeddings is not None:
+                    pooled = self.knowledge_attn(
+                        pooled, knowledge_embeddings.to(
+                            to_dtype(self.config.dtype)),
+                        knowledge_mask, rng)
+                logits = self.answer_head(pooled, rng)
         return {"logits": logits, "features": pooled,
                 "aux_loss": aux_loss, "moe_metrics": moe_metrics}
 

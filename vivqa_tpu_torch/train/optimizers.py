@@ -70,6 +70,7 @@ from vivqa_tpu_torch.models.from_jax import (check_one_to_one, flax_layouts,
                                              flax_paths, from_flax_view,
                                              to_flax_view)
 from vivqa_tpu_torch.parallel.collectives import all_reduce
+from vivqa_tpu_torch.utils.profiling import span
 
 OPTIMIZERS = ("adamw", "adam", "sgd", "radam", "lamb", "adafactor")
 MU_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -562,12 +563,15 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self) -> torch.Tensor:
-        if self.mesh is not None:
-            self._reduce_gradients()
-            norm = self._global_norm([p.grad for p in self.all_params],
-                                     self.all_split)
-        else:
-            norm = global_grad_norm(p.grad for p in self.all_params)
+        """One update; under a profiler the spans ``grad_norm`` (with the
+        mesh's gradient reduction), ``clip`` and ``update``."""
+        with span("grad_norm"):
+            if self.mesh is not None:
+                self._reduce_gradients()
+                norm = self._global_norm([p.grad for p in self.all_params],
+                                         self.all_split)
+            else:
+                norm = global_grad_norm(p.grad for p in self.all_params)
         clip_norm = norm if not self.frozen else None
         if self.accumulate_steps > 1:
             if not self._accumulate():
@@ -576,18 +580,20 @@ class Optimizer:
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]
         if self.clip_norm > 0:
-            if clip_norm is None:
-                clip_norm = self._global_norm(grads, self.split)
-            scale = torch.where(clip_norm < self.clip_norm, 1.0,
-                                self.clip_norm / clip_norm)
-            torch._foreach_mul_(grads, scale)
-        lr = self.schedule(self.count)
-        updates = getattr(self, f"_{self.config.name}")(grads, lr)
-        if self.scales is not None:
-            torch._foreach_mul_(updates, self.scales)
-        if self.slow is not None:
-            updates = self._lookahead(updates)
-        torch._foreach_add_(self.params, updates)
+            with span("clip"):
+                if clip_norm is None:
+                    clip_norm = self._global_norm(grads, self.split)
+                scale = torch.where(clip_norm < self.clip_norm, 1.0,
+                                    self.clip_norm / clip_norm)
+                torch._foreach_mul_(grads, scale)
+        with span("update"):
+            lr = self.schedule(self.count)
+            updates = getattr(self, f"_{self.config.name}")(grads, lr)
+            if self.scales is not None:
+                torch._foreach_mul_(updates, self.scales)
+            if self.slow is not None:
+                updates = self._lookahead(updates)
+            torch._foreach_add_(self.params, updates)
         self.count += 1
         return norm
 

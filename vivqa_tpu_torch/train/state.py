@@ -40,6 +40,7 @@ from vivqa_tpu_torch.parallel.mesh import (Mesh, Sharding, batch_sharding,
                                            mesh_of)
 from vivqa_tpu_torch.train.losses import IGNORE_INDEX, cross_entropy_loss
 from vivqa_tpu_torch.train.optimizers import Optimizer
+from vivqa_tpu_torch.utils.profiling import count, span
 from vivqa_tpu_torch.utils.seeding import fold_in
 
 
@@ -145,14 +146,17 @@ def classification_loss_fn(aux_weight: float = 0.01,
         preds = out["logits"].detach().argmax(-1)
         if mix_mode != "none":
             labels_b = labels[perm]
-            ce = mixed_cross_entropy(out["logits"], labels, labels_b, lam,
-                                     label_smoothing)
+            with span("loss"):
+                ce = mixed_cross_entropy(out["logits"], labels, labels_b,
+                                         lam, label_smoothing)
             accuracy = (lam * (preds == labels).float().mean()
                         + (1 - lam) * (preds == labels_b).float().mean())
         else:
             mesh = mesh_of(model)
-            ce = cross_entropy_loss(out["logits"], labels, label_smoothing,
-                                    data=mesh.data if mesh else None)
+            with span("loss"):
+                ce = cross_entropy_loss(out["logits"], labels,
+                                        label_smoothing,
+                                        data=mesh.data if mesh else None)
             accuracy = (preds == labels).float().mean()
         return ce + aux_weight * out["aux_loss"], {
             "ce": ce.detach(), "aux_loss": out["aux_loss"].detach(),
@@ -171,17 +175,22 @@ def generative_loss_fn(label_smoothing: float = 0.1,
     pixel_values, question_ids, question_mask, decoder_input_ids,
     decoder_mask, labels on the model's device, and the knowledge arrays
     when a provider attached them. The metrics ``ce``, ``aux_loss`` and
-    ``n_tokens`` (labels that count) are 0-d tensors on the device."""
+    ``n_tokens`` (labels that count) are 0-d tensors on the device;
+    under a profiler ``n_tokens`` adds to the counter
+    ``decoder.labelled``."""
     def loss_fn(model: nn.Module, batch: dict, generator: torch.Generator):
         out = model(batch["pixel_values"], batch["question_ids"],
                     batch["decoder_input_ids"], batch["question_mask"],
                     batch["decoder_mask"], expert_mask=expert_mask,
                     generator=generator, **knowledge_of(batch))
         mesh = mesh_of(model)
-        ce = cross_entropy_loss(out["logits"], batch["labels"],
-                                label_smoothing, ignore_index=IGNORE_INDEX,
-                                data=mesh.data if mesh else None)
+        with span("loss"):
+            ce = cross_entropy_loss(out["logits"], batch["labels"],
+                                    label_smoothing,
+                                    ignore_index=IGNORE_INDEX,
+                                    data=mesh.data if mesh else None)
         n_tokens = (batch["labels"] != IGNORE_INDEX).sum()
+        count("decoder.labelled", n_tokens)
         return ce + moe_aux_weight * out["aux_loss"], {
             "ce": ce.detach(), "aux_loss": out["aux_loss"].detach(),
             "n_tokens": n_tokens}
@@ -195,13 +204,20 @@ def make_train_step(loss_fn: Callable) -> Callable:
     train mode, backward, clip and AdamW update. ``metrics`` gains
     ``loss`` and ``grad_norm`` (the global norm before clipping), both
     0-d tensors on the device, so the step never waits for the card.
+    Under a profiler the step is the span ``train_step`` around
+    ``forward`` (the loss function), ``backward`` and ``optimizer``.
     """
     def train_step(state: TrainState, batch: dict):
-        state.model.train()
-        state.optimizer.zero_grad()
-        loss, metrics = loss_fn(state.model, batch, state.step_generator())
-        loss.backward()
-        grad_norm = state.optimizer.step()
+        with span("train_step"):
+            state.model.train()
+            state.optimizer.zero_grad()
+            with span("forward"):
+                loss, metrics = loss_fn(state.model, batch,
+                                        state.step_generator())
+            with span("backward"):
+                loss.backward()
+            with span("optimizer"):
+                grad_norm = state.optimizer.step()
         state.step += 1
         metrics = dict(metrics)
         metrics["loss"] = loss.detach()

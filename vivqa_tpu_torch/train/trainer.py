@@ -45,7 +45,7 @@ from __future__ import annotations
 import dataclasses
 import signal
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Generator, Iterator, Optional
 
 import numpy as np
 import torch
@@ -71,6 +71,7 @@ from vivqa_tpu_torch.train.state import (ShardedStep, TrainState,
                                          make_train_step, place_state)
 from vivqa_tpu_torch.train.strategies import trainable_mask
 from vivqa_tpu_torch.utils import get_pipeline_logger
+from vivqa_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,9 +93,29 @@ class TrainerConfig(ConfigBase):
     log_every: int = 10
     tensorboard_dir: str = ""              # "" = disabled
     wandb_project: str = ""                # "" = disabled (needs wandb pkg)
-    profile_steps: tuple = ()              # (start, stop) step to trace
+    # (start, stop) step to trace to profile_dir/trace.json: the port's
+    # spans show in it, among them "data_wait" (the next batch from the
+    # loader) and "checkpoint" (a save), so loader and save stalls show
+    profile_steps: tuple = ()
     profile_dir: str = "profiles"
     seed: int = 42
+
+
+_END = object()
+
+
+def _spanned(batches: Generator, name: str) -> Iterator:
+    """The batches of generator ``batches``, each fetch of the next one
+    inside the span ``name``; closes ``batches`` when closed itself."""
+    try:
+        while True:
+            with span(name):
+                batch = next(batches, _END)
+            if batch is _END:
+                return
+            yield batch
+    finally:
+        batches.close()
 
 
 def checkpointed_forward(model: nn.Module, args: tuple,
@@ -159,9 +180,10 @@ class VQATrainer:
             else:
                 out = model(*args, generator=generator)
             mesh = mesh_of(model)
-            ce = cross_entropy_loss(out["logits"], batch["labels"],
-                                    label_smoothing=cfg.label_smoothing,
-                                    data=mesh.data if mesh else None)
+            with span("loss"):
+                ce = cross_entropy_loss(out["logits"], batch["labels"],
+                                        label_smoothing=cfg.label_smoothing,
+                                        data=mesh.data if mesh else None)
             loss = ce + cfg.moe_aux_weight * out["aux_loss"]
             acc = (out["logits"].detach().argmax(-1)
                    == batch["labels"]).float().mean()
@@ -317,8 +339,9 @@ class VQATrainer:
                     self.rm.start_epoch(epoch)
                 losses = []
                 timer.reset()
-                for i, batch in enumerate(device_prefetch(iter(train_loader),
-                                                          self.device)):
+                for i, batch in enumerate(_spanned(
+                        device_prefetch(iter(train_loader), self.device),
+                        "data_wait")):
                     step = state.step
                     if cfg.profile_steps and step == cfg.profile_steps[0]:
                         profiler = self._start_profile()
@@ -359,12 +382,14 @@ class VQATrainer:
 
                 metric = epoch_metrics.get(cfg.metric_for_best, 0.0)
                 if stopper.update(metric) or self._interrupted:
-                    whole = self.state_dict(state)
-                    if self.mesh is None or self.mesh.is_main:
-                        ckpt.save(state.step, whole,
-                                  metadata={"epoch": epoch,
-                                            "interrupted": self._interrupted},
-                                  metrics={cfg.metric_for_best: metric})
+                    with span("checkpoint"):
+                        whole = self.state_dict(state)
+                        if self.mesh is None or self.mesh.is_main:
+                            ckpt.save(state.step, whole,
+                                      metadata={
+                                          "epoch": epoch,
+                                          "interrupted": self._interrupted},
+                                      metrics={cfg.metric_for_best: metric})
                     barrier(self.mesh)
                 if self._interrupted:
                     log.warning("interrupt checkpoint saved; stopping")

@@ -25,7 +25,11 @@ be fused away, and nothing is subtracted here.
   which gives the idle share;
 - ``peak_tflops``: the card's dense bf16 peak, from its name;
 - ``train_step_flops``: the products of one step, counted by
-  ``torch.utils.flop_counter.FlopCounterMode`` on the plain path.
+  ``torch.utils.flop_counter.FlopCounterMode`` on the plain path;
+- ``span``, ``count``, ``counters`` and ``reset_counters``: named spans
+  and counters inside the program, on exactly while a torch.profiler
+  records (the benchmark's traced window, the Trainer's
+  ``profile_steps``, a ``KernelClock``) and one C call each otherwise.
 """
 
 from __future__ import annotations
@@ -44,6 +48,41 @@ from vivqa_tpu_torch.device import resolve_device
 # card (named "NVIDIA H100 80GB HBM3"), the PCIe card and the NVL card.
 _H100_PEAK_TFLOPS_BF16 = (("pcie", 756.0), ("nvl", 835.0), ("hbm3", 989.0),
                           ("sxm", 989.0))
+
+
+_SPAN_PREFIX = "vivqa::"
+_NO_SPAN = contextlib.nullcontext()
+_counts: dict[str, list] = {}
+
+
+def span(name: str) -> ContextManager:
+    """A ``record_function`` named ``vivqa::<name>`` while a profiler
+    records, else one shared null context. Spans are kineto user
+    annotations: on the clock of the device events in the same trace,
+    so a device operation can be put down to the span that launched
+    it."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(_SPAN_PREFIX + name)
+    return _NO_SPAN
+
+
+def count(name: str, value) -> None:
+    """Add ``value`` (a Python int, or a 0-d tensor kept as it is, so
+    counting adds no kernel and no wait for the card) to counter
+    ``name``, while a profiler records; nothing otherwise."""
+    if torch.autograd._profiler_enabled():
+        _counts.setdefault(name, []).append(value)
+
+
+def counters() -> dict[str, int]:
+    """Each counter's sum since the last ``reset_counters`` (device
+    values are read here, after the profiled window)."""
+    return {name: sum(int(v) for v in values)
+            for name, values in _counts.items()}
+
+
+def reset_counters() -> None:
+    _counts.clear()
 
 
 def _leaves(tree) -> list:
