@@ -46,6 +46,7 @@ from vivqa_tpu_torch.models import config as PC
 from vivqa_tpu_torch.models.from_jax import flatten_params, to_flax
 from vivqa_tpu_torch.models.generative import (GenerativeVQAModel,
                                                create_generative_vqa_model)
+from vivqa_tpu_torch.models.layers import init_weights
 from vivqa_tpu_torch.pipelines import common as PCommon
 from vivqa_tpu_torch.pipelines.generative_training_pipeline import (
     GenerativeTrainingConfig, GenerativeTrainingPipeline)
@@ -53,6 +54,7 @@ from vivqa_tpu_torch.train import optimizers as PO
 from vivqa_tpu_torch.train import state as PS
 from vivqa_tpu_torch.train.checkpoint import (CheckpointConfig,
                                               CheckpointManager)
+from vivqa_tpu_torch.train.losses import cross_entropy_loss
 
 torch.set_num_threads(1)
 logging.getLogger("absl").setLevel(logging.ERROR)
@@ -287,6 +289,89 @@ def test_generative_train_steps_match_jax(pairs):
         assert diff.max() <= 3 * lr_sum, (path, diff.max(), lr_sum)
         if not path.endswith(ZERO_GRADIENT_LEAVES):
             assert diff.mean() <= 0.1 * update, (path, diff.mean(), update)
+
+
+def _labels(kind: str) -> np.ndarray:
+    """_batch()'s labels as a prefix of each row, with IGNORE_INDEX holes
+    inside rows, on every position, or on none."""
+    labels = _batch()["labels"]
+    if kind == "holes":
+        labels[0, 1:3] = JD.IGNORE_INDEX
+        labels[1, 1] = JD.IGNORE_INDEX
+    elif kind == "all":
+        labels = np.random.RandomState(1).randint(0, 50, labels.shape)
+    elif kind == "none":
+        labels = np.full_like(labels, JD.IGNORE_INDEX)
+    return labels
+
+
+def _leaf_gradients(model) -> dict:
+    return {n: np.zeros(tuple(p.shape), np.float32) if p.grad is None
+            else p.grad.detach().numpy().copy()
+            for n, p in model.named_parameters()}
+
+
+@pytest.mark.parametrize("labels,smoothing,moe_position", [
+    ("prefix", 0.1, None), ("prefix", 0.0, None), ("holes", 0.1, None),
+    ("holes", 0.0, None), ("all", 0.1, None), ("all", 0.0, None),
+    ("none", 0.1, None), ("none", 0.0, None), ("prefix", 0.1, "decoder"),
+    ("holes", 0.0, "decoder")], ids=str)
+def test_loss_on_labelled_rows_equals_the_full_projection(
+        labels, smoothing, moe_position):
+    """generative_loss_fn projects only the labelled positions onto the
+    vocabulary; against cross_entropy_loss over the full (B, L, vocab)
+    logits of the same forward without ``rows``, in train mode with
+    dropout 0.1 from the same generator seed (so no draw may have moved):
+    loss, ce, n_tokens and aux_loss, and every gradient leaf, f32 to 1e-6
+    of the leaf's largest element (only the order of f32 sums differs).
+    With no labelled position the loss is 0 and every gradient is zero.
+    The decoder MoE runs on every position either way: its aux loss and
+    the router's gradient agree."""
+    cfg = gen_config(PC, "float32", dropout=0.1)
+    if moe_position is not None:
+        cfg = cfg.replace(moe=PC.MoEModelConfig(
+            use_moe=True, num_experts=2, top_k=1, expert_hidden_dim=32,
+            moe_position=moe_position))
+    model = GenerativeVQAModel(cfg)
+    init_weights(model, torch.Generator().manual_seed(0))
+    model.train()
+    batch = {k: t(v) for k, v in _batch().items()}
+    batch["labels"] = t(_labels(labels))
+
+    loss, aux = PS.generative_loss_fn(label_smoothing=smoothing)(
+        model, batch, torch.Generator().manual_seed(7))
+    loss.backward()
+    got = _leaf_gradients(model)
+    model.zero_grad(set_to_none=True)
+
+    out = model(batch["pixel_values"], batch["question_ids"],
+                batch["decoder_input_ids"], batch["question_mask"],
+                batch["decoder_mask"],
+                generator=torch.Generator().manual_seed(7))
+    assert out["logits"].shape == (*batch["labels"].shape, cfg.vocab_size)
+    ce = cross_entropy_loss(out["logits"], batch["labels"], smoothing,
+                            ignore_index=JD.IGNORE_INDEX)
+    want_loss = ce + 0.01 * out["aux_loss"]
+    want_loss.backward()
+    want = _leaf_gradients(model)
+
+    n = int((batch["labels"] != JD.IGNORE_INDEX).sum())
+    assert int(aux["n_tokens"]) == n
+    for name, a, b in (("loss", loss, want_loss), ("ce", aux["ce"], ce),
+                       ("aux_loss", aux["aux_loss"], out["aux_loss"])):
+        assert_close(a, b, atol=0, rtol=1e-6, msg=name)
+    if moe_position is not None:
+        assert float(aux["aux_loss"]) > 0
+    if n == 0:
+        assert float(loss.detach()) == 0.0
+        assert not any(g.any() for g in got.values())
+    assert sorted(got) == sorted(want)
+    for name, w in want.items():
+        scale = np.abs(w).max()
+        assert np.abs(got[name] - w).max() <= 1e-6 * scale, (
+            name, np.abs(got[name] - w).max(), scale)
+    if n:
+        assert np.abs(got["decoder.token_embed.weight"]).max() > 0
 
 
 # -- data: targets and collates ----------------------------------------------

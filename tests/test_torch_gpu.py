@@ -1133,6 +1133,38 @@ def test_generative_train_step_on_card_matches_cpu():
         assert float((gp[name] - p).abs().max()) <= 3 * lr_sum, name
 
 
+def test_labelled_rows_on_card_wait_only_when_called():
+    """labelled_rows queues its count's copy to the host without waiting
+    (under CUDA's sync debug mode "error" nothing waits), and while the
+    card is still busy with earlier work; called, it returns the indices
+    ``nonzero`` gives, and ``nonzero_static`` of a known count does not
+    wait either."""
+    _need_card()
+    from vivqa_tpu_torch.train.losses import IGNORE_INDEX
+    from vivqa_tpu_torch.train.state import labelled_rows
+    gen = torch.Generator().manual_seed(0)
+    labels = torch.randint(0, 64001, (512, 32), generator=gen)
+    labels[torch.rand(512, 32, generator=gen) < 0.8] = IGNORE_INDEX
+    labels = labels.cuda()
+    want = (labels.flatten() != IGNORE_INDEX).nonzero().squeeze(1)
+    busy = torch.randn(4096, 4096, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(20):
+            busy = busy @ busy / 64
+        rows = labelled_rows(labels)
+        torch.nonzero_static(labels.flatten() != IGNORE_INDEX,
+                             size=want.numel())
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    got = rows()
+    assert torch.equal(got, want)
+    assert rows() is got
+    empty = labelled_rows(torch.full((4, 8), IGNORE_INDEX, device="cuda"))()
+    assert empty.shape == (0,)
+
+
 # -- the classification pipeline: prefetch and the pipeline's train step ----
 def test_device_prefetch_on_card_equals_blocking_copy():
     """device_prefetch's pinned, non-blocking copies on a side stream give

@@ -130,6 +130,10 @@ def test_train_step_spans_nest_in_order(case):
 
 
 def test_counters_count_the_decoder_rows_only_under_a_profiler():
+    """A training step projects only the labelled positions onto the
+    vocabulary, so it counts as many ``decoder.positions`` as
+    ``decoder.labelled``; a forward without ``rows`` counts every one of
+    the B x L positions."""
     state, batch, step = _state("generative")
     profiling.reset_counters()
     step(state, batch)
@@ -139,10 +143,17 @@ def test_counters_count_the_decoder_rows_only_under_a_profiler():
         profiling.count("decoder.positions", 5)
     got = profiling.counters()
     rows, L = batch["labels"].shape
-    assert got == {"decoder.positions": rows * L + 5,
-                   "decoder.labelled": int((batch["labels"]
-                                            != IGNORE_INDEX).sum())}
+    labelled = int((batch["labels"] != IGNORE_INDEX).sum())
+    assert got == {"decoder.positions": labelled + 5,
+                   "decoder.labelled": labelled}
     assert 0 < got["decoder.labelled"] < rows * L
+    profiling.reset_counters()
+    model = state.model.eval()
+    with profile(activities=[ProfilerActivity.CPU]), torch.no_grad():
+        model(batch["pixel_values"], batch["question_ids"],
+              batch["decoder_input_ids"], batch["question_mask"],
+              batch["decoder_mask"])
+    assert profiling.counters() == {"decoder.positions": rows * L}
     profiling.reset_counters()
     assert profiling.counters() == {}
 

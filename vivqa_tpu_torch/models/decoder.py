@@ -17,7 +17,7 @@ reused after it was passed to a step.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -99,15 +99,24 @@ class TransformerDecoder(nn.Module):
         x = self.token_embed(ids) * self.embed_scale
         return x + self.pos_table[start:start + L].to(self.dtype)
 
-    def _head(self, x: torch.Tensor, rng: Optional[DropoutRNG] = None):
+    def _head(self, x: torch.Tensor, rng: Optional[DropoutRNG] = None,
+              rows: Optional[Callable[[], torch.Tensor]] = None):
         """Decoder MoE, final LayerNorm and f32 logits; (logits, aux).
-        Under a profiler the rows projected onto the vocabulary add to
-        the counter ``decoder.positions``."""
-        count("decoder.positions", x.shape[0] * x.shape[1])
+        The MoE, where one runs, takes every (B, L) position, so its
+        routing, aux loss and noise draws do not depend on ``rows``.
+        ``rows``, called here once the MoE is queued, returns int64
+        indices into the flattened (B * L) positions and keeps only those
+        for the LayerNorm and the vocabulary: logits (n, vocab) in their
+        order, where without it they are (B, L, vocab). Under a profiler
+        the rows projected onto the vocabulary add to the counter
+        ``decoder.positions``."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if self.use_moe:
             x, moe_aux = self.decoder_moe(x, None, rng)
             aux = moe_aux["aux_loss"]
+        if rows is not None:
+            x = x.flatten(0, 1).index_select(0, rows())
+        count("decoder.positions", x.shape[:-1].numel())
         x = self.ln_final(x)
         if self.config.tie_embeddings:
             logits = self.token_embed.attend(x.float())
@@ -120,8 +129,14 @@ class TransformerDecoder(nn.Module):
                 encoder_mask: Optional[torch.Tensor] = None,
                 decoder_mask: Optional[torch.Tensor] = None,
                 rng: Optional[DropoutRNG] = None,
-                return_aux: bool = False):
-        """Teacher forcing: (B, L) ids -> logits (B, L, vocab) f32."""
+                return_aux: bool = False, *,
+                rows: Optional[Callable[[], torch.Tensor]] = None):
+        """Teacher forcing: (B, L) ids -> logits (B, L, vocab) f32, or
+        with ``rows`` (a function returning indices into the flattened
+        (B * L) positions, the ones a loss counts, called once every
+        layer is queued) (n, vocab) for those positions alone: every
+        layer and the decoder MoE still run on all positions (``_head``).
+        """
         self_mask = make_causal_mask(decoder_input_ids)
         if decoder_mask is not None:
             self_mask = self_mask & make_attention_mask(decoder_mask,
@@ -132,7 +147,7 @@ class TransformerDecoder(nn.Module):
         context = encoder_hidden.to(self.dtype)
         for layer in self.layers:
             x = layer(x, context, self_mask, cross_mask, rng)
-        logits, aux = self._head(x, rng)
+        logits, aux = self._head(x, rng, rows)
         return (logits, aux) if return_aux else logits
 
     def init_cache(self, encoder_hidden: torch.Tensor,

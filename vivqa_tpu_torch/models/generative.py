@@ -19,7 +19,7 @@ decoder cross-attends over Lv + Lq + K keys.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -149,12 +149,21 @@ class GenerativeVQAModel(nn.Module):
                 expert_mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None, *,
                 knowledge_embeddings: Optional[torch.Tensor] = None,
-                knowledge_mask: Optional[torch.Tensor] = None) -> dict:
+                knowledge_mask: Optional[torch.Tensor] = None,
+                rows: Optional[Callable[[], torch.Tensor]] = None
+                ) -> dict:
         """Teacher forcing: logits (B, L, vocab) f32 and the aux loss of
         both MoE positions; the knowledge arrays as ``encode`` takes
-        them. Under a profiler the forward is the span ``model`` around
-        ``vision``, ``text``, ``fusion`` (with ``moe`` where the fusion
-        runs it) and ``decoder``."""
+        them. ``rows`` (a function returning int64 indices into the
+        flattened (B * L) answer positions, which a training loss gives
+        for its labelled ones: ``train/state.py:labelled_rows``; the
+        decoder calls it once its layers are queued) projects only those
+        positions onto the vocabulary: logits (n, vocab) in their order;
+        the towers, the fusion, the decoder's layers and its MoE still
+        run on every position, so no dropout or noise draw moves. Under
+        a profiler the forward is the span ``model`` around ``vision``,
+        ``text``, ``fusion`` (with ``moe`` where the fusion runs it) and
+        ``decoder``."""
         rng = None
         if self.training:
             if generator is None:
@@ -170,7 +179,7 @@ class GenerativeVQAModel(nn.Module):
             with span("decoder"):
                 logits, decoder_aux = self.decoder(
                     decoder_input_ids, enc["memory"], enc["memory_mask"],
-                    decoder_mask, rng, return_aux=True)
+                    decoder_mask, rng, return_aux=True, rows=rows)
         return {"logits": logits, "aux_loss": enc["aux_loss"] + decoder_aux,
                 "moe_metrics": enc["moe_metrics"]}
 

@@ -25,6 +25,7 @@ its TPU runtime's settled-read defenses, are left out on purpose
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Mapping, Optional
 
 import torch
@@ -164,6 +165,31 @@ def classification_loss_fn(aux_weight: float = 0.01,
     return loss_fn
 
 
+def labelled_rows(labels: torch.Tensor) -> Callable[[], torch.Tensor]:
+    """The flat indices of the positions of ``labels`` whose label counts
+    (not ``IGNORE_INDEX``), as a function for the generative model's
+    ``rows``. Their count goes to the host now without a wait; the
+    function waits for it when first called (the decoder's head calls it
+    once every layer of the forward is queued, so the card keeps working
+    through the wait), then takes the indices with ``nonzero_static``,
+    which does not wait, and returns the same tensor on later calls."""
+    labelled = labels.flatten() != IGNORE_INDEX
+    on_card = labelled.is_cuda
+    count = torch.empty((), dtype=torch.int64, pin_memory=on_card)
+    count.copy_(labelled.sum(), non_blocking=on_card)
+    ready = None
+    if on_card:
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(labelled.device))
+
+    @functools.cache
+    def rows() -> torch.Tensor:
+        if ready is not None:
+            ready.synchronize()
+        return torch.nonzero_static(labelled, size=int(count)).squeeze(1)
+    return rows
+
+
 def generative_loss_fn(label_smoothing: float = 0.1,
                        moe_aux_weight: float = 0.01,
                        expert_mask: Optional[torch.Tensor] = None
@@ -177,15 +203,26 @@ def generative_loss_fn(label_smoothing: float = 0.1,
     when a provider attached them. The metrics ``ce``, ``aux_loss`` and
     ``n_tokens`` (labels that count) are 0-d tensors on the device;
     under a profiler ``n_tokens`` adds to the counter
-    ``decoder.labelled``."""
+    ``decoder.labelled``.
+
+    Only the labelled positions are projected onto the vocabulary (the
+    model's ``rows``, from ``labelled_rows``): an ignored position's
+    logits add nothing to the loss and its gradient is zero, so the loss
+    and every gradient are those of the full (B, L, vocab) logits but for
+    the order of the f32 sums. The host reads the count of labelled
+    positions: the loss waits for the card once a step, in the decoder's
+    head, for a count queued before the forward."""
     def loss_fn(model: nn.Module, batch: dict, generator: torch.Generator):
+        rows = labelled_rows(batch["labels"])
         out = model(batch["pixel_values"], batch["question_ids"],
                     batch["decoder_input_ids"], batch["question_mask"],
                     batch["decoder_mask"], expert_mask=expert_mask,
-                    generator=generator, **knowledge_of(batch))
+                    generator=generator, rows=rows, **knowledge_of(batch))
         mesh = mesh_of(model)
         with span("loss"):
-            ce = cross_entropy_loss(out["logits"], batch["labels"],
+            ce = cross_entropy_loss(out["logits"],
+                                    batch["labels"].flatten()
+                                    .index_select(0, rows()),
                                     label_smoothing,
                                     ignore_index=IGNORE_INDEX,
                                     data=mesh.data if mesh else None)
@@ -203,7 +240,9 @@ def make_train_step(loss_fn: Callable) -> Callable:
     Returns train_step(state, batch) -> (state, metrics): one forward in
     train mode, backward, clip and AdamW update. ``metrics`` gains
     ``loss`` and ``grad_norm`` (the global norm before clipping), both
-    0-d tensors on the device, so the step never waits for the card.
+    0-d tensors on the device, so the step itself never waits for the
+    card (``generative_loss_fn`` waits once, for its count of labelled
+    positions, while the card runs the forward).
     Under a profiler the step is the span ``train_step`` around
     ``forward`` (the loss function), ``backward`` and ``optimizer``.
     """
