@@ -185,6 +185,74 @@ class GenerativeVQAConfig(ConfigBase):
     dtype: str = "bfloat16"
 
 
+@dataclasses.dataclass(frozen=True)
+class DecoderVQAConfig(ConfigBase):
+    """Decoder-only generative VQA (``models/decoder_vqa.py``): a vision
+    tower whose patch tokens, through a projector, start one causal
+    sequence with the question and the answer, in a language model of
+    DeepSeek-V3's layout (Kimi-VL-A3B's): RMSNorm, latent attention (MLA)
+    with rotary positions, a dense SwiGLU in the first
+    ``first_k_dense_replace`` layers and a sigmoid-routed MoE with
+    shared experts after them, an untied vocabulary head. The keys are
+    the published config.json's where it has them.
+
+    ``experts_held`` [e0, e1) are the routed experts this chip holds of
+    ``n_routed_experts``: the router scores all of them, each MoE layer
+    computes the part of its output that the held experts give (expert
+    parallelism without its exchange). ``vocab_size`` is the vocabulary
+    as held here, the tokens' ids lie in it."""
+    visual: VisualEncoderConfig = dataclasses.field(
+        default_factory=lambda: VisualEncoderConfig(
+            vit_style="clip", activation="quick_gelu"))
+    vocab_size: int = 163840
+    hidden_size: int = 2048
+    intermediate_size: int = 11264        # the dense layers' SwiGLU
+    moe_intermediate_size: int = 1408     # each routed expert's
+    num_hidden_layers: int = 27
+    num_attention_heads: int = 16
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    rope_theta: float = 800000.0
+    rms_norm_eps: float = 1e-5
+    n_routed_experts: int = 64
+    experts_held: tuple = (0, 64)
+    num_experts_per_tok: int = 6
+    n_shared_experts: int = 2
+    routed_scaling_factor: float = 2.446
+    norm_topk_prob: bool = True
+    # stand-ins for a correction bias trained to even the experts' loads
+    # (moe/routed.py), both off at 0, both on the real tokens of a call's
+    # first bias_fit_samples samples: > 0, an MoE layer's first training
+    # call fits a bias still at zero once; > 0, every later training
+    # call first moves the bias on by bias_update_iterations iterations
+    # of that fit
+    bias_fit_samples: int = 0
+    bias_update_iterations: int = 0
+    first_k_dense_replace: int = 1
+    projector_ln_eps: float = 1e-5
+    max_question_length: int = 64
+    max_answer_length: int = 32
+    bos_token_id: int = 0
+    eos_token_id: int = 2
+    pad_token_id: int = 1
+    dtype: str = "bfloat16"
+    # names the model in a pipeline's YAML ``model:`` section
+    kind: str = "decoder_only"
+
+    @property
+    def num_image_tokens(self) -> int:
+        return (self.visual.image_size // self.visual.patch_size) ** 2
+
+    @property
+    def max_positions(self) -> int:
+        """The sequence's positions: image tokens, the question's, the
+        answer's."""
+        return (self.num_image_tokens + self.max_question_length
+                + self.max_answer_length)
+
+
 def get_default_vietnamese_vqa_config(num_answers: int = 1000) -> VQAModelConfig:
     """CLIP-ViT-B/32 + PhoBERT-base + cross-attention fusion
     (reference: vqa_config.py:235)."""

@@ -62,6 +62,17 @@ class DecodeCache:
     def max_length(self) -> int:
         return self.self_kv.shape[3]
 
+    @property
+    def device(self) -> torch.device:
+        return self.self_kv.device
+
+    def select_rows(self, rows: torch.Tensor) -> "DecodeCache":
+        """The cache of the folded (batch*beam) rows ``rows``: the
+        self-attention K/V reordered, the cross-attention K/V (the same
+        for every beam of a row) left as they are."""
+        return dataclasses.replace(self,
+                                   self_kv=self.self_kv.index_select(2, rows))
+
 
 class TransformerDecoder(nn.Module):
     def __init__(self, config: GenerativeVQAConfig):

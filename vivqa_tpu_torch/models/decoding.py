@@ -100,7 +100,7 @@ def autoregressive_decode(apply_fn: Callable, cache: DecodeCache,
     included); positions after EOS hold pad. ``generator`` (on the
     cache's device) drives sampling; None seeds one with 0.
     """
-    dev = cache.self_kv.device
+    dev = cache.device
     if generator is None and cfg.strategy != "greedy":
         generator = torch.Generator(device=dev).manual_seed(0)
     tokens = torch.full((batch_size, 1), cfg.bos_token_id, dtype=torch.long,
@@ -127,13 +127,12 @@ def autoregressive_decode(apply_fn: Callable, cache: DecodeCache,
 # -- beam search --------------------------------------------------------------
 def _gather_beams(cache: DecodeCache, beam_idx: torch.Tensor,
                   batch_size: int, num_beams: int) -> DecodeCache:
-    """Reorder the self-attention cache along the folded (batch*beam)
-    axis; beam_idx (B, K) in [0, K). The cross-attention K/V, identical
-    across the beams of a row, are left as they are."""
+    """Reorder the cache along the folded (batch*beam) axis; beam_idx
+    (B, K) in [0, K). A ``DecodeCache`` reorders its self-attention K/V
+    and leaves the cross-attention K/V, identical across the beams of a
+    row, as they are."""
     rows = torch.arange(batch_size, device=beam_idx.device)[:, None]
-    flat = (rows * num_beams + beam_idx).reshape(-1)
-    return dataclasses.replace(cache,
-                               self_kv=cache.self_kv.index_select(2, flat))
+    return cache.select_rows((rows * num_beams + beam_idx).reshape(-1))
 
 
 def _length_penalty(length, alpha: float):
@@ -156,7 +155,7 @@ def beam_search(apply_fn: Callable, cache: DecodeCache, batch_size: int,
     best live beam if none finished).
     """
     K, L, B = cfg.num_beams, cfg.max_length, batch_size
-    dev = cache.self_kv.device
+    dev = cache.device
     live_scores = torch.full((B, K), NEG_INF, device=dev)
     live_scores[:, 0] = 0.0
     live_seqs = torch.full((B, K, L), cfg.pad_token_id, dtype=torch.long,

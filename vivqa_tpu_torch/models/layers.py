@@ -223,6 +223,46 @@ class LayerNorm(nn.Module):
         return ((xf - mean) * mul + self.bias.float()).to(self.dtype or x.dtype)
 
 
+class RMSNorm(nn.Module):
+    """RMSNorm (DeepSeek-V3's): x / sqrt(mean(x^2) + eps) with the
+    statistics in f32, times the scale, output in dtype (``None``: the
+    input's dtype)."""
+
+    def __init__(self, dim: int, dtype: torch.dtype | None = torch.bfloat16,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.dtype = dtype
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        xf = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + self.eps)
+        return (xf * self.weight.float()).to(self.dtype or x.dtype)
+
+
+def rotary_table(positions: int, dim: int, theta: float) -> torch.Tensor:
+    """(positions, dim) f32 angles of rotary embeddings, the frequencies
+    repeated over both halves: angle[p, i] = p / theta^(2 (i mod dim/2) /
+    dim) (HF's ``DeepseekV3RotaryEmbedding``, no scaling)."""
+    inv = 1.0 / theta ** (torch.arange(0, dim, 2, dtype=torch.float64)
+                          / dim)
+    angles = torch.arange(positions, dtype=torch.float64)[:, None] * inv
+    return torch.cat([angles, angles], dim=-1).float()
+
+
+def apply_rotary(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """DeepSeek-V3's rotary embedding of x (..., L, dim) at ``angles``
+    (L, dim): the pairs (x[2i], x[2i+1]) are first laid out as halves
+    (x[0::2], x[1::2]), then rotated as in ``rotate_half``; in f32,
+    returned in x's dtype."""
+    xf = x.float()
+    xf = torch.cat([xf[..., 0::2], xf[..., 1::2]], dim=-1)
+    half = xf.shape[-1] // 2
+    rotated = torch.cat([-xf[..., half:], xf[..., :half]], dim=-1)
+    return (xf * angles.cos() + rotated * angles.sin()).to(x.dtype)
+
+
 class GroupNorm(nn.Module):
     """flax ``nn.GroupNorm`` over NCHW activations: per sample and group,
     f32 statistics with flax's fast variance (E[x^2] - E[x]^2, clipped at
@@ -563,8 +603,8 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     stacked-expert kernels ``lecun_normal`` (truncated, ``_fan_in``);
     embedding and position tables and the query slots normal(0.02); the
     text encoder's ``type_embed`` (an ``nn.Embed`` with flax's default
-    init) normal with std 1/sqrt(D); biases and the CLS token 0; LayerNorm
-    and GroupNorm scales and ResNet's frozen affine scale 1; LayerScale
+    init) normal with std 1/sqrt(D); biases and the CLS token 0; LayerNorm,
+    RMSNorm and GroupNorm scales and ResNet's frozen affine scale 1; LayerScale
     gains left at their init value."""
     with torch.no_grad():
         for name, mod in module.named_modules():
@@ -576,7 +616,7 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                 elif isinstance(mod, Embed) or leaf == "pos_embed" \
                         or leaf in _TABLES:
                     p.normal_(0.0, 0.02, generator=generator)
-                elif isinstance(mod, (LayerNorm, GroupNorm)):
+                elif isinstance(mod, (LayerNorm, GroupNorm, RMSNorm)):
                     p.fill_(1.0 if leaf == "weight" else 0.0)
                 elif leaf == "scale":
                     p.fill_(1.0)

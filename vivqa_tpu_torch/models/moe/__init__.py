@@ -4,6 +4,7 @@ from vivqa_tpu_torch.models.moe.config import (ExpertConfig, MoEConfig,
 from vivqa_tpu_torch.models.moe.layer import (HierarchicalMoE, MOELayer,
                                               SparseMOELayer, VQAMoELayer,
                                               create_moe_layer)
+from vivqa_tpu_torch.models.moe.routed import RoutedMoE, SigmoidRouter
 from vivqa_tpu_torch.models.moe.routers import (ExpertChoiceRouter,
                                                 NoisyTopKRouter, SoftRouter,
                                                 TopKRouter, create_router,
@@ -15,4 +16,5 @@ __all__ = [
     "MOELayer", "SparseMOELayer", "VQAMoELayer", "HierarchicalMoE",
     "create_moe_layer", "create_router", "TopKRouter", "NoisyTopKRouter",
     "SoftRouter", "ExpertChoiceRouter", "load_balance_loss", "router_z_loss",
+    "RoutedMoE", "SigmoidRouter",
 ]

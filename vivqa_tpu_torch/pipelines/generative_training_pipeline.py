@@ -48,7 +48,8 @@ from vivqa_tpu_torch.pipelines.common import (EarlyStopping, StepTimer,
                                               load_params)
 from vivqa_tpu_torch.train.checkpoint import (CheckpointConfig,
                                               CheckpointManager,
-                                              gathered_params)
+                                              gathered_params,
+                                              model_buffers, partial_load)
 from vivqa_tpu_torch.train.losses import perplexity
 from vivqa_tpu_torch.train.optimizers import (OptimizerConfig,
                                               SchedulerConfig,
@@ -169,6 +170,7 @@ class GenerativeTrainingPipeline:
         if cfg.resume and ckpt.latest_step() is not None:
             restored, meta = ckpt.restore_best(map_location=device)
             load_params(model, restored["params"], state.sharding, mesh)
+            partial_load(restored.get("buffers", {}), model)
             start_epoch = int((meta or {}).get("epoch", -1)) + 1
             log.info("resumed best checkpoint from %s — continuing at "
                      "epoch %d (fresh optimizer)", cfg.checkpoint_dir,
@@ -207,7 +209,8 @@ class GenerativeTrainingPipeline:
             if stopper.update(metric):
                 params = gathered_params(model, state.sharding, mesh)
                 if mesh is None or mesh.is_main:
-                    ckpt.save(state.step, {"params": params},
+                    ckpt.save(state.step, {"params": params,
+                                           "buffers": model_buffers(model)},
                               metadata={"epoch": epoch,
                                         "config": mcfg.to_dict()},
                               metrics={cfg.metric_for_best: metric})

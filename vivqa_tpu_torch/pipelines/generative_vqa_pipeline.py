@@ -31,6 +31,11 @@ HF cache, read without ``transformers`` by ``models/convert.py``)
 re-derive the encoder sub-configs from the HF architecture and graft the
 converted weights over the seeded model's ``visual_encoder`` and
 ``question_encoder``.
+
+A ``model`` that is a ``DecoderVQAConfig`` (a YAML ``model:`` section
+with ``kind: decoder_only``) builds the decoder-only ``DecoderVQAModel``
+(``models/decoder_vqa.py``) instead, over the tokenizer's vocabulary;
+it takes no pretrained text tower and no knowledge.
 """
 
 from __future__ import annotations
@@ -44,14 +49,17 @@ from pathlib import Path
 
 import torch
 
-from vivqa_tpu_torch.config.base import ConfigBase, merge_cli_overrides
+from vivqa_tpu_torch.config.base import (ConfigBase, dataclass_from_dict,
+                                         merge_cli_overrides)
 from vivqa_tpu_torch.data.augmentation import ImageAugmentation
 from vivqa_tpu_torch.device import resolve_device
 from vivqa_tpu_torch.knowledge.provider import KnowledgeProviderConfig
-from vivqa_tpu_torch.models.config import GenerativeVQAConfig
+from vivqa_tpu_torch.models.config import (DecoderVQAConfig,
+                                           GenerativeVQAConfig)
 from vivqa_tpu_torch.models.convert import (graft_pretrained,
                                             load_pretrained_text_encoder,
                                             load_pretrained_visual_encoder)
+from vivqa_tpu_torch.models.decoder_vqa import create_decoder_vqa_model
 from vivqa_tpu_torch.models.decoding import DecodeConfig, build_generate_fn
 from vivqa_tpu_torch.models.generative import create_generative_vqa_model
 from vivqa_tpu_torch.parallel.mesh import (MeshConfig, create_mesh,
@@ -96,6 +104,16 @@ class GenerativeVQAPipelineConfig(ConfigBase):
     pretrained_visual: str = ""
     pretrained_text: str = ""
 
+    @classmethod
+    def from_dict(cls, data: dict) -> "GenerativeVQAPipelineConfig":
+        """As every config's, with a ``model`` section of ``kind``
+        ``decoder_only`` read as a ``DecoderVQAConfig``."""
+        model = data.get("model")
+        if isinstance(model, dict) and \
+                model.get("kind") == DecoderVQAConfig.kind:
+            data = dict(data, model=DecoderVQAConfig.from_dict(model))
+        return dataclass_from_dict(cls, data)
+
 
 def _check_mode(cfg: GenerativeVQAPipelineConfig) -> None:
     """Raise for an unknown mode before any work is done."""
@@ -133,6 +151,9 @@ class GenerativeVQAPipeline:
                             if self.mesh.backend else ""))
         data_out = DataPipeline(data, self.log).run()
         tok = data_out.tokenizer
+        if isinstance(cfg.model, DecoderVQAConfig):
+            model = self._decoder_only(cfg, data, tok, device)
+            return data_out, self._resume(model)
         model_cfg = cfg.model.replace(
             vocab_size=tok.vocab_size,
             bos_token_id=tok.bos_token_id,
@@ -192,15 +213,50 @@ class GenerativeVQAPipeline:
         if pre_text is not None:
             graft_pretrained(model, "question_encoder", pre_text, self.log)
         self._log_architecture(model_cfg, model)
+        return data_out, self._resume(model)
+
+    def _resume(self, model):
+        """``model``, with the best checkpoint of ``resume`` loaded where
+        one is given."""
+        cfg = self.config
         if cfg.resume:
             # torch.load gives CPU tensors; partial_load copies them into
             # the parameters the model already has on its device, so the
             # model is never left holding host tensors
             mgr = CheckpointManager(CheckpointConfig(directory=cfg.resume))
             restored, _ = mgr.restore_best(map_location="cpu")
-            partial_load(restored.get("params", restored), model, self.log)
+            partial_load(dict(restored.get("params", restored),
+                              **restored.get("buffers", {})), model, self.log)
             self.log.success(f"resumed weights from {cfg.resume}")
-        return data_out, model
+        return model
+
+    def _decoder_only(self, cfg, data, tok, device):
+        """The decoder-only model over the tokenizer's vocabulary, with
+        seeded weights."""
+        if cfg.pretrained_visual or cfg.pretrained_text:
+            raise NotImplementedError("the decoder-only model takes no "
+                                      "pretrained towers")
+        model_cfg = cfg.model.replace(
+            vocab_size=tok.vocab_size, bos_token_id=tok.bos_token_id,
+            eos_token_id=tok.eos_token_id, pad_token_id=tok.pad_token_id,
+            max_answer_length=data.max_answer_length,
+            max_question_length=data.max_question_length,
+            visual=cfg.model.visual.replace(image_size=data.image_size))
+        model = create_decoder_vqa_model(
+            model_cfg, device=device,
+            generator=torch.Generator().manual_seed(cfg.seed))
+        self.log.subsection("DecoderVQAModel architecture")
+        self.log.info("  pixel -> %s(%dl) -> projector -> [image; question;"
+                      " answer] -> %d layers (%d dense, MoE %d of %d "
+                      "experts held) -> vocab(%d)",
+                      model_cfg.visual.backbone, model_cfg.visual.num_layers,
+                      model_cfg.num_hidden_layers,
+                      model_cfg.first_k_dense_replace,
+                      model_cfg.experts_held[1] - model_cfg.experts_held[0],
+                      model_cfg.n_routed_experts, model_cfg.vocab_size)
+        self.log.log_model_architecture("DecoderVQAModel",
+                                        count_parameters(model))
+        return model
 
     def _log_architecture(self, model_cfg: GenerativeVQAConfig, model):
         log = self.log

@@ -37,6 +37,7 @@ metadata, ``metadata.json``), where ``restore_emergency`` reads it.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import shutil
 from pathlib import Path
@@ -155,15 +156,16 @@ class CheckpointManager:
 
 def partial_load(restored_params: Mapping[str, torch.Tensor],
                  model: nn.Module, logger=None):
-    """Copy each restored parameter whose name and shape match one of
-    ``model``'s into it, in place; a parameter the checkpoint lacks keeps
+    """Copy each restored parameter or buffer whose name and shape match
+    one of ``model``'s into it, in place; one the checkpoint lacks keeps
     its value, a checkpoint entry the model lacks is ignored (reference
     strict/partial load, checkpoint_manager.py:403-492). Returns (model,
     the list of names skipped for a shape mismatch, each with both
     shapes)."""
     skipped = []
     with torch.no_grad():
-        for name, p in model.named_parameters():
+        for name, p in itertools.chain(model.named_parameters(),
+                                       model.named_buffers()):
             r = restored_params.get(name)
             if r is None:
                 continue
@@ -224,6 +226,15 @@ def gathered_params(model: nn.Module, sharding=None, mesh=None) -> dict:
             else Placement()
         out[n] = full_tensor(p.detach(), pl, mesh).cpu()
     return out
+
+
+def model_buffers(model: nn.Module) -> dict:
+    """{name: buffer on the host} of the buffers ``model.state_dict()``
+    holds (a router's correction bias, say); they are whole on every
+    rank."""
+    params = dict(model.named_parameters())
+    return {n: t.detach().cpu() for n, t in model.state_dict().items()
+            if n not in params}
 
 
 def gathered_optimizer_state(optimizer, sharding=None, mesh=None) -> dict:
